@@ -76,7 +76,7 @@ class IPDB:
             # kv_pool_pages pins the pool size (None = grow on demand).
             "kv_layout": "dense", "kv_page_size": 64, "kv_pool_pages": None,
             # paged-engine prefix reuse: "radix" discovers partial token
-            # overlap in a refcounted prefix tree; "exact" is the PR-5
+            # overlap in a refcounted prefix tree; "exact" is the
             # whole-string memo.  kv_quant="int8" stores tree-frozen pages
             # as int8 with per-page scales (live pages stay fp).
             # n_samples>1 decodes that many streams per row off a shared
