@@ -11,7 +11,9 @@ Phases, each reported on its own lines:
    its largest error against its plain PyTorch version (tolerance stated),
    and the times of the kernel, the plain version and one PyTorch library
    call computing the same function (a yardstick only; the port never calls
-   it), beside the least time the card could take (``bound_ms``);
+   it), beside the least time the card could take (``bound_ms``: the
+   bytes the function needs over the memory rate, or its operations over
+   the peak rate, the larger);
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator): logits of a prefill and
    decode steps through the kernels against the plain attention, in
@@ -19,7 +21,8 @@ Phases, each reported on its own lines:
    ``repro_torch``'s IPDB (16 rows through the continuous batcher, one row
    through ``generate``), with every kernel's launch count read around them
    and every answer checked to parse under the grammar;
-4. a JSON line with every kernel's numbers, then the last line
+4. a JSON line with every kernel's numbers at the dtype the SQL path gives
+   it, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
@@ -129,8 +132,10 @@ def check_flash(ops, ref, dtype, gen):
         fail("flash_attention: non-finite output on pad rows")
     s = q.element_size()
     pairs = n * (n + 1) // 2 * B        # causal (query, key) pairs per head
-    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * s \
-        + 2 * pos.numel() * 4
+    # q/k/v rows of real tokens (pad rows are never needed), the whole
+    # output, and the positions once (queries and keys share them)
+    rows = int(valid.sum())
+    nbytes = rows * (H + 2 * KV) * D * s + out.numel() * s + pos.numel() * 4
     b_ms, b_by = bound(nbytes, 4 * pairs * H * D, dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = ((pos[:, None, :] <= pos[:, :, None]) & (pos[:, None, :] >= 0))
@@ -162,8 +167,11 @@ def check_sample(ops, ref, dtype, gen):
     if not (torch.equal(out, want) and torch.equal(
             greedy, ref.constrained_sample_ref(logits, mask, None))):
         fail(f"constrained_sample {dtype}: tokens differ from the plain version")
-    nbytes = B * V * (logits.element_size() + 1 + 8) + B * 4
-    b_ms, b_by = bound(nbytes, 3 * B * V, torch.float32)
+    # the whole mask, a logit and its float64 noise where the mask allows
+    # the entry, the tokens out
+    n_allowed = int(mask.sum())
+    nbytes = B * V + n_allowed * (logits.element_size() + 8) + B * 4
+    b_ms, b_by = bound(nbytes, 3 * n_allowed, torch.float32)
     allowed = mask.bool()
 
     def library():
@@ -177,12 +185,16 @@ def check_sample(ops, ref, dtype, gen):
                 bound_ms=b_ms, bound_by=b_by)
 
 
+# name, TPU kernel it replaces, check, and the dtype the SQL path gives it:
+# bfloat16 q/k/v and caches (the compute dtype), float32 logits (the engine
+# casts them before sampling).  The JSON line reports that dtype's run.
 KERNELS = [
-    ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash),
+    ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash,
+     torch.bfloat16),
     ("decode_attention", "src/repro/kernels/decode_attention.py:65",
-     check_decode),
+     check_decode, torch.bfloat16),
     ("constrained_sample", "src/repro/kernels/constrained_logits.py:53",
-     check_sample),
+     check_sample, torch.float32),
 ]
 
 
@@ -227,32 +239,27 @@ def check_forward_full_width(C, MDL, init_params, ref):
     del params
 
 
-def run_sql(cfg, device, label, on_done=None):
-    """Two semantic SQL queries through repro_torch's IPDB on `cfg`
-    (max_len 512): 16 rows in one continuous-batcher dispatch (8 slots, 64
-    tokens), then one row through generate.  Every answer must parse under
-    the grammar (the predict operator's parse yields a string).
-    `on_done(run_batcher)` is called after them with a function that runs
-    the batcher query over 16 new rows of table "More" or "Extra" (no
-    prompt-cache hits), for steady-state measurements."""
+def sql_session(cfg, label):
+    """repro_torch's IPDB on `cfg` (max_len 512, on the card), with tables
+    Items (16 rows), One (1 row) and More/Extra (16 new rows each, for
+    steady-state queries without prompt-cache hits).  Returns
+    query(table, path, nrows), which runs the semantic SQL query over
+    `table`, checks that every answer parses under the grammar (the predict
+    operator's parse yields a string) and returns its wall seconds."""
     import repro_torch.core.database as D
     from repro_torch.core.executors import TorchExecutor
     from repro_torch.models.params import init_params
     from repro_torch.relational.table import Table
     from repro_torch.serving.engine import InferenceEngine
 
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-
     t0 = time.time()
-    params = init_params(cfg, torch.Generator(device).manual_seed(SEED), device)
-    eng = InferenceEngine(cfg, params, max_len=512, seed=SEED, device=device)
-    sync()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
+    eng = InferenceEngine(cfg, params, max_len=512, seed=SEED)
+    torch.cuda.synchronize()
     print(f"engine: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
           f"vocab {cfg.vocab_size} heads {cfg.num_heads}x{cfg.head_dim} "
           f"{cfg.compute_dtype}, built in {time.time() - t0:.1f} s", flush=True)
-    db = D.IPDB(device=device)
+    db = D.IPDB()
     kinds = ("bolt", "nut", "gear", "washer")
     db.register_table("Items", Table.from_rows(
         [{"name": f"item {i:02d}", "kind": kinds[i % 4]} for i in range(16)]))
@@ -275,12 +282,13 @@ def run_sql(cfg, device, label, on_done=None):
     db.set_option("batch_size", 1)
     # the marshaled prompt is ~225 tokens: the 256-token prefill bucket
     prompt = "the most likely colour {color VARCHAR} of the {{kind}} named {{name}}"
+
     def query(table, path, nrows):
         before = eng.total.prefill_tokens, eng.total.output_tokens
         t = time.time()
         r = db.sql(f"SELECT name, LLM m (PROMPT '{prompt}') AS color "
                    f"FROM {table}")
-        sync()
+        torch.cuda.synchronize()
         wall = time.time() - t
         colors = r.table.column("color")
         if len(colors) != nrows or not all(isinstance(c, str) for c in colors):
@@ -295,12 +303,7 @@ def run_sql(cfg, device, label, on_done=None):
               f"{dec / wall:.1f} [{label}]", flush=True)
         print(f"  answers: {r.table.rows()[:3]}", flush=True)
         return wall
-
-    query("Items", "batcher", 16)
-    query("One", "generate", 1)
-    if on_done is not None:
-        on_done(lambda table: query(table, f"batcher over {table} (warm)",
-                                    16))
+    return query
 
 
 def profile(run_query) -> None:
@@ -367,7 +370,7 @@ def main() -> int:
           "cudnn.allow_tf32 = False", flush=True)
     gen = torch.Generator("cuda").manual_seed(SEED)
     report = {}
-    for kname, replaces, check in KERNELS:
+    for kname, replaces, check, path_dtype in KERNELS:
         for dtype in (torch.bfloat16, torch.float32):
             r = check(ops, ref, dtype, gen)
             tol = 0.0 if kname == "constrained_sample" else TOL[dtype]
@@ -379,7 +382,7 @@ def main() -> int:
                   f"({r['bound_by']})", flush=True)
             if not ok:
                 fail(f"{kname} {dtype}: kernel disagrees with its plain version")
-            if dtype == torch.bfloat16:     # the SQL path's dtype
+            if dtype == path_dtype:
                 report[kname] = dict(name=kname, route="cuda",
                                      source=f"src/repro_torch/kernels/csrc/"
                                             f"{kname}.cu",
@@ -388,21 +391,23 @@ def main() -> int:
     check_forward_full_width(C, MDL, init_params, ref)
     torch.cuda.empty_cache()
 
+    # the main path: two queries (batcher, generate), counted from zero
+    query = sql_session(C.get_config("olmo-1b"), smi)
     ops.reset_launches()
-    def read_launches(run_query):
-        launches = {k: w.launches for k, w in ops.WRAPPERS.items()}
-        print(f"launches during the SQL phase: {launches}", flush=True)
-        for k, n in launches.items():
-            if n <= 0:
-                fail(f"{k}: no launch on the main path")
-            report[k]["launches"] = n
-        run_query("More")
-        torch.cuda.reset_peak_memory_stats()
-        profile(lambda: run_query("Extra"))
-        print(f"peak device memory during the profiled query: "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    query("Items", "batcher", 16)
+    query("One", "generate", 1)
+    launches = {k: w.launches for k, w in ops.WRAPPERS.items()}
+    print(f"launches during the SQL phase: {launches}", flush=True)
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"{k}: no launch on the main path")
+        report[k]["launches"] = n
 
-    run_sql(C.get_config("olmo-1b"), "cuda", f"{name}, {smi}", read_launches)
+    query("More", "batcher over More (warm)", 16)
+    torch.cuda.reset_peak_memory_stats()
+    profile(lambda: query("Extra", "batcher over Extra (warm)", 16))
+    print(f"peak device memory during the profiled query: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -10,8 +10,11 @@
 // logits.  Greedy decoding (no noise) stays in float32.  Plain version:
 // kernels/ref.py constrained_sample_ref.
 //
-// Bound on the H100: bytes.  One pass over logits (4 B), mask (1 B) and
-// noise (8 B) per vocab entry, a handful of operations each.
+// Bound on the H100: bytes.  One pass over the mask (1 B per vocab entry),
+// and over logits (4 B) and noise (8 B) only where the mask allows the entry,
+// a handful of operations each.  The grammar allows a few hundred of the
+// ~50k entries, so the kernel loads a logit and its noise only behind the
+// mask.
 //
 // Design.  The TPU kernel walks the vocab as a sequential grid axis with a
 // running (best value, best index) pair in SMEM scratch.  Here one block owns
@@ -56,9 +59,11 @@ constrained_sample_kernel(const T* __restrict__ logits,
   double best = -INFINITY;
   int best_i = INT_MAX;
   for (int i = threadIdx.x; i < V; i += kThreads) {
-    const float xf = __fdiv_rn(to_f(lr[i]), temperature);
-    double x = nr ? (double)xf + nr[i] : (double)xf;
-    if (!mr[i]) x = masked;
+    double x = masked;
+    if (mr[i]) {                  // a masked entry loads neither logit nor noise
+      const float xf = __fdiv_rn(to_f(lr[i]), temperature);
+      x = nr ? (double)xf + nr[i] : (double)xf;
+    }
     if (x > best) {
       best = x;
       best_i = i;
