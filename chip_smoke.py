@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive repro_torch's main path on one NVIDIA GPU and check it.
+"""Drive repro_torch's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
 Phases, each reported on its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
-   Hopper kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
-2. each kernel at the shapes the SQL path gives it, in bfloat16 and float32:
+   Hopper kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, one
+   process per source, all started together);
+2. each kernel at the shapes the SQL paths give it, in bfloat16 and float32:
    its largest error against its plain PyTorch version (tolerance stated),
    and the times of the kernel, the plain version and one PyTorch library
    call computing the same function (a yardstick only; the port never calls
@@ -15,27 +16,37 @@ Phases, each reported on its own lines:
    bytes the function needs over the memory rate, or its operations over
    the peak rate, the larger);
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
-   50304, random weights from a seeded generator): logits of a prefill and
-   decode steps through the kernels against the plain attention, in
-   float32; then, in bfloat16, two semantic SQL queries through
-   ``repro_torch``'s IPDB (16 rows through the continuous batcher, one row
-   through ``generate``), with every kernel's launch count read around them
-   and every answer checked to parse under the grammar;
+   50304, random weights from a seeded generator):
+   a. float32 logits of a prefill and decode steps through the kernels
+      against the plain attention (dense layout), and of a paged prefill
+      over a radix-matched prefix plus decode steps against the dense
+      path's logits;
+   b. in bfloat16, the dense SQL path through ``repro_torch``'s IPDB (16
+      rows through the continuous batcher, one row through ``generate``,
+      4 rows with ``n_samples`` 3), then the paged path (``kv_layout
+      'paged'``, pages of 64, radix prefix tree) in two sessions, fp pages
+      and int8 pages, each over the same 16 rows and the same 4 rows with
+      ``n_samples`` 3.  Each path's kernel launches are counted from zero
+      around it, every answer must parse under the grammar, the paged
+      queries must hit the radix tree and the ``n_samples`` queries must
+      fork copy-on-write pages.  One warm query of each layout is profiled;
 4. a JSON line with every kernel's numbers at the dtype the SQL path gives
-   it, then the last line
-   ``{"ok": true, "device": {...}}``.
+   it, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line.  Without a GPU it exits 2 at once.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -51,6 +62,13 @@ SEED = 0
 DEC = dict(B=8, L=512, H=16, KV=16, D=128)
 PRE = dict(B=1, S=256, H=16, KV=16, D=128, prompt=225)   # 256-token bucket
 SAMPLE = dict(B=8, V=50432, allowed=259, temperature=0.7)
+# the paged path: 8 slots, pages of 64 tokens, tables bucketed to 8 blocks
+# (max_len 512), ragged fills 96-320 whose first page is shared by every row
+# (a radix-matched prompt prefix); prefill of a 33-token suffix in the
+# 64-token bucket over a 3-page (192-token) matched prefix, as the SQL
+# path's ~225-token prompts give it
+PAGED = dict(B=8, H=16, KV=16, D=128, ps=64, NB=8, shared=1)
+PRE_PAGED = dict(B=1, S=64, H=16, KV=16, D=128, ps=64, npre=3, suffix=33)
 
 
 def fail(msg: str) -> None:
@@ -185,16 +203,169 @@ def check_sample(ops, ref, dtype, gen):
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def paged_tables(gen, dev="cuda"):
+    """Block tables of the paged decode path: B rows with fills of 96-320
+    tokens; each row's first `shared` pages are the same pool pages (the
+    radix-shared prompt prefix), then its own pages up to its fill plus 64
+    tokens of decode capacity (the engine allocates ahead), -1 after."""
+    B, ps, NB, sh = (PAGED[k] for k in ("B", "ps", "NB", "shared"))
+    fills = torch.randint(96, 321, (B,), generator=gen, device=dev).tolist()
+    table = torch.full((B, NB), -1, dtype=torch.int32)
+    nxt = sh
+    for b, f in enumerate(fills):
+        cap = min(NB, -(-(f + 64) // ps))
+        table[b, :sh] = torch.arange(sh)
+        table[b, sh:cap] = torch.arange(nxt, nxt + cap - sh)
+        nxt += cap - sh
+    qpos = torch.tensor([f - 1 for f in fills], dtype=torch.int32)
+    return table.to(dev), qpos.to(dev), fills, nxt
+
+
+def quantize_pages(kp, frozen):
+    """The engine's int8 shadow of the pages `frozen` of a (KV, P, ps, D)
+    pool (kernels A/B/C read it where flags > 0): per-(kv-head, page)
+    scale = abs-max / 127, round half to even."""
+    src = kp.float()
+    scale = torch.clamp(src.abs().amax(dim=(2, 3)), min=1e-8) / 127.0
+    q8 = torch.clamp(torch.round(src / scale[..., None, None]), -127,
+                     127).to(torch.int8)
+    flags = torch.zeros(kp.shape[1], dtype=torch.int8, device=kp.device)
+    flags[frozen] = 1
+    return q8, scale.contiguous(), flags
+
+
+def _dequant(pool, q8, scale, flags):
+    fr = (flags > 0)[None, :, None, None]
+    return torch.where(fr, (q8.float() * scale[..., None, None]).to(
+        pool.dtype), pool)
+
+
+def check_decode_paged(ops, ref, dtype, gen, quant=False):
+    """Kernel A (fp pages) or B (`quant`: the shared prefix pages frozen in
+    int8, as the radix tree freezes committed prompt pages)."""
+    B, H, KV, D, ps, NB, sh = (PAGED[k] for k in
+                               ("B", "H", "KV", "D", "ps", "NB", "shared"))
+    dev = "cuda"
+    table, qpos, fills, P = paged_tables(gen)
+    sets = []
+    for _ in range(6):                  # 6 x ~24 MB of pool: beyond the L2
+        q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
+        kp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
+        vp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
+        args = [q, kp, vp, table, qpos]
+        if quant:
+            kq, ks, flags = quantize_pages(kp, list(range(sh)))
+            vq, vs, _ = quantize_pages(vp, list(range(sh)))
+            args.append({"kq": kq, "vq": vq, "kscale": ks, "vscale": vs,
+                         "flags": flags})
+        sets.append(tuple(args))
+    fn = ops.decode_attention_paged_quant if quant else \
+        ops.decode_attention_paged
+    plain = ref.decode_attention_paged_ref
+    err = (fn(*sets[0]).float() - plain(*sets[0]).float()).abs().max()
+    s = torch.tensor([], dtype=dtype).element_size()
+    # needed: each valid token's K and V once -- the shared pages' tokens
+    # once for all rows, at 1 byte per element (plus two scales per kv head
+    # and page) when frozen -- q, out, the table and the positions
+    shared_tok = sh * ps
+    own_tok = sum(f - shared_tok for f in fills)
+    kv_row = 2 * KV * D
+    nbytes = (own_tok * kv_row * s + 2 * B * H * D * s
+              + table.numel() * 4 + B * 4
+              + (shared_tok * kv_row + sh * KV * 2 * 4 if quant
+                 else shared_tok * kv_row * s))
+    b_ms, b_by = bound(nbytes, 4 * sum(fills) * H * D, dtype)
+    pos = torch.arange(NB * ps, device=dev)
+    mask = ((table >= 0).repeat_interleave(ps, dim=1)
+            & (pos[None, :] <= qpos[:, None].long()))[:, None, None, :]
+    tl = table.long().clamp(min=0)
+
+    def library(q, kp, vp, _t, _p, qd=None):
+        if qd is not None:
+            kp = _dequant(kp, qd["kq"], qd["kscale"], qd["flags"])
+            vp = _dequant(vp, qd["vq"], qd["vscale"], qd["flags"])
+        k = kp[:, tl].permute(1, 0, 2, 3, 4).reshape(B, KV, NB * ps, D)
+        v = vp[:, tl].permute(1, 0, 2, 3, 4).reshape(B, KV, NB * ps, D)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=H != KV)
+    return dict(max_abs_err=err.item(), ms=time_ms(fn, sets),
+                plain_ms=time_ms(plain, sets),
+                library_ms=time_ms(library, sets),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_flash_prefix(ops, ref, dtype, gen):
+    """Kernel C: one slot's suffix prefill over the radix-matched prefix
+    pages; the error is the larger of the fp and the int8-page variant."""
+    B, S, H, KV, D, ps, npre, n = (PRE_PAGED[k] for k in (
+        "B", "S", "H", "KV", "D", "ps", "npre", "suffix"))
+    dev = "cuda"
+    plen, P = npre * ps, 4 * npre
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
+    pos = (torch.arange(S, device=dev, dtype=torch.int32) - (S - n)
+           + plen).repeat(B, 1)
+    pos[:, :S - n] = -1                 # left padding, as engine.paged_prefill
+    ptab = torch.randperm(P, generator=gen, device=dev)[:npre].to(torch.int32)
+    kq, ks, flags = quantize_pages(kp, ptab.long())
+    vq, vs, _ = quantize_pages(vp, ptab.long())
+    qd = {"kq": kq, "vq": vq, "kscale": ks, "vscale": vs, "flags": flags}
+    args = (q, k, v, pos, kp, vp, ptab, plen)
+    valid = pos >= 0
+    err = max((ops.flash_attention_prefix(*args, quant).float()
+               - ref.flash_attention_prefix_ref(*args, quant).float()
+               )[valid].abs().max().item() for quant in (None, qd))
+    s = q.element_size()
+    rows = int(valid.sum())
+    # q/k/v of real suffix tokens, the whole output, the positions, the
+    # prefix pages' K/V once and the prefix table
+    nbytes = (rows * (H + 2 * KV) * D * s + B * S * H * D * s
+              + pos.numel() * 4 + 2 * plen * KV * D * s + npre * 4)
+    flops = 4 * H * D * (rows * plen + B * n * (n + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    tl = ptab.long()
+    mask = torch.cat([(pos >= 0)[:, :, None].expand(B, S, plen),
+                      (pos[:, None, :] <= pos[:, :, None])
+                      & (pos[:, None, :] >= 0)], dim=2)[:, None]
+    qt = q.transpose(1, 2)
+
+    def library():
+        kpre = kp[:, tl].reshape(KV, plen, D)[None].expand(B, -1, -1, -1)
+        vpre = vp[:, tl].reshape(KV, plen, D)[None].expand(B, -1, -1, -1)
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, torch.cat([kpre, k.transpose(1, 2)], 2),
+            torch.cat([vpre, v.transpose(1, 2)], 2), attn_mask=mask,
+            enable_gqa=H != KV)
+    return dict(max_abs_err=err,
+                ms=time_ms(ops.flash_attention_prefix, [args]),
+                plain_ms=time_ms(ref.flash_attention_prefix_ref, [args]),
+                library_ms=time_ms(library, [()]),
+                bound_ms=b_ms, bound_by=b_by)
+
+
 # name, TPU kernel it replaces, check, and the dtype the SQL path gives it:
 # bfloat16 q/k/v and caches (the compute dtype), float32 logits (the engine
 # casts them before sampling).  The JSON line reports that dtype's run.
 KERNELS = [
     ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash,
-     torch.bfloat16),
+     torch.bfloat16, "flash_attention.cu"),
     ("decode_attention", "src/repro/kernels/decode_attention.py:65",
-     check_decode, torch.bfloat16),
+     check_decode, torch.bfloat16, "decode_attention.cu"),
     ("constrained_sample", "src/repro/kernels/constrained_logits.py:53",
-     check_sample, torch.float32),
+     check_sample, torch.float32, "constrained_sample.cu"),
+    ("decode_attention_paged", "src/repro/kernels/decode_attention.py:138",
+     check_decode_paged, torch.bfloat16, "decode_attention_paged.cu"),
+    ("decode_attention_paged_quant",
+     "src/repro/kernels/decode_attention.py:234",
+     functools.partial(check_decode_paged, quant=True),
+     torch.bfloat16, "decode_attention_paged.cu"),
+    # the prefix extension of kernel 1 (the JAX package's paged prefill,
+    # layers.prefix_suffix_attention, is plain jnp)
+    ("flash_attention_prefix", "src/repro/kernels/flash_attention.py:89",
+     check_flash_prefix, torch.bfloat16, "flash_attention.cu"),
 ]
 
 
@@ -239,36 +410,78 @@ def check_forward_full_width(C, MDL, init_params, ref):
     del params
 
 
-def sql_session(cfg, label):
-    """repro_torch's IPDB on `cfg` (max_len 512, on the card), with tables
-    Items (16 rows), One (1 row) and More/Extra (16 new rows each, for
-    steady-state queries without prompt-cache hits).  Returns
-    query(table, path, nrows), which runs the semantic SQL query over
-    `table`, checks that every answer parses under the grammar (the predict
-    operator's parse yields a string) and returns its wall seconds."""
+def check_paged_forward_full_width(C, init_params):
+    """olmo-1b at full width in float32 through the engine's paged layout:
+    the prefix pages written by a paged prefill, a second paged prefill of
+    the rest of the prompt that reads them in place (kernel C, as a radix
+    match makes it), then three decode steps (kernel A) -- against the
+    dense path's logits (kernels 1 and 2) on the same weights."""
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = C.get_config("olmo-1b").replace(compute_dtype="float32")
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
+    ps, npre, n = PRE_PAGED["ps"], PRE_PAGED["npre"], PRE["prompt"]
+    gen = torch.Generator().manual_seed(SEED + 2)
+    ids = torch.randint(0, cfg.vocab_size, (n + 3,), generator=gen).tolist()
+    prompt, nxt = ids[:n], ids[n:]
+    dense = InferenceEngine(cfg, params, max_len=512)
+    lg, cache, lens, _ = dense._prefill([prompt], row_idx_mode=True)
+    want = [lg]
+    pos = lens.copy()
+    for t in nxt:
+        lg, cache = dense.decode_step(np.array([t]), pos, cache)
+        want.append(lg)
+        pos += 1
+    eng = InferenceEngine(cfg, params, max_len=512, kv_layout="paged",
+                          page_size=ps)
+    eng._ensure_pool(eng.num_table_blocks)
+    table = np.full((1, eng.num_table_blocks), -1, np.int32)
+    table[0] = eng.alloc_pages(eng.num_table_blocks)
+    plen = npre * ps
+    eng.paged_prefill([prompt[:plen]], table, [], 0)
+    lg, lens, _ = eng.paged_prefill([prompt[plen:]], table,
+                                    list(table[0, :npre]), plen)
+    got = [lg]
+    pos = lens.copy()
+    for t in nxt:
+        got.append(eng.paged_decode(np.array([t]), pos, table,
+                                    eng.active_blocks(pos)))
+        pos += 1
+    err = (torch.cat(got) - torch.cat(want)).abs().max().item()
+    tol = 1e-3
+    print(f"full-width paged forward (olmo-1b, float32, {plen}-token prefix "
+          f"in {npre} pages + {n - plen}-token suffix prefill + 3 decode "
+          f"steps): logits vs the dense path max_abs_err={err} (tolerance "
+          f"{tol}; logit std {torch.cat(want).std().item()})", flush=True)
+    if not err < tol:
+        fail("paged full-width forward disagrees with the dense path")
+    del params, dense, eng
+
+
+def sql_session(cfg, params, label, **engine_kw):
+    """repro_torch's IPDB over an engine on `cfg` (max_len 512, on the card,
+    `engine_kw` for the KV layout), with tables Items (16 rows), One (1
+    row), Few (4 rows) and More/Extra (16 new rows each, for steady-state
+    queries without prompt-cache hits), and two models: m (8 slots, 64 new
+    tokens) and m3 (the same with n_samples 3 at temperature 0.7).  Returns
+    query(table, path, nrows, model), which runs the semantic SQL query
+    over `table`, checks that every answer parses under the grammar (the
+    predict operator's parse yields a string) and returns its counters."""
     import repro_torch.core.database as D
     from repro_torch.core.executors import TorchExecutor
-    from repro_torch.models.params import init_params
     from repro_torch.relational.table import Table
     from repro_torch.serving.engine import InferenceEngine
 
-    t0 = time.time()
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
-    eng = InferenceEngine(cfg, params, max_len=512, seed=SEED)
-    torch.cuda.synchronize()
-    print(f"engine: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
-          f"vocab {cfg.vocab_size} heads {cfg.num_heads}x{cfg.head_dim} "
-          f"{cfg.compute_dtype}, built in {time.time() - t0:.1f} s", flush=True)
+    eng = InferenceEngine(cfg, params, max_len=512, seed=SEED, **engine_kw)
     db = D.IPDB()
     kinds = ("bolt", "nut", "gear", "washer")
     db.register_table("Items", Table.from_rows(
         [{"name": f"item {i:02d}", "kind": kinds[i % 4]} for i in range(16)]))
     db.register_table("One", Table.from_rows([{"name": "item 99",
                                                "kind": "spring"}]))
-    for table in ("More", "Extra"):
+    for table, n in (("Few", 4), ("More", 16), ("Extra", 16)):
         db.register_table(table, Table.from_rows(
             [{"name": f"{table} {i:02d}", "kind": kinds[i % 4]}
-             for i in range(16)]))
+             for i in range(n)]))
 
     def factory(entry):
         ex = TorchExecutor(eng)
@@ -276,17 +489,19 @@ def sql_session(cfg, label):
         return ex
 
     db.register_executor("local", factory)
-    db.sql("CREATE LLM MODEL m PATH 'custom:local' ON PROMPT OPTIONS "
-           "{ 'batch_size': 1, 'num_slots': 8, 'max_tokens': 64, "
-           "'max_str': 8 }")
+    opts = "'batch_size': 1, 'num_slots': 8, 'max_tokens': 64, 'max_str': 8"
+    db.sql(f"CREATE LLM MODEL m PATH 'custom:local' ON PROMPT OPTIONS "
+           f"{{ {opts} }}")
+    db.sql(f"CREATE LLM MODEL m3 PATH 'custom:local' ON PROMPT OPTIONS "
+           f"{{ {opts}, 'n_samples': 3, 'temperature': 0.7 }}")
     db.set_option("batch_size", 1)
     # the marshaled prompt is ~225 tokens: the 256-token prefill bucket
     prompt = "the most likely colour {color VARCHAR} of the {{kind}} named {{name}}"
 
-    def query(table, path, nrows):
-        before = eng.total.prefill_tokens, eng.total.output_tokens
+    def query(table, path, nrows, model="m"):
+        before = dataclasses.replace(eng.total)
         t = time.time()
-        r = db.sql(f"SELECT name, LLM m (PROMPT '{prompt}') AS color "
+        r = db.sql(f"SELECT name, LLM {model} (PROMPT '{prompt}') AS color "
                    f"FROM {table}")
         torch.cuda.synchronize()
         wall = time.time() - t
@@ -294,15 +509,23 @@ def sql_session(cfg, label):
         if len(colors) != nrows or not all(isinstance(c, str) for c in colors):
             fail(f"{path} query: rows did not parse under the grammar: "
                  f"{r.table.rows()}")
-        pre = eng.total.prefill_tokens - before[0]
-        dec = eng.total.output_tokens - before[1]
+        got = {k: getattr(eng.total, k) - getattr(before, k)
+               for k in ("prefill_tokens", "output_tokens",
+                         "radix_hit_tokens", "cow_copies")}
+        got.update(wall_s=wall, llm_calls=r.stats.llm_calls,
+                   kv_bytes=eng.kv_peak_bytes if eng.kv_layout == "paged"
+                   else eng.total.kv_bytes)
         print(f"sql {path}: {nrows} rows parsed, llm_calls "
               f"{r.stats.llm_calls}, dispatch_batches "
-              f"{r.stats.dispatch_batches}, prefill_tokens {pre}, "
-              f"decode_tokens {dec}, wall_s {wall:.3f}, decode tokens/s "
-              f"{dec / wall:.1f} [{label}]", flush=True)
+              f"{r.stats.dispatch_batches}, prefill_tokens "
+              f"{got['prefill_tokens']}, decode_tokens "
+              f"{got['output_tokens']}, radix_hit_tokens "
+              f"{got['radix_hit_tokens']}, cow_copies {got['cow_copies']}, "
+              f"peak kv_bytes {got['kv_bytes']}, wall_s {wall:.3f}, decode "
+              f"tokens/s {got['output_tokens'] / wall:.1f} [{label}]",
+              flush=True)
         print(f"  answers: {r.table.rows()[:3]}", flush=True)
-        return wall
+        return got
     return query
 
 
@@ -324,9 +547,7 @@ def profile(run_query) -> None:
     cats = {}
     for e in rows:
         k = e.key
-        cat = next((n for n in ("flash_attention", "decode_attention",
-                                "constrained_sample") if n + "_kernel" in k),
-                   None)
+        cat = next((n[0] for n in KERNELS if n[0] + "_kernel" in k), None)
         if cat is None:
             cat = ("memcpy/memset" if k.startswith("Mem") else
                    "gemm" if any(t in k for t in ("nvjet", "gemm", "cutlass",
@@ -370,7 +591,7 @@ def main() -> int:
           "cudnn.allow_tf32 = False", flush=True)
     gen = torch.Generator("cuda").manual_seed(SEED)
     report = {}
-    for kname, replaces, check, path_dtype in KERNELS:
+    for kname, replaces, check, path_dtype, src in KERNELS:
         for dtype in (torch.bfloat16, torch.float32):
             r = check(ops, ref, dtype, gen)
             tol = 0.0 if kname == "constrained_sample" else TOL[dtype]
@@ -385,27 +606,78 @@ def main() -> int:
             if dtype == path_dtype:
                 report[kname] = dict(name=kname, route="cuda",
                                      source=f"src/repro_torch/kernels/csrc/"
-                                            f"{kname}.cu",
-                                     replaces=replaces, **r)
+                                            f"{src}",
+                                     replaces=replaces, launches=0, **r)
 
     check_forward_full_width(C, MDL, init_params, ref)
     torch.cuda.empty_cache()
+    check_paged_forward_full_width(C, init_params)
+    torch.cuda.empty_cache()
 
-    # the main path: two queries (batcher, generate), counted from zero
-    query = sql_session(C.get_config("olmo-1b"), smi)
-    ops.reset_launches()
-    query("Items", "batcher", 16)
-    query("One", "generate", 1)
-    launches = {k: w.launches for k, w in ops.WRAPPERS.items()}
-    print(f"launches during the SQL phase: {launches}", flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"{k}: no launch on the main path")
-        report[k]["launches"] = n
+    cfg = C.get_config("olmo-1b")
+    t0 = time.time()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    print(f"engine: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+          f"vocab {cfg.vocab_size} heads {cfg.num_heads}x{cfg.head_dim} "
+          f"{cfg.compute_dtype}, weights built in {time.time() - t0:.1f} s",
+          flush=True)
 
-    query("More", "batcher over More (warm)", 16)
+    def count(path, runs, needed):
+        """Drive one main path with every launch count set to 0 just
+        before it; read the counts just after."""
+        ops.reset_launches()
+        out = runs()
+        launches = {k: w.launches for k, w in ops.WRAPPERS.items()}
+        print(f"launches during the {path} SQL path: {launches}", flush=True)
+        for k in needed:
+            if launches[k] <= 0:
+                fail(f"{k}: no launch on the {path} path")
+        for k, n in launches.items():
+            report[k]["launches"] += n
+        return out
+
+    # the dense path: the batcher, generate, and n_samples as 3 jobs a row
+    dense = sql_session(cfg, params, smi)
+    d_rows = count("dense", lambda: {
+        "Items": dense("Items", "batcher", 16),
+        "One": dense("One", "generate", 1),
+        "Few": dense("Few", "batcher n_samples 3", 4, "m3")},
+        ("flash_attention", "decode_attention", "constrained_sample"))
+    dense("More", "batcher over More (warm)", 16)
     torch.cuda.reset_peak_memory_stats()
-    profile(lambda: query("Extra", "batcher over Extra (warm)", 16))
+    profile(lambda: dense("Extra", "batcher over Extra (warm)", 16)["wall_s"])
+    print(f"peak device memory during the profiled query: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # the paged path, fp pages and int8 pages: radix matches, COW forks
+    paged = {q: sql_session(cfg, params, f"{smi}, kv_quant {q}",
+                            kv_layout="paged", page_size=PAGED["ps"],
+                            kv_quant=q) for q in ("none", "int8")}
+
+    def paged_runs():
+        out = {}
+        for q, query in paged.items():
+            for table, path, n, model in (("Items", "batcher", 16, "m"),
+                                          ("Few", "batcher n_samples 3", 4,
+                                           "m3")):
+                got = query(table, f"paged {path} kv_quant {q}", n, model)
+                print(f"  dense prefill_tokens over the same rows: "
+                      f"{d_rows[table]['prefill_tokens']} (paged "
+                      f"{got['prefill_tokens']})", flush=True)
+                if got["radix_hit_tokens"] <= 0:
+                    fail(f"paged {table} kv_quant {q}: no radix hit")
+                if model == "m3" and got["cow_copies"] <= 0:
+                    fail(f"paged {table} kv_quant {q}: no copy-on-write fork")
+                out[(q, table)] = got
+        return out
+    count("paged", paged_runs,
+          ("flash_attention", "flash_attention_prefix",
+           "decode_attention_paged", "decode_attention_paged_quant",
+           "constrained_sample"))
+    torch.cuda.reset_peak_memory_stats()
+    profile(lambda: paged["none"]("More", "paged batcher over More (warm)",
+                                  16)["wall_s"])
     print(f"peak device memory during the profiled query: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 

@@ -1,18 +1,23 @@
 """repro_torch — iPDB's semantic SQL engine on PyTorch and CUDA (NVIDIA H100).
 
-A second package beside ``repro`` (the JAX reference).  The first slice runs
-one semantic SQL query end to end on the dense KV layout:
+A second package beside ``repro`` (the JAX reference).  It runs a semantic
+SQL query end to end on either KV layout of the dense model family:
 
     IPDB.sql → TorchExecutor → ContinuousBatcher / InferenceEngine.generate
       → models.model.forward (dense family) → kernels.ops
-        (prefill flash attention, dense decode attention, constrained sample)
+        dense layout: prefill flash attention, dense decode attention
+        paged layout (page pool, radix prefix tree, copy-on-write forks,
+          int8 frozen pages): prefill flash attention with or without a
+          shared prefix read from the pool, paged decode attention over fp
+          or int8 pages
+        both: constrained sampling
 
 Ground rules:
 
 * It imports ``torch``, never ``jax``, and nothing of ``repro``.  What it
   needs from ``repro`` it keeps as its own copy: the JAX-free modules
-  (relational/, most of core/, serving/{tokenizer,grammar}, models/config,
-  the config registry) are verbatim copies with only ``repro.`` changed to
+  (relational/, most of core/, serving/{tokenizer,grammar,radix},
+  models/config, the config registry) are verbatim copies with only ``repro.`` changed to
   ``repro_torch.`` in their imports; ``tests/test_torch_isolation.py`` keeps
   them in sync with the originals.
 * Its entry points run on CUDA unless the caller passes ``device="cpu"``:

@@ -264,11 +264,21 @@ class IPDB:
                 import repro_torch.configs as C
                 from repro_torch.serving.engine import InferenceEngine
                 cfg = C.get_smoke_config(arch).replace(vocab_size=259)
-                # the paged layout (and with it the radix tree a warm
-                # snapshot restores) is not ported yet: the engine raises
                 self._torch_engines[key] = InferenceEngine(
-                    cfg, max_len=max_len, kv_layout=layout,
-                    device=self.device)
+                    cfg, max_len=max_len,
+                    kv_layout=layout, page_size=page_size,
+                    page_pool_pages=pool, prefix_cache_mode=pmode,
+                    kv_quant=quant, device=self.device)
+                # warm-state restore is lazy: adopt the snapshot's radix
+                # KV pages the moment the matching engine first exists.
+                # A payload that no longer fits (geometry drift) is simply
+                # dropped — a cold prefix cache, never a failed query.
+                pending = self._pending_radix.pop(key, None)
+                if pending:
+                    try:
+                        self._torch_engines[key].restore_radix_state(pending)
+                    except Exception:
+                        pass
             return TorchExecutor(self._torch_engines[key])
         if path.startswith("custom:"):
             name = path.split(":", 1)[1]

@@ -70,6 +70,47 @@ __device__ __forceinline__ void load_rows(uint32_t* __restrict__ dst,
   }
 }
 
+// An int8 KV element of a frozen page read back as the reference reads it:
+// (int8 -> fp32) * the page's fp32 scale, rounded to the pool dtype T.  The
+// rounding matters in bfloat16 (repro/models/layers.py::decode_attention_paged
+// casts the dequantized page to the pool dtype before the dot products).
+template <typename T>
+__device__ __forceinline__ T dequant_i8(int8_t q, float scale) {
+  return from_f<T>(static_cast<float>(q) * scale);
+}
+
+// load_rows for a frozen int8 page: copy `rows` contiguous rows of D int8
+// values (D % 16 == 0) into shared-memory rows of T at the padded word
+// stride D * sizeof(T) / 4 + 1, dequantized with dequant_i8 on the way.  One
+// 16-byte vector (16 values) per thread per step, kLoadUnroll in flight.
+template <typename T>
+__device__ __forceinline__ void load_rows_i8(uint32_t* __restrict__ dst,
+                                             const int8_t* __restrict__ src,
+                                             int rows, int D, float scale) {
+  const int vecs = D / 16;
+  const int n = rows * vecs;
+  const int stride_w = D * (int)sizeof(T) / 4 + 1;
+  for (int base = threadIdx.x; base < n; base += blockDim.x * kLoadUnroll) {
+    uint4 tmp[kLoadUnroll];
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < n) tmp[u] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < n) {
+        const int r = i / vecs, c = i - r * vecs;
+        T* d = reinterpret_cast<T*>(dst + r * stride_w) + 16 * c;
+        const int8_t* qv = reinterpret_cast<const int8_t*>(&tmp[u]);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) d[e] = dequant_i8<T>(qv[e], scale);
+      }
+    }
+  }
+}
+
 // Enable > 48 KB of dynamic shared memory for a kernel when it needs it.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

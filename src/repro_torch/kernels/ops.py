@@ -1,17 +1,19 @@
-"""Wrappers around the three Hopper kernels of the dense SQL path.
+"""Wrappers around the Hopper kernels of the SQL path.
 
 Each wrapper takes the JAX package's natural shapes (``repro/kernels/ops.py``
-signatures): q ``(B, S, H, D)``, caches ``(B, L, KV, D)``.  For tensors on
-the CPU it runs the kernel's plain PyTorch version (``kernels/ref.py``); for
+signatures): q ``(B, S, H, D)``, caches ``(B, L, KV, D)``, page pools
+``(KV, P, ps, D)`` (without the TPU's lane pad of D).  For tensors on the
+CPU it runs the kernel's plain PyTorch version (``kernels/ref.py``); for
 CUDA tensors it launches the hand-written kernel (``kernels/csrc/*.cu``) or
 raises — there is no fallback.  Each wrapper counts its kernel launches in a
 plain integer attribute, ``<wrapper>.launches``.
 
 The kernels are compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
-into shared libraries with a plain C interface, loaded with ``ctypes``.  They
-are built at first use from the sources in the checkout, all in parallel,
-into ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``); a build is keyed by a hash of the sources.
+into shared libraries with a plain C interface, one per source file, loaded
+with ``ctypes``.  They are built at first use from the sources in the
+checkout, all in parallel, into ``build/repro_torch_kernels/`` at the
+repository root (listed in ``.gitignore``); a build is keyed by a hash of
+the sources.
 """
 from __future__ import annotations
 
@@ -37,13 +39,26 @@ KERNELS = {
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _I, _I, _I, _P]),
+    "flash_attention_prefix": (
+        "flash_attention.cu", "repro_flash_attention_prefix",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "decode_attention": ("decode_attention.cu", "repro_decode_attention",
                          [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _P]),
+    "decode_attention_paged": (
+        "decode_attention_paged.cu", "repro_decode_attention_paged",
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "decode_attention_paged_quant": (
+        "decode_attention_paged.cu", "repro_decode_attention_paged_quant",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "constrained_sample": ("constrained_sample.cu", "repro_constrained_sample",
                            [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: a layer's int8 page tensors, in the order the kernels take them
+_QUANT_KEYS = ("kq", "vq", "kscale", "vscale", "flags")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -63,50 +78,52 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
     """Compile every kernel source that has no up-to-date library yet — one
     nvcc process per source, all started together — and load them.
-    Idempotent; returns {kernel name: library}."""
+    Idempotent; returns {source file: library}."""
+    sources = sorted({src for src, _, _ in KERNELS.values()})
     with _build_lock:
-        if len(_libs) == len(KERNELS):
+        if len(_libs) == len(sources):
             return _libs
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         header = (CSRC / "common.cuh").read_bytes()
         jobs = {}
-        for name, (src, _, _) in KERNELS.items():
+        for src in sources:
             digest = hashlib.sha256(header + (CSRC / src).read_bytes())
-            lib = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+            lib = BUILD_DIR / f"{Path(src).stem}-{digest.hexdigest()[:16]}.so"
             if not lib.exists():
                 tmp = lib.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v", "-o", str(tmp), str(CSRC / src)]
-                jobs[name] = (lib, tmp, subprocess.Popen(
+                jobs[src] = (lib, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True))
             else:
-                jobs[name] = (lib, None, None)
+                jobs[src] = (lib, None, None)
         failed = []
-        for name, (lib, tmp, proc) in jobs.items():
+        for src, (lib, tmp, proc) in jobs.items():
             if proc is None:
                 continue
             log, _ = proc.communicate()
             if verbose:
-                print(f"[nvcc {name}]\n{log}", flush=True)
+                print(f"[nvcc {src}]\n{log}", flush=True)
             if proc.returncode != 0:
-                failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+                failed.append(f"{src}: nvcc exited {proc.returncode}\n{log}")
             else:
                 os.replace(tmp, lib)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-        for name, (lib, _, _) in jobs.items():
-            handle = ctypes.CDLL(str(lib))
-            fn = getattr(handle, KERNELS[name][1])
-            fn.argtypes = KERNELS[name][2]
+        libs = {src: ctypes.CDLL(str(lib)) for src, (lib, _, _) in jobs.items()}
+        for src, sym, argtypes in KERNELS.values():
+            fn = getattr(libs[src], sym)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = handle
+        _libs.update(libs)
         return _libs
 
 
 def _fn(name: str):
-    return getattr(build()[name], KERNELS[name][1])
+    src, sym, _ = KERNELS[name]
+    return getattr(build()[src], sym)
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -202,6 +219,128 @@ def decode_attention(q, k_cache, v_cache, slot_positions, q_position):
 decode_attention.launches = 0
 
 
+# --------------------------- paged decode attention ---------------------------
+def _check_pool(name, k_pool, v_pool, D, quant):
+    """Pools (KV, P, ps, D) of q's dtype, contiguous, on the card, and the
+    int8 shadows, scales and flags when `quant` is given."""
+    for t in (k_pool, v_pool):
+        _require(t.is_cuda and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 f"{name}: pools must be contiguous, 16-byte aligned CUDA "
+                 "tensors")
+    KV, P, ps, Dk = k_pool.shape
+    _require(k_pool.shape == v_pool.shape and Dk == D and 0 < ps <= 128,
+             f"{name}: pools must be (KV, P, ps <= 128, D)")
+    if quant is None:
+        return
+    _require(D % 16 == 0, f"{name}: int8 pages need head_dim % 16 == 0")
+    for kk, dt, shape in (("kq", torch.int8, k_pool.shape),
+                          ("vq", torch.int8, k_pool.shape),
+                          ("kscale", torch.float32, (KV, P)),
+                          ("vscale", torch.float32, (KV, P)),
+                          ("flags", torch.int8, (P,))):
+        t = quant[kk]
+        _require(t.is_cuda and t.dtype == dt and t.is_contiguous()
+                 and tuple(t.shape) == tuple(shape)
+                 and t.data_ptr() % 16 == 0,
+                 f"{name}: quant[{kk!r}] must be a contiguous {dt} CUDA "
+                 f"tensor of shape {tuple(shape)}")
+
+
+def _paged_decode(name, q, k_pool, v_pool, block_tables, q_position, quant):
+    B, H, D = q.shape
+    _check_attention_inputs(name, q, k_pool, v_pool, block_tables,
+                            q_position)
+    _check_pool(name, k_pool, v_pool, D, quant)
+    KV, P, ps, _ = k_pool.shape
+    NB = block_tables.shape[1]
+    _require(H % KV == 0 and block_tables.shape == (B, NB)
+             and q_position.shape == (B,), f"{name}: shape mismatch")
+    out = torch.empty_like(q)
+    qargs = () if quant is None else tuple(_ptr(quant[kk])
+                                           for kk in _QUANT_KEYS)
+    err = _fn(name)(
+        _DTYPES[q.dtype], _ptr(q), _ptr(k_pool), _ptr(v_pool), *qargs,
+        _ptr(block_tables), _ptr(q_position), _ptr(out), B, H, KV, P, ps, NB,
+        D, 1.0 / math.sqrt(D), _stream())
+    _check(name, err)
+    return out
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_tables, q_position):
+    """One query token per row against the global page pool.  q (B, H, D);
+    pools (KV, P, ps, D); block_tables (B, NB) int32 page ids (-1 = none);
+    q_position (B,) int32.  Token t of block j is valid when the block has
+    a page and j * ps + t <= qpos.  Returns (B, H, D) in q.dtype."""
+    if not q.is_cuda:
+        return ref.decode_attention_paged_ref(q, k_pool, v_pool, block_tables,
+                                              q_position)
+    out = _paged_decode("decode_attention_paged", q, k_pool, v_pool,
+                        block_tables, q_position, None)
+    decode_attention_paged.launches += 1
+    return out
+
+
+decode_attention_paged.launches = 0
+
+
+def decode_attention_paged_quant(q, k_pool, v_pool, block_tables, q_position,
+                                 quant):
+    """decode_attention_paged over a pool with int8 frozen pages: quant
+    holds the layer's kq/vq (KV, P, ps, D) int8, kscale/vscale (KV, P)
+    float32 and flags (P,) int8; a page with flags > 0 is read as
+    int8 * scale rounded to the pool dtype."""
+    if not q.is_cuda:
+        return ref.decode_attention_paged_ref(q, k_pool, v_pool,
+                                              block_tables, q_position, quant)
+    out = _paged_decode("decode_attention_paged_quant", q, k_pool, v_pool,
+                        block_tables, q_position, quant)
+    decode_attention_paged_quant.launches += 1
+    return out
+
+
+decode_attention_paged_quant.launches = 0
+
+
+# ------------------------ shared-prefix prefill attention ---------------------
+def flash_attention_prefix(q, k, v, positions, k_pool, v_pool, prefix_table,
+                           prefix_len: int, quant=None):
+    """Paged prefill attention (``layers.prefix_suffix_attention``): the
+    suffix's q (B, S, H, D), k/v (B, S, KV, D) and positions (B, S) (-1 =
+    pad), plus a shared prefix read in place from pool pages prefix_table
+    (npre,) int32, of which the first prefix_len tokens are visible to every
+    non-pad query.  quant as in decode_attention_paged_quant.  Returns
+    (B, S, H, D) in q.dtype; pad rows are 0 (never read)."""
+    if not q.is_cuda:
+        return ref.flash_attention_prefix_ref(q, k, v, positions, k_pool,
+                                              v_pool, prefix_table,
+                                              prefix_len, quant)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    _check_attention_inputs("flash_attention_prefix", q, k, v, positions,
+                            prefix_table)
+    _check_pool("flash_attention_prefix", k_pool, v_pool, D, quant)
+    KVp, P, ps, _ = k_pool.shape
+    npre = prefix_table.shape[0]
+    _require(H % KV == 0 and KVp == KV and k.shape == v.shape == (B, S, KV, D)
+             and positions.shape == (B, S) and prefix_table.dim() == 1
+             and 0 <= prefix_len <= npre * ps,
+             "flash_attention_prefix: shape mismatch")
+    qargs = (None,) * 5 if quant is None else tuple(_ptr(quant[kk])
+                                                    for kk in _QUANT_KEYS)
+    out = torch.empty_like(q)
+    err = _fn("flash_attention_prefix")(
+        _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(positions),
+        _ptr(k_pool), _ptr(v_pool), *qargs,
+        _ptr(prefix_table), _ptr(out), B, S, H, KV, D, P, ps, npre,
+        int(prefix_len), 1.0 / math.sqrt(D), _stream())
+    _check("flash_attention_prefix", err)
+    flash_attention_prefix.launches += 1
+    return out
+
+
+flash_attention_prefix.launches = 0
+
+
 # --------------------------- constrained sampling -----------------------------
 def constrained_sample(logits, mask, noise=None, *, temperature=1.0):
     """argmax(mask ? logits/T + noise : -1e30) per row, lowest index on
@@ -236,9 +375,12 @@ def constrained_sample(logits, mask, noise=None, *, temperature=1.0):
 
 constrained_sample.launches = 0
 
-#: every kernel wrapper of the dense path, by kernel name
+#: every kernel wrapper of the SQL path, by kernel name
 WRAPPERS = {"flash_attention": flash_attention,
+            "flash_attention_prefix": flash_attention_prefix,
             "decode_attention": decode_attention,
+            "decode_attention_paged": decode_attention_paged,
+            "decode_attention_paged_quant": decode_attention_paged_quant,
             "constrained_sample": constrained_sample}
 
 

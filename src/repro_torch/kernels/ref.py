@@ -1,11 +1,22 @@
-"""Plain PyTorch versions of the three Hopper kernels' functions.
+"""Plain PyTorch versions of the Hopper kernels' functions.
 
 They mirror ``repro/kernels/ref.py`` (``flash_attention_ref``,
-``decode_attention_ref``, ``constrained_sample_ref``) but take the natural
+``decode_attention_ref``, ``decode_attention_paged_ref``,
+``decode_attention_paged_quant_ref``, ``constrained_sample_ref``) and
+``repro/models/layers.py::prefix_suffix_attention`` (``quant`` makes
+``decode_attention_paged_ref`` the plain version of the int8-page kernel),
+but take the natural
 layouts the CUDA kernels read directly — q ``(B, S, H, D)``, caches
-``(B, L, KV, D)`` — so no GQA fold copy is made on either path.  The
-wrappers in ``kernels/ops.py`` run these for CPU tensors; ``chip_smoke.py``
-holds each kernel against them on the card.
+``(B, L, KV, D)``, page pools ``(KV, P, ps, D)`` — so no GQA fold copy is
+made on either path.  The wrappers in ``kernels/ops.py`` run these for CPU
+tensors; ``chip_smoke.py`` holds each kernel against them on the card.
+
+Paged-layout conventions (the JAX package's): block j of row b is page
+``block_tables[b, j]`` (-1 = no page), and its token t sits at absolute
+position ``j * ps + t``.  ``quant`` (dict or None) holds a layer's int8
+shadow pools ``kq``/``vq`` (KV, P, ps, D), fp32 per-(kv-head, page) scales
+``kscale``/``vscale`` (KV, P) and the frozen flags ``flags`` (P,): a page
+with ``flags > 0`` is read as ``int8 * scale`` rounded to the pool's dtype.
 """
 from __future__ import annotations
 
@@ -83,3 +94,100 @@ def constrained_sample_ref(logits, mask, noise=None, *, temperature=1.0):
         x = x.double() + noise.double()
     x = torch.where(mask != 0, x, torch.full_like(x, NEG_INF))
     return torch.argmax(x, dim=-1).to(torch.int32)
+
+
+def gather_pages(pool, pages, quant_q=None, quant_scale=None, flags=None):
+    """pool (KV, P, ps, D) → (KV, *pages.shape, ps, D) for page ids
+    `pages` (clipped to the pool, as the JAX gathers do).  With the int8
+    arguments, frozen pages are replaced by their dequantized shadow,
+    rounded to the pool dtype: ``(int8 * scale).astype(pool.dtype)``."""
+    safe = pages.long().clamp(0, pool.shape[1] - 1)
+    out = pool[:, safe]
+    if quant_q is not None:
+        dq = (quant_q[:, safe].float()
+              * quant_scale[:, safe][..., None, None]).to(pool.dtype)
+        frozen = (flags[safe] > 0)[None, ..., None, None]
+        out = torch.where(frozen, dq, out)
+    return out
+
+
+def _paged_kv(k_pool, v_pool, pages, quant):
+    q = quant or {}
+    k = gather_pages(k_pool, pages, q.get("kq"), q.get("kscale"),
+                     q.get("flags"))
+    v = gather_pages(v_pool, pages, q.get("vq"), q.get("vscale"),
+                     q.get("flags"))
+    return k, v
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, block_tables, q_position,
+                               quant=None):
+    """q (B, H, D); pools (KV, P, ps, D); block_tables (B, NB) int32;
+    q_position (B,); quant: int8 frozen pages (module docstring) or None.
+    Token t of block j is valid when the block has a page and
+    j * ps + t <= qpos.  Gathers the row's pages into a dense view and
+    reuses the dense oracle.  Returns (B, H, D) in q.dtype."""
+    B = q.shape[0]
+    KV, _, ps, D = k_pool.shape
+    NB = block_tables.shape[1]
+    k, v = _paged_kv(k_pool, v_pool, block_tables, quant)  # (KV,B,NB,ps,D)
+    k = k.permute(1, 2, 3, 0, 4).reshape(B, NB * ps, KV, D)
+    v = v.permute(1, 2, 3, 0, 4).reshape(B, NB * ps, KV, D)
+    pos = torch.arange(NB * ps, dtype=torch.int32,
+                       device=q.device).expand(B, -1)
+    valid = (block_tables >= 0).repeat_interleave(ps, dim=1)
+    pos = torch.where(valid, pos, torch.full_like(pos, -1))
+    return decode_attention_ref(q, k, v, pos, q_position)
+
+
+def prefix_suffix_attention_ref(q, k_prefix, v_prefix, k_suf, v_suf,
+                                positions, prefix_len):
+    """Shared-prefix prefill attention.  q (B, S, H, D) suffix queries;
+    k_prefix/v_prefix (Lp, KV, D): ONE copy of the shared prefix KV,
+    broadcast across the batch; k_suf/v_suf (B, S, KV, D); positions
+    (B, S) absolute (-1 = pad); prefix_len: valid prefix tokens (<= Lp).
+    Prefix tokens are visible to every non-pad query; the suffix part is
+    causal.  One softmax over [prefix ++ suffix].  Returns (B, S, H, D)."""
+    B, S, H, D = q.shape
+    KV = k_suf.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, S, KV, G, D) / math.sqrt(D)
+    ss = torch.einsum("bskgd,btkd->bkgst", qf, k_suf.float())
+    ok_s = (positions[:, None, :] >= 0) & \
+           (positions[:, None, :] <= positions[:, :, None])       # (B, S, T)
+    ss = torch.where(ok_s[:, None, None], ss, torch.full_like(ss, NEG_INF))
+    Lp = k_prefix.shape[0]
+    if Lp:
+        sp = torch.einsum("bskgd,lkd->bkgsl", qf, k_prefix.float())
+        ar = torch.arange(Lp, device=q.device)
+        ok_p = (ar[None, None, :] < prefix_len) & \
+               (positions[:, :, None] >= 0)                       # (B, S, Lp)
+        sp = torch.where(ok_p[:, None, None], sp,
+                         torch.full_like(sp, NEG_INF))
+        m = torch.maximum(sp.amax(dim=-1), ss.amax(dim=-1))       # (B,KV,G,S)
+        pp = torch.exp(sp - m[..., None])
+        psx = torch.exp(ss - m[..., None])
+        denom = torch.clamp(pp.sum(-1) + psx.sum(-1), min=1e-30)
+        o = torch.einsum("bkgsl,lkd->bskgd", pp, v_prefix.float()) \
+            + torch.einsum("bkgst,btkd->bskgd", psx, v_suf.float())
+    else:
+        m = ss.amax(dim=-1)
+        psx = torch.exp(ss - m[..., None])
+        denom = torch.clamp(psx.sum(-1), min=1e-30)
+        o = torch.einsum("bkgst,btkd->bskgd", psx, v_suf.float())
+    o = o / denom.permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def flash_attention_prefix_ref(q, k, v, positions, k_pool, v_pool,
+                               prefix_table, prefix_len, quant=None):
+    """Paged prefill attention: the suffix's own q/k/v (B, S, H|KV, D) and
+    positions (B, S), plus the shared prefix read from pool pages
+    `prefix_table` (npre,) — gathered once, never per row — of which the
+    first `prefix_len` tokens are valid."""
+    KV, _, ps, D = k_pool.shape
+    kp, vp = _paged_kv(k_pool, v_pool, prefix_table, quant)  # (KV,npre,ps,D)
+    kp = kp.permute(1, 2, 0, 3).reshape(-1, KV, D)
+    vp = vp.permute(1, 2, 0, 3).reshape(-1, KV, D)
+    return prefix_suffix_attention_ref(q, kp, vp, k, v, positions,
+                                       prefix_len)

@@ -2,9 +2,10 @@
 
 Port of ``repro/models/layers.py``.  ``flash_attention`` is the plain
 blockwise streamed-softmax forward (the JAX package's production fallback);
-``reference_attention`` and ``decode_attention`` are the naive oracles.  The
-model calls the kernel wrappers in ``kernels/ops.py`` by default; these are
-the plain versions they are held against.  The backward pass waits for the
+``reference_attention``, ``decode_attention``, ``decode_attention_paged``
+and ``prefix_suffix_attention`` are the naive oracles.  The model calls the
+kernel wrappers in ``kernels/ops.py`` by default; these are the plain
+versions they are held against.  The backward pass waits for the
 training slice.
 """
 from __future__ import annotations
@@ -16,8 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import (NEG_INF, attention_mask,
+                                     decode_attention_paged_ref,
                                      decode_attention_ref,
-                                     flash_attention_ref)
+                                     flash_attention_ref,
+                                     prefix_suffix_attention_ref)
 
 
 # -- norms ---------------------------------------------------------------------
@@ -113,6 +116,12 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal=True,
 reference_attention = flash_attention_ref
 #: single-token attention against the dense ring cache
 decode_attention = decode_attention_ref
+#: single-token attention against the page pool through block tables, int8
+#: frozen pages dequantized when ``quant`` is given (the JAX function's
+#: ``head_dim`` argument is gone: the port's pools carry no lane pad)
+decode_attention_paged = decode_attention_paged_ref
+#: paged prefill: suffix attention merged with a shared prefix read once
+prefix_suffix_attention = prefix_suffix_attention_ref
 
 
 # -- MLPs ------------------------------------------------------------------------

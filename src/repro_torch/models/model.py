@@ -10,16 +10,22 @@ Three modes, as in the JAX package:
   train   — full-sequence forward, no cache, returns token logits
   prefill — full-sequence forward that fills a decode cache (optionally
             extending a cached prefix: ``extend_offset``)
-  decode  — single-token step against the ring-buffered KV cache
+  decode  — single-token step against the KV cache
+
+Two KV layouts, chosen by the cache dict: the dense ring cache
+(``init_cache``) and the paged pool (``init_paged_cache`` plus the
+``block_tables`` the engine adds per call; see ``paged_cache_specs``).
 
 Unlike the JAX version, which returns new arrays, the port updates the cache
-IN PLACE: ``k``/``v``, ``slot_pos`` and ``row_idx`` tensors are written
-where they lie, and the returned dict holds the same tensors (with a new
-``idx``).  Callers that must keep a cache unchanged pass a copy.
+IN PLACE: ``k``/``v``, ``slot_pos`` and ``row_idx`` tensors (dense) or the
+pool pages (paged) are written where they lie, and the returned dict holds
+the same tensors (with a new ``idx``).  Callers that must keep a cache
+unchanged pass a copy.
 
 Attention goes through the Hopper kernel wrappers in ``kernels/ops.py`` by
-default (``attn_fn``/``decode_attn_fn`` override them, e.g. with the plain
-``models.layers`` versions).  The paged KV layout is not ported yet.
+default (``attn_fn``, ``decode_attn_fn``, ``prefix_attn_fn`` and
+``paged_decode_attn_fn`` override them, e.g. with the plain
+``models.layers`` versions).
 """
 from __future__ import annotations
 
@@ -72,6 +78,63 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return out
 
 
+def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
+                      quant: bool = False
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Paged KV layout: one GLOBAL pool of fixed-size pages per layer,
+    addressed through per-row block tables that the engine passes with each
+    call, so a shared prefix is one set of pages referenced by every row.
+    Pools are (layers, KV, P, ps, head_dim): without the JAX package's lane
+    pad of head_dim to 128, which only made its Pallas view a free reshape;
+    the CUDA kernels read the natural strides.  With `quant`, int8 shadow
+    pools and per-(layer, kv-head, page) fp32 scales are added for
+    quantize-on-commit of frozen pages."""
+    _require_dense(cfg)
+    ln, cd = cfg.num_layers, DTYPES[cfg.compute_dtype]
+    shape = (ln, cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
+    out = {"k": (shape, cd), "v": (shape, cd)}
+    if quant:
+        out.update(kq=(shape, torch.int8), vq=(shape, torch.int8),
+                   kscale=(shape[:3], torch.float32),
+                   vscale=(shape[:3], torch.float32))
+    return out
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     quant: bool = False, *, device="cpu") -> Dict[str, Any]:
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in paged_cache_specs(
+                cfg, num_pages, page_size, quant).items()}
+
+
+def _paged_decode_kernels(q, k_pool, v_pool, block_tables, q_position,
+                          quant=None):
+    """The paged decode kernel of the pool: int8 frozen pages or not."""
+    if quant is None:
+        return KOPS.decode_attention_paged(q, k_pool, v_pool, block_tables,
+                                           q_position)
+    return KOPS.decode_attention_paged_quant(q, k_pool, v_pool, block_tables,
+                                             q_position, quant)
+
+
+def _paged_writes(cache: Dict[str, Any], positions: torch.Tensor):
+    """Where this call's new K/V go in the pool, the same for every layer:
+    (rows, token indices, pages, in-page offsets) of the tokens whose slot
+    j = pos // ps has a page in the row's block table.  Pads (pos < 0),
+    slots past the table (pos >= NB * ps, past max_len: the sequence keeps
+    decoding against a frozen cache) and -1 entries are filtered out — the
+    JAX model sends those writes out of bounds with mode="drop"."""
+    bt = cache["block_tables"]
+    ps = cache["k"].shape[3]
+    NB = bt.shape[1]
+    blk = positions.clamp(min=0) // ps
+    entry = torch.gather(bt, 1, blk.clamp(max=NB - 1).long())
+    ok = (positions >= 0) & (blk < NB) & (entry >= 0)
+    rows, toks = ok.nonzero(as_tuple=True)
+    return (rows, toks, entry[rows, toks].long(),
+            (positions[rows, toks] % ps).long())
+
+
 # ================================ blocks ======================================
 def _norm_p(lp: Dict[str, torch.Tensor], prefix: str) -> Optional[dict]:
     scale = lp.get(f"{prefix}.scale")
@@ -82,11 +145,15 @@ def _norm_p(lp: Dict[str, torch.Tensor], prefix: str) -> Optional[dict]:
 
 
 def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
-               write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0):
+               write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0,
+               paged=None):
     """x (B, S, M) → (B, S, M).  ck/cv: this layer's (B, lc, KV, hd) cache
     views, written in place (prefill, decode); slot_pos (B, lc) — in decode
     already holding this step's positions; write_slot (B,) decode write
-    slots."""
+    slots.  paged (dict or None): ck/cv are then this layer's (KV, P, ps,
+    hd) pools; paged holds the block tables, the write indices of
+    `_paged_writes`, the prefix table and length of a paged prefill, the
+    layer's int8 pages (`quant`) and the two attention functions."""
     B, S, m = x.shape
     h, kv, hd = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ lp["attn.wq"].reshape(m, h * hd)).view(B, S, h, hd)
@@ -100,7 +167,30 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
     k = L.rope(k, positions, cfg.rope_theta)
     prefix_len = cfg.num_prefix_tokens if cfg.family == VLM else 0
 
-    if mode == "decode":
+    if paged is not None:
+        rows, toks, pages, offs = paged["writes"]
+        quant = paged["quant"]
+        if mode == "decode":
+            ck[:, pages, offs] = k[rows, toks].transpose(0, 1).to(ck.dtype)
+            cv[:, pages, offs] = v[rows, toks].transpose(0, 1).to(cv.dtype)
+            o = paged["decode_fn"](q[:, 0], ck, cv, paged["block_tables"],
+                                   positions[:, 0].contiguous(),
+                                   quant=quant)[:, None]
+        else:
+            # suffix attention merged with an in-place read of the shared
+            # prefix pages (never replicated per row); then the new K/V go
+            # straight into the rows' pages
+            assert mode == "prefill" and not cfg.sliding_window
+            ptab = paged["prefix_table"]
+            if ptab is not None and ptab.shape[0]:
+                o = paged["prefix_fn"](q, k, v, positions, ck, cv, ptab,
+                                       paged["prefix_len"], quant)
+            else:
+                o = attn_fn(q, k, v, positions, positions, causal=cfg.causal,
+                            window=0, prefix_len=0)
+            ck[:, pages, offs] = k[rows, toks].transpose(0, 1).to(ck.dtype)
+            cv[:, pages, offs] = v[rows, toks].transpose(0, 1).to(cv.dtype)
+    elif mode == "decode":
         rows = torch.arange(B, device=x.device)
         ck[rows, write_slot] = k[:, 0].to(ck.dtype)
         cv[rows, write_slot] = v[:, 0].to(cv.dtype)
@@ -133,11 +223,13 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
 
 
 def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
-           write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0):
+           write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0,
+           paged=None):
     """One residual block of the dense family."""
     xin = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_attn"))
     x = x + _attention(cfg, xin, lp, positions, mode, ck, cv, slot_pos,
-                       write_slot, attn_fn, decode_attn_fn, extend_offset)
+                       write_slot, attn_fn, decode_attn_fn, extend_offset,
+                       paged)
     xin2 = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_mlp"))
     if cfg.mlp_act == "silu":
         return x + L.swiglu_mlp(xin2, lp["mlp.w_gate"], lp["mlp.w_up"],
@@ -149,12 +241,18 @@ def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
 # ============================== full forward ==================================
 def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             mode: str = "train", cache: Optional[Dict[str, Any]] = None, *,
-            attn_fn=None, decode_attn_fn=None, last_only: bool = False,
+            attn_fn=None, decode_attn_fn=None, prefix_attn_fn=None,
+            paged_decode_attn_fn=None, last_only: bool = False,
             extend_offset: int = 0
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the stack.  batch: tokens (B, S) int, positions (B, S) int32.
     Returns (logits (B, S, Vp) in the compute dtype, cache or None); the
-    cache is updated in place (see the module docstring)."""
+    cache is updated in place (see the module docstring).
+
+    A cache holding ``block_tables`` (B, NB) int32 is the paged pool: it
+    may also hold ``quant_flags`` (P,) int8 (with the int8 pools), and in
+    prefill ``prefix_table`` (npre,) int32 and the host int ``prefix_len``
+    of a shared prefix read in place."""
     _require_dense(cfg)
     attn_fn = attn_fn or KOPS.flash_attention
     decode_attn_fn = decode_attn_fn or KOPS.decode_attention
@@ -165,12 +263,19 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
     B, S = positions.shape
 
-    slot_pos = write_slot = row_idx = None
+    slot_pos = write_slot = row_idx = paged = None
     idx = 0
-    if cache is not None:
+    if cache is not None and "block_tables" in cache:
+        paged = {"block_tables": cache["block_tables"],
+                 "writes": _paged_writes(cache, positions),
+                 "prefix_table": cache.get("prefix_table"),
+                 "prefix_len": int(cache.get("prefix_len", 0)),
+                 "prefix_fn": prefix_attn_fn or KOPS.flash_attention_prefix,
+                 "decode_fn": paged_decode_attn_fn or _paged_decode_kernels}
+    elif cache is not None:
         slot_pos, row_idx = cache["slot_pos"], cache.get("row_idx")
         idx = int(cache.get("idx", 0))
-    if mode == "decode":
+    if mode == "decode" and paged is None:
         lc = slot_pos.shape[1]
         if row_idx is not None:      # per-row write slots (ragged fills)
             write_slot = (row_idx % lc).long()
@@ -184,8 +289,13 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
         ck = cv = None
         if cache is not None:
             ck, cv = cache["k"][i], cache["v"][i]
+        if paged is not None:
+            paged["quant"] = None if "kq" not in cache else {
+                "kq": cache["kq"][i], "vq": cache["vq"][i],
+                "kscale": cache["kscale"][i], "vscale": cache["vscale"][i],
+                "flags": cache["quant_flags"]}
         x = _block(cfg, x, lp, positions, mode, ck, cv, slot_pos, write_slot,
-                   attn_fn, decode_attn_fn, extend_offset)
+                   attn_fn, decode_attn_fn, extend_offset, paged)
 
     fn_params = {k: v for k, v in params.items() if k.startswith("final_norm")}
     x = L.apply_norm(cfg.norm_type, x, _norm_p(fn_params, "final_norm"))
@@ -197,6 +307,8 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     if mode == "train" or cache is None:
         return logits, None
     new_cache = dict(cache)
+    if paged is not None:
+        return logits, new_cache
     if mode == "decode":
         if row_idx is not None:
             row_idx.add_(1)

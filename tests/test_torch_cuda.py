@@ -8,15 +8,17 @@ machine without the JAX package:
 
 Tolerances: float32 1e-5 (the kernel sums in another order than the plain
 einsum); bfloat16 2e-2 (inputs and outputs rounded to 8 mantissa bits).
-Sampling is exact.
+Sampling is exact.  The int8 page variants dequantize exactly as their
+plain versions do, so they keep the same tolerances.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from torch_cases import (FLASH_CASES, MASKS, decode_case, prefill_case,
-                         sample_case, t)
+from torch_cases import (FLASH_CASES, MASKS, decode_case, paged_case,
+                         prefill_case, prefix_case, quantize_pool, sample_case,
+                         t)
 
 
 @pytest.fixture
@@ -101,3 +103,69 @@ def test_constrained_sample_kernel_divides_by_temperature(cuda):
                         np.float32)).to(cuda)
     mask = torch.ones((1, 2), dtype=torch.int8, device=cuda)
     assert ops.constrained_sample(logits, mask, temperature=0.7).item() == 1
+
+
+def _quant(kp, vp, cuda):
+    kq, ks, flags = quantize_pool(kp)
+    vq, vs, _ = quantize_pool(vp)
+    return {"kq": t(kq).to(cuda), "vq": t(vq).to(cuda),
+            "kscale": t(ks).to(cuda), "vscale": t(vs).to(cuda),
+            "flags": t(flags).to(cuda)}
+
+
+PAGED_CASES = [dict(B=8, H=16, KV=16, D=128, ps=64, NB=8, P=80, shared=2),
+               dict(B=3, H=8, KV=2, D=64, ps=16, NB=6, P=24, shared=1),
+               dict(B=2, H=4, KV=4, D=16, ps=32, NB=4, P=9, shared=0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(PAGED_CASES)))
+def test_decode_attention_paged_kernel_matches_plain(cuda, case, dtype,
+                                                     quant):
+    c = PAGED_CASES[case]
+    q, kp, vp, table, qpos = paged_case(9, **c)
+    qd = _quant(kp, vp, cuda) if quant else None
+    q, kpd, vpd = (t(a).to(cuda).to(dtype) for a in (q, kp, vp))
+    table, qpos = t(table).to(cuda), t(qpos).to(cuda)
+    if quant:
+        fn, w = ops.decode_attention_paged_quant, "decode_attention_paged_quant"
+        out = fn(q, kpd, vpd, table, qpos, qd)
+        r = ref.decode_attention_paged_ref(q, kpd, vpd, table, qpos, qd)
+    else:
+        w = "decode_attention_paged"
+        n = ops.decode_attention_paged.launches
+        out = ops.decode_attention_paged(q, kpd, vpd, table, qpos)
+        assert ops.decode_attention_paged.launches == n + 1
+        r = ref.decode_attention_paged_ref(q, kpd, vpd, table, qpos)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol,
+                               msg=w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D,ps,P,npre,plen", [
+    (1, 256, 16, 16, 128, 64, 12, 3, None),     # the SQL path's shape
+    (3, 40, 8, 2, 32, 16, 10, 4, 50),           # a partial last page
+    (2, 33, 4, 4, 16, 32, 5, 0, None),          # no prefix
+])
+def test_flash_attention_prefix_kernel_matches_plain(cuda, dtype, quant, B,
+                                                     S, H, KV, D, ps, P, npre,
+                                                     plen):
+    q, k, v, pos, kp, vp, ptab, plen = prefix_case(10, B, S, H, KV, D, ps, P,
+                                                   npre, plen)
+    qd = _quant(kp, vp, cuda) if quant else None
+    q, k, v, kpd, vpd = (t(a).to(cuda).to(dtype) for a in (q, k, v, kp, vp))
+    pos, ptab = t(pos).to(cuda), t(ptab).to(cuda)
+    n = ops.flash_attention_prefix.launches
+    out = ops.flash_attention_prefix(q, k, v, pos, kpd, vpd, ptab, plen, qd)
+    assert ops.flash_attention_prefix.launches == n + 1
+    r = ref.flash_attention_prefix_ref(q, k, v, pos, kpd, vpd, ptab, plen, qd)
+    valid = pos >= 0
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out[valid].float(), r[valid].float(),
+                               atol=tol, rtol=tol)
+    assert torch.isfinite(out.float()).all()

@@ -30,7 +30,8 @@ COPIES = (["relational/" + m + ".py" for m in (
     + ["core/" + m + ".py" for m in (
         "cancel", "faults", "snapshot", "stats", "service", "predict",
         "optimizer", "rewrite", "cascade")]
-    + ["serving/tokenizer.py", "serving/grammar.py", "models/config.py"]
+    + ["serving/tokenizer.py", "serving/grammar.py", "serving/radix.py",
+       "models/config.py"]
     + sorted("configs/" + p.name for p in (SRC / "repro" / "configs").glob(
         "*.py") if p.name not in ("__init__.py", "common.py")))
 

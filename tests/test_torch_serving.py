@@ -133,8 +133,3 @@ def test_batcher_n_samples_vote_matches_jax(engines):
     assert [r.text for r in b] == [r.text for r in a]
     assert _stats(sb) == _stats(sa)
 
-
-def test_paged_layout_not_ported_yet():
-    cfg = TC.get_smoke_config("olmo-1b").replace(vocab_size=259)
-    with pytest.raises(NotImplementedError, match="paged KV"):
-        TorchEngine(cfg, kv_layout="paged", device="cpu")

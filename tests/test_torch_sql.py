@@ -18,13 +18,11 @@ import repro_torch.configs as TC
 from repro.core.database import IPDB as JaxIPDB
 from repro.core.executors import JaxExecutor
 from repro.relational.table import Table as JaxTable
-from repro.serving.engine import InferenceEngine as JaxEngine
 from repro_torch.core.database import IPDB as TorchIPDB
 from repro_torch.core.executors import TorchExecutor
-from repro_torch.models.params import params_from_jax
 from repro_torch.relational.table import Table as TorchTable
-from repro_torch.serving.engine import InferenceEngine as TorchEngine
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_cases import engine_pair
 
 WALL = ("wall_s", "sim_latency_s", "serial_latency_s")
 ROWS = [{"name": f"item {i:02d}", "kind": ("bolt", "nut", "gear")[i % 3]}
@@ -33,26 +31,12 @@ QUERY = ("SELECT name, LLM m (PROMPT 'guess the {color VARCHAR} of the "
          "{{kind}} named {{name}}') AS color FROM Items")
 
 
-@pytest.fixture(scope="module")
-def _engine_pair():
-    jcfg = JC.get_smoke_config("olmo-1b").replace(vocab_size=259,
-                                                 compute_dtype="float32")
-    tcfg = TC.get_smoke_config("olmo-1b").replace(vocab_size=259,
-                                                 compute_dtype="float32")
-    je = JaxEngine(jcfg, max_len=256, seed=0)
-    te = TorchEngine(tcfg, params_from_jax(tcfg, jax.tree.map(np.asarray,
-                                                              je.params),
-                                           "cpu"),
-                     max_len=256, seed=0, device="cpu")
-    return je, te
-
-
 @pytest.fixture
-def engines(_engine_pair):
-    """The module's engine pair, put back to a fresh sampling state."""
-    for eng in _engine_pair:
-        eng._rng = np.random.default_rng(0)
-    return _engine_pair
+def engines(request):
+    """The engine pair of the case's options (``torch_cases.engine_pair``:
+    the dense layout unless the case asks for pages), put back to a fresh
+    sampling, memo and pool state."""
+    return engine_pair(**request.param)
 
 
 def _db(db, table_cls, executor_cls, engine, options, rows):
@@ -76,16 +60,32 @@ def _stats(st):
     return d
 
 
-@pytest.mark.parametrize("path,nrows,options", [
+DENSE = {"kv_layout": "dense"}
+BATCHER = ("{ 'batch_size': 1, 'max_str': 6, 'num_slots': 4, "
+           "'max_tokens': 48 }")
+
+
+@pytest.mark.parametrize("path,nrows,options,engines", [
     # every row in one dispatch → one ContinuousBatcher.run over 4 slots
-    ("batcher", 10, "{ 'batch_size': 1, 'max_str': 6, 'num_slots': 4, "
-                    "'max_tokens': 48 }"),
+    ("batcher", 10, BATCHER, DENSE),
     # one row per dispatch → InferenceEngine.generate
-    ("generate", 1, "{ 'batch_size': 1, 'max_str': 6, 'max_tokens': 48 }"),
+    ("generate", 1, "{ 'batch_size': 1, 'max_str': 6, 'max_tokens': 48 }",
+     DENSE),
     # three rows marshaled into each prompt, two prompts batched, greedy
     ("marshaled", 6, "{ 'batch_size': 3, 'max_str': 4, 'max_tokens': 96, "
-                     "'temperature': 0.0 }"),
-], ids=["batcher", "generate", "marshaled"])
+                     "'temperature': 0.0 }", DENSE),
+    # the paged batcher: radix prefix tree over fp pages, then int8 pages
+    ("paged_radix", 10, BATCHER, {"page_size": 16}),
+    ("paged_radix_int8", 10, BATCHER, {"page_size": 16, "kv_quant": "int8"}),
+    # the exact-string memo over the executor's carved common prefix
+    ("paged_exact", 10, BATCHER,
+     {"page_size": 16, "prefix_cache_mode": "exact"}),
+    # self-consistency: 3 streams per row fork copy-on-write, majority vote
+    ("paged_n_samples", 4, "{ 'batch_size': 1, 'max_str': 4, 'num_slots': 4, "
+                           "'max_tokens': 48, 'n_samples': 3 }",
+     {"page_size": 16}),
+], ids=["batcher", "generate", "marshaled", "paged_radix", "paged_radix_int8",
+        "paged_exact", "paged_n_samples"], indirect=["engines"])
 def test_sql_rows_and_stats_match_jax(engines, path, nrows, options):
     je, te = engines
     jdb = _db(JaxIPDB(), JaxTable, JaxExecutor, je, options, ROWS[:nrows])
@@ -98,6 +98,10 @@ def test_sql_rows_and_stats_match_jax(engines, path, nrows, options):
         assert _stats(b.stats) == _stats(a.stats)
     assert all(isinstance(c, str) for c in b.table.column("color"))
     assert b.stats.prompt_cache_hits > 0
+    if path.startswith("paged_radix"):
+        assert te.total.radix_hit_tokens > 0
+    if path == "paged_n_samples":
+        assert te.total.cow_copies > 0
 
 
 def test_torch_path_on_cpu_end_to_end():

@@ -1,6 +1,10 @@
 """Seeded numpy inputs shared by the repro_torch kernel tests (CPU parity in
-test_torch_kernels.py, on-card checks in test_torch_cuda.py).  Imports no
-jax, so the on-card tests run where jax is not installed."""
+test_torch_kernels.py and test_torch_paged.py, on-card checks in
+test_torch_cuda.py), and the JAX/torch engine pairs of the parity tests.
+Imports no jax at module level, so the on-card tests run where jax is not
+installed."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -70,3 +74,132 @@ def sample_case(seed, B, V, ties):
     mask = (rng.uniform(size=(B, V)) < 0.6).astype(np.int8)
     mask[:, 0] = 1
     return logits, mask, rng
+
+
+def paged_case(seed, B, H, KV, D, ps, NB, P, shared=0):
+    """A page pool (KV, P, ps, D) and block tables (B, NB) with ragged
+    fills: row b holds fill_b tokens (at least one past the `shared`
+    prefix pages, which every row lists first); its other pages are drawn
+    without replacement.  Past the fill, odd rows keep pages (decode
+    capacity the engine allocates ahead) and even rows -1."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D), np.float32)
+    kp = rng.standard_normal((KV, P, ps, D), np.float32)
+    vp = rng.standard_normal((KV, P, ps, D), np.float32)
+    perm = iter(rng.permutation(P))
+    pre = [next(perm) for _ in range(shared)]
+    fills = rng.integers(shared * ps + 1, NB * ps + 1, size=B)
+    table = np.full((B, NB), -1, np.int32)
+    for b, f in enumerate(fills):
+        table[b, :shared] = pre
+        upto = NB if b % 2 else -(-int(f) // ps)
+        for j in range(shared, upto):
+            table[b, j] = next(perm)
+    qpos = (fills - 1).astype(np.int32)
+    return q, kp, vp, table, qpos
+
+
+def quantize_pool(pool, frozen_every=2):
+    """int8 shadow of a (KV, P, ps, D) float32 pool, symmetric per
+    (kv-head, page) with scale = abs-max / 127 and round-half-to-even (the
+    engine's _quantize_pages), and flags (P,) freezing every
+    `frozen_every`-th page."""
+    amax = np.abs(pool).max(axis=(2, 3))
+    scale = (np.maximum(amax, 1e-8) / 127.0).astype(np.float32)
+    q8 = np.clip(np.rint(pool / scale[..., None, None]), -127,
+                 127).astype(np.int8)
+    flags = (np.arange(pool.shape[1]) % frozen_every == 0).astype(np.int8)
+    return q8, scale, flags
+
+
+def prefix_case(seed, B, S, H, KV, D, ps, P, npre, plen=None):
+    """Suffix q/k/v (B, S, ...) with ragged left padding, positions
+    starting at the prefix length, and a (KV, P, ps, D) pool whose pages
+    `prefix_table` (npre,) hold the shared prefix (first `plen` tokens
+    valid; default all of them)."""
+    rng = np.random.default_rng(seed)
+    plen = npre * ps if plen is None else plen
+    q = rng.standard_normal((B, S, H, D), np.float32)
+    k = rng.standard_normal((B, S, KV, D), np.float32)
+    v = rng.standard_normal((B, S, KV, D), np.float32)
+    kp = rng.standard_normal((KV, P, ps, D), np.float32)
+    vp = rng.standard_normal((KV, P, ps, D), np.float32)
+    pos = np.zeros((B, S), np.int32)
+    for b in range(B):
+        pad = int(rng.integers(0, S // 2))
+        pos[b] = np.arange(S) - pad + plen
+        pos[b, :pad] = -1
+    ptab = rng.permutation(P)[:npre].astype(np.int32)
+    return q, k, v, pos, kp, vp, ptab, plen
+
+
+# -- JAX/torch engine pairs (the parity tests; jax is imported on first use,
+# so this module stays importable where jax is not installed) --------------
+_PAIRS = {}
+
+
+def engine_pair(**kw):
+    """A JAX and a torch InferenceEngine of the olmo-1b smoke config (vocab
+    259, float32, max_len 256, paged unless kv_layout says otherwise) on
+    the same weights, put back to a fresh state: sampling seed, prefix
+    memo, totals and page pool.  One pair per option set, so the JAX
+    compile caches are reused across tests."""
+    key = tuple(sorted(kw.items()))
+    if key not in _PAIRS:
+        import jax
+
+        import repro.configs as JC
+        import repro_torch.configs as TC
+        from repro.serving.engine import InferenceEngine as JaxEngine
+        from repro_torch.models.params import params_from_jax
+        from repro_torch.serving.engine import InferenceEngine as TorchEngine
+        kw = dict(kw)
+        layout = kw.pop("kv_layout", "paged")
+        jcfg = JC.get_smoke_config("olmo-1b").replace(vocab_size=259,
+                                                     compute_dtype="float32")
+        tcfg = TC.get_smoke_config("olmo-1b").replace(vocab_size=259,
+                                                     compute_dtype="float32")
+        je = JaxEngine(jcfg, max_len=256, seed=0, kv_layout=layout, **kw)
+        te = TorchEngine(tcfg, params_from_jax(
+            tcfg, jax.tree.map(np.asarray, je.params), "cpu"),
+            max_len=256, seed=0, kv_layout=layout, device="cpu", **kw)
+        _PAIRS[key] = (je, te)
+    je, te = _PAIRS[key]
+    for eng in (je, te):
+        eng._rng = np.random.default_rng(0)
+        eng._prefix_kv.clear()
+        eng.total = type(eng.total)()
+        eng._pool = eng._alloc = eng._radix = eng._quant_flags = None
+        eng.kv_peak_bytes = 0
+    te._quant_flags_dev = None
+    return je, te
+
+
+def gen_stats(s):
+    """GenStats as a dict without the wall time."""
+    d = dataclasses.asdict(s)
+    d.pop("wall_s")
+    return d
+
+
+def grammar_pair(fields=(("v", "INTEGER"), ("tag", "VARCHAR")), max_str=8):
+    """The same JSON grammar from the JAX package and from the port."""
+    from repro.serving import grammar as JG
+    from repro_torch.serving import grammar as TG
+    return (JG.JsonGrammar([JG.Field(n, t) for n, t in fields],
+                           max_str=max_str),
+            TG.JsonGrammar([TG.Field(n, t) for n, t in fields],
+                           max_str=max_str))
+
+
+def assert_pool_baseline(eng):
+    """After a run, the only live page references are cache residencies
+    (prefix-memo entries and radix-tree nodes), one reference each."""
+    if eng._alloc is None:
+        return
+    resident = [p for e in eng._prefix_kv.values()
+                if e.pages is not None for p in e.pages]
+    if eng._radix is not None:
+        resident += eng._radix.resident_page_ids()
+    assert eng._alloc.in_use == len(resident)
+    assert all(eng._alloc.refs(p) == 1 for p in resident)
