@@ -83,6 +83,19 @@ def test_paged_pool_bound_stalls_but_completes():
     assert [o[0] for o in out] == [o[0] for o in free]
 
 
+def test_paged_pool_growth_matches_jax():
+    """Eight slots of distinct prompts outgrow the lazily sized pool (two
+    rows' worth of pages): the engine first evicts unused radix leaves, then
+    reallocates the pool tensors mid-run; the slots' pages written before
+    the growth must survive it."""
+    pair = engine_pair(page_size=16)
+    out, _ = _both(pair, n=10, slots=8, budget=48,
+                   in_prompt="distinct row text that differs per row ")
+    for eng in pair:
+        assert eng._alloc.num_pages > 2 * eng.num_table_blocks   # it grew
+    assert pair[1]._pool["k"].shape[2] == pair[1]._alloc.num_pages
+
+
 @pytest.mark.parametrize("ps", [16, 64])
 def test_fork_samples_cow_match_jax(ps):
     """n_samples 3 at temperature 1.0: siblings fork off the first
