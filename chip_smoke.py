@@ -19,8 +19,9 @@ Phases, each reported on its own lines:
    50304, random weights from a seeded generator):
    a. float32 logits of a prefill and decode steps through the kernels
       against the plain attention (dense layout), and of a paged prefill
-      over a radix-matched prefix plus decode steps against the dense
-      path's logits;
+      over a radix-committed prefix plus decode steps against the dense
+      path's logits and, with fp and with int8 pages, against the plain
+      attention;
    b. in bfloat16, the dense SQL path through ``repro_torch``'s IPDB (16
       rows through the continuous batcher, one row through ``generate``,
       4 rows with ``n_samples`` 3), then the paged path (``kv_layout
@@ -63,11 +64,11 @@ DEC = dict(B=8, L=512, H=16, KV=16, D=128)
 PRE = dict(B=1, S=256, H=16, KV=16, D=128, prompt=225)   # 256-token bucket
 SAMPLE = dict(B=8, V=50432, allowed=259, temperature=0.7)
 # the paged path: 8 slots, pages of 64 tokens, tables bucketed to 8 blocks
-# (max_len 512), ragged fills 96-320 whose first page is shared by every row
-# (a radix-matched prompt prefix); prefill of a 33-token suffix in the
-# 64-token bucket over a 3-page (192-token) matched prefix, as the SQL
-# path's ~225-token prompts give it
-PAGED = dict(B=8, H=16, KV=16, D=128, ps=64, NB=8, shared=1)
+# (max_len 512); each row holds its ~225-token prompt plus 0-64 decoded
+# tokens (fills 225-289), and its first 3 pages (192 tokens) are the
+# radix-matched prompt prefix that every row shares; prefill of a 33-token
+# suffix in the 64-token bucket over those 3 pages
+PAGED = dict(B=8, H=16, KV=16, D=128, ps=64, NB=8, shared=3, fills=(225, 289))
 PRE_PAGED = dict(B=1, S=64, H=16, KV=16, D=128, ps=64, npre=3, suffix=33)
 
 
@@ -204,12 +205,14 @@ def check_sample(ops, ref, dtype, gen):
 
 
 def paged_tables(gen, dev="cuda"):
-    """Block tables of the paged decode path: B rows with fills of 96-320
-    tokens; each row's first `shared` pages are the same pool pages (the
-    radix-shared prompt prefix), then its own pages up to its fill plus 64
-    tokens of decode capacity (the engine allocates ahead), -1 after."""
+    """Block tables of the paged decode path: B rows with fills drawn from
+    PAGED["fills"]; each row's first `shared` pages are the same pool pages
+    (the radix-shared prompt prefix), then its own pages up to its fill
+    plus 64 tokens of decode capacity (the engine allocates ahead), -1
+    after."""
     B, ps, NB, sh = (PAGED[k] for k in ("B", "ps", "NB", "shared"))
-    fills = torch.randint(96, 321, (B,), generator=gen, device=dev).tolist()
+    lo, hi = PAGED["fills"]
+    fills = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev).tolist()
     table = torch.full((B, NB), -1, dtype=torch.int32)
     nxt = sh
     for b, f in enumerate(fills):
@@ -301,24 +304,27 @@ def check_flash_prefix(ops, ref, dtype, gen):
         "B", "S", "H", "KV", "D", "ps", "npre", "suffix"))
     dev = "cuda"
     plen, P = npre * ps, 4 * npre
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
-    k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
-    v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
-    kp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
     pos = (torch.arange(S, device=dev, dtype=torch.int32) - (S - n)
            + plen).repeat(B, 1)
     pos[:, :S - n] = -1                 # left padding, as engine.paged_prefill
     ptab = torch.randperm(P, generator=gen, device=dev)[:npre].to(torch.int32)
-    kq, ks, flags = quantize_pages(kp, ptab.long())
-    vq, vs, _ = quantize_pages(vp, ptab.long())
+    sets = []
+    for _ in range(32):                 # 32 x ~2.5 MB needed: beyond the L2
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        kp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
+        vp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
+        sets.append((q, k, v, pos, kp, vp, ptab, plen))
+    args = sets[0]
+    kq, ks, flags = quantize_pages(args[4], ptab.long())
+    vq, vs, _ = quantize_pages(args[5], ptab.long())
     qd = {"kq": kq, "vq": vq, "kscale": ks, "vscale": vs, "flags": flags}
-    args = (q, k, v, pos, kp, vp, ptab, plen)
     valid = pos >= 0
     err = max((ops.flash_attention_prefix(*args, quant).float()
                - ref.flash_attention_prefix_ref(*args, quant).float()
                )[valid].abs().max().item() for quant in (None, qd))
-    s = q.element_size()
+    s = args[0].element_size()
     rows = int(valid.sum())
     # q/k/v of real suffix tokens, the whole output, the positions, the
     # prefix pages' K/V once and the prefix table
@@ -330,42 +336,44 @@ def check_flash_prefix(ops, ref, dtype, gen):
     mask = torch.cat([(pos >= 0)[:, :, None].expand(B, S, plen),
                       (pos[:, None, :] <= pos[:, :, None])
                       & (pos[:, None, :] >= 0)], dim=2)[:, None]
-    qt = q.transpose(1, 2)
 
-    def library():
+    def library(q, k, v, _pos, kp, vp, _ptab, _plen):
         kpre = kp[:, tl].reshape(KV, plen, D)[None].expand(B, -1, -1, -1)
         vpre = vp[:, tl].reshape(KV, plen, D)[None].expand(B, -1, -1, -1)
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, torch.cat([kpre, k.transpose(1, 2)], 2),
+            q.transpose(1, 2), torch.cat([kpre, k.transpose(1, 2)], 2),
             torch.cat([vpre, v.transpose(1, 2)], 2), attn_mask=mask,
             enable_gqa=H != KV)
     return dict(max_abs_err=err,
-                ms=time_ms(ops.flash_attention_prefix, [args]),
-                plain_ms=time_ms(ref.flash_attention_prefix_ref, [args]),
-                library_ms=time_ms(library, [()]),
+                ms=time_ms(ops.flash_attention_prefix, sets),
+                plain_ms=time_ms(ref.flash_attention_prefix_ref, sets),
+                library_ms=time_ms(library, sets),
                 bound_ms=b_ms, bound_by=b_by)
 
 
-# name, TPU kernel it replaces, check, and the dtype the SQL path gives it:
-# bfloat16 q/k/v and caches (the compute dtype), float32 logits (the engine
-# casts them before sampling).  The JSON line reports that dtype's run.
+# name, TPU kernel it replaces, check, the dtype the SQL path gives it
+# (bfloat16 q/k/v and caches, the compute dtype; float32 logits, which the
+# engine casts before sampling), source, and the SQL path that ported it.
+# The JSON line reports that dtype's run; its "launches" are those of that
+# path, "launches_by_path" those of each path.
 KERNELS = [
     ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash,
-     torch.bfloat16, "flash_attention.cu"),
+     torch.bfloat16, "flash_attention.cu", "dense"),
     ("decode_attention", "src/repro/kernels/decode_attention.py:65",
-     check_decode, torch.bfloat16, "decode_attention.cu"),
+     check_decode, torch.bfloat16, "decode_attention.cu", "dense"),
     ("constrained_sample", "src/repro/kernels/constrained_logits.py:53",
-     check_sample, torch.float32, "constrained_sample.cu"),
+     check_sample, torch.float32, "constrained_sample.cu", "dense"),
     ("decode_attention_paged", "src/repro/kernels/decode_attention.py:138",
-     check_decode_paged, torch.bfloat16, "decode_attention_paged.cu"),
+     check_decode_paged, torch.bfloat16, "decode_attention_paged.cu",
+     "paged"),
     ("decode_attention_paged_quant",
      "src/repro/kernels/decode_attention.py:234",
      functools.partial(check_decode_paged, quant=True),
-     torch.bfloat16, "decode_attention_paged.cu"),
+     torch.bfloat16, "decode_attention_paged.cu", "paged"),
     # the prefix extension of kernel 1 (the JAX package's paged prefill,
     # layers.prefix_suffix_attention, is plain jnp)
     ("flash_attention_prefix", "src/repro/kernels/flash_attention.py:89",
-     check_flash_prefix, torch.bfloat16, "flash_attention.cu"),
+     check_flash_prefix, torch.bfloat16, "flash_attention.cu", "paged"),
 ]
 
 
@@ -410,16 +418,20 @@ def check_forward_full_width(C, MDL, init_params, ref):
     del params
 
 
-def check_paged_forward_full_width(C, init_params):
+def check_paged_forward_full_width(C, init_params, ref):
     """olmo-1b at full width in float32 through the engine's paged layout:
-    the prefix pages written by a paged prefill, a second paged prefill of
-    the rest of the prompt that reads them in place (kernel C, as a radix
-    match makes it), then three decode steps (kernel A) -- against the
-    dense path's logits (kernels 1 and 2) on the same weights."""
+    a paged prefill writes the prefix pages, which are committed to the
+    radix tree; a second paged prefill of the rest of the prompt reads them
+    in place (kernel C, as a radix match makes it); then three decode steps
+    (kernel A, or B where int8 pages freeze the committed prefix).  The fp
+    pages' logits are held against the dense path's (kernels 1 and 2) on
+    the same weights, and each layout's against the same run through the
+    plain attention functions."""
     from repro_torch.serving.engine import InferenceEngine
     cfg = C.get_config("olmo-1b").replace(compute_dtype="float32")
     params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
     ps, npre, n = PRE_PAGED["ps"], PRE_PAGED["npre"], PRE["prompt"]
+    plen = npre * ps
     gen = torch.Generator().manual_seed(SEED + 2)
     ids = torch.randint(0, cfg.vocab_size, (n + 3,), generator=gen).tolist()
     prompt, nxt = ids[:n], ids[n:]
@@ -431,30 +443,45 @@ def check_paged_forward_full_width(C, init_params):
         lg, cache = dense.decode_step(np.array([t]), pos, cache)
         want.append(lg)
         pos += 1
-    eng = InferenceEngine(cfg, params, max_len=512, kv_layout="paged",
-                          page_size=ps)
-    eng._ensure_pool(eng.num_table_blocks)
-    table = np.full((1, eng.num_table_blocks), -1, np.int32)
-    table[0] = eng.alloc_pages(eng.num_table_blocks)
-    plen = npre * ps
-    eng.paged_prefill([prompt[:plen]], table, [], 0)
-    lg, lens, _ = eng.paged_prefill([prompt[plen:]], table,
-                                    list(table[0, :npre]), plen)
-    got = [lg]
-    pos = lens.copy()
-    for t in nxt:
-        got.append(eng.paged_decode(np.array([t]), pos, table,
-                                    eng.active_blocks(pos)))
-        pos += 1
-    err = (torch.cat(got) - torch.cat(want)).abs().max().item()
+    want = torch.cat(want)
+    del dense, cache
+    plain = {"attn_fn": ref.flash_attention_ref,
+             "prefix_attn_fn": ref.flash_attention_prefix_ref,
+             "paged_decode_attn_fn": ref.decode_attention_paged_ref}
+
+    def paged(quant, fns):
+        eng = InferenceEngine(cfg, params, max_len=512, kv_layout="paged",
+                              page_size=ps, kv_quant=quant)
+        eng._ensure_pool(eng.num_table_blocks)
+        table = np.full((1, eng.num_table_blocks), -1, np.int32)
+        table[0] = eng.alloc_pages(eng.num_table_blocks)
+        eng.paged_prefill([prompt[:plen]], table, [], 0, **fns)
+        eng.radix_insert(prompt[:plen], list(table[0, :npre]))
+        lg, lens, _ = eng.paged_prefill([prompt[plen:]], table,
+                                        list(table[0, :npre]), plen, **fns)
+        got = [lg]
+        pos = lens.copy()
+        for t in nxt:
+            got.append(eng.paged_decode(np.array([t]), pos, table,
+                                        eng.active_blocks(pos), **fns))
+            pos += 1
+        return torch.cat(got)
+    fp = paged("none", {})
+    errs = {"fp pages vs the dense path": (fp - want).abs().max().item(),
+            "fp pages vs plain attention":
+                (fp - paged("none", plain)).abs().max().item(),
+            "int8 pages vs plain attention":
+                (paged("int8", {}) - paged("int8", plain)).abs().max().item()}
     tol = 1e-3
     print(f"full-width paged forward (olmo-1b, float32, {plen}-token prefix "
-          f"in {npre} pages + {n - plen}-token suffix prefill + 3 decode "
-          f"steps): logits vs the dense path max_abs_err={err} (tolerance "
-          f"{tol}; logit std {torch.cat(want).std().item()})", flush=True)
-    if not err < tol:
-        fail("paged full-width forward disagrees with the dense path")
-    del params, dense, eng
+          f"in {npre} radix-committed pages + {n - plen}-token suffix "
+          f"prefill + 3 decode steps): max_abs_err of the logits "
+          + ", ".join(f"{k} {v}" for k, v in errs.items())
+          + f" (tolerance {tol}; logit std {want.std().item()})", flush=True)
+    for k, v in errs.items():
+        if not v < tol:
+            fail(f"paged full-width forward: {k} disagree")
+    del params
 
 
 def sql_session(cfg, params, label, **engine_kw):
@@ -591,7 +618,7 @@ def main() -> int:
           "cudnn.allow_tf32 = False", flush=True)
     gen = torch.Generator("cuda").manual_seed(SEED)
     report = {}
-    for kname, replaces, check, path_dtype, src in KERNELS:
+    for kname, replaces, check, path_dtype, src, path in KERNELS:
         for dtype in (torch.bfloat16, torch.float32):
             r = check(ops, ref, dtype, gen)
             tol = 0.0 if kname == "constrained_sample" else TOL[dtype]
@@ -607,11 +634,12 @@ def main() -> int:
                 report[kname] = dict(name=kname, route="cuda",
                                      source=f"src/repro_torch/kernels/csrc/"
                                             f"{src}",
-                                     replaces=replaces, launches=0, **r)
+                                     replaces=replaces, path=path,
+                                     launches_by_path={}, **r)
 
     check_forward_full_width(C, MDL, init_params, ref)
     torch.cuda.empty_cache()
-    check_paged_forward_full_width(C, init_params)
+    check_paged_forward_full_width(C, init_params, ref)
     torch.cuda.empty_cache()
 
     cfg = C.get_config("olmo-1b")
@@ -634,7 +662,7 @@ def main() -> int:
             if launches[k] <= 0:
                 fail(f"{k}: no launch on the {path} path")
         for k, n in launches.items():
-            report[k]["launches"] += n
+            report[k]["launches_by_path"][path] = n
         return out
 
     # the dense path: the batcher, generate, and n_samples as 3 jobs a row
@@ -681,8 +709,11 @@ def main() -> int:
     print(f"peak device memory during the profiled query: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in report.values():
+        r["launches"] = r["launches_by_path"][r["path"]]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print("kernels: " + ", ".join(report), flush=True)
     print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
                                   for n in report]}), flush=True)

@@ -117,24 +117,6 @@ def _paged_decode_kernels(q, k_pool, v_pool, block_tables, q_position,
                                              q_position, quant)
 
 
-def _paged_writes(cache: Dict[str, Any], positions: torch.Tensor):
-    """Where this call's new K/V go in the pool, the same for every layer:
-    (rows, token indices, pages, in-page offsets) of the tokens whose slot
-    j = pos // ps has a page in the row's block table.  Pads (pos < 0),
-    slots past the table (pos >= NB * ps, past max_len: the sequence keeps
-    decoding against a frozen cache) and -1 entries are filtered out — the
-    JAX model sends those writes out of bounds with mode="drop"."""
-    bt = cache["block_tables"]
-    ps = cache["k"].shape[3]
-    NB = bt.shape[1]
-    blk = positions.clamp(min=0) // ps
-    entry = torch.gather(bt, 1, blk.clamp(max=NB - 1).long())
-    ok = (positions >= 0) & (blk < NB) & (entry >= 0)
-    rows, toks = ok.nonzero(as_tuple=True)
-    return (rows, toks, entry[rows, toks].long(),
-            (positions[rows, toks] % ps).long())
-
-
 # ================================ blocks ======================================
 def _norm_p(lp: Dict[str, torch.Tensor], prefix: str) -> Optional[dict]:
     scale = lp.get(f"{prefix}.scale")
@@ -151,9 +133,10 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
     views, written in place (prefill, decode); slot_pos (B, lc) — in decode
     already holding this step's positions; write_slot (B,) decode write
     slots.  paged (dict or None): ck/cv are then this layer's (KV, P, ps,
-    hd) pools; paged holds the block tables, the write indices of
-    `_paged_writes`, the prefix table and length of a paged prefill, the
-    layer's int8 pages (`quant`) and the two attention functions."""
+    hd) pools; paged holds the block tables, the write indices
+    (``forward``'s ``writes``), the prefix table and length of a paged
+    prefill, the layer's int8 pages (`quant`) and the two attention
+    functions."""
     B, S, m = x.shape
     h, kv, hd = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ lp["attn.wq"].reshape(m, h * hd)).view(B, S, h, hd)
@@ -249,10 +232,15 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     Returns (logits (B, S, Vp) in the compute dtype, cache or None); the
     cache is updated in place (see the module docstring).
 
-    A cache holding ``block_tables`` (B, NB) int32 is the paged pool: it
-    may also hold ``quant_flags`` (P,) int8 (with the int8 pools), and in
-    prefill ``prefix_table`` (npre,) int32 and the host int ``prefix_len``
-    of a shared prefix read in place."""
+    A cache holding ``block_tables`` (B, NB) int32 is the paged pool.  It
+    also holds ``writes``, a (4, n) int64 tensor: the (row, token index,
+    page, in-page offset) of each new token whose K/V the pool keeps, the
+    same for every layer (the engine builds it on the host; pads, tokens
+    past the table and -1 entries are left out, where the JAX model sends
+    them out of bounds with mode="drop").  It may hold ``quant_flags`` (P,)
+    int8 (with the int8 pools), and in prefill ``prefix_table`` (npre,)
+    int32 and the host int ``prefix_len`` of a shared prefix read in
+    place."""
     _require_dense(cfg)
     attn_fn = attn_fn or KOPS.flash_attention
     decode_attn_fn = decode_attn_fn or KOPS.decode_attention
@@ -267,7 +255,7 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     idx = 0
     if cache is not None and "block_tables" in cache:
         paged = {"block_tables": cache["block_tables"],
-                 "writes": _paged_writes(cache, positions),
+                 "writes": cache["writes"],
                  "prefix_table": cache.get("prefix_table"),
                  "prefix_len": int(cache.get("prefix_len", 0)),
                  "prefix_fn": prefix_attn_fn or KOPS.flash_attention_prefix,

@@ -599,12 +599,26 @@ class InferenceEngine:
         return restored
 
     # ----------------------------- paged steps --------------------------------
-    def _paged_cache(self, table: np.ndarray) -> dict:
-        """The model's view of the pool for one call: the current pool
-        tensors (growth may have replaced them), the block table and, with
-        int8 pages, the device copy of the frozen flags."""
-        cache = dict(self._pool, block_tables=self._tensor(
-            table.astype(np.int32)))
+    def _paged_cache(self, table: np.ndarray, pos: np.ndarray) -> dict:
+        """The model's view of the pool for one call with positions `pos`
+        (B, S): the current pool tensors (growth may have replaced them),
+        the block table, the page-write indices and, with int8 pages, the
+        device copy of the frozen flags.  The writes are those of the tokens
+        whose block j = pos // ps has a page in the row's table, as (4, n)
+        (row, token, page, offset); pads (pos < 0), blocks past the table
+        (past max_len the sequence decodes against a frozen cache) and -1
+        entries are left out, where the JAX model sends them out of bounds
+        with mode="drop".  They are found here on the host, so the forward
+        needs no device-to-host sync for them."""
+        table = np.ascontiguousarray(table, np.int32)
+        ps, NB = self.page_size, table.shape[1]
+        blk = np.maximum(pos, 0) // ps
+        entry = np.take_along_axis(table, np.minimum(blk, NB - 1), axis=1)
+        rows, toks = np.nonzero((pos >= 0) & (blk < NB) & (entry >= 0))
+        writes = np.stack([rows, toks, entry[rows, toks],
+                           pos[rows, toks] % ps]).astype(np.int64)
+        cache = dict(self._pool, block_tables=self._tensor(table),
+                     writes=self._tensor(writes))
         if self._quant_flags is not None:
             if self._quant_flags_dev is None:
                 self._quant_flags_dev = self._tensor(self._quant_flags)
@@ -612,11 +626,13 @@ class InferenceEngine:
         return cache
 
     def paged_prefill(self, token_lists: List[List[int]], table_rows,
-                      prefix_pages: Sequence[int], prefix_len: int):
+                      prefix_pages: Sequence[int], prefix_len: int, **attn):
         """Prefill suffixes straight into their block-table pages, reading
         shared prefix pages in place (no per-row replication).  table_rows:
-        np.ndarray (B, NB) page ids.  Returns (float32 last-token logits
-        (B, Vp) on the device, lens, prefill token count)."""
+        np.ndarray (B, NB) page ids; `attn` overrides the model's attention
+        functions (``forward``'s ``attn_fn``, ``prefix_attn_fn``).  Returns
+        (float32 last-token logits (B, Vp) on the device, lens, prefill
+        token count)."""
         B = len(token_lists)
         L = _bucket(max(len(t) for t in token_lists))
         toks = np.full((B, L), TOK.PAD_ID, np.int32)
@@ -626,30 +642,33 @@ class InferenceEngine:
             toks[i, pad:] = t
             pos[i] = np.arange(L) - pad + prefix_len
             pos[i, :pad] = -1
-        cache = self._paged_cache(np.ascontiguousarray(table_rows))
+        cache = self._paged_cache(table_rows, pos)
         cache["prefix_table"] = self._tensor(
             np.asarray(prefix_pages, np.int32).reshape(len(prefix_pages)))
         cache["prefix_len"] = int(prefix_len)
         logits, _ = MDL.forward(
             self.cfg, self.params,
             {"tokens": self._tensor(toks), "positions": self._tensor(pos)},
-            mode="prefill", cache=cache, last_only=True)
+            mode="prefill", cache=cache, last_only=True, **attn)
         lens = np.array([prefix_len + len(t) for t in token_lists], np.int32)
         return logits[:, -1].float(), lens, B * L
 
-    def paged_decode(self, toks, positions, table, num_blocks: int
+    def paged_decode(self, toks, positions, table, num_blocks: int, **attn
                      ) -> torch.Tensor:
         """One lock-step decode tick against the page pool.  `table` is the
         host block table (B, NB_full); only its first `num_blocks` columns
         (the batch's actual fill, bucketed by the caller) reach the device,
-        so attention work scales with occupancy, not max_len.  Returns
-        float32 logits (B, Vp) on the device."""
-        cache = self._paged_cache(np.ascontiguousarray(table[:, :num_blocks]))
+        so attention work scales with occupancy, not max_len.  `attn`
+        overrides the model's paged decode attention (``forward``'s
+        ``paged_decode_attn_fn``).  Returns float32 logits (B, Vp) on the
+        device."""
+        pos = positions.astype(np.int32)[:, None]
+        cache = self._paged_cache(table[:, :num_blocks], pos)
         logits, _ = MDL.forward(
             self.cfg, self.params,
             {"tokens": self._tensor(toks.astype(np.int32)[:, None]),
-             "positions": self._tensor(positions.astype(np.int32)[:, None])},
-            mode="decode", cache=cache)
+             "positions": self._tensor(pos)},
+            mode="decode", cache=cache, **attn)
         return logits[:, 0].float()
 
     def active_blocks(self, fills) -> int:

@@ -221,6 +221,36 @@ def test_generate_paged_matches_jax(mode, prefix, ps):
     assert_pool_baseline(te)
 
 
+@pytest.mark.parametrize("S", [1, 8], ids=["decode", "prefill"])
+def test_paged_writes_drop_what_the_jax_model_drops(S):
+    """The write indices the engine builds on the host put each new token
+    where the JAX model's page scatter does, and leave out what its
+    mode="drop" drops: pads, -1 table entries, blocks past the table."""
+    _, te = engine_pair(page_size=16)
+    te._ensure_pool(1)
+    ps, NB, B = 16, 3, 4
+    P = te._pool["k"].shape[2]
+    rng = np.random.default_rng(S)
+    table = rng.permutation(P)[:B * NB].reshape(B, NB).astype(np.int32)
+    table[1, 1] = table[2, 2] = -1
+    pos = np.stack([rng.choice(np.arange(-4, (NB + 1) * ps), S, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    pos[1, 0], pos[2, 0] = ps + 3, 2 * ps + 1      # on the -1 entries
+    rows, toks, pages, offs = te._paged_cache(table, pos)["writes"].numpy()
+    vals = np.arange(1, B * S + 1, dtype=np.float32).reshape(B, S)
+    got = np.zeros((P, ps), np.float32)
+    got[pages, offs] = vals[rows, toks]
+    # the JAX model's scatter (repro/models/model.py, paged branches)
+    blk = jnp.clip(pos, 0, None) // ps
+    entry = jnp.take_along_axis(jnp.asarray(table), jnp.clip(blk, 0, NB - 1),
+                                axis=1)
+    page = jnp.where((pos >= 0) & (blk < NB) & (entry >= 0), entry, P)
+    want = jnp.zeros((P, ps), jnp.float32).at[
+        page, jnp.clip(pos, 0, None) % ps].set(vals, mode="drop")
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert 0 < len(rows) < B * S        # some written, some dropped
+
+
 # ------------------------------ prefix memo -----------------------------------
 def test_prefix_memo_lru_cap_and_touch_on_get():
     je, te = engine_pair(kv_layout="dense", prefix_memo_entries=2)
