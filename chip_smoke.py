@@ -16,7 +16,7 @@ Phases, each reported on its own lines:
    bytes the function needs over the memory rate, or its operations over
    the peak rate, the larger);
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
-   50304, random weights from a seeded generator):
+   50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
       against the plain attention (dense layout), and of a paged prefill
       over a radix-committed prefix plus decode steps against the dense
@@ -31,7 +31,17 @@ Phases, each reported on its own lines:
       around it, every answer must parse under the grammar, the paged
       queries must hit the radix tree and the ``n_samples`` queries must
       fork copy-on-write pages.  One warm query of each layout is profiled;
-4. a JSON line with every kernel's numbers at the dtype the SQL path gives
+4. the qwen3-moe-30b-a3b configuration (MoE family: 128 experts, top-8,
+   d_ff 768, 32 heads x 64 on 4 kv heads, vocab 151936, random weights):
+   a. at full width and 4 of its 48 layers in float32, the logits of a
+      left-padded prefill and three decode steps through the kernels
+      against the plain versions (attention and the grouped matmul);
+   b. at full width and full depth in bfloat16 (~60 GB of weights), after
+      the olmo sessions are freed: the dense SQL path (16 rows through the
+      batcher, one row through ``generate``) and one paged query (pages of
+      64, radix tree, which it must hit), kernel launches counted from zero
+      around them, every answer parsed; one warm dense query profiled;
+5. a JSON line with every kernel's numbers at the dtype the SQL path gives
    it, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -70,6 +81,13 @@ SAMPLE = dict(B=8, V=50432, allowed=259, temperature=0.7)
 # suffix in the 64-token bucket over those 3 pages
 PAGED = dict(B=8, H=16, KV=16, D=128, ps=64, NB=8, shared=3, fills=(225, 289))
 PRE_PAGED = dict(B=1, S=64, H=16, KV=16, D=128, ps=64, npre=3, suffix=33)
+# the MoE path's grouped matmuls (qwen3-moe-30b-a3b): 8 decode slots or one
+# 256-token prefill, top-8 of 128 experts, each expert's choices capped at
+# the capacity (4 at decode, 20 at prefill); gate/up (2048 -> 768) and down
+# (768 -> 2048)
+GMM = dict(E=128, K=8, d_model=2048, d_ff=768,
+           calls={"decode": 8, "prefill": 256})
+MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
 def fail(msg: str) -> None:
@@ -92,6 +110,25 @@ def time_ms(fn, inputs, iters=40, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, args, kernel: str, iters=20) -> float:
+    """The device time of one launch of `kernel` (a substring of its
+    symbol) in fn(*args), from the profiler: without the host's share,
+    which time_ms's events include whenever the wrapper's Python and
+    launch take longer than the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    fn(*args)
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key
+               ) / 1e3 / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -351,6 +388,83 @@ def check_flash_prefix(ops, ref, dtype, gen):
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def gmm_case(gen, tokens, M, N, dtype):
+    """Group sizes drawn as the router makes them -- each token picks K
+    distinct experts uniformly, each expert keeps at most the capacity --
+    and x (tokens * K rows, the dropped choices past the kept ones), w."""
+    from repro_torch.models.moe import capacity
+    E, K = GMM["E"], GMM["K"]
+    C = capacity(tokens, E, K, 1.25)
+    picks = torch.rand(tokens, E, generator=gen, device="cuda").argsort(
+        -1)[:, :K]
+    gs = torch.bincount(picks.flatten(), minlength=E).clamp(max=C)
+    x = torch.randn(tokens * K, M, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(E, M, N, generator=gen, device="cuda")
+         / M ** 0.5).to(dtype)
+    return x, w, gs.to(torch.int32), C
+
+
+def check_gmm(ops, ref, dtype, gen):
+    """Kernel 6 at the MoE path's four shapes (decode and prefill, gate/up
+    and down).  The reported numbers are the decode gate/up call's (2 of
+    the 3 calls of each layer and decode tick, the most frequent); every
+    shape's are printed and kept under "by_shape".  One weight tensor is
+    over 50 MB (128 experts), so the weights read cold from HBM without
+    rotating input sets.  The error is held against the tolerance times
+    the largest |output| (at least 1): the kernel and the plain version
+    round the same fp32 sums, taken in another order, so one bfloat16 step
+    of an output may differ."""
+    E, dm, dff = GMM["E"], GMM["d_model"], GMM["d_ff"]
+    shapes = {}
+    for phase, tokens in GMM["calls"].items():
+        for orient, (M, N) in (("gate_up", (dm, dff)), ("down", (dff, dm))):
+            x, w, gs, C = gmm_case(gen, tokens, M, N, dtype)
+            args = (x, w, gs)
+            out = ops.gmm(*args)
+            want = ref.gmm_ref(*args)
+            err = (out.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            kept = int(gs.sum())
+            s = x.element_size()
+            nbytes = (kept * M * s + int((gs > 0).sum()) * M * N * s
+                      + x.shape[0] * N * s + E * 4)
+            b_ms, b_by = bound(nbytes, 2 * kept * M * N, dtype)
+            # the JAX block's own formulation: the (E, C, M) capacity buffer
+            # times every expert's weights
+            buf = torch.zeros(E, C, M, dtype=dtype, device="cuda")
+            starts = torch.cumsum(gs, 0).tolist()
+            for e, (a, b) in enumerate(zip([0] + starts[:-1], starts)):
+                buf[e, :b - a] = x[a:b]
+            shapes[f"{phase}_{orient}"] = dict(
+                rows=x.shape[0], M=M, N=N, kept=kept, capacity=C,
+                nonempty_experts=int((gs > 0).sum()),
+                max_abs_err=err, tolerance_scale=scale,
+                ms=time_ms(ops.gmm, [args]),
+                device_ms=device_ms(ops.gmm, args, "gmm_kernel"),
+                plain_ms=time_ms(ref.gmm_ref, [args]),
+                library_ms=time_ms(torch.bmm, [(buf, w)]),
+                bound_ms=b_ms, bound_by=b_by)
+            del x, w, buf
+    for k, r in shapes.items():
+        print(f"  gmm {str(dtype)[6:]} {k}: rows {r['rows']} ({r['kept']} "
+              f"kept, capacity {r['capacity']}, {r['nonempty_experts']} "
+              f"experts) M {r['M']} N {r['N']}: max_abs_err "
+              f"{r['max_abs_err']} ms {r['ms']:.4f} (device_ms "
+              f"{r['device_ms']:.4f}) plain_ms "
+              f"{r['plain_ms']:.4f} library_ms (bmm over the capacity "
+              f"buffer) {r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+              f"({r['bound_by']})", flush=True)
+    top = shapes["decode_gate_up"]
+    worst = max(shapes.values(),
+                key=lambda r: r["max_abs_err"] / r["tolerance_scale"])
+    return dict(max_abs_err=worst["max_abs_err"],
+                tolerance_scale=worst["tolerance_scale"],
+                ms=top["ms"], device_ms=top["device_ms"],
+                plain_ms=top["plain_ms"],
+                library_ms=top["library_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], by_shape=shapes)
+
+
 # name, TPU kernel it replaces, check, the dtype the SQL path gives it
 # (bfloat16 q/k/v and caches, the compute dtype; float32 logits, which the
 # engine casts before sampling), source, and the SQL path that ported it.
@@ -374,6 +488,8 @@ KERNELS = [
     # layers.prefix_suffix_attention, is plain jnp)
     ("flash_attention_prefix", "src/repro/kernels/flash_attention.py:89",
      check_flash_prefix, torch.bfloat16, "flash_attention.cu", "paged"),
+    ("gmm", "src/repro/kernels/moe_gmm.py:38", check_gmm, torch.bfloat16,
+     "gmm.cu", "moe"),
 ]
 
 
@@ -481,6 +597,51 @@ def check_paged_forward_full_width(C, init_params, ref):
     for k, v in errs.items():
         if not v < tol:
             fail(f"paged full-width forward: {k} disagree")
+    del params
+
+
+def check_moe_forward_full_width(C, MDL, init_params, ref):
+    """qwen3-moe-30b-a3b at full width and 4 of its 48 layers in float32
+    (full depth would need ~120 GB): the logits of a left-padded prefill in
+    the 256-token bucket (its pad rows are routed and take capacity) and
+    three decode steps, once through the kernels and once through the plain
+    attention and grouped matmul, from the same weights."""
+    cfg = C.get_config(MOE_ARCH).replace(compute_dtype="float32",
+                                         num_layers=4)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
+    S, n = 256, PRE["prompt"]
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    pos = (torch.arange(S, device="cuda", dtype=torch.int32) - (S - n))[None]
+    pos[pos < 0] = -1
+    toks[pos < 0] = 0                   # the engine's pad token
+    nxt = torch.randint(0, cfg.vocab_size, (3, 1, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    runs = []
+    for fns in ({}, {"attn_fn": ref.flash_attention_ref,
+                     "decode_attn_fn": ref.decode_attention_ref,
+                     "gmm_fn": ref.gmm_ref}):
+        cache = MDL.init_cache(cfg, 1, 512, device="cuda")
+        lg, cache = MDL.forward(cfg, params, {"tokens": toks, "positions": pos},
+                                mode="prefill", cache=cache, last_only=True,
+                                **fns)
+        out = [lg[:, -1]]
+        for i in range(3):
+            p = torch.full((1, 1), n + i, device="cuda", dtype=torch.int32)
+            lg, cache = MDL.forward(cfg, params, {"tokens": nxt[i],
+                                                  "positions": p},
+                                    mode="decode", cache=cache, **fns)
+            out.append(lg[:, 0])
+        runs.append(torch.cat(out))
+    err = (runs[0] - runs[1]).abs().max().item()
+    tol = 1e-3
+    print(f"full-width forward ({MOE_ARCH}, 4 of 48 layers, float32, prefill "
+          f"{n}/{S} + 3 decode steps): logits through the kernels vs the "
+          f"plain attention and grouped matmul max_abs_err={err} (tolerance "
+          f"{tol}; logit std {runs[1].std().item()})", flush=True)
+    if not err < tol:
+        fail("MoE full-width forward disagrees with the plain versions")
     del params
 
 
@@ -621,7 +782,8 @@ def main() -> int:
     for kname, replaces, check, path_dtype, src, path in KERNELS:
         for dtype in (torch.bfloat16, torch.float32):
             r = check(ops, ref, dtype, gen)
-            tol = 0.0 if kname == "constrained_sample" else TOL[dtype]
+            tol = 0.0 if kname == "constrained_sample" else \
+                TOL[dtype] * r.get("tolerance_scale", 1.0)
             ok = r["max_abs_err"] <= tol
             print(f"kernel {kname} {str(dtype)[6:]}: max_abs_err "
                   f"{r['max_abs_err']} (tolerance {tol}) ms {r['ms']:.4f} "
@@ -640,6 +802,8 @@ def main() -> int:
     check_forward_full_width(C, MDL, init_params, ref)
     torch.cuda.empty_cache()
     check_paged_forward_full_width(C, init_params, ref)
+    torch.cuda.empty_cache()
+    check_moe_forward_full_width(C, MDL, init_params, ref)
     torch.cuda.empty_cache()
 
     cfg = C.get_config("olmo-1b")
@@ -709,14 +873,54 @@ def main() -> int:
     print(f"peak device memory during the profiled query: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    # the MoE family at full width and depth: free the olmo sessions first
+    del dense, paged, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = C.get_config(MOE_ARCH)
+    t0 = time.time()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in [*params["layers"].values(),
+                           *(v for k, v in params.items() if k != "layers")])
+    print(f"engine: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+          f"vocab {cfg.vocab_size} heads {cfg.num_heads}x{cfg.head_dim} on "
+          f"{cfg.num_kv_heads} kv heads, {cfg.num_experts} experts top-"
+          f"{cfg.top_k} d_ff {cfg.d_ff}, {cfg.compute_dtype}: "
+          f"{nbytes / 1e9:.2f} GB of weights built in {time.time() - t0:.1f} s",
+          flush=True)
+    moe = sql_session(cfg, params, f"{smi}, {MOE_ARCH}")
+    moe_paged = sql_session(cfg, params, f"{smi}, {MOE_ARCH}, kv_quant none",
+                            kv_layout="paged", page_size=PAGED["ps"])
+
+    def moe_runs():
+        out = {"Items": moe("Items", "moe batcher", 16),
+               "One": moe("One", "moe generate", 1),
+               "paged": moe_paged("Items", "moe paged batcher", 16)}
+        if out["paged"]["radix_hit_tokens"] <= 0:
+            fail("moe paged Items: no radix hit")
+        return out
+    count("moe", moe_runs,
+          ("gmm", "flash_attention", "decode_attention",
+           "decode_attention_paged", "flash_attention_prefix",
+           "constrained_sample"))
+    torch.cuda.reset_peak_memory_stats()
+    profile(lambda: moe("More", "moe batcher over More (warm)", 16)["wall_s"])
+    print(f"peak device memory during the profiled query: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (weights "
+          f"{nbytes / 2**30:.2f} GiB)", flush=True)
+
     for r in report.values():
         r["launches"] = r["launches_by_path"][r["path"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print("kernels: " + ", ".join(report), flush=True)
-    print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
-                                  for n in report]}), flush=True)
+    print(json.dumps({"kernels": [
+        {k: report[n][k] for k in keys + ("device_ms", "by_shape")
+         if k in report[n]}
+        for n in report]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,10 @@
 // Replaces: repro/kernels/decode_attention.py::decode_attention_pallas (the
 // TPU kernel behind ops.decode_attention).  Same function: for each (row b,
 // query head h) the softmax over cache slots with 0 <= spos <= qpos, scale
-// 1/sqrt(D), fp32 accumulation.  Plain version: kernels/ref.py
-// decode_attention_ref.
+// 1/sqrt(D), fp32 accumulation.  Masked slots score -1e30, as the
+// reference's, so a row with no valid slot is the mean of V over all L (the
+// engine never builds one: a decode step writes its own slot first).  Plain
+// version: kernels/ref.py decode_attention_ref.
 //
 // Bound on the H100: bytes.  Each call reads the whole K and V cache of the
 // layer (B * L * KV * D elements each) for 4 * B * H * L * D flops, about one
@@ -35,6 +37,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTileL = 64;
+constexpr float kMasked = -1e30f;  // the reference's masked score
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -64,7 +67,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc[i] = 0.f;
   }
   for (int g = tid; g < G; g += kThreads) {
-    m[g] = -INFINITY;
+    m[g] = kMasked;
     l[g] = 0.f;
   }
   const int qp = qpos[b];
@@ -82,11 +85,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sp[r] = r < n ? spos[(size_t)b * L + l0 + r] : -1;
     __syncthreads();
 
-    // scores of every (head, slot) pair of the tile; invalid slots -> -inf
+    // scores of every (head, slot) pair of the tile; invalid slots ->
+    // kMasked, slots past the cache -> -inf
     for (int i = tid; i < G * kTileL; i += kThreads) {
       const int g = i / kTileL, r = i - g * kTileL;
       const int p = sp[r];
-      float s = -INFINITY;
+      float s = r < n ? kMasked : -INFINITY;
       if (p >= 0 && p <= qp) {
         const T* kr = reinterpret_cast<const T*>(ks + r * stride_w);
         const float* qg = qs + g * D;
@@ -98,7 +102,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // online softmax: one warp per head
+    // online softmax: one warp per head (m starts at kMasked: finite)
     for (int g = warp; g < G; g += kThreads / 32) {
       float* row = sc + g * kTileL;
       float mx = -INFINITY;
@@ -107,18 +111,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float m_old = m[g];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
-      if (m_new == -INFINITY) {  // nothing valid yet: leave the state alone
-        for (int r = lane; r < kTileL; r += 32) row[r] = 0.f;
-      } else {
-        for (int r = lane; r < kTileL; r += 32) {
-          const float e = expf(row[r] - m_new);
-          row[r] = e;
-          sum += e;
-        }
+      for (int r = lane; r < kTileL; r += 32) {
+        const float e = expf(row[r] - m_new);
+        row[r] = e;
+        sum += e;
       }
       sum = repro::warp_sum(sum);
       if (lane == 0) {
-        const float c = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
+        const float c = expf(m_old - m_new);
         m[g] = m_new;
         l[g] = l[g] * c + sum;
         corr[g] = c;
@@ -139,8 +139,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < G * D; i += kThreads) {
     const float lg = l[i / D];
-    out[((size_t)b * H + (size_t)kv * G) * D + i] =
-        repro::from_f<T>(lg > 0.f ? acc[i] / lg : 0.f);
+    out[((size_t)b * H + (size_t)kv * G) * D + i] = repro::from_f<T>(acc[i] / lg);
   }
 }
 

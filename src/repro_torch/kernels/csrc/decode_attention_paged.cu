@@ -17,8 +17,12 @@
 // accumulation, output in the query dtype.  A -1 entry below the row's fill
 // is skipped, as the jnp function masks it (the Pallas wrapper instead
 // repeats the row's last page there; the engine never builds such tables).
-// Plain version: kernels/ref.py decode_attention_paged_ref (its `quant`
-// argument for the int8 variant).
+// A row with no valid token (an idle batcher slot, whose table row is all -1)
+// is the mean of V over all NB * ps slots of its table, -1 entries read as
+// page 0: the jnp function's uniform softmax over its masked scores, which
+// the MoE family routes (the row takes expert capacity).  Plain version:
+// kernels/ref.py decode_attention_paged_ref (its `quant` argument for the
+// int8 variant).
 //
 // Bound on the H100: bytes.  A call needs the valid tokens' K and V of the
 // rows' pages (at 1 byte per element for a frozen int8 page, plus its two
@@ -92,7 +96,39 @@ __device__ __forceinline__ void paged_decode_body(const PagedArgs& a) {
   }
   const int qp = a.qpos[b];
   const int nblk = qp < 0 ? 0 : min(a.NB, qp / ps + 1);
+  bool empty = true;  // no valid token: the same answer in every thread
+  for (int j = 0; j < nblk && empty; ++j) {
+    const int page = a.table[(size_t)b * a.NB + j];
+    empty = page < 0 || page >= a.P;
+  }
   __syncthreads();
+
+  if (empty) {
+    // the mean of V over every slot of the table, pages clamped to the pool
+    for (int j = 0; j < a.NB; ++j) {
+      const int page = min(max(a.table[(size_t)b * a.NB + j], 0), a.P - 1);
+      const size_t sidx = (size_t)kv * a.P + page;
+      if (QUANT && a.flags[page] > 0)
+        load_rows_i8<T>(vs, a.vq + sidx * ps * D, ps, D, a.vscale[sidx]);
+      else
+        load_rows(vs, static_cast<const uint32_t*>(a.v) + sidx * ps * row_words, ps,
+                  row_words, row_words);
+      __syncthreads();
+      for (int i = tid; i < G * D; i += kThreads) {
+        const int d = i % D;
+        float s = acc[i];
+        for (int r = 0; r < ps; ++r)
+          s += to_f(reinterpret_cast<const T*>(vs + r * stride_w)[d]);
+        acc[i] = s;
+      }
+      __syncthreads();
+    }
+    T* out = static_cast<T*>(a.out);
+    const float n = (float)a.NB * ps;
+    for (int i = tid; i < G * D; i += kThreads)
+      out[((size_t)b * a.H + (size_t)kv * G) * D + i] = from_f<T>(acc[i] / n);
+    return;
+  }
 
   for (int j = 0; j < nblk; ++j) {
     const int page = a.table[(size_t)b * a.NB + j];

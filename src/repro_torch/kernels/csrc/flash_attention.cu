@@ -23,9 +23,16 @@
 // (conflict-free column reads).  The TPU kernel's tile skip is kept: a kv
 // tile with no valid (query, key) pair for this query tile -- wholly past the
 // causal frontier, outside the window, or all padding -- is not loaded or
-// computed.  Pad query rows (position -1, from left padding) have no valid
-// key; their output is written as 0 (finite) and never read.  Inputs are
-// read in their natural (B, S, H|KV, D) layout, with no lane padding of D.
+// computed, unless the query tile holds a row with no visible key at all (a
+// left-pad row, position -1).  Such a row gets what the JAX package's SQL path
+// gives it: the sum of V over every key divided by `empty_div` (the wrapper
+// passes Skv rounded up to the 1024-key blocks of the blockwise
+// layers.flash_attention, whose zero-padded keys weigh the same as the
+// rest).  The dense family never reads it, but the MoE family routes it and
+// it takes expert capacity.  Masked scores are -1e30, as the reference's, so
+// such a row weighs every key alike, and a tile holding one walks every kv
+// tile.  Inputs are read in their natural (B, S, H|KV, D) layout, with no
+// lane padding of D.
 //
 // Shared-prefix variant (flash_attention_prefix_kernel, entry
 // repro_flash_attention_prefix): the paged layout's prefill,
@@ -37,10 +44,13 @@
 // the whole batch, never replicated per row).  The first prefix_len prefix
 // tokens are visible to every non-pad query.  Prefix and suffix tiles feed
 // one online softmax, so the result is the single softmax over [prefix ++
-// suffix] of the reference.  A frozen int8 page is dequantized on its copy
-// into shared memory (load_rows_i8, common.cuh), as the paged decode kernel
-// does.  Bound: the same as kernel 1 plus the prefix pages' K/V, read once
-// per (query tile, head) block but needed once.
+// suffix] of the reference; a pad row is the mean of V over every prefix slot
+// of the table (npre * ps, read page by page) and every suffix key, as the
+// reference's uniform softmax over its masked scores gives it.  A frozen int8
+// page is dequantized on its copy into shared memory (load_rows_i8,
+// common.cuh), as the paged decode kernel does.  Bound: the same as kernel 1
+// plus the prefix pages' K/V, read once per (query tile, head) block but
+// needed once.
 
 #include <limits.h>
 #include <math.h>
@@ -54,6 +64,9 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kBQ = 32;  // query rows per block
 constexpr int kBK = 32;  // keys per kv tile (one per lane in the softmax step)
+// the reference's masked score: finite, so a row with no visible key weighs
+// every key alike, and exp(kMasked - m) == 0 beside any real score m
+constexpr float kMasked = -1e30f;
 
 __device__ __forceinline__ bool visible(int qp, int kp, bool causal, int window,
                                         int prefix_len) {
@@ -75,6 +88,7 @@ struct FlashArgs {
   int Sq, Skv, H, KV, D;
   float scale;
   int causal, window, prefix_len;
+  int empty_div;          // divisor of a row with no visible key (sum of V)
   // the shared prefix of flash_attention_prefix, read in place from a page
   // pool: ptab (npre,) page ids of (KV, P, ps, D) pools, plen valid tokens,
   // frozen pages (flags > 0) from the int8 shadows kq/vq x kscale/vscale
@@ -91,7 +105,8 @@ struct FlashArgs {
 
 // Scores of the kBQ query rows against the n keys staged in ks/vs, the fp32
 // online-softmax update and the accumulation of V: one kv tile.  visible(r,
-// j) says whether query row r may see key j of the tile.
+// j) says whether query row r may see key j of the tile; a key it may not see
+// scores kMasked.
 template <typename T, typename Visible>
 __device__ __forceinline__ void attend_tile(const uint32_t* ks, const uint32_t* vs,
                                             const float* qs, float* acc, float* sc,
@@ -100,28 +115,32 @@ __device__ __forceinline__ void attend_tile(const uint32_t* ks, const uint32_t* 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   for (int i = tid; i < kBQ * kBK; i += kThreads) {
     const int r = i / kBK, j = i - r * kBK;
-    float s = -INFINITY;
-    if (j < n && visible(r, j)) {
-      const T* kr = reinterpret_cast<const T*>(ks + j * stride_w);
-      const float* qr = qs + r * D;
-      float a = 0.f;
-      for (int d = 0; d < D; ++d) a = fmaf(qr[d], to_f(kr[d]), a);
-      s = a;
+    float s = -INFINITY;  // past the tile's keys: weighs nothing
+    if (j < n) {
+      s = kMasked;
+      if (visible(r, j)) {
+        const T* kr = reinterpret_cast<const T*>(ks + j * stride_w);
+        const float* qr = qs + r * D;
+        float a = 0.f;
+        for (int d = 0; d < D; ++d) a = fmaf(qr[d], to_f(kr[d]), a);
+        s = a;
+      }
     }
     sc[i] = s;
   }
   __syncthreads();
 
-  // online softmax: one warp per query row, one key per lane
+  // online softmax: one warp per query row, one key per lane (m starts at
+  // kMasked, so m_new is finite)
   for (int r = warp; r < kBQ; r += kThreads / 32) {
     const float s = sc[r * kBK + lane];
     const float m_old = m[r];
     const float m_new = fmaxf(m_old, repro::warp_max(s));
-    const float e = m_new == -INFINITY ? 0.f : expf(s - m_new);
+    const float e = expf(s - m_new);
     sc[r * kBK + lane] = e;
     const float sum = repro::warp_sum(e);
     if (lane == 0) {
-      const float c = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
+      const float c = expf(m_old - m_new);
       m[r] = m_new;
       l[r] = l[r] * c + sum;
       corr[r] = c;
@@ -161,7 +180,8 @@ __device__ __forceinline__ void flash_body(const FlashArgs& a) {
   float* corr = l + kBQ;                                 // kBQ
   int* qp = reinterpret_cast<int*>(corr + kBQ);          // kBQ
   int* kp = qp + kBQ;                                    // kBK
-  int* flags = kp + kBK;                                 // qmin, qmax, live
+  int* emp = kp + kBK;                                   // kBQ: no visible key
+  int* flags = emp + kBQ;                                // qmin, qmax, live, any emp
 
   const T* q = static_cast<const T*>(a.q);
   const int q0 = qt * kBQ;
@@ -175,7 +195,7 @@ __device__ __forceinline__ void flash_body(const FlashArgs& a) {
     const int row = q0 + lane;
     const int p = row < Sq ? a.qpos[(size_t)b * Sq + row] : -1;
     qp[lane] = p;
-    m[lane] = -INFINITY;
+    m[lane] = kMasked;
     l[lane] = 0.f;
     int mn = p, mx = p;
     for (int o = 16; o > 0; o >>= 1) {
@@ -190,14 +210,37 @@ __device__ __forceinline__ void flash_body(const FlashArgs& a) {
   __syncthreads();
   const int qmin = flags[0], qmax = flags[1];
 
-  if (PREFIX && qmax >= 0) {
+  // the rows that see no key at all: a non-pad row sees the prefix, if any;
+  // otherwise look for one visible key (a warp per row, a key per lane)
+  for (int r = warp; r < kBQ; r += kThreads / 32) {
+    const int p = qp[r];
+    bool seen = q0 + r >= Sq || (PREFIX && p >= 0 && a.plen > 0);
+    for (int j0 = 0; j0 < Skv && !seen; j0 += 32) {
+      const int j = j0 + lane;
+      seen = __any_sync(0xffffffffu,
+                        j < Skv && visible(p, a.kpos[(size_t)b * Skv + j], causal,
+                                           window, prefix_len));
+    }
+    if (lane == 0) emp[r] = !seen;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int any = __any_sync(0xffffffffu, emp[lane] != 0);
+    if (lane == 0) flags[3] = any;
+  }
+  __syncthreads();
+  const bool any_empty = flags[3];
+
+  if (PREFIX && (qmax >= 0 || any_empty)) {
     // the shared prefix, page by page, in tiles of at most kBK tokens that
-    // never cross a page: every prefix token is visible to every non-pad
-    // query (positions precede the suffix's), pad rows see none
-    const int ps = a.ps;
-    for (int i = 0; i < a.npre && i * ps < a.plen; ++i) {
+    // never cross a page: the first plen prefix tokens are visible to every
+    // non-pad query (positions precede the suffix's), pad rows see none.  A
+    // query tile with a pad row reads every slot of the table's pages (the
+    // pad row's mean takes them all); otherwise only the first plen.
+    const int ps = a.ps, plen = a.plen;
+    for (int i = 0; i < a.npre && (any_empty || i * ps < plen); ++i) {
       const int page = min(max(a.ptab[i], 0), a.P - 1);
-      const int rows = min(ps, a.plen - i * ps);
+      const int rows = any_empty ? ps : min(ps, plen - i * ps);
       const size_t sidx = (size_t)kv * a.P + page;
       const bool frozen = QUANT && a.flags[page] > 0;
       for (int s0 = 0; s0 < rows; s0 += kBK) {
@@ -213,8 +256,9 @@ __device__ __forceinline__ void flash_body(const FlashArgs& a) {
                     row_words, row_words);
         }
         __syncthreads();
+        const int t0 = i * ps + s0;  // prefix token of the tile's key 0
         attend_tile<T>(ks, vs, qs, acc, sc, m, l, corr, n, D, stride_w,
-                       [&](int r, int) { return qp[r] >= 0; });
+                       [&](int r, int j) { return qp[r] >= 0 && t0 + j < plen; });
       }
     }
   }
@@ -244,7 +288,7 @@ __device__ __forceinline__ void flash_body(const FlashArgs& a) {
       if (lane == 0) flags[2] = live;
     }
     __syncthreads();
-    const bool live = flags[2];
+    const bool live = flags[2] || any_empty;
     if (!live) {
       __syncthreads();  // everyone has read flags[2] before warp 0 rewrites it
       continue;
@@ -263,9 +307,8 @@ __device__ __forceinline__ void flash_body(const FlashArgs& a) {
     const int r = i / D, d = i - r * D;
     const int row = q0 + r;
     if (row < Sq) {
-      const float lr = l[r];
-      out[(((size_t)b * Sq + row) * H + h) * D + d] =
-          from_f<T>(lr > 0.f ? acc[i] / lr : 0.f);
+      const float div = emp[r] ? (float)a.empty_div : l[r];
+      out[(((size_t)b * Sq + row) * H + h) * D + d] = from_f<T>(acc[i] / div);
     }
   }
 }
@@ -285,7 +328,7 @@ size_t smem_bytes(int D) {
   const int stride_w = D * (int)sizeof(T) / 4 + 1;
   return sizeof(uint32_t) * 2 * kBK * stride_w +
          sizeof(float) * (2 * kBQ * D + kBQ * kBK + 3 * kBQ) +
-         sizeof(int) * (kBQ + kBK + 3);
+         sizeof(int) * (2 * kBQ + kBK + 4);
 }
 
 template <typename K>
@@ -300,19 +343,21 @@ int launch(K kernel, const FlashArgs& a, int B, size_t smem, cudaStream_t stream
 }  // namespace
 
 // q (B, Sq, H, D); k, v (B, Skv, KV, D); qpos (B, Sq) int32; kpos (B, Skv)
-// int32; out (B, Sq, H, D).  All contiguous, q/k/v/out of one dtype.  Returns
+// int32; out (B, Sq, H, D).  All contiguous, q/k/v/out of one dtype.  A row
+// with no visible key is the sum of V over the Skv keys / empty_div.  Returns
 // the CUDA error code of the launch (0 on success).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, const void* qpos,
                                      const void* kpos, void* out, int B, int Sq,
                                      int Skv, int H, int KV, int D, float scale,
                                      int causal, int window, int prefix_len,
-                                     void* stream) {
+                                     int empty_div, void* stream) {
   FlashArgs a{};
   a.q = q, a.k = k, a.v = v, a.out = out;
   a.qpos = static_cast<const int*>(qpos), a.kpos = static_cast<const int*>(kpos);
   a.Sq = Sq, a.Skv = Skv, a.H = H, a.KV = KV, a.D = D, a.scale = scale;
   a.causal = causal, a.window = window, a.prefix_len = prefix_len;
+  a.empty_div = empty_div;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
@@ -344,6 +389,7 @@ extern "C" int repro_flash_attention_prefix(
   a.qpos = static_cast<const int*>(pos), a.kpos = static_cast<const int*>(pos);
   a.Sq = S, a.Skv = S, a.H = H, a.KV = KV, a.D = D, a.scale = scale;
   a.causal = 1, a.window = 0, a.prefix_len = 0;
+  a.empty_div = npre * ps + S;  // a pad row: the mean over every slot
   a.kpool = kpool, a.vpool = vpool;
   a.kq = static_cast<const int8_t*>(kq), a.vq = static_cast<const int8_t*>(vq);
   a.kscale = static_cast<const float*>(kscale);

@@ -2,7 +2,8 @@
 
 Each wrapper takes the JAX package's natural shapes (``repro/kernels/ops.py``
 signatures): q ``(B, S, H, D)``, caches ``(B, L, KV, D)``, page pools
-``(KV, P, ps, D)`` (without the TPU's lane pad of D).  For tensors on the
+``(KV, P, ps, D)`` (without the TPU's lane pad of D), the grouped matmul's
+``(T, M) x (E, M, N)``.  For tensors on the
 CPU it runs the kernel's plain PyTorch version (``kernels/ref.py``); for
 CUDA tensors it launches the hand-written kernel (``kernels/csrc/*.cu``) or
 raises — there is no fallback.  Each wrapper counts its kernel launches in a
@@ -38,7 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _I, _I, _P]),
+                         _F, _I, _I, _I, _I, _P]),
     "flash_attention_prefix": (
         "flash_attention.cu", "repro_flash_attention_prefix",
         [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -55,6 +56,7 @@ KERNELS = {
          _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "constrained_sample": ("constrained_sample.cu", "repro_constrained_sample",
                            [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
+    "gmm": ("gmm.cu", "repro_gmm", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: a layer's int8 page tensors, in the order the kernels take them
@@ -161,13 +163,16 @@ def _check_attention_inputs(name, q, k, v, *ints):
 
 # ------------------------------ flash attention -------------------------------
 def flash_attention(q, k, v, q_positions, kv_positions, *, causal=True,
-                    window=0, prefix_len=0):
+                    window=0, prefix_len=0, kv_block=ref.FLASH_KV_BLOCK):
     """Prefill attention.  q (B, Sq, H, D); k, v (B, Skv, KV, D); positions
-    (B, S) int32, -1 = padding.  Returns (B, Sq, H, D) in q.dtype."""
+    (B, S) int32, -1 = padding.  A row with no visible key is the sum of V
+    over the Skv keys divided by Skv rounded up to `kv_block` (see
+    ref.flash_attention_ref).  Returns (B, Sq, H, D) in q.dtype."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, q_positions, kv_positions,
                                        causal=causal, window=window,
-                                       prefix_len=prefix_len)
+                                       prefix_len=prefix_len,
+                                       kv_block=kv_block)
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     _check_attention_inputs("flash_attention", q, k, v, q_positions,
@@ -181,7 +186,7 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal=True,
         _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions),
         _ptr(kv_positions), _ptr(out), B, Sq, Skv, H, KV, D,
         1.0 / math.sqrt(D), int(causal), int(window), int(prefix_len),
-        _stream())
+        ref.empty_row_divisor(Skv, kv_block), _stream())
     _check("flash_attention", err)
     flash_attention.launches += 1
     return out
@@ -309,7 +314,8 @@ def flash_attention_prefix(q, k, v, positions, k_pool, v_pool, prefix_table,
     pad), plus a shared prefix read in place from pool pages prefix_table
     (npre,) int32, of which the first prefix_len tokens are visible to every
     non-pad query.  quant as in decode_attention_paged_quant.  Returns
-    (B, S, H, D) in q.dtype; pad rows are 0 (never read)."""
+    (B, S, H, D) in q.dtype; a pad row is the mean of V over the table's
+    npre * ps prefix slots and the S suffix keys, as in the reference."""
     if not q.is_cuda:
         return ref.flash_attention_prefix_ref(q, k, v, positions, k_pool,
                                               v_pool, prefix_table,
@@ -375,13 +381,49 @@ def constrained_sample(logits, mask, noise=None, *, temperature=1.0):
 
 constrained_sample.launches = 0
 
+
+# ------------------------------- grouped matmul -------------------------------
+def gmm(x, w, group_sizes):
+    """The MoE expert products: x (T, M) rows sorted by expert, w (E, M, N),
+    group_sizes (E,) int32 with sum <= T (read on the device: no host
+    sync).  Rows [start_e, start_e + gs_e) of x times w[e], accumulated in
+    fp32; rows past the sum are 0.  Returns (T, N) in x.dtype."""
+    if not x.is_cuda:
+        return ref.gmm_ref(x, w, group_sizes)
+    T, M = x.shape
+    _require(w.dim() == 3 and w.shape[1] == M,
+             "gmm: w must be (E, M, N) with M = x.shape[1]")
+    E, _, N = w.shape
+    for t in (x, w):
+        _require(t.is_cuda and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 "gmm: x and w must be contiguous, 16-byte aligned CUDA "
+                 "tensors")
+    _require(x.dtype in _DTYPES and w.dtype == x.dtype,
+             f"gmm: x and w must share one of {list(_DTYPES)}")
+    _require(group_sizes.is_cuda and group_sizes.dtype == torch.int32
+             and group_sizes.is_contiguous()
+             and tuple(group_sizes.shape) == (E,),
+             "gmm: group_sizes must be a contiguous (E,) int32 CUDA tensor")
+    _require(M % 8 == 0 and N % 8 == 0 and 1 <= E <= 1024,
+             "gmm: M and N must be multiples of 8, E in [1, 1024]")
+    out = torch.empty(T, N, dtype=x.dtype, device=x.device)
+    err = _fn("gmm")(_DTYPES[x.dtype], _ptr(x), _ptr(w), _ptr(group_sizes),
+                     _ptr(out), T, M, N, E, _stream())
+    _check("gmm", err)
+    gmm.launches += 1
+    return out
+
+
+gmm.launches = 0
+
 #: every kernel wrapper of the SQL path, by kernel name
 WRAPPERS = {"flash_attention": flash_attention,
             "flash_attention_prefix": flash_attention_prefix,
             "decode_attention": decode_attention,
             "decode_attention_paged": decode_attention_paged,
             "decode_attention_paged_quant": decode_attention_paged_quant,
-            "constrained_sample": constrained_sample}
+            "constrained_sample": constrained_sample,
+            "gmm": gmm}
 
 
 def reset_launches() -> None:

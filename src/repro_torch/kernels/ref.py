@@ -2,7 +2,8 @@
 
 They mirror ``repro/kernels/ref.py`` (``flash_attention_ref``,
 ``decode_attention_ref``, ``decode_attention_paged_ref``,
-``decode_attention_paged_quant_ref``, ``constrained_sample_ref``) and
+``decode_attention_paged_quant_ref``, ``constrained_sample_ref``,
+``gmm_ref``) and
 ``repro/models/layers.py::prefix_suffix_attention`` (``quant`` makes
 ``decode_attention_paged_ref`` the plain version of the int8-page kernel),
 but take the natural
@@ -45,13 +46,31 @@ def attention_mask(q_positions, kv_positions, *, causal=True, window=0,
     return ok
 
 
+#: the kv block of the JAX package's blockwise ``layers.flash_attention``,
+#: which the SQL path's prefill runs (see flash_attention_ref)
+FLASH_KV_BLOCK = 1024
+
+
+def empty_row_divisor(skv: int, kv_block: int) -> int:
+    """Skv rounded up to a multiple of kv_block (flash_attention_ref)."""
+    return -(-skv // kv_block) * kv_block
+
+
 def flash_attention_ref(q, k, v, q_positions, kv_positions, *, causal=True,
-                        window=0, prefix_len=0):
+                        window=0, prefix_len=0, kv_block=FLASH_KV_BLOCK):
     """q (B, Sq, H, D); k, v (B, Skv, KV, D); GQA via H = KV·G; positions
     (B, S) int.  fp32 softmax over the masked scores.  Returns
-    (B, Sq, H, D) in q.dtype."""
+    (B, Sq, H, D) in q.dtype.
+
+    A query row with no visible key (a left-pad row, position -1) is the
+    sum of V over the Skv keys divided by Skv rounded up to `kv_block`:
+    what the blockwise ``layers.flash_attention`` of the JAX package gives
+    it, where every key of its zero-padded kv blocks weighs the same.
+    kv_block=1 gives the mean of V, as ``layers.prefix_suffix_attention``
+    without a prefix does.  Pad rows are never read by the dense family,
+    but the MoE family routes them: they take expert capacity."""
     B, Sq, H, D = q.shape
-    KV = k.shape[2]
+    Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     qf = q.float().reshape(B, Sq, KV, G, D)
     s = torch.einsum("bqkgd,bjkd->bkgqj", qf, k.float()) / math.sqrt(D)
@@ -60,6 +79,9 @@ def flash_attention_ref(q, k, v, q_positions, kv_positions, *, causal=True,
     s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqj,bjkd->bqkgd", p, v.float())
+    empty_v = v.float().sum(1) / empty_row_divisor(Skv, kv_block)  # (B,KV,D)
+    o = torch.where((~ok.any(-1))[:, :, None, None, None],
+                    empty_v[:, None, :, None, :], o)
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
@@ -94,6 +116,23 @@ def constrained_sample_ref(logits, mask, noise=None, *, temperature=1.0):
         x = x.double() + noise.double()
     x = torch.where(mask != 0, x, torch.full_like(x, NEG_INF))
     return torch.argmax(x, dim=-1).to(torch.int32)
+
+
+def gmm_ref(x, w, group_sizes):
+    """Grouped matmul: x (T, M) rows sorted by expert, w (E, M, N),
+    group_sizes (E,) int with sum <= T: rows [start_e, start_e + gs_e) of
+    x times w[e], accumulated in fp32 and rounded to x.dtype; rows past the
+    sum are 0.  A loop over the non-empty groups (their bounds read on the
+    host).  Returns (T, N)."""
+    T, N = x.shape[0], w.shape[2]
+    out = torch.zeros(T, N, dtype=x.dtype, device=x.device)
+    ends = torch.cumsum(group_sizes.long(), 0).tolist()
+    start = 0
+    for e, end in enumerate(ends):
+        if end > start:
+            out[start:end] = (x[start:end].float() @ w[e].float()).to(x.dtype)
+        start = end
+    return out
 
 
 def gather_pages(pool, pages, quant_q=None, quant_scale=None, flags=None):

@@ -1,11 +1,13 @@
 """Shared neural-net layers (forward only): norms, RoPE, attention, MLPs.
 
 Port of ``repro/models/layers.py``.  ``flash_attention`` is the plain
-blockwise streamed-softmax forward (the JAX package's production fallback);
+blockwise streamed-softmax forward (the JAX package's production fallback,
+the prefill attention of its SQL path);
 ``reference_attention``, ``decode_attention``, ``decode_attention_paged``
 and ``prefix_suffix_attention`` are the naive oracles.  The model calls the
 kernel wrappers in ``kernels/ops.py`` by default; these are the plain
-versions they are held against.  The backward pass waits for the
+versions they are held against.  The dense and MoE families (``models/
+model.py``) use them all; the MoE block itself is ``models/moe.py``.  The backward pass waits for the
 training slice.
 """
 from __future__ import annotations
@@ -79,7 +81,9 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal=True,
     """Blockwise streamed-softmax attention, forward only.  q (B, Sq, H, D);
     k, v (B, Skv, KV, D); GQA via H = KV·G; kv position -1 marks padding.
     Never materializes more than a (block_q × block_kv) score tile per head.
-    Returns (B, Sq, H, D) in q.dtype."""
+    The last kv block counts as zero-padded to block_kv keys of score -1e30,
+    as in the JAX function, which only a row with no visible key sees (see
+    ``ref.flash_attention_ref``).  Returns (B, Sq, H, D) in q.dtype."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -103,7 +107,8 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal=True,
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
+            pad = (block_kv - s.shape[-1]) * torch.exp(NEG_INF - m_new)
+            l = l * corr + p.sum(dim=-1) + pad
             acc = acc * corr[..., None] + torch.einsum(
                 "bkgqj,bjkd->bkgqd", p, vf[:, k0:k0 + block_kv])
             m = m_new

@@ -1,10 +1,11 @@
-"""Model assembly for the dense family (port of ``repro/models/model.py``).
+"""Model assembly for the dense and MoE families (port of
+``repro/models/model.py``).
 
 One pre-norm decoder stack: embedding, per layer [norm → GQA attention with
-RoPE → residual → norm → SwiGLU | GELU MLP → residual], final norm, tied or
-separate LM head.  Params are the stacked tree of ``models/params.py``; the
-layers run in a Python loop over the stacked leaves in place of
-``lax.scan``.
+RoPE → residual → norm → SwiGLU | GELU MLP | capacity-bounded top-k MoE
+(``models/moe.py``) → residual], final norm, tied or separate LM head.
+Params are the stacked tree of ``models/params.py``; the layers run in a
+Python loop over the stacked leaves in place of ``lax.scan``.
 
 Three modes, as in the JAX package:
   train   — full-sequence forward, no cache, returns token logits
@@ -22,10 +23,10 @@ pool pages (paged) are written where they lie, and the returned dict holds
 the same tensors (with a new ``idx``).  Callers that must keep a cache
 unchanged pass a copy.
 
-Attention goes through the Hopper kernel wrappers in ``kernels/ops.py`` by
-default (``attn_fn``, ``decode_attn_fn``, ``prefix_attn_fn`` and
-``paged_decode_attn_fn`` override them, e.g. with the plain
-``models.layers`` versions).
+Attention and the MoE expert products go through the Hopper kernel wrappers
+in ``kernels/ops.py`` by default (``attn_fn``, ``decode_attn_fn``,
+``prefix_attn_fn``, ``paged_decode_attn_fn`` and ``gmm_fn`` override them,
+e.g. with the plain versions of ``kernels/ref.py``).
 """
 from __future__ import annotations
 
@@ -36,14 +37,9 @@ import torch
 
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
-from repro_torch.models.config import DENSE, VLM, ModelConfig
-from repro_torch.models.params import DTYPES
-
-
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE:
-        raise NotImplementedError(
-            f"{cfg.family} family: only the dense family is ported (see ROADMAP)")
+from repro_torch.models import moe as MOE
+from repro_torch.models.config import VLM, ModelConfig
+from repro_torch.models.params import DTYPES, require_ported
 
 
 # ================================ cache =======================================
@@ -53,7 +49,7 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
     """name → (shape, dtype) of the decode cache's tensors.  include_row_idx
     adds the per-row write cursor (continuous batching: ragged fill
     levels).  The shared write cursor ``idx`` is a host int, not a tensor."""
-    _require_dense(cfg)
+    require_ported(cfg)
     ln, cd = cfg.num_layers, DTYPES[cfg.compute_dtype]
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     lc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
@@ -89,7 +85,7 @@ def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
     the CUDA kernels read the natural strides.  With `quant`, int8 shadow
     pools and per-(layer, kv-head, page) fp32 scales are added for
     quantize-on-commit of frozen pages."""
-    _require_dense(cfg)
+    require_ported(cfg)
     ln, cd = cfg.num_layers, DTYPES[cfg.compute_dtype]
     shape = (ln, cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
     out = {"k": (shape, cd), "v": (shape, cd)}
@@ -168,9 +164,9 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
             if ptab is not None and ptab.shape[0]:
                 o = paged["prefix_fn"](q, k, v, positions, ck, cv, ptab,
                                        paged["prefix_len"], quant)
-            else:
+            else:        # the mean over the suffix for a pad row, as the
                 o = attn_fn(q, k, v, positions, positions, causal=cfg.causal,
-                            window=0, prefix_len=0)
+                            window=0, prefix_len=0, kv_block=1)
             ck[:, pages, offs] = k[rows, toks].transpose(0, 1).to(ck.dtype)
             cv[:, pages, offs] = v[rows, toks].transpose(0, 1).to(cv.dtype)
     elif mode == "decode":
@@ -207,13 +203,24 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
 
 def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
            write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0,
-           paged=None):
-    """One residual block of the dense family."""
+           paged=None, num_groups: int = 1, gmm_fn=None):
+    """One residual block of the dense or MoE family."""
     xin = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_attn"))
     x = x + _attention(cfg, xin, lp, positions, mode, ck, cv, slot_pos,
                        write_slot, attn_fn, decode_attn_fn, extend_offset,
                        paged)
     xin2 = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_mlp"))
+    if cfg.has_moe:
+        B, S, m = x.shape
+        y = MOE.moe_block(xin2.reshape(B * S, m),
+                          {k[4:]: v for k, v in lp.items()
+                           if k.startswith("moe.")},
+                          num_experts=cfg.num_experts, top_k=cfg.top_k,
+                          capacity_factor=cfg.capacity_factor,
+                          num_groups=num_groups,
+                          compute_dtype=DTYPES[cfg.compute_dtype],
+                          gmm_fn=gmm_fn)
+        return x + y.reshape(B, S, m)
     if cfg.mlp_act == "silu":
         return x + L.swiglu_mlp(xin2, lp["mlp.w_gate"], lp["mlp.w_up"],
                                 lp["mlp.w_down"])
@@ -225,8 +232,8 @@ def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
 def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             mode: str = "train", cache: Optional[Dict[str, Any]] = None, *,
             attn_fn=None, decode_attn_fn=None, prefix_attn_fn=None,
-            paged_decode_attn_fn=None, last_only: bool = False,
-            extend_offset: int = 0
+            paged_decode_attn_fn=None, gmm_fn=None, num_groups: int = 1,
+            last_only: bool = False, extend_offset: int = 0
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the stack.  batch: tokens (B, S) int, positions (B, S) int32.
     Returns (logits (B, S, Vp) in the compute dtype, cache or None); the
@@ -240,8 +247,11 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     them out of bounds with mode="drop").  It may hold ``quant_flags`` (P,)
     int8 (with the int8 pools), and in prefill ``prefix_table`` (npre,)
     int32 and the host int ``prefix_len`` of a shared prefix read in
-    place."""
-    _require_dense(cfg)
+    place.
+
+    The MoE family routes all B·S rows of a call, in `num_groups` capacity
+    groups (the JAX default 1: what the serving engine runs)."""
+    require_ported(cfg)
     attn_fn = attn_fn or KOPS.flash_attention
     decode_attn_fn = decode_attn_fn or KOPS.decode_attention
     cd = DTYPES[cfg.compute_dtype]
@@ -283,7 +293,8 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                 "kscale": cache["kscale"][i], "vscale": cache["vscale"][i],
                 "flags": cache["quant_flags"]}
         x = _block(cfg, x, lp, positions, mode, ck, cv, slot_pos, write_slot,
-                   attn_fn, decode_attn_fn, extend_offset, paged)
+                   attn_fn, decode_attn_fn, extend_offset, paged, num_groups,
+                   gmm_fn)
 
     fn_params = {k: v for k, v in params.items() if k.startswith("final_norm")}
     x = L.apply_norm(cfg.norm_type, x, _norm_p(fn_params, "final_norm"))

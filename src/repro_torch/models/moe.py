@@ -1,0 +1,103 @@
+"""Mixture-of-experts block: top-k routing with grouped, capacity-bounded
+dispatch (port of ``repro/models/moe.py``).
+
+Routing and capacity are the JAX block's: tokens are split into
+`num_groups` groups; within a group every (token, choice) pair, flattened
+token-major and choice-minor, gets its position in its expert's queue by a
+running count; choices at position >= C are dropped and the gates are
+renormalised over the surviving choices.  Every row the block sees is
+routed and takes capacity, left-pad prefill rows and idle decode slots
+included.
+
+The expert FFN differs in layout, not in result.  The JAX block scatters
+the choices into an ``(E * C, M)`` capacity buffer and multiplies all of it;
+here the kept choices are sorted by expert (dropped ones last) and the three
+products (gate, up, down) run on those compacted rows through the grouped
+matmul ``gmm_fn`` (``kernels.ops.gmm`` by default), so an expert with no
+choice costs nothing.  Each output row is one input row times its expert's
+weights, so the order of rows inside a group changes nothing.  Nothing here
+reads a device value on the host.
+
+The JAX block's ``dispatch_cs``/``combine_cs`` hooks (GSPMD sharding
+constraints for expert parallelism) have no meaning on one card and are not
+ported (ROADMAP, distribution).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as KOPS
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def capacity(tokens_per_group: int, num_experts: int, top_k: int,
+             capacity_factor: float) -> int:
+    """Slots per expert and group, as the JAX block sizes them."""
+    c = max(4, _round_up(int(tokens_per_group * top_k * capacity_factor
+                             / num_experts + 0.999), 4))
+    return min(c, tokens_per_group * top_k)
+
+
+def _route(x, router, top_k):
+    """fp32 router logits → (top-k gates renormalised by softmax, expert
+    ids), both (T, K).  torch.topk puts the larger logit first, as
+    jax.lax.top_k does; on an exact tie jax puts the lower index first,
+    which random fp32 weights never produce."""
+    logits = x.float() @ router.float()
+    top_logits, top_idx = torch.topk(logits, top_k, dim=-1, sorted=True)
+    return torch.softmax(top_logits, dim=-1), top_idx
+
+
+def moe_block(x, params, *, num_experts: int, top_k: int,
+              capacity_factor: float, num_groups: int = 1,
+              compute_dtype=torch.bfloat16, gmm_fn=None):
+    """x (T, M) token-major; params: router (M, E), w_gate/w_up (E, M, F),
+    w_down (E, F, M).  Returns (T, M) in x.dtype."""
+    gmm_fn = gmm_fn or KOPS.gmm
+    T, M = x.shape
+    E, K, G = num_experts, top_k, num_groups
+    if T % G:
+        raise ValueError(f"{T} tokens do not split into {G} groups")
+    Tg = T // G
+    C = capacity(Tg, E, K, capacity_factor)
+
+    gates, idx = _route(x, params["router"], K)                 # (T, K)
+    # position of each choice in its expert's queue, per group
+    # (one-hot (G, E, TgK): the running count is a scan along the last dim)
+    ig = idx.reshape(G, 1, Tg * K)
+    oh = torch.arange(E, device=x.device)[None, :, None] == ig
+    pos = torch.cumsum(oh, dim=2, dtype=torch.int32).gather(1, ig)[:, 0] - 1
+    keep = (pos < C).reshape(T * K)
+    # an expert keeps the first min(count, C) choices of each group
+    group_sizes = oh.sum(2).clamp_(max=C).sum(0).to(torch.int32)  # (E,)
+
+    # kept choices sorted by expert, dropped ones (key E) after them
+    key = torch.where(keep, idx.reshape(T * K), E)
+    order = torch.argsort(key, stable=True)
+    xs = x.to(compute_dtype)[order // K]                        # (T*K, M)
+    wg, wu, wd = (params[k].to(compute_dtype)
+                  for k in ("w_gate", "w_up", "w_down"))
+    h = F.silu(gmm_fn(xs, wg, group_sizes)) * gmm_fn(xs, wu, group_sizes)
+    ys = gmm_fn(h, wd, group_sizes)                             # 0 past kept
+    y = torch.empty_like(ys).index_copy_(0, order, ys)          # choice order
+
+    w = (gates.reshape(T * K) * keep).reshape(T, K)             # drop overflow
+    denom = torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    out = (y.float().reshape(T, K, M) * (w / denom)[..., None]).sum(1)
+    return out.to(x.dtype)
+
+
+def moe_block_reference(x, params, *, num_experts, top_k, **_):
+    """Oracle: every token through every expert, no capacity drops (the
+    JAX package's, for tests bounding moe_block's dropping error)."""
+    gates, idx = _route(x, params["router"], top_k)
+    xf = x.float()
+    h = F.silu(torch.einsum("tm,emh->teh", xf, params["w_gate"].float()))
+    h = h * torch.einsum("tm,emh->teh", xf, params["w_up"].float())
+    all_out = torch.einsum("teh,ehm->tem", h, params["w_down"].float())
+    sel = torch.gather(all_out, 1, idx[..., None].expand(-1, -1, x.shape[1]))
+    return (sel * gates[..., None]).sum(1).to(x.dtype)

@@ -8,7 +8,8 @@ leaves, so converting a JAX tree is a plain copy.
 The JAX forward casts the fp32 params to the compute dtype on every use
 (``.astype(cd)``).  The port keeps ONE compute-dtype copy of each weight
 instead, made at load time — the same numbers.  Norm scales and biases stay
-fp32: the norms read them in fp32.
+fp32: the norms read them in fp32; so does the MoE router (``moe.router``),
+whose fp32 logits pick the experts.
 """
 from __future__ import annotations
 
@@ -18,21 +19,32 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.config import DENSE, ModelConfig
+from repro_torch.models.config import DENSE, MOE, ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
-def _is_norm(name: str) -> bool:
-    return name.startswith(("ln_", "final_norm"))
+#: the model families the port runs (the others: ROADMAP queue 1)
+PORTED_FAMILIES = (DENSE, MOE)
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.family} family: only the {' and '.join(PORTED_FAMILIES)} "
+            "families are ported (see ROADMAP)")
+
+
+def _fp32_leaf(name: str) -> bool:
+    """Leaves kept in fp32 whatever the compute dtype: the norms' and the
+    MoE router."""
+    return name.startswith(("ln_", "final_norm")) or name == "moe.router"
 
 
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """Per-layer leaf name → shape without the layer axis (dense family)."""
-    if cfg.family != DENSE:
-        raise NotImplementedError(
-            f"{cfg.family} family: only the dense family is ported (see ROADMAP)")
+    """Per-layer leaf name → shape without the layer axis."""
+    require_ported(cfg)
     m, h, kv, hd = cfg.d_model, cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
     out: Dict[str, Tuple[int, ...]] = {}
 
@@ -52,7 +64,13 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         out["attn.bk"] = (kv, hd)
         out["attn.bv"] = (kv, hd)
     norm("ln_mlp")
-    if cfg.mlp_act == "silu":
+    if cfg.has_moe:
+        e, f = cfg.num_experts, cfg.d_ff
+        out["moe.router"] = (m, e)
+        out["moe.w_gate"] = (e, m, f)
+        out["moe.w_up"] = (e, m, f)
+        out["moe.w_down"] = (e, f, m)
+    elif cfg.mlp_act == "silu":
         out["mlp.w_gate"] = (m, cfg.d_ff)
         out["mlp.w_up"] = (m, cfg.d_ff)
         out["mlp.w_down"] = (cfg.d_ff, m)
@@ -76,14 +94,18 @@ def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
+def _dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    return torch.float32 if _fp32_leaf(name) else DTYPES[cfg.compute_dtype]
+
+
 def _cast(cfg: ModelConfig, name: str, x: torch.Tensor) -> torch.Tensor:
-    return x.float() if _is_norm(name) else x.to(DTYPES[cfg.compute_dtype])
+    return x.to(_dtype(cfg, name))
 
 
 def params_from_jax(cfg: ModelConfig, tree, device) -> dict:
     """The JAX param tree with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, params)``) → the port's tree on `device`, in
-    the compute dtype (norm leaves in fp32)."""
+    the compute dtype (norm leaves and the MoE router in fp32)."""
     def conv(name, x):
         return _cast(cfg, name, torch.from_numpy(np.array(x)).to(device))
 
@@ -98,22 +120,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     other leaf is normal with std 1/sqrt(fan_in), where fan_in is M for
     wq/wk/wv, H·hd for wo and the second-to-last dim otherwise.  The draws
     come from `generator` (on `device`), so they differ from
-    ``jax.random``'s."""
+    ``jax.random``'s.  A stacked leaf is drawn one layer at a time straight
+    into its tensor, so the fp32 scratch is one layer's (a full-depth MoE
+    leaf would need tens of GB of it)."""
     def draw(name, shape, stacked):
         full = ((cfg.num_layers,) if stacked else ()) + shape
+        dt = _dtype(cfg, name)
         if len(shape) == 1:
-            v = (torch.ones if name.endswith("scale") else torch.zeros)(
-                full, device=device)
+            return (torch.ones if name.endswith("scale") else torch.zeros)(
+                full, dtype=dt, device=device)
+        if name == "attn.wo":
+            fan_in = shape[0] * shape[1]
+        elif name.startswith("attn.w"):
+            fan_in = shape[0]
         else:
-            if name == "attn.wo":
-                fan_in = shape[0] * shape[1]
-            elif name.startswith("attn.w"):
-                fan_in = shape[0]
-            else:
-                fan_in = shape[-2]
-            v = torch.randn(full, generator=generator, device=device)
-            v.mul_(1.0 / math.sqrt(max(1, fan_in)))
-        return _cast(cfg, name, v)
+            fan_in = shape[-2]
+        std = 1.0 / math.sqrt(max(1, fan_in))
+        out = torch.empty(full, dtype=dt, device=device)
+        for part in (out if stacked else out[None]):
+            part.copy_(torch.randn(shape, generator=generator,
+                                   device=device).mul_(std))
+        return out
 
     out = {"layers": {k: draw(k, s, True)
                       for k, s in _layer_shapes(cfg).items()}}

@@ -164,7 +164,8 @@ class _PrefixEntry:
 
 
 class InferenceEngine:
-    """Single-device engine around one dense model.  `device` None means
+    """Single-device engine around one model of a ported family (dense or
+    MoE; ``models.params.PORTED_FAMILIES``).  `device` None means
     CUDA (raises without a GPU); tests pass ``device="cpu"``, where the
     kernel wrappers run their plain PyTorch versions."""
 

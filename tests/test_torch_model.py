@@ -21,7 +21,8 @@ from repro_torch.models.params import init_params, params_from_jax
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
-ARCHS = ["olmo-1b", "yi-6b", "qwen2-7b", "starcoder2-15b"]
+ARCHS = ["olmo-1b", "yi-6b", "qwen2-7b", "starcoder2-15b",
+         "qwen3-moe-30b-a3b", "mixtral-8x22b"]
 
 
 def _setup(arch, seed=0):
@@ -192,7 +193,8 @@ def test_extend_prefill_matches_full():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_params_tree_matches_jax_specs(arch):
     """init_params builds the JAX package's tree (names, shapes), follows
-    its std rules, and params_from_jax keeps one compute-dtype copy."""
+    its std rules, and keeps one compute-dtype copy of each weight: the
+    norms and the MoE router stay fp32."""
     cfg = TC.get_smoke_config(arch)
     specs = JM.param_specs(JC.get_smoke_config(arch))
     tp = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -202,8 +204,8 @@ def test_params_tree_matches_jax_specs(arch):
     assert {k: tuple(v.shape) for k, v in flat.items()} == \
         {k: tuple(v.shape) for k, v in want.items()}
     for name, x in flat.items():
-        is_norm = name.startswith(("ln_", "final_norm"))
-        assert x.dtype == (torch.float32 if is_norm else torch.bfloat16), name
+        fp32 = name.startswith(("ln_", "final_norm")) or name == "moe.router"
+        assert x.dtype == (torch.float32 if fp32 else torch.bfloat16), name
     wq = tp["layers"]["attn.wq"].float()
     assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
     if "attn.bq" in tp["layers"]:        # 2-D biases draw like matrices

@@ -138,13 +138,13 @@ def prefix_case(seed, B, S, H, KV, D, ps, P, npre, plen=None):
 _PAIRS = {}
 
 
-def engine_pair(**kw):
-    """A JAX and a torch InferenceEngine of the olmo-1b smoke config (vocab
+def engine_pair(arch="olmo-1b", **kw):
+    """A JAX and a torch InferenceEngine of `arch`'s smoke config (vocab
     259, float32, max_len 256, paged unless kv_layout says otherwise) on
     the same weights, put back to a fresh state: sampling seed, prefix
-    memo, totals and page pool.  One pair per option set, so the JAX
-    compile caches are reused across tests."""
-    key = tuple(sorted(kw.items()))
+    memo, totals and page pool.  One pair per arch and option set, so the
+    JAX compile caches are reused across tests."""
+    key = (arch,) + tuple(sorted(kw.items()))
     if key not in _PAIRS:
         import jax
 
@@ -155,10 +155,10 @@ def engine_pair(**kw):
         from repro_torch.serving.engine import InferenceEngine as TorchEngine
         kw = dict(kw)
         layout = kw.pop("kv_layout", "paged")
-        jcfg = JC.get_smoke_config("olmo-1b").replace(vocab_size=259,
-                                                     compute_dtype="float32")
-        tcfg = TC.get_smoke_config("olmo-1b").replace(vocab_size=259,
-                                                     compute_dtype="float32")
+        jcfg = JC.get_smoke_config(arch).replace(vocab_size=259,
+                                                 compute_dtype="float32")
+        tcfg = TC.get_smoke_config(arch).replace(vocab_size=259,
+                                                 compute_dtype="float32")
         je = JaxEngine(jcfg, max_len=256, seed=0, kv_layout=layout, **kw)
         te = TorchEngine(tcfg, params_from_jax(
             tcfg, jax.tree.map(np.asarray, je.params), "cpu"),
