@@ -8,13 +8,16 @@ Phases, each reported on its own lines:
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    Hopper kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, one
    process per source, all started together);
-2. each kernel at the shapes the SQL paths give it, in bfloat16 and float32:
-   its largest error against its plain PyTorch version (tolerance stated),
-   and the times of the kernel, the plain version and one PyTorch library
-   call computing the same function (a yardstick only; the port never calls
-   it), beside the least time the card could take (``bound_ms``: the
-   bytes the function needs over the memory rate, or its operations over
-   the peak rate, the larger);
+2. each kernel at the shapes the SQL paths give it, in bfloat16 and float32,
+   once for each config whose paths run it (olmo-1b's 16 heads x 128 and
+   vocabulary, qwen3-moe-30b-a3b's 32 heads x 64 on 4 kv heads and
+   vocabulary, its experts for the grouped matmul): its largest error
+   against its plain PyTorch version (tolerance stated), and the times of
+   the kernel, the plain version and one PyTorch library call computing
+   the same function (a yardstick only; the port never calls it), beside
+   the least time the card could take (``bound_ms``: the bytes the function
+   needs over the memory rate, or its operations over the peak rate, the
+   larger);
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
@@ -34,8 +37,9 @@ Phases, each reported on its own lines:
 4. the qwen3-moe-30b-a3b configuration (MoE family: 128 experts, top-8,
    d_ff 768, 32 heads x 64 on 4 kv heads, vocab 151936, random weights):
    a. at full width and 4 of its 48 layers in float32, the logits of a
-      left-padded prefill and three decode steps through the kernels
-      against the plain versions (attention and the grouped matmul);
+      left-padded prefill and three decode steps, dense and paged (fp pages
+      over a radix-committed prefix), through the kernels against the plain
+      versions (attention and the grouped matmul);
    b. at full width and full depth in bfloat16 (~60 GB of weights), after
       the olmo sessions are freed: the dense SQL path (16 rows through the
       batcher, one row through ``generate``) and one paged query (pages of
@@ -65,29 +69,47 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
+L2_BYTES = 50e6                           # H100 SXM L2 cache
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor core
               torch.float32: 67e12}       # fp32 outside the tensor cores
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 SEED = 0
 
-# main-path shapes: 8 decode slots over a 512-token ring cache, olmo-1b heads
-DEC = dict(B=8, L=512, H=16, KV=16, D=128)
-PRE = dict(B=1, S=256, H=16, KV=16, D=128, prompt=225)   # 256-token bucket
-SAMPLE = dict(B=8, V=50432, allowed=259, temperature=0.7)
+# main-path shapes, to which path_shapes adds each config's heads and padded
+# vocabulary: 8 decode slots over a 512-token ring cache
+DEC = dict(B=8, L=512)
+PRE = dict(B=1, S=256, prompt=225)      # the 256-token bucket
+SAMPLE = dict(B=8, allowed=259, temperature=0.7)
 # the paged path: 8 slots, pages of 64 tokens, tables bucketed to 8 blocks
 # (max_len 512); each row holds its ~225-token prompt plus 0-64 decoded
 # tokens (fills 225-289), and its first 3 pages (192 tokens) are the
 # radix-matched prompt prefix that every row shares; prefill of a 33-token
 # suffix in the 64-token bucket over those 3 pages
-PAGED = dict(B=8, H=16, KV=16, D=128, ps=64, NB=8, shared=3, fills=(225, 289))
-PRE_PAGED = dict(B=1, S=64, H=16, KV=16, D=128, ps=64, npre=3, suffix=33)
-# the MoE path's grouped matmuls (qwen3-moe-30b-a3b): 8 decode slots or one
-# 256-token prefill, top-8 of 128 experts, each expert's choices capped at
-# the capacity (4 at decode, 20 at prefill); gate/up (2048 -> 768) and down
+PAGED = dict(B=8, ps=64, NB=8, shared=3, fills=(225, 289))
+PRE_PAGED = dict(B=1, S=64, ps=64, npre=3, suffix=33)
+# the MoE path's grouped matmuls: 8 decode slots or one 256-token prefill;
+# qwen3-moe-30b-a3b's top-8 of 128 experts, each expert's choices capped at
+# the capacity (4 at decode, 20 at prefill), gate/up (2048 -> 768) and down
 # (768 -> 2048)
-GMM = dict(E=128, K=8, d_model=2048, d_ff=768,
-           calls={"decode": 8, "prefill": 256})
+GMM = dict(calls={"decode": 8, "prefill": 256})
+DENSE_ARCH = "olmo-1b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
+
+
+def path_shapes(cfg) -> dict:
+    """Each kernel's shapes on a config's SQL paths: the slots, buckets,
+    prompt and pages above with the config's (padded) query heads, kv heads,
+    head dim and padded vocabulary, and its experts and widths for the
+    grouped matmul."""
+    heads = dict(H=cfg.padded_heads, KV=cfg.num_kv_heads, D=cfg.head_dim)
+    return {"flash_attention": dict(PRE, **heads),
+            "decode_attention": dict(DEC, **heads),
+            "constrained_sample": dict(SAMPLE, V=cfg.padded_vocab),
+            "decode_attention_paged": dict(PAGED, **heads),
+            "decode_attention_paged_quant": dict(PAGED, **heads),
+            "flash_attention_prefix": dict(PRE_PAGED, **heads),
+            "gmm": dict(GMM, E=cfg.num_experts, K=cfg.top_k,
+                        d_model=cfg.d_model, d_ff=cfg.d_ff)}
 
 
 def fail(msg: str) -> None:
@@ -131,6 +153,13 @@ def device_ms(fn, args, kernel: str, iters=20) -> float:
                ) / 1e3 / iters
 
 
+def rotations(needed_bytes: float) -> int:
+    """How many input sets a timing rotates through: enough that the bytes
+    the calls need exceed twice the L2 together, so that every call reads
+    cold HBM as the real caller does (at least 6, at most 64)."""
+    return int(min(64, max(6, -(-2 * L2_BYTES // max(needed_bytes, 1)))))
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -138,25 +167,25 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 
 # ------------------------------ phase 2: kernels -------------------------------
-def check_decode(ops, ref, dtype, gen):
-    B, L, H, KV, D = (DEC[k] for k in ("B", "L", "H", "KV", "D"))
+def check_decode(ops, ref, dtype, gen, shape):
+    B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
     dev = "cuda"
     fills = torch.randint(96, 321, (B,), generator=gen, device=dev)
     spos = torch.arange(L, device=dev, dtype=torch.int32).repeat(B, 1)
     spos[spos >= fills[:, None]] = -1
     qpos = (fills - 1).to(torch.int32)
+    valid = (spos >= 0).sum().item()
+    s = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 2 * B * H * D * s + 2 * valid * KV * D * s + B * L * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4 * valid * H * D, dtype)
     sets = []
-    for _ in range(6):                  # 6 x 34 MB of cache: beyond the L2
+    for _ in range(rotations(nbytes)):
         q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
         kc = torch.randn(B, L, KV, D, generator=gen, device=dev).to(dtype)
         vc = torch.randn(B, L, KV, D, generator=gen, device=dev).to(dtype)
         sets.append((q, kc, vc, spos, qpos))
     out = ops.decode_attention(*sets[0])
     err = (out.float() - ref.decode_attention_ref(*sets[0]).float()).abs().max()
-    valid = (spos >= 0).sum().item()
-    s = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 2 * B * H * D * s + 2 * valid * KV * D * s + B * L * 4 + B * 4
-    b_ms, b_by = bound(nbytes, 4 * valid * H * D, dtype)
     mask = (spos >= 0)[:, None, None, :]
     lib_sets = [(q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2))
                 for q, kc, vc, _, _ in sets]
@@ -171,43 +200,45 @@ def check_decode(ops, ref, dtype, gen):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def check_flash(ops, ref, dtype, gen):
-    B, S, H, KV, D, n = (PRE[k] for k in ("B", "S", "H", "KV", "D", "prompt"))
+def check_flash(ops, ref, dtype, gen, shape):
+    B, S, H, KV, D, n = (shape[k] for k in ("B", "S", "H", "KV", "D", "prompt"))
     dev = "cuda"
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
-    k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
-    v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
     pos = (torch.arange(S, device=dev, dtype=torch.int32) - (S - n)).repeat(B, 1)
     pos[pos < 0] = -1                   # left padding, as engine._prefill
-    args = (q, k, v, pos, pos)
-    out = ops.flash_attention(*args)
     valid = pos >= 0
-    err = (out[valid].float()
-           - ref.flash_attention_ref(*args)[valid].float()).abs().max()
-    if not torch.isfinite(out.float()).all():
-        fail("flash_attention: non-finite output on pad rows")
-    s = q.element_size()
+    s = torch.tensor([], dtype=dtype).element_size()
     pairs = n * (n + 1) // 2 * B        # causal (query, key) pairs per head
     # q/k/v rows of real tokens (pad rows are never needed), the whole
     # output, and the positions once (queries and keys share them)
     rows = int(valid.sum())
-    nbytes = rows * (H + 2 * KV) * D * s + out.numel() * s + pos.numel() * 4
+    nbytes = rows * (H + 2 * KV) * D * s + B * S * H * D * s + pos.numel() * 4
     b_ms, b_by = bound(nbytes, 4 * pairs * H * D, dtype)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sets = []
+    for _ in range(rotations(nbytes)):
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        sets.append((q, k, v, pos, pos))
+    out = ops.flash_attention(*sets[0])
+    err = (out[valid].float()
+           - ref.flash_attention_ref(*sets[0])[valid].float()).abs().max()
+    if not torch.isfinite(out.float()).all():
+        fail("flash_attention: non-finite output on pad rows")
     mask = ((pos[:, None, :] <= pos[:, :, None]) & (pos[:, None, :] >= 0))
 
-    def library():
+    def library(q, k, v, _qpos, _kpos):
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=H != KV)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None], enable_gqa=H != KV)
     return dict(max_abs_err=err.item(),
-                ms=time_ms(ops.flash_attention, [args]),
-                plain_ms=time_ms(ref.flash_attention_ref, [args]),
-                library_ms=time_ms(library, [()]),
+                ms=time_ms(ops.flash_attention, sets),
+                plain_ms=time_ms(ref.flash_attention_ref, sets),
+                library_ms=time_ms(library, sets),
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def check_sample(ops, ref, dtype, gen):
-    B, V, A, T = (SAMPLE[k] for k in ("B", "V", "allowed", "temperature"))
+def check_sample(ops, ref, dtype, gen, shape):
+    B, V, A, T = (shape[k] for k in ("B", "V", "allowed", "temperature"))
     dev = "cuda"
     logits = torch.randn(B, V, generator=gen, device=dev).to(dtype)
     mask = torch.zeros(B, V, dtype=torch.int8, device=dev)
@@ -241,14 +272,14 @@ def check_sample(ops, ref, dtype, gen):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def paged_tables(gen, dev="cuda"):
+def paged_tables(gen, shape, dev="cuda"):
     """Block tables of the paged decode path: B rows with fills drawn from
-    PAGED["fills"]; each row's first `shared` pages are the same pool pages
+    shape["fills"]; each row's first `shared` pages are the same pool pages
     (the radix-shared prompt prefix), then its own pages up to its fill
     plus 64 tokens of decode capacity (the engine allocates ahead), -1
     after."""
-    B, ps, NB, sh = (PAGED[k] for k in ("B", "ps", "NB", "shared"))
-    lo, hi = PAGED["fills"]
+    B, ps, NB, sh = (shape[k] for k in ("B", "ps", "NB", "shared"))
+    lo, hi = shape["fills"]
     fills = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev).tolist()
     table = torch.full((B, NB), -1, dtype=torch.int32)
     nxt = sh
@@ -280,15 +311,27 @@ def _dequant(pool, q8, scale, flags):
         pool.dtype), pool)
 
 
-def check_decode_paged(ops, ref, dtype, gen, quant=False):
+def check_decode_paged(ops, ref, dtype, gen, shape, quant=False):
     """Kernel A (fp pages) or B (`quant`: the shared prefix pages frozen in
     int8, as the radix tree freezes committed prompt pages)."""
-    B, H, KV, D, ps, NB, sh = (PAGED[k] for k in
+    B, H, KV, D, ps, NB, sh = (shape[k] for k in
                                ("B", "H", "KV", "D", "ps", "NB", "shared"))
     dev = "cuda"
-    table, qpos, fills, P = paged_tables(gen)
+    table, qpos, fills, P = paged_tables(gen, shape)
+    s = torch.tensor([], dtype=dtype).element_size()
+    # needed: each valid token's K and V once -- the shared pages' tokens
+    # once for all rows, at 1 byte per element (plus two scales per kv head
+    # and page) when frozen -- q, out, the table and the positions
+    shared_tok = sh * ps
+    own_tok = sum(f - shared_tok for f in fills)
+    kv_row = 2 * KV * D
+    nbytes = (own_tok * kv_row * s + 2 * B * H * D * s
+              + table.numel() * 4 + B * 4
+              + (shared_tok * kv_row + sh * KV * 2 * 4 if quant
+                 else shared_tok * kv_row * s))
+    b_ms, b_by = bound(nbytes, 4 * sum(fills) * H * D, dtype)
     sets = []
-    for _ in range(6):                  # 6 x ~24 MB of pool: beyond the L2
+    for _ in range(rotations(nbytes)):
         q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
         kp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
         vp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
@@ -303,18 +346,6 @@ def check_decode_paged(ops, ref, dtype, gen, quant=False):
         ops.decode_attention_paged
     plain = ref.decode_attention_paged_ref
     err = (fn(*sets[0]).float() - plain(*sets[0]).float()).abs().max()
-    s = torch.tensor([], dtype=dtype).element_size()
-    # needed: each valid token's K and V once -- the shared pages' tokens
-    # once for all rows, at 1 byte per element (plus two scales per kv head
-    # and page) when frozen -- q, out, the table and the positions
-    shared_tok = sh * ps
-    own_tok = sum(f - shared_tok for f in fills)
-    kv_row = 2 * KV * D
-    nbytes = (own_tok * kv_row * s + 2 * B * H * D * s
-              + table.numel() * 4 + B * 4
-              + (shared_tok * kv_row + sh * KV * 2 * 4 if quant
-                 else shared_tok * kv_row * s))
-    b_ms, b_by = bound(nbytes, 4 * sum(fills) * H * D, dtype)
     pos = torch.arange(NB * ps, device=dev)
     mask = ((table >= 0).repeat_interleave(ps, dim=1)
             & (pos[None, :] <= qpos[:, None].long()))[:, None, None, :]
@@ -334,10 +365,10 @@ def check_decode_paged(ops, ref, dtype, gen, quant=False):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def check_flash_prefix(ops, ref, dtype, gen):
+def check_flash_prefix(ops, ref, dtype, gen, shape):
     """Kernel C: one slot's suffix prefill over the radix-matched prefix
     pages; the error is the larger of the fp and the int8-page variant."""
-    B, S, H, KV, D, ps, npre, n = (PRE_PAGED[k] for k in (
+    B, S, H, KV, D, ps, npre, n = (shape[k] for k in (
         "B", "S", "H", "KV", "D", "ps", "npre", "suffix"))
     dev = "cuda"
     plen, P = npre * ps, 4 * npre
@@ -345,8 +376,17 @@ def check_flash_prefix(ops, ref, dtype, gen):
            + plen).repeat(B, 1)
     pos[:, :S - n] = -1                 # left padding, as engine.paged_prefill
     ptab = torch.randperm(P, generator=gen, device=dev)[:npre].to(torch.int32)
+    valid = pos >= 0
+    s = torch.tensor([], dtype=dtype).element_size()
+    rows = int(valid.sum())
+    # q/k/v of real suffix tokens, the whole output, the positions, the
+    # prefix pages' K/V once and the prefix table
+    nbytes = (rows * (H + 2 * KV) * D * s + B * S * H * D * s
+              + pos.numel() * 4 + 2 * plen * KV * D * s + npre * 4)
+    flops = 4 * H * D * (rows * plen + B * n * (n + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops, dtype)
     sets = []
-    for _ in range(32):                 # 32 x ~2.5 MB needed: beyond the L2
+    for _ in range(rotations(nbytes)):
         q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
         k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
         v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
@@ -357,18 +397,9 @@ def check_flash_prefix(ops, ref, dtype, gen):
     kq, ks, flags = quantize_pages(args[4], ptab.long())
     vq, vs, _ = quantize_pages(args[5], ptab.long())
     qd = {"kq": kq, "vq": vq, "kscale": ks, "vscale": vs, "flags": flags}
-    valid = pos >= 0
     err = max((ops.flash_attention_prefix(*args, quant).float()
                - ref.flash_attention_prefix_ref(*args, quant).float()
                )[valid].abs().max().item() for quant in (None, qd))
-    s = args[0].element_size()
-    rows = int(valid.sum())
-    # q/k/v of real suffix tokens, the whole output, the positions, the
-    # prefix pages' K/V once and the prefix table
-    nbytes = (rows * (H + 2 * KV) * D * s + B * S * H * D * s
-              + pos.numel() * 4 + 2 * plen * KV * D * s + npre * 4)
-    flops = 4 * H * D * (rows * plen + B * n * (n + 1) // 2)
-    b_ms, b_by = bound(nbytes, flops, dtype)
     tl = ptab.long()
     mask = torch.cat([(pos >= 0)[:, :, None].expand(B, S, plen),
                       (pos[:, None, :] <= pos[:, :, None])
@@ -388,12 +419,12 @@ def check_flash_prefix(ops, ref, dtype, gen):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def gmm_case(gen, tokens, M, N, dtype):
+def gmm_case(gen, shape, tokens, M, N, dtype):
     """Group sizes drawn as the router makes them -- each token picks K
     distinct experts uniformly, each expert keeps at most the capacity --
     and x (tokens * K rows, the dropped choices past the kept ones), w."""
     from repro_torch.models.moe import capacity
-    E, K = GMM["E"], GMM["K"]
+    E, K = shape["E"], shape["K"]
     C = capacity(tokens, E, K, 1.25)
     picks = torch.rand(tokens, E, generator=gen, device="cuda").argsort(
         -1)[:, :K]
@@ -404,7 +435,7 @@ def gmm_case(gen, tokens, M, N, dtype):
     return x, w, gs.to(torch.int32), C
 
 
-def check_gmm(ops, ref, dtype, gen):
+def check_gmm(ops, ref, dtype, gen, shape):
     """Kernel 6 at the MoE path's four shapes (decode and prefill, gate/up
     and down).  The reported numbers are the decode gate/up call's (2 of
     the 3 calls of each layer and decode tick, the most frequent); every
@@ -414,11 +445,11 @@ def check_gmm(ops, ref, dtype, gen):
     the largest |output| (at least 1): the kernel and the plain version
     round the same fp32 sums, taken in another order, so one bfloat16 step
     of an output may differ."""
-    E, dm, dff = GMM["E"], GMM["d_model"], GMM["d_ff"]
+    E, dm, dff = shape["E"], shape["d_model"], shape["d_ff"]
     shapes = {}
-    for phase, tokens in GMM["calls"].items():
+    for phase, tokens in shape["calls"].items():
         for orient, (M, N) in (("gate_up", (dm, dff)), ("down", (dff, dm))):
-            x, w, gs, C = gmm_case(gen, tokens, M, N, dtype)
+            x, w, gs, C = gmm_case(gen, shape, tokens, M, N, dtype)
             args = (x, w, gs)
             out = ops.gmm(*args)
             want = ref.gmm_ref(*args)
@@ -467,50 +498,63 @@ def check_gmm(ops, ref, dtype, gen):
 
 # name, TPU kernel it replaces, check, the dtype the SQL path gives it
 # (bfloat16 q/k/v and caches, the compute dtype; float32 logits, which the
-# engine casts before sampling), source, and the SQL path that ported it.
-# The JSON line reports that dtype's run; its "launches" are those of that
-# path, "launches_by_path" those of each path.
+# engine casts before sampling), source, the SQL path that ported it, and
+# the configs whose SQL paths run it: the check runs at each one's shapes
+# (path_shapes).  The JSON line reports the path dtype's run at the first
+# config's shapes and each config's under "by_config"; its "launches" are
+# those of the porting path, "launches_by_path" those of each path.
+BOTH = (DENSE_ARCH, MOE_ARCH)
 KERNELS = [
     ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash,
-     torch.bfloat16, "flash_attention.cu", "dense"),
+     torch.bfloat16, "flash_attention.cu", "dense", BOTH),
     ("decode_attention", "src/repro/kernels/decode_attention.py:65",
-     check_decode, torch.bfloat16, "decode_attention.cu", "dense"),
+     check_decode, torch.bfloat16, "decode_attention.cu", "dense", BOTH),
     ("constrained_sample", "src/repro/kernels/constrained_logits.py:53",
-     check_sample, torch.float32, "constrained_sample.cu", "dense"),
+     check_sample, torch.float32, "constrained_sample.cu", "dense", BOTH),
     ("decode_attention_paged", "src/repro/kernels/decode_attention.py:138",
      check_decode_paged, torch.bfloat16, "decode_attention_paged.cu",
-     "paged"),
+     "paged", BOTH),
     ("decode_attention_paged_quant",
      "src/repro/kernels/decode_attention.py:234",
      functools.partial(check_decode_paged, quant=True),
-     torch.bfloat16, "decode_attention_paged.cu", "paged"),
+     torch.bfloat16, "decode_attention_paged.cu", "paged", (DENSE_ARCH,)),
     # the prefix extension of kernel 1 (the JAX package's paged prefill,
     # layers.prefix_suffix_attention, is plain jnp)
     ("flash_attention_prefix", "src/repro/kernels/flash_attention.py:89",
-     check_flash_prefix, torch.bfloat16, "flash_attention.cu", "paged"),
+     check_flash_prefix, torch.bfloat16, "flash_attention.cu", "paged", BOTH),
     ("gmm", "src/repro/kernels/moe_gmm.py:38", check_gmm, torch.bfloat16,
-     "gmm.cu", "moe"),
+     "gmm.cu", "moe", (MOE_ARCH,)),
 ]
 
 
 # ------------------------------ phase 3: full width ----------------------------
-def check_forward_full_width(C, MDL, init_params, ref):
-    """olmo-1b at full width in float32: prefill of a left-padded prompt and
-    three decode steps, once through the kernels and once through the plain
-    attention functions, from the same weights and cache state."""
-    cfg = C.get_config("olmo-1b").replace(compute_dtype="float32")
+def check_forward_full_width(C, MDL, init_params, ref, arch, seed,
+                             num_layers=None):
+    """`arch` at full width in float32 (`num_layers` of its layers, or all):
+    prefill of a prompt left-padded into the 256-token bucket (its pad rows
+    hold the pad token; the MoE block routes them and they take capacity)
+    and three decode steps, once through the kernels and once through the
+    plain versions (attention and, for the MoE family, the grouped matmul),
+    from the same weights and cache state."""
+    cfg = C.get_config(arch).replace(compute_dtype="float32")
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
     params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
     S, n = 256, PRE["prompt"]
-    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+    gen = torch.Generator("cuda").manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                          device="cuda", dtype=torch.int32)
     pos = (torch.arange(S, device="cuda", dtype=torch.int32) - (S - n))[None]
     pos[pos < 0] = -1
+    toks[pos < 0] = 0                   # the engine's pad token
     nxt = torch.randint(0, cfg.vocab_size, (3, 1, 1), generator=gen,
                         device="cuda", dtype=torch.int32)
+    plain = {"attn_fn": ref.flash_attention_ref,
+             "decode_attn_fn": ref.decode_attention_ref}
+    if cfg.family == "moe":
+        plain["gmm_fn"] = ref.gmm_ref
     runs = []
-    for fns in ({}, {"attn_fn": ref.flash_attention_ref,
-                     "decode_attn_fn": ref.decode_attention_ref}):
+    for fns in ({}, plain):
         cache = MDL.init_cache(cfg, 1, 512, device="cuda")
         lg, cache = MDL.forward(cfg, params, {"tokens": toks, "positions": pos},
                                 mode="prefill", cache=cache, last_only=True,
@@ -525,45 +569,45 @@ def check_forward_full_width(C, MDL, init_params, ref):
         runs.append(torch.cat(out))
     err = (runs[0] - runs[1]).abs().max().item()
     tol = 1e-3
-    print(f"full-width forward (olmo-1b, float32, prefill {n}/{S} + 3 decode "
-          f"steps): logits through the kernels vs plain attention max_abs_err="
-          f"{err} (tolerance {tol}; logit std {runs[1].std().item()})",
-          flush=True)
+    depth = f"{cfg.num_layers} of {C.get_config(arch).num_layers} layers"
+    print(f"full-width forward ({arch}, {depth}, float32, prefill {n}/{S} + 3 "
+          f"decode steps): logits through the kernels vs the plain versions "
+          f"({', '.join(plain)}) max_abs_err={err} (tolerance {tol}; logit "
+          f"std {runs[1].std().item()})", flush=True)
     if not err < tol:
-        fail("full-width forward disagrees with the plain attention")
+        fail(f"{arch} full-width forward disagrees with the plain versions")
     del params
 
 
-def check_paged_forward_full_width(C, init_params, ref):
-    """olmo-1b at full width in float32 through the engine's paged layout:
+def check_paged_forward_full_width(C, init_params, ref, arch, num_layers=None):
+    """`arch` at full width in float32 through the engine's paged layout:
     a paged prefill writes the prefix pages, which are committed to the
     radix tree; a second paged prefill of the rest of the prompt reads them
     in place (kernel C, as a radix match makes it); then three decode steps
-    (kernel A, or B where int8 pages freeze the committed prefix).  The fp
-    pages' logits are held against the dense path's (kernels 1 and 2) on
-    the same weights, and each layout's against the same run through the
-    plain attention functions."""
+    (kernel A, or B where int8 pages freeze the committed prefix).  Each
+    layout's logits are held against the same run through the plain
+    versions (attention and, for the MoE family, the grouped matmul).  For
+    the dense family the fp pages' logits are also held against the dense
+    path's (kernels 1 and 2) on the same weights, and int8 pages are run;
+    the MoE family routes the prefix and the suffix in two calls, with
+    other capacities than the dense path's one call, so its drops differ
+    there, and its SQL path runs no int8 pages."""
     from repro_torch.serving.engine import InferenceEngine
-    cfg = C.get_config("olmo-1b").replace(compute_dtype="float32")
+    cfg = C.get_config(arch).replace(compute_dtype="float32")
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
+    moe = cfg.family == "moe"
     params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
     ps, npre, n = PRE_PAGED["ps"], PRE_PAGED["npre"], PRE["prompt"]
     plen = npre * ps
     gen = torch.Generator().manual_seed(SEED + 2)
     ids = torch.randint(0, cfg.vocab_size, (n + 3,), generator=gen).tolist()
     prompt, nxt = ids[:n], ids[n:]
-    dense = InferenceEngine(cfg, params, max_len=512)
-    lg, cache, lens, _ = dense._prefill([prompt], row_idx_mode=True)
-    want = [lg]
-    pos = lens.copy()
-    for t in nxt:
-        lg, cache = dense.decode_step(np.array([t]), pos, cache)
-        want.append(lg)
-        pos += 1
-    want = torch.cat(want)
-    del dense, cache
     plain = {"attn_fn": ref.flash_attention_ref,
              "prefix_attn_fn": ref.flash_attention_prefix_ref,
              "paged_decode_attn_fn": ref.decode_attention_paged_ref}
+    if moe:
+        plain["gmm_fn"] = ref.gmm_ref
 
     def paged(quant, fns):
         eng = InferenceEngine(cfg, params, max_len=512, kv_layout="paged",
@@ -583,65 +627,32 @@ def check_paged_forward_full_width(C, init_params, ref):
             pos += 1
         return torch.cat(got)
     fp = paged("none", {})
-    errs = {"fp pages vs the dense path": (fp - want).abs().max().item(),
-            "fp pages vs plain attention":
-                (fp - paged("none", plain)).abs().max().item(),
-            "int8 pages vs plain attention":
-                (paged("int8", {}) - paged("int8", plain)).abs().max().item()}
+    want = paged("none", plain)
+    errs = {"fp pages vs the plain versions": (fp - want).abs().max().item()}
+    if not moe:
+        dense = InferenceEngine(cfg, params, max_len=512)
+        lg, cache, lens, _ = dense._prefill([prompt], row_idx_mode=True)
+        got = [lg]
+        pos = lens.copy()
+        for t in nxt:
+            lg, cache = dense.decode_step(np.array([t]), pos, cache)
+            got.append(lg)
+            pos += 1
+        errs["fp pages vs the dense path"] = (
+            fp - torch.cat(got)).abs().max().item()
+        del dense, cache
+        errs["int8 pages vs the plain versions"] = (
+            paged("int8", {}) - paged("int8", plain)).abs().max().item()
     tol = 1e-3
-    print(f"full-width paged forward (olmo-1b, float32, {plen}-token prefix "
-          f"in {npre} radix-committed pages + {n - plen}-token suffix "
+    depth = f"{cfg.num_layers} of {C.get_config(arch).num_layers} layers"
+    print(f"full-width paged forward ({arch}, {depth}, float32, {plen}-token "
+          f"prefix in {npre} radix-committed pages + {n - plen}-token suffix "
           f"prefill + 3 decode steps): max_abs_err of the logits "
           + ", ".join(f"{k} {v}" for k, v in errs.items())
           + f" (tolerance {tol}; logit std {want.std().item()})", flush=True)
     for k, v in errs.items():
         if not v < tol:
-            fail(f"paged full-width forward: {k} disagree")
-    del params
-
-
-def check_moe_forward_full_width(C, MDL, init_params, ref):
-    """qwen3-moe-30b-a3b at full width and 4 of its 48 layers in float32
-    (full depth would need ~120 GB): the logits of a left-padded prefill in
-    the 256-token bucket (its pad rows are routed and take capacity) and
-    three decode steps, once through the kernels and once through the plain
-    attention and grouped matmul, from the same weights."""
-    cfg = C.get_config(MOE_ARCH).replace(compute_dtype="float32",
-                                         num_layers=4)
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
-    S, n = 256, PRE["prompt"]
-    gen = torch.Generator("cuda").manual_seed(SEED + 3)
-    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
-                         device="cuda", dtype=torch.int32)
-    pos = (torch.arange(S, device="cuda", dtype=torch.int32) - (S - n))[None]
-    pos[pos < 0] = -1
-    toks[pos < 0] = 0                   # the engine's pad token
-    nxt = torch.randint(0, cfg.vocab_size, (3, 1, 1), generator=gen,
-                        device="cuda", dtype=torch.int32)
-    runs = []
-    for fns in ({}, {"attn_fn": ref.flash_attention_ref,
-                     "decode_attn_fn": ref.decode_attention_ref,
-                     "gmm_fn": ref.gmm_ref}):
-        cache = MDL.init_cache(cfg, 1, 512, device="cuda")
-        lg, cache = MDL.forward(cfg, params, {"tokens": toks, "positions": pos},
-                                mode="prefill", cache=cache, last_only=True,
-                                **fns)
-        out = [lg[:, -1]]
-        for i in range(3):
-            p = torch.full((1, 1), n + i, device="cuda", dtype=torch.int32)
-            lg, cache = MDL.forward(cfg, params, {"tokens": nxt[i],
-                                                  "positions": p},
-                                    mode="decode", cache=cache, **fns)
-            out.append(lg[:, 0])
-        runs.append(torch.cat(out))
-    err = (runs[0] - runs[1]).abs().max().item()
-    tol = 1e-3
-    print(f"full-width forward ({MOE_ARCH}, 4 of 48 layers, float32, prefill "
-          f"{n}/{S} + 3 decode steps): logits through the kernels vs the "
-          f"plain attention and grouped matmul max_abs_err={err} (tolerance "
-          f"{tol}; logit std {runs[1].std().item()})", flush=True)
-    if not err < tol:
-        fail("MoE full-width forward disagrees with the plain versions")
+            fail(f"{arch} paged full-width forward: {k} disagree")
     del params
 
 
@@ -778,35 +789,47 @@ def main() -> int:
     print("comparisons: torch.backends.cuda.matmul.allow_tf32 = False, "
           "cudnn.allow_tf32 = False", flush=True)
     gen = torch.Generator("cuda").manual_seed(SEED)
+    shapes = {a: path_shapes(C.get_config(a)) for a in BOTH}
     report = {}
-    for kname, replaces, check, path_dtype, src, path in KERNELS:
-        for dtype in (torch.bfloat16, torch.float32):
-            r = check(ops, ref, dtype, gen)
-            tol = 0.0 if kname == "constrained_sample" else \
-                TOL[dtype] * r.get("tolerance_scale", 1.0)
-            ok = r["max_abs_err"] <= tol
-            print(f"kernel {kname} {str(dtype)[6:]}: max_abs_err "
-                  f"{r['max_abs_err']} (tolerance {tol}) ms {r['ms']:.4f} "
-                  f"plain_ms {r['plain_ms']:.4f} library_ms "
-                  f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
-                  f"({r['bound_by']})", flush=True)
-            if not ok:
-                fail(f"{kname} {dtype}: kernel disagrees with its plain version")
-            if dtype == path_dtype:
-                report[kname] = dict(name=kname, route="cuda",
-                                     source=f"src/repro_torch/kernels/csrc/"
-                                            f"{src}",
-                                     replaces=replaces, path=path,
-                                     launches_by_path={}, **r)
+    for kname, replaces, check, path_dtype, src, path, archs in KERNELS:
+        for arch in archs:
+            for dtype in (torch.bfloat16, torch.float32):
+                r = check(ops, ref, dtype, gen, shapes[arch][kname])
+                tol = 0.0 if kname == "constrained_sample" else \
+                    TOL[dtype] * r.get("tolerance_scale", 1.0)
+                ok = r["max_abs_err"] <= tol
+                print(f"kernel {kname} {str(dtype)[6:]} at {arch}'s shapes: "
+                      f"max_abs_err {r['max_abs_err']} (tolerance {tol}) ms "
+                      f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+                      f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+                      f"({r['bound_by']})", flush=True)
+                if not ok:
+                    fail(f"{kname} {dtype} at {arch}'s shapes: kernel "
+                         f"disagrees with its plain version")
+                if dtype != path_dtype:
+                    continue
+                if arch == archs[0]:
+                    report[kname] = dict(
+                        name=kname, route="cuda",
+                        source=f"src/repro_torch/kernels/csrc/{src}",
+                        replaces=replaces, path=path, launches_by_path={},
+                        by_config={}, **r)
+                report[kname]["by_config"][arch] = {
+                    k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")}
 
-    check_forward_full_width(C, MDL, init_params, ref)
+    check_forward_full_width(C, MDL, init_params, ref, DENSE_ARCH, SEED + 1)
     torch.cuda.empty_cache()
-    check_paged_forward_full_width(C, init_params, ref)
+    check_paged_forward_full_width(C, init_params, ref, DENSE_ARCH)
     torch.cuda.empty_cache()
-    check_moe_forward_full_width(C, MDL, init_params, ref)
+    # full depth in float32 would need ~120 GB
+    check_forward_full_width(C, MDL, init_params, ref, MOE_ARCH, SEED + 3,
+                             num_layers=4)
+    torch.cuda.empty_cache()
+    check_paged_forward_full_width(C, init_params, ref, MOE_ARCH, num_layers=4)
     torch.cuda.empty_cache()
 
-    cfg = C.get_config("olmo-1b")
+    cfg = C.get_config(DENSE_ARCH)
     t0 = time.time()
     params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
     torch.cuda.synchronize()
@@ -918,7 +941,8 @@ def main() -> int:
             "bound_by", "library_ms")
     print("kernels: " + ", ".join(report), flush=True)
     print(json.dumps({"kernels": [
-        {k: report[n][k] for k in keys + ("device_ms", "by_shape")
+        {k: report[n][k] for k in keys + ("device_ms", "by_shape",
+                                          "by_config")
          if k in report[n]}
         for n in report]}), flush=True)
     print(json.dumps({"ok": True, "device": {
