@@ -11,13 +11,15 @@ Phases, each reported on its own lines:
 2. each kernel at the shapes the SQL paths give it, in bfloat16 and float32,
    once for each config whose paths run it (olmo-1b's 16 heads x 128 and
    vocabulary, qwen3-moe-30b-a3b's 32 heads x 64 on 4 kv heads and
-   vocabulary, its experts for the grouped matmul): its largest error
-   against its plain PyTorch version (tolerance stated), and the times of
-   the kernel, the plain version and one PyTorch library call computing
-   the same function (a yardstick only; the port never calls it), beside
-   the least time the card could take (``bound_ms``: the bytes the function
-   needs over the memory rate, or its operations over the peak rate, the
-   larger);
+   vocabulary, its experts for the grouped matmul, hymba-1.5b's 25 heads x
+   64 on 5 kv heads, window 1024 and vocabulary, falcon-mamba-7b's
+   vocabulary, and both SSM configs' channels for the selective scan): its
+   largest error against its plain PyTorch version (tolerance stated), and
+   the times of the kernel, the plain version and one PyTorch library call
+   computing the same function where there is one (a yardstick only; the
+   port never calls it), beside the least time the card could take
+   (``bound_ms``: the bytes the function needs over the memory rate, or
+   its operations over the peak rate, the larger);
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
@@ -45,7 +47,23 @@ Phases, each reported on its own lines:
       batcher, one row through ``generate``) and one paged query (pages of
       64, radix tree, which it must hit), kernel launches counted from zero
       around them, every answer parsed; one warm dense query profiled;
-5. a JSON line with every kernel's numbers at the dtype the SQL path gives
+5. the ssm and hybrid families (Mamba-1 mixers through the selective-scan
+   kernel, random weights): falcon-mamba-7b (64 layers, d_model 4096,
+   d_inner 8192, state 16, vocab 65024) and hymba-1.5b (32 layers, d_model
+   1600, 25 heads x 64 on 5 kv heads, window 1024, d_inner 3200, vocab
+   32001):
+   a. float32 logits of a left-padded prefill and three decode steps
+      through the kernels against the plain versions (the scan and
+      attention): falcon-mamba at full width and 4 of its 64 layers,
+      hymba at full width and depth;
+   b. in bfloat16 after the MoE session is freed, at full width and depth:
+      falcon-mamba (~14.5 GB of weights) through the dense batcher (16
+      rows), ``generate`` (one row) and 4 rows with ``n_samples`` 3, its
+      launches counted as the ``ssm`` path, one warm query profiled; then
+      hymba through the batcher and ``generate``, counted as the ``hybrid``
+      path; every answer parsed (both families run the dense layout only:
+      the paged layout needs attention and no sliding window);
+6. a JSON line with every kernel's numbers at the dtype the SQL path gives
    it, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
@@ -92,24 +110,38 @@ PRE_PAGED = dict(B=1, S=64, ps=64, npre=3, suffix=33)
 # the capacity (4 at decode, 20 at prefill), gate/up (2048 -> 768) and down
 # (768 -> 2048)
 GMM = dict(calls={"decode": 8, "prefill": 256})
+# the selective scan of every mixer layer: one 256-token prefill bucket from
+# the cache's state, and a decode tick over 8 slots (one step from the
+# carried state, written in place)
+SCAN = dict(calls={"decode": (8, 1), "prefill": (1, 256)})
 DENSE_ARCH = "olmo-1b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
+SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "hymba-1.5b"
 
 
 def path_shapes(cfg) -> dict:
     """Each kernel's shapes on a config's SQL paths: the slots, buckets,
     prompt and pages above with the config's (padded) query heads, kv heads,
-    head dim and padded vocabulary, and its experts and widths for the
-    grouped matmul."""
-    heads = dict(H=cfg.padded_heads, KV=cfg.num_kv_heads, D=cfg.head_dim)
-    return {"flash_attention": dict(PRE, **heads),
+    head dim, window and padded vocabulary where it has attention, its
+    experts and widths for the grouped matmul where it has experts, and
+    its channels and state size for the selective scan where it has a
+    mixer."""
+    out = {"constrained_sample": dict(SAMPLE, V=cfg.padded_vocab)}
+    if cfg.has_attention:
+        heads = dict(H=cfg.padded_heads, KV=cfg.num_kv_heads, D=cfg.head_dim)
+        out.update({
+            "flash_attention": dict(PRE, window=cfg.sliding_window, **heads),
             "decode_attention": dict(DEC, **heads),
-            "constrained_sample": dict(SAMPLE, V=cfg.padded_vocab),
             "decode_attention_paged": dict(PAGED, **heads),
             "decode_attention_paged_quant": dict(PAGED, **heads),
-            "flash_attention_prefix": dict(PRE_PAGED, **heads),
-            "gmm": dict(GMM, E=cfg.num_experts, K=cfg.top_k,
-                        d_model=cfg.d_model, d_ff=cfg.d_ff)}
+            "flash_attention_prefix": dict(PRE_PAGED, **heads)})
+    if cfg.has_moe:
+        out["gmm"] = dict(GMM, E=cfg.num_experts, K=cfg.top_k,
+                          d_model=cfg.d_model, d_ff=cfg.d_ff)
+    if cfg.has_ssm:
+        out["selective_scan"] = dict(SCAN, Di=cfg.d_inner, N=cfg.ssm_state)
+    return out
 
 
 def fail(msg: str) -> None:
@@ -201,13 +233,15 @@ def check_decode(ops, ref, dtype, gen, shape):
 
 
 def check_flash(ops, ref, dtype, gen, shape):
-    B, S, H, KV, D, n = (shape[k] for k in ("B", "S", "H", "KV", "D", "prompt"))
+    B, S, H, KV, D, n, W = (shape[k] for k in ("B", "S", "H", "KV", "D",
+                                                "prompt", "window"))
     dev = "cuda"
     pos = (torch.arange(S, device=dev, dtype=torch.int32) - (S - n)).repeat(B, 1)
     pos[pos < 0] = -1                   # left padding, as engine._prefill
     valid = pos >= 0
     s = torch.tensor([], dtype=dtype).element_size()
-    pairs = n * (n + 1) // 2 * B        # causal (query, key) pairs per head
+    # causal (query, key) pairs per head, inside the window
+    pairs = B * sum(min(i + 1, W or n) for i in range(n))
     # q/k/v rows of real tokens (pad rows are never needed), the whole
     # output, and the positions once (queries and keys share them)
     rows = int(valid.sum())
@@ -219,20 +253,23 @@ def check_flash(ops, ref, dtype, gen, shape):
         k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
         v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
         sets.append((q, k, v, pos, pos))
-    out = ops.flash_attention(*sets[0])
-    err = (out[valid].float()
-           - ref.flash_attention_ref(*sets[0])[valid].float()).abs().max()
+    kernel = functools.partial(ops.flash_attention, window=W)
+    plain = functools.partial(ref.flash_attention_ref, window=W)
+    out = kernel(*sets[0])
+    err = (out[valid].float() - plain(*sets[0])[valid].float()).abs().max()
     if not torch.isfinite(out.float()).all():
         fail("flash_attention: non-finite output on pad rows")
     mask = ((pos[:, None, :] <= pos[:, :, None]) & (pos[:, None, :] >= 0))
+    if W:
+        mask &= pos[:, None, :] > pos[:, :, None] - W
 
     def library(q, k, v, _qpos, _kpos):
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask[:, None], enable_gqa=H != KV)
     return dict(max_abs_err=err.item(),
-                ms=time_ms(ops.flash_attention, sets),
-                plain_ms=time_ms(ref.flash_attention_ref, sets),
+                ms=time_ms(kernel, sets),
+                plain_ms=time_ms(plain, sets),
                 library_ms=time_ms(library, sets),
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -496,6 +533,73 @@ def check_gmm(ops, ref, dtype, gen, shape):
                 bound_by=top["bound_by"], by_shape=shapes)
 
 
+def check_scan(ops, ref, dtype, gen, shape):
+    """Kernel 7 at the mixer's two shapes: a 256-token prefill bucket and a
+    decode tick over 8 slots (S = 1, from the carried state, written in
+    place as the model does).  u, B and C in `dtype` (B and C slices of
+    one projection, as the mixer passes them), dt, A, D and the state in
+    float32.  The reported numbers are the decode call's (one per layer
+    and tick, the most frequent); both are printed and kept under
+    "by_shape".  The error is held against the tolerance times the largest
+    |output| (at least 1): the kernel and the plain version compute in
+    float32 from the same inputs, the N-term sum in another order.  No
+    single PyTorch call computes the scan: library_ms is None."""
+    Di, N, R = shape["Di"], shape["N"], 16
+    dev = "cuda"
+    shapes = {}
+    for phase, (Bz, S) in shape["calls"].items():
+        s = torch.tensor([], dtype=dtype).element_size()
+        # u, dt and y once, the B and C rows, A and D, the state read and
+        # written; ~6 float32 operations per (t, d, n)
+        nbytes = (Bz * S * Di * (s + 4 + 4) + 2 * Bz * S * N * s
+                  + Di * N * 4 + Di * 4 + 2 * Bz * Di * N * 4)
+        b_ms, b_by = bound(nbytes, 6 * Bz * S * Di * N, torch.float32)
+        sets = []
+        for _ in range(rotations(nbytes)):
+            u = torch.randn(Bz, S, Di, generator=gen, device=dev).to(dtype)
+            dt = torch.nn.functional.softplus(
+                torch.randn(Bz, S, Di, generator=gen, device=dev) - 1.0)
+            A = -torch.exp(torch.log(torch.arange(
+                1, N + 1, device=dev, dtype=torch.float32)).expand(Di, N)
+                + 0.1 * torch.randn(Di, N, generator=gen, device=dev))
+            dbc = torch.randn(Bz, S, R + 2 * N, generator=gen,
+                              device=dev).to(dtype)
+            D = torch.randn(Di, generator=gen, device=dev)
+            h0 = torch.randn(Bz, Di, N, generator=gen, device=dev)
+            sets.append((u, dt, A.contiguous(), dbc[..., R:R + N],
+                         dbc[..., R + N:], D, h0))
+        want = ref.selective_scan_ref(*sets[0])
+        state = sets[0][6].clone()
+        got = ops.selective_scan(*sets[0][:6], state, h_out=state)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        scale = max(1.0, *(w.abs().max().item() for w in want))
+
+        def kernel(*a):
+            return ops.selective_scan(*a, h_out=a[6])
+        shapes[phase] = dict(
+            Bz=Bz, S=S, Di=Di, N=N, max_abs_err=err, tolerance_scale=scale,
+            ms=time_ms(kernel, sets),
+            device_ms=device_ms(kernel, sets[0], "selective_scan_kernel"),
+            plain_ms=time_ms(ref.selective_scan_ref, sets), library_ms=None,
+            bound_ms=b_ms, bound_by=b_by)
+    for k, r in shapes.items():
+        print(f"  selective_scan {str(dtype)[6:]} {k}: Bz {r['Bz']} S "
+              f"{r['S']} Di {r['Di']} N {r['N']}: max_abs_err "
+              f"{r['max_abs_err']} (|y| up to {r['tolerance_scale']:.3g}) ms "
+              f"{r['ms']:.4f} (device_ms {r['device_ms']:.4f}) plain_ms "
+              f"{r['plain_ms']:.4f} library_ms none bound_ms "
+              f"{r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+    top = shapes["decode"]
+    worst = max(shapes.values(),
+                key=lambda r: r["max_abs_err"] / r["tolerance_scale"])
+    return dict(max_abs_err=worst["max_abs_err"],
+                tolerance_scale=worst["tolerance_scale"],
+                ms=top["ms"], device_ms=top["device_ms"],
+                plain_ms=top["plain_ms"], library_ms=None,
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                by_shape=shapes)
+
+
 # name, TPU kernel it replaces, check, the dtype the SQL path gives it
 # (bfloat16 q/k/v and caches, the compute dtype; float32 logits, which the
 # engine casts before sampling), source, the SQL path that ported it, and
@@ -504,13 +608,15 @@ def check_gmm(ops, ref, dtype, gen, shape):
 # config's shapes and each config's under "by_config"; its "launches" are
 # those of the porting path, "launches_by_path" those of each path.
 BOTH = (DENSE_ARCH, MOE_ARCH)
+ALL = BOTH + (SSM_ARCH, HYBRID_ARCH)
 KERNELS = [
     ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash,
-     torch.bfloat16, "flash_attention.cu", "dense", BOTH),
+     torch.bfloat16, "flash_attention.cu", "dense", BOTH + (HYBRID_ARCH,)),
     ("decode_attention", "src/repro/kernels/decode_attention.py:65",
-     check_decode, torch.bfloat16, "decode_attention.cu", "dense", BOTH),
+     check_decode, torch.bfloat16, "decode_attention.cu", "dense",
+     BOTH + (HYBRID_ARCH,)),
     ("constrained_sample", "src/repro/kernels/constrained_logits.py:53",
-     check_sample, torch.float32, "constrained_sample.cu", "dense", BOTH),
+     check_sample, torch.float32, "constrained_sample.cu", "dense", ALL),
     ("decode_attention_paged", "src/repro/kernels/decode_attention.py:138",
      check_decode_paged, torch.bfloat16, "decode_attention_paged.cu",
      "paged", BOTH),
@@ -524,6 +630,8 @@ KERNELS = [
      check_flash_prefix, torch.bfloat16, "flash_attention.cu", "paged", BOTH),
     ("gmm", "src/repro/kernels/moe_gmm.py:38", check_gmm, torch.bfloat16,
      "gmm.cu", "moe", (MOE_ARCH,)),
+    ("selective_scan", "src/repro/kernels/selective_scan.py:49", check_scan,
+     torch.bfloat16, "selective_scan.cu", "ssm", (SSM_ARCH, HYBRID_ARCH)),
 ]
 
 
@@ -532,10 +640,11 @@ def check_forward_full_width(C, MDL, init_params, ref, arch, seed,
                              num_layers=None):
     """`arch` at full width in float32 (`num_layers` of its layers, or all):
     prefill of a prompt left-padded into the 256-token bucket (its pad rows
-    hold the pad token; the MoE block routes them and they take capacity)
-    and three decode steps, once through the kernels and once through the
-    plain versions (attention and, for the MoE family, the grouped matmul),
-    from the same weights and cache state."""
+    hold the pad token; the MoE block routes them and they take capacity;
+    the mixer's conv and scan run through them) and three decode steps,
+    once through the kernels and once through the plain versions
+    (attention, and the grouped matmul or the selective scan where the
+    family has them), from the same weights and cache state."""
     cfg = C.get_config(arch).replace(compute_dtype="float32")
     if num_layers:
         cfg = cfg.replace(num_layers=num_layers)
@@ -549,10 +658,14 @@ def check_forward_full_width(C, MDL, init_params, ref, arch, seed,
     toks[pos < 0] = 0                   # the engine's pad token
     nxt = torch.randint(0, cfg.vocab_size, (3, 1, 1), generator=gen,
                         device="cuda", dtype=torch.int32)
-    plain = {"attn_fn": ref.flash_attention_ref,
-             "decode_attn_fn": ref.decode_attention_ref}
-    if cfg.family == "moe":
+    plain = {}
+    if cfg.has_attention:
+        plain.update(attn_fn=ref.flash_attention_ref,
+                     decode_attn_fn=ref.decode_attention_ref)
+    if cfg.has_moe:
         plain["gmm_fn"] = ref.gmm_ref
+    if cfg.has_ssm:
+        plain["scan_fn"] = ref.selective_scan_ref
     runs = []
     for fns in ({}, plain):
         cache = MDL.init_cache(cfg, 1, 512, device="cuda")
@@ -617,13 +730,13 @@ def check_paged_forward_full_width(C, init_params, ref, arch, num_layers=None):
         table[0] = eng.alloc_pages(eng.num_table_blocks)
         eng.paged_prefill([prompt[:plen]], table, [], 0, **fns)
         eng.radix_insert(prompt[:plen], list(table[0, :npre]))
-        lg, lens, _ = eng.paged_prefill([prompt[plen:]], table,
-                                        list(table[0, :npre]), plen, **fns)
+        lg, lens, _, _ = eng.paged_prefill([prompt[plen:]], table,
+                                           list(table[0, :npre]), plen, **fns)
         got = [lg]
         pos = lens.copy()
         for t in nxt:
             got.append(eng.paged_decode(np.array([t]), pos, table,
-                                        eng.active_blocks(pos), **fns))
+                                        eng.active_blocks(pos), **fns)[0])
             pos += 1
         return torch.cat(got)
     fp = paged("none", {})
@@ -654,6 +767,37 @@ def check_paged_forward_full_width(C, init_params, ref, arch, num_layers=None):
         if not v < tol:
             fail(f"{arch} paged full-width forward: {k} disagree")
     del params
+
+
+def build_engine_weights(C, init_params, arch):
+    """`arch`'s full configuration in bfloat16 with random weights from the
+    seeded generator; prints its shape and weight bytes.  Returns (cfg,
+    params, weight bytes)."""
+    cfg = C.get_config(arch)
+    t0 = time.time()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in [*params["layers"].values(),
+                           *(v for k, v in params.items() if k != "layers")])
+    parts = [f"{cfg.num_layers} layers d_model {cfg.d_model} vocab "
+             f"{cfg.vocab_size}"]
+    if cfg.has_attention:
+        parts.append(f"heads {cfg.num_heads}x{cfg.head_dim} on "
+                     f"{cfg.num_kv_heads} kv heads window "
+                     f"{cfg.sliding_window or 'none'}")
+    if cfg.has_ssm:
+        parts.append(f"d_inner {cfg.d_inner} state {cfg.ssm_state} dt_rank "
+                     f"{cfg.dt_rank_eff}")
+    if cfg.has_mlp:
+        parts.append(f"d_ff {cfg.d_ff}")
+    if cfg.has_moe:
+        parts.append(f"{cfg.num_experts} experts top-{cfg.top_k} d_ff "
+                     f"{cfg.d_ff}")
+    print(f"engine: {cfg.name} ({cfg.family}) {', '.join(parts)}, "
+          f"{cfg.compute_dtype}: {nbytes / 1e9:.2f} GB of weights built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return cfg, params, nbytes
 
 
 def sql_session(cfg, params, label, **engine_kw):
@@ -752,10 +896,11 @@ def profile(run_query) -> None:
                    "gemm" if any(t in k for t in ("nvjet", "gemm", "cutlass",
                                                   "xmma")) else
                    "other kernels")
-        cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total / 1e3
-    print("  by category (ms): " + ", ".join(
-        f"{c} {t:.2f}" for c, t in sorted(cats.items(), key=lambda x: -x[1])),
-        flush=True)
+        ms, n = cats.get(cat, (0.0, 0))
+        cats[cat] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    print("  by category (ms, launches): " + ", ".join(
+        f"{c} {t:.2f} ({n})" for c, (t, n) in
+        sorted(cats.items(), key=lambda x: -x[1][0])), flush=True)
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:10]:
         print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d} x "
@@ -789,7 +934,7 @@ def main() -> int:
     print("comparisons: torch.backends.cuda.matmul.allow_tf32 = False, "
           "cudnn.allow_tf32 = False", flush=True)
     gen = torch.Generator("cuda").manual_seed(SEED)
-    shapes = {a: path_shapes(C.get_config(a)) for a in BOTH}
+    shapes = {a: path_shapes(C.get_config(a)) for a in ALL}
     report = {}
     for kname, replaces, check, path_dtype, src, path, archs in KERNELS:
         for arch in archs:
@@ -798,10 +943,12 @@ def main() -> int:
                 tol = 0.0 if kname == "constrained_sample" else \
                     TOL[dtype] * r.get("tolerance_scale", 1.0)
                 ok = r["max_abs_err"] <= tol
+                lib = "none" if r["library_ms"] is None else \
+                    f"{r['library_ms']:.4f}"
                 print(f"kernel {kname} {str(dtype)[6:]} at {arch}'s shapes: "
                       f"max_abs_err {r['max_abs_err']} (tolerance {tol}) ms "
                       f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
-                      f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+                      f"{lib} bound_ms {r['bound_ms']:.5f} "
                       f"({r['bound_by']})", flush=True)
                 if not ok:
                     fail(f"{kname} {dtype} at {arch}'s shapes: kernel "
@@ -828,15 +975,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_paged_forward_full_width(C, init_params, ref, MOE_ARCH, num_layers=4)
     torch.cuda.empty_cache()
+    check_forward_full_width(C, MDL, init_params, ref, SSM_ARCH, SEED + 4,
+                             num_layers=4)
+    torch.cuda.empty_cache()
+    check_forward_full_width(C, MDL, init_params, ref, HYBRID_ARCH, SEED + 5)
+    torch.cuda.empty_cache()
 
-    cfg = C.get_config(DENSE_ARCH)
-    t0 = time.time()
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
-    torch.cuda.synchronize()
-    print(f"engine: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
-          f"vocab {cfg.vocab_size} heads {cfg.num_heads}x{cfg.head_dim} "
-          f"{cfg.compute_dtype}, weights built in {time.time() - t0:.1f} s",
-          flush=True)
+    cfg, params, _ = build_engine_weights(C, init_params, DENSE_ARCH)
 
     def count(path, runs, needed):
         """Drive one main path with every launch count set to 0 just
@@ -900,19 +1045,7 @@ def main() -> int:
     del dense, paged, params
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = C.get_config(MOE_ARCH)
-    t0 = time.time()
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
-    torch.cuda.synchronize()
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in [*params["layers"].values(),
-                           *(v for k, v in params.items() if k != "layers")])
-    print(f"engine: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
-          f"vocab {cfg.vocab_size} heads {cfg.num_heads}x{cfg.head_dim} on "
-          f"{cfg.num_kv_heads} kv heads, {cfg.num_experts} experts top-"
-          f"{cfg.top_k} d_ff {cfg.d_ff}, {cfg.compute_dtype}: "
-          f"{nbytes / 1e9:.2f} GB of weights built in {time.time() - t0:.1f} s",
-          flush=True)
+    cfg, params, nbytes = build_engine_weights(C, init_params, MOE_ARCH)
     moe = sql_session(cfg, params, f"{smi}, {MOE_ARCH}")
     moe_paged = sql_session(cfg, params, f"{smi}, {MOE_ARCH}, kv_quant none",
                             kv_layout="paged", page_size=PAGED["ps"])
@@ -933,6 +1066,35 @@ def main() -> int:
     print(f"peak device memory during the profiled query: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (weights "
           f"{nbytes / 2**30:.2f} GiB)", flush=True)
+
+    # the ssm and hybrid families at full width and depth, dense layout:
+    # free the MoE sessions first
+    del moe, moe_paged, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, nbytes = build_engine_weights(C, init_params, SSM_ARCH)
+    ssm = sql_session(cfg, params, f"{smi}, {SSM_ARCH}")
+    count("ssm", lambda: {
+        "Items": ssm("Items", "ssm batcher", 16),
+        "One": ssm("One", "ssm generate", 1),
+        "Few": ssm("Few", "ssm batcher n_samples 3", 4, "m3")},
+        ("selective_scan", "constrained_sample"))
+    torch.cuda.reset_peak_memory_stats()
+    profile(lambda: ssm("More", "ssm batcher over More (warm)", 16)["wall_s"])
+    print(f"peak device memory during the profiled query: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (weights "
+          f"{nbytes / 2**30:.2f} GiB)", flush=True)
+    del ssm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, nbytes = build_engine_weights(C, init_params, HYBRID_ARCH)
+    hybrid = sql_session(cfg, params, f"{smi}, {HYBRID_ARCH}")
+    count("hybrid", lambda: {
+        "Items": hybrid("Items", "hybrid batcher", 16),
+        "One": hybrid("One", "hybrid generate", 1)},
+        ("selective_scan", "flash_attention", "decode_attention",
+         "constrained_sample"))
+    del hybrid, params
 
     for r in report.values():
         r["launches"] = r["launches_by_path"][r["path"]]

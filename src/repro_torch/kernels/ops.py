@@ -3,7 +3,7 @@
 Each wrapper takes the JAX package's natural shapes (``repro/kernels/ops.py``
 signatures): q ``(B, S, H, D)``, caches ``(B, L, KV, D)``, page pools
 ``(KV, P, ps, D)`` (without the TPU's lane pad of D), the grouped matmul's
-``(T, M) x (E, M, N)``.  For tensors on the
+``(T, M) x (E, M, N)``, the selective scan's ``(Bz, S, Di)`` sequences.  For tensors on the
 CPU it runs the kernel's plain PyTorch version (``kernels/ref.py``); for
 CUDA tensors it launches the hand-written kernel (``kernels/csrc/*.cu``) or
 raises — there is no fallback.  Each wrapper counts its kernel launches in a
@@ -57,6 +57,9 @@ KERNELS = {
     "constrained_sample": ("constrained_sample.cu", "repro_constrained_sample",
                            [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
     "gmm": ("gmm.cu", "repro_gmm", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "selective_scan": ("selective_scan.cu", "repro_selective_scan",
+                       [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _P]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: a layer's int8 page tensors, in the order the kernels take them
@@ -416,6 +419,57 @@ def gmm(x, w, group_sizes):
 
 gmm.launches = 0
 
+# ------------------------------- selective scan -------------------------------
+def selective_scan(u, dt, A, B, C, D, h0=None, h_out=None):
+    """The Mamba-1 selective scan (ref.selective_scan_ref): u (Bz, S, Di)
+    float32/bfloat16; dt (Bz, S, Di) float32; A (Di, N) float32; B, C (Bz,
+    S, N) of u's dtype, contiguous along N and over (batch, time) with one
+    row stride (slices of one (Bz, S, R + 2N) projection are taken as they
+    are); D (Di,) float32; h0 (Bz, Di, N) float32 or None (zeros).  The
+    final state is written to `h_out` (Bz, Di, N) float32, which may be h0,
+    or to a new tensor.  Returns (y (Bz, S, Di) float32, the final state)."""
+    if not u.is_cuda:
+        return ref.selective_scan_ref(u, dt, A, B, C, D, h0, h_out)
+    Bz, S, Di = u.shape
+    N = A.shape[-1]
+    _require(u.dtype in _DTYPES and B.dtype == u.dtype and C.dtype == u.dtype,
+             f"selective_scan: u, B and C must share one of {list(_DTYPES)}")
+    _require(u.is_cuda and u.is_contiguous() and dt.is_cuda
+             and dt.dtype == torch.float32 and dt.is_contiguous()
+             and dt.shape == u.shape,
+             "selective_scan: u and dt must be contiguous (Bz, S, Di) CUDA "
+             "tensors, dt float32")
+    for name, x, shape in (("A", A, (Di, N)), ("D", D, (Di,)),
+                           ("h0", h0, (Bz, Di, N)),
+                           ("h_out", h_out, (Bz, Di, N))):
+        _require(x is None or (x.is_cuda and x.dtype == torch.float32
+                               and x.is_contiguous()
+                               and tuple(x.shape) == shape),
+                 f"selective_scan: {name} must be a contiguous float32 CUDA "
+                 f"tensor of shape {shape}")
+    ld = B.stride(0) // S             # row t of batch b at (b * S + t) * ld
+    for x in (B, C):
+        _require(x.is_cuda and tuple(x.shape) == (Bz, S, N)
+                 and x.stride(0) == S * ld and x.stride(2) == 1
+                 and (S == 1 or x.stride(1) == ld),
+                 "selective_scan: B and C must be (Bz, S, N) CUDA tensors "
+                 "with unit stride along N and one row stride")
+    _require(N in (4, 8, 16, 32), f"selective_scan: state size {N} "
+             "unsupported (4, 8, 16 or 32)")
+    y = torch.empty(Bz, S, Di, dtype=torch.float32, device=u.device)
+    if h_out is None:
+        h_out = torch.empty(Bz, Di, N, dtype=torch.float32, device=u.device)
+    err = _fn("selective_scan")(
+        _DTYPES[u.dtype], _ptr(u), _ptr(dt), _ptr(A), _ptr(B), _ptr(C),
+        _ptr(D), None if h0 is None else _ptr(h0), _ptr(y), _ptr(h_out),
+        Bz, S, Di, N, ld, _stream())
+    _check("selective_scan", err)
+    selective_scan.launches += 1
+    return y, h_out
+
+
+selective_scan.launches = 0
+
 #: every kernel wrapper of the SQL path, by kernel name
 WRAPPERS = {"flash_attention": flash_attention,
             "flash_attention_prefix": flash_attention_prefix,
@@ -423,7 +477,8 @@ WRAPPERS = {"flash_attention": flash_attention,
             "decode_attention_paged": decode_attention_paged,
             "decode_attention_paged_quant": decode_attention_paged_quant,
             "constrained_sample": constrained_sample,
-            "gmm": gmm}
+            "gmm": gmm,
+            "selective_scan": selective_scan}
 
 
 def reset_launches() -> None:

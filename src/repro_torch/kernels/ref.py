@@ -3,7 +3,7 @@
 They mirror ``repro/kernels/ref.py`` (``flash_attention_ref``,
 ``decode_attention_ref``, ``decode_attention_paged_ref``,
 ``decode_attention_paged_quant_ref``, ``constrained_sample_ref``,
-``gmm_ref``) and
+``gmm_ref``, ``selective_scan_ref``) and
 ``repro/models/layers.py::prefix_suffix_attention`` (``quant`` makes
 ``decode_attention_paged_ref`` the plain version of the int8-page kernel),
 but take the natural
@@ -133,6 +133,30 @@ def gmm_ref(x, w, group_sizes):
             out[start:end] = (x[start:end].float() @ w[e].float()).to(x.dtype)
         start = end
     return out
+
+
+def selective_scan_ref(u, dt, A, B, C, D, h0=None, h_out=None):
+    """The Mamba-1 selective scan, one step at a time in float32:
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) B_t,  y_t = h_t . C_t
+    + D * u_t.  u, dt (Bz, S, Di); A (Di, N); B, C (Bz, S, N); D (Di,);
+    h0 (Bz, Di, N) or None (zeros).  Returns (y (Bz, S, Di) float32, h
+    (Bz, Di, N) float32); with `h_out` the final state is copied into it
+    and h_out returned (it may be h0)."""
+    Bz, S, Di = u.shape
+    uf, dtf, Af = u.float(), dt.float(), A.float()
+    Bf, Cf = B.float(), C.float()
+    h = (torch.zeros(Bz, Di, A.shape[1], device=u.device) if h0 is None
+         else h0.float())
+    ys = []
+    for t in range(S):
+        a = torch.exp(dtf[:, t, :, None] * Af)                # (Bz, Di, N)
+        h = a * h + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + uf * D.float()
+    if h_out is None:
+        return y, h
+    h_out.copy_(h)
+    return y, h_out
 
 
 def gather_pages(pool, pages, quant_q=None, quant_scale=None, flags=None):

@@ -1,9 +1,14 @@
-"""Model assembly for the dense and MoE families (port of
+"""Model assembly for the dense, MoE, ssm and hybrid families (port of
 ``repro/models/model.py``).
 
-One pre-norm decoder stack: embedding, per layer [norm → GQA attention with
-RoPE → residual → norm → SwiGLU | GELU MLP | capacity-bounded top-k MoE
-(``models/moe.py``) → residual], final norm, tied or separate LM head.
+One pre-norm decoder stack: embedding, per layer a residual block, final
+norm, tied or separate LM head.  The block by family:
+  dense / moe : norm → GQA attention with RoPE → residual → norm → SwiGLU |
+                GELU MLP | capacity-bounded top-k MoE (``models/moe.py``)
+                → residual
+  ssm         : norm → Mamba-1 mixer (``models/mamba.py``) → residual
+  hybrid      : norm → attention ∥ mixer on the same input, their mean →
+                residual → norm → SwiGLU MLP → residual (hymba)
 Params are the stacked tree of ``models/params.py``; the layers run in a
 Python loop over the stacked leaves in place of ``lax.scan``.
 
@@ -15,18 +20,21 @@ Three modes, as in the JAX package:
 
 Two KV layouts, chosen by the cache dict: the dense ring cache
 (``init_cache``) and the paged pool (``init_paged_cache`` plus the
-``block_tables`` the engine adds per call; see ``paged_cache_specs``).
+``block_tables`` the engine adds per call; see ``paged_cache_specs``).  The
+ssm and hybrid families carry a per-row SSM state (``conv``, ``h``) beside
+the KV in either layout; an attention-free cache holds only that state.
 
 Unlike the JAX version, which returns new arrays, the port updates the cache
-IN PLACE: ``k``/``v``, ``slot_pos`` and ``row_idx`` tensors (dense) or the
-pool pages (paged) are written where they lie, and the returned dict holds
-the same tensors (with a new ``idx``).  Callers that must keep a cache
-unchanged pass a copy.
+IN PLACE: ``k``/``v``, ``slot_pos``, ``row_idx``, ``conv`` and ``h``
+tensors (dense) or the pool pages and the SSM state (paged) are written
+where they lie, and the returned dict holds the same tensors (with a new
+``idx``).  Callers that must keep a cache unchanged pass a copy.
 
-Attention and the MoE expert products go through the Hopper kernel wrappers
-in ``kernels/ops.py`` by default (``attn_fn``, ``decode_attn_fn``,
-``prefix_attn_fn``, ``paged_decode_attn_fn`` and ``gmm_fn`` override them,
-e.g. with the plain versions of ``kernels/ref.py``).
+Attention, the MoE expert products and the selective scan go through the
+Hopper kernel wrappers in ``kernels/ops.py`` by default (``attn_fn``,
+``decode_attn_fn``, ``prefix_attn_fn``, ``paged_decode_attn_fn``,
+``gmm_fn`` and ``scan_fn`` override them, e.g. with the plain versions of
+``kernels/ref.py``).
 """
 from __future__ import annotations
 
@@ -37,8 +45,9 @@ import torch
 
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MAMBA
 from repro_torch.models import moe as MOE
-from repro_torch.models.config import VLM, ModelConfig
+from repro_torch.models.config import HYBRID, SSM, VLM, ModelConfig
 from repro_torch.models.params import DTYPES, require_ported
 
 
@@ -46,20 +55,35 @@ from repro_torch.models.params import DTYPES, require_ported
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
                 include_row_idx: bool = False
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """name → (shape, dtype) of the decode cache's tensors.  include_row_idx
+    """name → (shape, dtype) of the decode cache's tensors: the KV ring
+    (``k``, ``v``, ``slot_pos``) where the model has attention, the fp32
+    SSM state (``conv``, ``h``) where it has a mixer.  include_row_idx
     adds the per-row write cursor (continuous batching: ragged fill
     levels).  The shared write cursor ``idx`` is a host int, not a tensor."""
     require_ported(cfg)
-    ln, cd = cfg.num_layers, DTYPES[cfg.compute_dtype]
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
-    lc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
     out = {}
     if include_row_idx:
         out["row_idx"] = ((batch,), torch.int32)
-    out["k"] = ((ln, batch, lc, kv, hd), cd)
-    out["v"] = ((ln, batch, lc, kv, hd), cd)
-    out["slot_pos"] = ((batch, lc), torch.int32)
+    if cfg.has_attention:
+        ln, cd = cfg.num_layers, DTYPES[cfg.compute_dtype]
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        lc = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+            else cache_len
+        out["k"] = ((ln, batch, lc, kv, hd), cd)
+        out["v"] = ((ln, batch, lc, kv, hd), cd)
+        out["slot_pos"] = ((batch, lc), torch.int32)
+    out.update(_ssm_specs(cfg, batch))
     return out
+
+
+def _ssm_specs(cfg: ModelConfig, batch: int
+               ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The per-row SSM state of `batch` rows (none without a mixer)."""
+    if not cfg.has_ssm:
+        return {}
+    ln, di = cfg.num_layers, cfg.d_inner
+    return {"conv": ((ln, batch, cfg.ssm_conv - 1, di), torch.float32),
+            "h": ((ln, batch, di, cfg.ssm_state), torch.float32)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -69,13 +93,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         k: torch.zeros(shape, dtype=dt, device=device)
         for k, (shape, dt) in cache_specs(cfg, batch, cache_len,
                                           include_row_idx).items()}
-    out["slot_pos"].fill_(-1)
+    if "slot_pos" in out:
+        out["slot_pos"].fill_(-1)
     out["idx"] = 0
     return out
 
 
 def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
-                      quant: bool = False
+                      quant: bool = False, batch: int = 0
                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Paged KV layout: one GLOBAL pool of fixed-size pages per layer,
     addressed through per-row block tables that the engine passes with each
@@ -84,7 +109,9 @@ def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
     pad of head_dim to 128, which only made its Pallas view a free reshape;
     the CUDA kernels read the natural strides.  With `quant`, int8 shadow
     pools and per-(layer, kv-head, page) fp32 scales are added for
-    quantize-on-commit of frozen pages."""
+    quantize-on-commit of frozen pages.  The SSM state of a hybrid stays
+    per row and dense (it is O(1) in sequence length): `batch` > 0 adds
+    that of `batch` rows, which the engine keeps apart from the pool."""
     require_ported(cfg)
     ln, cd = cfg.num_layers, DTYPES[cfg.compute_dtype]
     shape = (ln, cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
@@ -93,6 +120,8 @@ def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
         out.update(kq=(shape, torch.int8), vq=(shape, torch.int8),
                    kscale=(shape[:3], torch.float32),
                    vscale=(shape[:3], torch.float32))
+    if batch:
+        out.update(_ssm_specs(cfg, batch))
     return out
 
 
@@ -201,14 +230,31 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
     return o.reshape(B, S, h * hd) @ lp["attn.wo"].reshape(h * hd, m)
 
 
+def _mixer(cfg: ModelConfig, x, lp, state, scan_fn):
+    """The layer's Mamba mixer; `state` (an ``SSMState`` of this layer's
+    cache views, None in train mode) is updated in place."""
+    out, _ = MAMBA.mamba_mixer(
+        x, {k[4:]: v for k, v in lp.items() if k.startswith("ssm.")},
+        ssm_state_dim=cfg.ssm_state, dt_rank=cfg.dt_rank_eff,
+        conv_dim=cfg.ssm_conv, state=state, scan_fn=scan_fn)
+    return out
+
+
 def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
            write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0,
-           paged=None, num_groups: int = 1, gmm_fn=None):
-    """One residual block of the dense or MoE family."""
+           paged=None, num_groups: int = 1, gmm_fn=None, state=None,
+           scan_fn=None):
+    """One residual block (the module docstring's table by family)."""
+    if cfg.family == SSM:
+        xin = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_ssm"))
+        return x + _mixer(cfg, xin, lp, state, scan_fn)
     xin = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_attn"))
-    x = x + _attention(cfg, xin, lp, positions, mode, ck, cv, slot_pos,
-                       write_slot, attn_fn, decode_attn_fn, extend_offset,
-                       paged)
+    a = _attention(cfg, xin, lp, positions, mode, ck, cv, slot_pos,
+                   write_slot, attn_fn, decode_attn_fn, extend_offset, paged)
+    if cfg.family == HYBRID:
+        x = x + 0.5 * (a + _mixer(cfg, xin, lp, state, scan_fn))
+    else:
+        x = x + a
     xin2 = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_mlp"))
     if cfg.has_moe:
         B, S, m = x.shape
@@ -232,8 +278,9 @@ def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
 def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             mode: str = "train", cache: Optional[Dict[str, Any]] = None, *,
             attn_fn=None, decode_attn_fn=None, prefix_attn_fn=None,
-            paged_decode_attn_fn=None, gmm_fn=None, num_groups: int = 1,
-            last_only: bool = False, extend_offset: int = 0
+            paged_decode_attn_fn=None, gmm_fn=None, scan_fn=None,
+            num_groups: int = 1, last_only: bool = False,
+            extend_offset: int = 0
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the stack.  batch: tokens (B, S) int, positions (B, S) int32.
     Returns (logits (B, S, Vp) in the compute dtype, cache or None); the
@@ -247,7 +294,11 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     them out of bounds with mode="drop").  It may hold ``quant_flags`` (P,)
     int8 (with the int8 pools), and in prefill ``prefix_table`` (npre,)
     int32 and the host int ``prefix_len`` of a shared prefix read in
-    place.
+    place.  The ssm and hybrid families read and overwrite the cache's
+    per-row ``conv`` (L, B, K-1, Di) and ``h`` (L, B, Di, N) in either
+    layout: prefill continues the state it finds (zeros in a fresh cache;
+    the memoised prefix's in an extend-offset prefill) through every
+    token, left pads included, as the JAX model does.
 
     The MoE family routes all B·S rows of a call, in `num_groups` capacity
     groups (the JAX default 1: what the serving engine runs)."""
@@ -271,9 +322,9 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                  "prefix_fn": prefix_attn_fn or KOPS.flash_attention_prefix,
                  "decode_fn": paged_decode_attn_fn or _paged_decode_kernels}
     elif cache is not None:
-        slot_pos, row_idx = cache["slot_pos"], cache.get("row_idx")
+        slot_pos, row_idx = cache.get("slot_pos"), cache.get("row_idx")
         idx = int(cache.get("idx", 0))
-    if mode == "decode" and paged is None:
+    if mode == "decode" and slot_pos is not None:
         lc = slot_pos.shape[1]
         if row_idx is not None:      # per-row write slots (ragged fills)
             write_slot = (row_idx % lc).long()
@@ -284,9 +335,11 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
 
     for i in range(cfg.num_layers):
         lp = {k: v[i] for k, v in params["layers"].items()}
-        ck = cv = None
-        if cache is not None:
+        ck = cv = state = None
+        if cache is not None and cfg.has_attention:
             ck, cv = cache["k"][i], cache["v"][i]
+        if cache is not None and cfg.has_ssm and mode != "train":
+            state = MAMBA.SSMState(conv=cache["conv"][i], h=cache["h"][i])
         if paged is not None:
             paged["quant"] = None if "kq" not in cache else {
                 "kq": cache["kq"][i], "vq": cache["vq"][i],
@@ -294,7 +347,7 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                 "flags": cache["quant_flags"]}
         x = _block(cfg, x, lp, positions, mode, ck, cv, slot_pos, write_slot,
                    attn_fn, decode_attn_fn, extend_offset, paged, num_groups,
-                   gmm_fn)
+                   gmm_fn, state, scan_fn)
 
     fn_params = {k: v for k, v in params.items() if k.startswith("final_norm")}
     x = L.apply_norm(cfg.norm_type, x, _norm_p(fn_params, "final_norm"))
@@ -314,11 +367,13 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
         new_cache["idx"] = idx + 1
     else:
         off = extend_offset
-        lc = slot_pos.shape[1]
-        if off == 0 and S >= lc:
-            slot_pos.copy_(torch.roll(positions[:, S - lc:], S % lc, dims=1))
-        else:
-            slot_pos[:, off:off + S] = positions
-            slot_pos[:, off + S:] = -1
+        if slot_pos is not None:
+            lc = slot_pos.shape[1]
+            if off == 0 and S >= lc:
+                slot_pos.copy_(torch.roll(positions[:, S - lc:], S % lc,
+                                          dims=1))
+            else:
+                slot_pos[:, off:off + S] = positions
+                slot_pos[:, off + S:] = -1
         new_cache["idx"] = off + S
     return logits, new_cache

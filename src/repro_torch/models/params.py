@@ -9,7 +9,9 @@ The JAX forward casts the fp32 params to the compute dtype on every use
 (``.astype(cd)``).  The port keeps ONE compute-dtype copy of each weight
 instead, made at load time — the same numbers.  Norm scales and biases stay
 fp32: the norms read them in fp32; so does the MoE router (``moe.router``),
-whose fp32 logits pick the experts.
+whose fp32 logits pick the experts, and so do the Mamba mixer's
+``ssm.A_log``, ``ssm.D`` and ``ssm.dt_bias``, which it reads in fp32 (a
+compute-dtype ``dt_bias`` would move every channel's step size).
 """
 from __future__ import annotations
 
@@ -19,27 +21,30 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.config import DENSE, MOE, ModelConfig
+from repro_torch.models.config import DENSE, HYBRID, MOE, SSM, ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
 #: the model families the port runs (the others: ROADMAP queue 1)
-PORTED_FAMILIES = (DENSE, MOE)
+PORTED_FAMILIES = (DENSE, MOE, SSM, HYBRID)
 
 
 def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.family} family: only the {' and '.join(PORTED_FAMILIES)} "
+            f"{cfg.family} family: only the {', '.join(PORTED_FAMILIES)} "
             "families are ported (see ROADMAP)")
 
 
+_FP32_LEAVES = ("moe.router", "ssm.A_log", "ssm.D", "ssm.dt_bias")
+
+
 def _fp32_leaf(name: str) -> bool:
-    """Leaves kept in fp32 whatever the compute dtype: the norms' and the
-    MoE router."""
-    return name.startswith(("ln_", "final_norm")) or name == "moe.router"
+    """Leaves kept in fp32 whatever the compute dtype: the norms', the MoE
+    router and the mixer's A_log, D and dt_bias."""
+    return name.startswith(("ln_", "final_norm")) or name in _FP32_LEAVES
 
 
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -54,31 +59,48 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         if cfg.norm_type == "layernorm":
             out[f"{prefix}.bias"] = (m,)
 
-    norm("ln_attn")
-    out["attn.wq"] = (m, h, hd)
-    out["attn.wk"] = (m, kv, hd)
-    out["attn.wv"] = (m, kv, hd)
-    out["attn.wo"] = (h, hd, m)
-    if cfg.qkv_bias:
-        out["attn.bq"] = (h, hd)
-        out["attn.bk"] = (kv, hd)
-        out["attn.bv"] = (kv, hd)
-    norm("ln_mlp")
+    if cfg.has_attention:
+        norm("ln_attn")
+        out["attn.wq"] = (m, h, hd)
+        out["attn.wk"] = (m, kv, hd)
+        out["attn.wv"] = (m, kv, hd)
+        out["attn.wo"] = (h, hd, m)
+        if cfg.qkv_bias:
+            out["attn.bq"] = (h, hd)
+            out["attn.bk"] = (kv, hd)
+            out["attn.bv"] = (kv, hd)
+    if cfg.has_ssm:
+        if not cfg.has_attention:
+            norm("ln_ssm")
+        di, n, r, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_eff, cfg.ssm_conv
+        out["ssm.in_x"] = (m, di)
+        out["ssm.in_z"] = (m, di)
+        out["ssm.conv_w"] = (k, di)
+        out["ssm.conv_b"] = (di,)
+        out["ssm.x_proj"] = (di, r + 2 * n)
+        out["ssm.dt_proj"] = (r, di)
+        out["ssm.dt_bias"] = (di,)
+        out["ssm.A_log"] = (di, n)
+        out["ssm.D"] = (di,)
+        out["ssm.out_proj"] = (di, m)
     if cfg.has_moe:
+        norm("ln_mlp")
         e, f = cfg.num_experts, cfg.d_ff
         out["moe.router"] = (m, e)
         out["moe.w_gate"] = (e, m, f)
         out["moe.w_up"] = (e, m, f)
         out["moe.w_down"] = (e, f, m)
-    elif cfg.mlp_act == "silu":
-        out["mlp.w_gate"] = (m, cfg.d_ff)
-        out["mlp.w_up"] = (m, cfg.d_ff)
-        out["mlp.w_down"] = (cfg.d_ff, m)
-    else:
-        out["mlp.w_in"] = (m, cfg.d_ff)
-        out["mlp.b_in"] = (cfg.d_ff,)
-        out["mlp.w_out"] = (cfg.d_ff, m)
-        out["mlp.b_out"] = (m,)
+    if cfg.has_mlp:
+        norm("ln_mlp")
+        if cfg.mlp_act == "silu":
+            out["mlp.w_gate"] = (m, cfg.d_ff)
+            out["mlp.w_up"] = (m, cfg.d_ff)
+            out["mlp.w_down"] = (cfg.d_ff, m)
+        else:
+            out["mlp.w_in"] = (m, cfg.d_ff)
+            out["mlp.b_in"] = (cfg.d_ff,)
+            out["mlp.w_out"] = (cfg.d_ff, m)
+            out["mlp.b_out"] = (m,)
     return out
 
 
@@ -105,7 +127,7 @@ def _cast(cfg: ModelConfig, name: str, x: torch.Tensor) -> torch.Tensor:
 def params_from_jax(cfg: ModelConfig, tree, device) -> dict:
     """The JAX param tree with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, params)``) → the port's tree on `device`, in
-    the compute dtype (norm leaves and the MoE router in fp32)."""
+    the compute dtype (the fp32 leaves of ``_fp32_leaf`` in fp32)."""
     def conv(name, x):
         return _cast(cfg, name, torch.from_numpy(np.array(x)).to(device))
 
@@ -116,7 +138,8 @@ def params_from_jax(cfg: ModelConfig, tree, device) -> dict:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     """Random weights by the JAX initializer's rules (``model.py``
-    ``init_params``): 1-D leaves are ones (scales) or zeros (biases); every
+    ``init_params``): ``ssm.A_log`` is log(1..N) in every channel and
+    ``ssm.D`` ones; other 1-D leaves are ones (scales) or zeros (biases); every
     other leaf is normal with std 1/sqrt(fan_in), where fan_in is M for
     wq/wk/wv, H·hd for wo and the second-to-last dim otherwise.  The draws
     come from `generator` (on `device`), so they differ from
@@ -126,6 +149,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     def draw(name, shape, stacked):
         full = ((cfg.num_layers,) if stacked else ()) + shape
         dt = _dtype(cfg, name)
+        if name == "ssm.A_log":
+            return torch.log(torch.arange(1, shape[-1] + 1, dtype=dt,
+                                          device=device)).expand(full).clone()
+        if name == "ssm.D":
+            return torch.ones(full, dtype=dt, device=device)
         if len(shape) == 1:
             return (torch.ones if name.endswith("scale") else torch.zeros)(
                 full, dtype=dt, device=device)

@@ -17,6 +17,9 @@ PREDICT operator drives (port of ``repro/serving/engine.py``).
         (kv_quant="int8")
   * per-row cache write cursors (dense) or page-table slot lifecycle
     (paged) for continuous batching (scheduler.py)
+  * the ssm and hybrid families' per-row SSM state: part of the dense
+    cache, carried beside the pool as ``extra`` in the paged layout (which
+    needs attention: an attention-free model runs dense only)
 
 The page pool is written in place; growth reallocates it, so every call
 builds its cache dict from the engine's current pool tensors.  Logits stay
@@ -164,8 +167,8 @@ class _PrefixEntry:
 
 
 class InferenceEngine:
-    """Single-device engine around one model of a ported family (dense or
-    MoE; ``models.params.PORTED_FAMILIES``).  `device` None means
+    """Single-device engine around one model of a ported family (dense,
+    MoE, ssm or hybrid; ``models.params.PORTED_FAMILIES``).  `device` None means
     CUDA (raises without a GPU); tests pass ``device="cpu"``, where the
     kernel wrappers run their plain PyTorch versions."""
 
@@ -183,6 +186,8 @@ class InferenceEngine:
             raise ValueError(f"unknown prefix_cache_mode {prefix_cache_mode!r}")
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"unknown kv_quant {kv_quant!r}")
+        if kv_layout == "paged" and not cfg.has_attention:
+            raise ValueError(f"{cfg.name}: paged KV layout needs attention")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_len = max_len
@@ -307,17 +312,21 @@ class InferenceEngine:
 
     def prefix_cache_for(self, prefix_text: str, batch: int):
         """Prefill the shared instruction prefix ONCE (batch=1), memoize,
-        broadcast (copy) to the row batch.  Returns (cache, offset,
-        real_len, new_prefill_tokens, hit)."""
+        broadcast (copy) to the row batch: K/V and, for the ssm and hybrid
+        families, the SSM state after the prefix, so each row's suffix
+        prefill continues it.  The copies are new tensors, so the memo's
+        are never written.  Returns (cache, offset, real_len,
+        new_prefill_tokens, hit)."""
         ids = TOK.encode(prefix_text)
         probe = GenStats()
         ent = self._prefix_entry_for(prefix_text, probe)
         hit = probe.prefix_hits > 0
-        c1 = ent.kv
-        cache = {"idx": c1["idx"],
-                 "k": c1["k"].repeat(1, batch, 1, 1, 1),    # (ln, B, lc, ...)
-                 "v": c1["v"].repeat(1, batch, 1, 1, 1),
-                 "slot_pos": c1["slot_pos"].repeat(batch, 1)}
+        cache = {"idx": ent.kv["idx"]}
+        for k, v in ent.kv.items():
+            if k == "slot_pos":                              # (1, lc)
+                cache[k] = v.repeat(batch, 1)
+            elif k != "idx":                                 # (ln, 1, ...)
+                cache[k] = v.repeat(1, batch, *[1] * (v.dim() - 2))
         return cache, ent.off, ent.real_len, (0 if hit else len(ids)), hit
 
     def prefix_pages_for(self, prefix_text: str, stats: GenStats
@@ -492,6 +501,16 @@ class InferenceEngine:
         a.grow(extra)
         return True
 
+    def _ssm_state(self, batch: int) -> Dict[str, torch.Tensor]:
+        """Zero per-row SSM state of a paged run (``conv``, ``h``; shapes
+        from ``model.paged_cache_specs``), {} without a mixer."""
+        if not self.cfg.has_ssm:
+            return {}
+        specs = MDL.paged_cache_specs(self.cfg, 1, self.page_size,
+                                      batch=batch)
+        return {k: torch.zeros(shape, dtype=dt, device=self.device)
+                for k, (shape, dt) in specs.items() if k in ("conv", "h")}
+
     # ------------------------------ radix cache --------------------------------
     def radix_match(self, ids: Sequence[int], stats: GenStats,
                     limit: Optional[int] = None) -> Tuple[List[int], int]:
@@ -627,13 +646,16 @@ class InferenceEngine:
         return cache
 
     def paged_prefill(self, token_lists: List[List[int]], table_rows,
-                      prefix_pages: Sequence[int], prefix_len: int, **attn):
+                      prefix_pages: Sequence[int], prefix_len: int, *,
+                      extra: Optional[dict] = None, **attn):
         """Prefill suffixes straight into their block-table pages, reading
         shared prefix pages in place (no per-row replication).  table_rows:
-        np.ndarray (B, NB) page ids; `attn` overrides the model's attention
-        functions (``forward``'s ``attn_fn``, ``prefix_attn_fn``).  Returns
-        (float32 last-token logits (B, Vp) on the device, lens, prefill
-        token count)."""
+        np.ndarray (B, NB) page ids; `extra` the rows' SSM state (hybrid
+        family; ``_ssm_state``), continued and overwritten in place; `attn`
+        overrides the model's attention functions and scan (``forward``'s
+        ``attn_fn``, ``prefix_attn_fn``, ``scan_fn``).  Returns (float32
+        last-token logits (B, Vp) on the device, lens, prefill token count,
+        the SSM state: extra's tensors, {} without)."""
         B = len(token_lists)
         L = _bucket(max(len(t) for t in token_lists))
         toks = np.full((B, L), TOK.PAD_ID, np.int32)
@@ -647,30 +669,34 @@ class InferenceEngine:
         cache["prefix_table"] = self._tensor(
             np.asarray(prefix_pages, np.int32).reshape(len(prefix_pages)))
         cache["prefix_len"] = int(prefix_len)
+        cache.update(extra or {})
         logits, _ = MDL.forward(
             self.cfg, self.params,
             {"tokens": self._tensor(toks), "positions": self._tensor(pos)},
             mode="prefill", cache=cache, last_only=True, **attn)
         lens = np.array([prefix_len + len(t) for t in token_lists], np.int32)
-        return logits[:, -1].float(), lens, B * L
+        return logits[:, -1].float(), lens, B * L, dict(extra or {})
 
-    def paged_decode(self, toks, positions, table, num_blocks: int, **attn
-                     ) -> torch.Tensor:
+    def paged_decode(self, toks, positions, table, num_blocks: int, *,
+                     extra: Optional[dict] = None, **attn
+                     ) -> Tuple[torch.Tensor, dict]:
         """One lock-step decode tick against the page pool.  `table` is the
         host block table (B, NB_full); only its first `num_blocks` columns
         (the batch's actual fill, bucketed by the caller) reach the device,
-        so attention work scales with occupancy, not max_len.  `attn`
-        overrides the model's paged decode attention (``forward``'s
-        ``paged_decode_attn_fn``).  Returns float32 logits (B, Vp) on the
-        device."""
+        so attention work scales with occupancy, not max_len.  `extra` as
+        in paged_prefill; `attn` overrides the model's paged decode
+        attention and scan (``forward``'s ``paged_decode_attn_fn``,
+        ``scan_fn``).  Returns (float32 logits (B, Vp) on the device, the
+        SSM state)."""
         pos = positions.astype(np.int32)[:, None]
         cache = self._paged_cache(table[:, :num_blocks], pos)
+        cache.update(extra or {})
         logits, _ = MDL.forward(
             self.cfg, self.params,
             {"tokens": self._tensor(toks.astype(np.int32)[:, None]),
              "positions": self._tensor(pos)},
             mode="decode", cache=cache, **attn)
-        return logits[:, 0].float()
+        return logits[:, 0].float(), dict(extra or {})
 
     def active_blocks(self, fills) -> int:
         """Bucketed block count covering the given fill levels (pow-2, as
@@ -807,8 +833,9 @@ class InferenceEngine:
                 st = np.full((1, NBf), -1, np.int32)
                 st[0, :n_share // ps] = pages_pre
                 st[0, n_share // ps:aligned // ps] = seed
-                _, _, pre = self.paged_prefill(
-                    [common[n_share:aligned]], st, pages_pre, n_share)
+                _, _, pre, _ = self.paged_prefill(
+                    [common[n_share:aligned]], st, pages_pre, n_share,
+                    extra=self._ssm_state(1))
                 stats.prefill_tokens += pre
                 self.radix_insert(common[:aligned],
                                   list(st[0, :aligned // ps]))
@@ -846,8 +873,12 @@ class InferenceEngine:
                 owned.append(ids)
                 table[i, npre:npre + need] = ids
 
-            logits, lens, pre = self.paged_prefill(token_lists, table,
-                                                   pages_pre, n_share)
+            # the rows' SSM state starts from zeros after the shared pages:
+            # the SSM never sees a radix-matched or memoised prefix (the
+            # JAX engine's semantics)
+            logits, lens, pre, extra = self.paged_prefill(
+                token_lists, table, pages_pre, n_share,
+                extra=self._ssm_state(B))
             stats.prefill_tokens += pre
             if self.prefix_cache_mode == "radix":
                 # commit every row's full-page prompt span (clamped to the
@@ -871,7 +902,8 @@ class InferenceEngine:
                 if done.all():
                     break
                 nb = self.active_blocks(positions[~done])
-                logits = self.paged_decode(toks, positions, table, nb)
+                logits, extra = self.paged_decode(toks, positions, table, nb,
+                                                  extra=extra)
                 positions += 1
         finally:
             # errors must not leak refcounts: a pinned pool would shrink

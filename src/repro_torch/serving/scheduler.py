@@ -80,8 +80,9 @@ class _Job:
 class _ForkGroup:
     """Copy-on-write fork point for one request's n_samples streams (paged
     layout).  The first stream to fill a slot prefills normally; right after
-    its prefill we snapshot the block-table row, position and last-token
-    logits, and retain every page covering the prompt.  Sibling streams then
+    its prefill we snapshot the block-table row, position, last-token
+    logits and SSM state (hybrid family), and retain every page covering
+    the prompt.  Sibling streams then
     "fork": they reference the same shared pages zero-copy and only allocate
     fresh pages for their own decode capacity — no prefill.  Shared pages
     privatize lazily via the decode-loop COW guard on first write (which
@@ -93,14 +94,17 @@ class _ForkGroup:
         self.retained: List[int] = []  # group's own leases on shared pages
 
     def snap(self, eng, row: np.ndarray, pos: int,
-             logits_row: torch.Tensor) -> None:
+             logits_row: torch.Tensor, extra_slice: Optional[dict]) -> None:
         nsh = -(-int(pos) // eng.page_size)      # pages covering the prompt
         shared = [int(p) for p in row[:nsh] if p >= 0]
         eng.retain_pages(shared)
         self.retained = shared
-        # the slot's logits row is overwritten in place by later ticks
+        # the slot's logits row and SSM state are overwritten in place by
+        # later ticks: keep copies
         self.snapshot = {"row": row[:nsh].copy(), "nsh": nsh, "pos": int(pos),
-                         "logits": logits_row.clone()}
+                         "logits": logits_row.clone(),
+                         "extra": {k: v.clone() for k, v in
+                                   (extra_slice or {}).items()}}
 
     def done_fill(self, eng) -> None:
         self.fills_left -= 1
@@ -230,10 +234,12 @@ class ContinuousBatcher:
             st.prefill_tokens += pre
             st.input_tokens += len(ids)
             # splice sequence 0 of c1 into slot b of the live cache (in place)
-            for k in ("k", "v"):                            # (L, B, ...)
-                cache[k][:, b] = c1[k][:, 0]
+            for k in ("k", "v", "conv", "h"):               # (L, B, ...)
+                if k in cache:
+                    cache[k][:, b] = c1[k][:, 0]
             for k in ("slot_pos", "row_idx"):               # (B, ...)
-                cache[k][b] = c1[k][0]
+                if k in cache:
+                    cache[k][b] = c1[k][0]
             active[b] = job
             states[b] = job.grammar.init_state() if job.grammar else None
             outs[b] = []
@@ -305,6 +311,10 @@ class ContinuousBatcher:
         #: last-token logits per slot, kept on the device
         logits = torch.full((B, eng.cfg.padded_vocab), NEG_INF,
                             dtype=torch.float32, device=eng.device)
+        #: the slots' SSM state (hybrid family), updated in place; a refill
+        #: continues from what the slot's previous stream left there, as
+        #: in the JAX batcher
+        extra = eng._ssm_state(B)
 
         def place(b: int, job: _Job, pos: int, lg_row: torch.Tensor) -> None:
             active[b] = job
@@ -332,6 +342,8 @@ class ContinuousBatcher:
             table[b, :nsh] = sn["row"]
             table[b, nsh:nsh + need] = pg
             table[b, nsh + need:] = -1
+            for k, v in sn["extra"].items():
+                extra[k][:, b:b + 1] = v
             st.input_tokens += pos
             place(b, job, pos, sn["logits"])
             grp.done_fill(eng)
@@ -367,8 +379,9 @@ class ContinuousBatcher:
                 table[b, :nfixed] = pre_pages
             table[b, nfixed:nfixed + need] = pg
             table[b, nfixed + need:] = -1
-            lg, lens, pre = eng.paged_prefill([suffix], table[b:b + 1],
-                                              pre_pages, pre_len)
+            lg, lens, pre, _ = eng.paged_prefill(
+                [suffix], table[b:b + 1], pre_pages, pre_len,
+                extra={k: v[:, b:b + 1] for k, v in extra.items()})
             if radix:
                 # commit the full-page span of the prompt so later fills
                 # (and later runs) reuse it at match time
@@ -380,7 +393,8 @@ class ContinuousBatcher:
             st.input_tokens += pre_len + len(suffix)
             place(b, job, int(lens[0]), lg[0])
             if grp is not None:
-                grp.snap(eng, table[b], positions[b], logits[b])
+                grp.snap(eng, table[b], positions[b], logits[b],
+                         {k: v[:, b:b + 1] for k, v in extra.items()})
             return True
 
         def free_slot(b: int) -> None:
@@ -453,7 +467,8 @@ class ContinuousBatcher:
                     continue           # all finished this tick; refill next
                 cow_guard(live)
                 nb = eng.active_blocks(positions[live])
-                lg = eng.paged_decode(toks, positions, table, nb)
+                lg, _ = eng.paged_decode(toks, positions, table, nb,
+                                         extra=extra)
                 rows = torch.tensor(live, device=eng.device)
                 logits[rows] = lg[rows]
                 positions += 1

@@ -12,7 +12,10 @@ Sampling is exact.  The int8 page variants dequantize exactly as their
 plain versions do, so they keep the same tolerances.  Rows with no visible
 key (left-pad rows, idle paged slots) are compared too: the MoE family
 routes them.  The grouped matmul: float32 1e-4 and bfloat16 2e-2 (sums of
-up to 2048 products of order 1, in another order).
+up to 2048 products of order 1, in another order).  The selective scan:
+1e-4 in both dtypes, relative to values of order 1 to 10 (the kernel and
+its plain version compute in float32 from the same inputs; the kernel sums
+the N terms of y in a shuffle tree and takes expf).
 """
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from torch_cases import (FLASH_CASES, MASKS, decode_case, paged_case,
                          prefill_case, prefix_case, quantize_pool, sample_case,
-                         t)
+                         scan_case, t)
 
 
 @pytest.fixture
@@ -82,7 +85,23 @@ def test_flash_attention_kernel_qwen3_moe_heads(cuda, dtype, kv_block):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_hymba_heads(cuda, dtype):
+    """hymba-1.5b's heads (25 on 5 kv heads, D=64: 5 query heads per kv
+    head, not a power of two) with its 1024-token window over the SQL
+    path's 256-token bucket, 31 left-pad rows included."""
+    q, k, v, qpos, kpos = (t(a).to(cuda) for a in prefill_case(
+        16, B=1, S=256, H=25, KV=5, D=64, npad=31))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    out = ops.flash_attention(q, k, v, qpos, kpos, window=1024)
+    r = ref.flash_attention_ref(q, k, v, qpos, kpos, window=1024)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,D,L", [(8, 32, 4, 64, 512),
+                                        (8, 25, 5, 64, 512),
                                         (8, 16, 4, 128, 300),
                                         (8, 16, 16, 128, 512),
                                         (3, 32, 4, 128, 77),
@@ -259,3 +278,74 @@ def test_gmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ops.gmm(x[:, :30].contiguous(), w[:, :30].contiguous(), g)
     with pytest.raises(ValueError, match=r"\(E, M, N\)"):
         ops.gmm(x, w[0], g)
+
+
+# ------------------------------- selective scan -------------------------------
+def _scan_inputs(cuda, dtype, Bz, S, Di, N, seed, R=16):
+    """scan_case on the card: u, B and C in `dtype`, B and C slices of one
+    (Bz, S, R + 2N) projection as the mixer passes them."""
+    u, dt, A, B, C, D, h0 = scan_case(seed, Bz, S, Di, N)
+    dbc = torch.zeros(Bz, S, R + 2 * N, dtype=dtype, device=cuda)
+    dbc[..., R:R + N] = t(B).to(cuda, dtype)
+    dbc[..., R + N:] = t(C).to(cuda, dtype)
+    return (t(u).to(cuda, dtype), t(dt).to(cuda), t(A).to(cuda),
+            dbc[..., R:R + N], dbc[..., R + N:], t(D).to(cuda),
+            t(h0).to(cuda))
+
+
+def _assert_scan_close(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Di", [8192, 3200])
+@pytest.mark.parametrize("S", [1, 33, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_matches_plain(cuda, dtype, S, Di):
+    """falcon-mamba-7b's and hymba-1.5b's channels (N 16), from zeros, from
+    a state, and from a state it overwrites in place (h_out is h0)."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda, dtype, 2, S, Di, 16, S + Di)
+    n = ops.selective_scan.launches
+    _assert_scan_close(ops.selective_scan(u, dt, A, B, C, D),
+                       ref.selective_scan_ref(u, dt, A, B, C, D))
+    want = ref.selective_scan_ref(u, dt, A, B, C, D, h0)
+    _assert_scan_close(ops.selective_scan(u, dt, A, B, C, D, h0), want)
+    state = h0.clone()
+    y, h = ops.selective_scan(u, dt, A, B, C, D, state, h_out=state)
+    assert h is state and ops.selective_scan.launches == n + 3
+    _assert_scan_close((y, h), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_decode_with_idle_slots(cuda, dtype):
+    """A decode tick over 8 slots (S = 1, state in place), three of them
+    idle with dt = 0 and u = 0: their state must come back unchanged."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda, dtype, 8, 1, 8192, 16, 21)
+    idle = [1, 4, 6]
+    u[idle] = 0
+    dt[idle] = 0
+    want = ref.selective_scan_ref(u, dt, A, B, C, D, h0)
+    state = h0.clone()
+    got = ops.selective_scan(u, dt, A, B, C, D, state, h_out=state)
+    _assert_scan_close(got, want)
+    assert torch.equal(state[idle], h0[idle])
+
+
+@pytest.mark.cuda
+def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda, torch.bfloat16, 2, 8, 64, 16,
+                                         22)
+    with pytest.raises(ValueError, match="share"):
+        ops.selective_scan(u.float(), dt, A, B, C, D)
+    with pytest.raises(ValueError, match="dt float32"):
+        ops.selective_scan(u, dt.to(torch.bfloat16), A, B, C, D)
+    with pytest.raises(ValueError, match="h0"):
+        ops.selective_scan(u, dt, A, B, C, D, h0[:1])
+    with pytest.raises(ValueError, match="row stride"):
+        ops.selective_scan(u, dt, A, B.transpose(0, 1).contiguous()
+                           .transpose(0, 1), C, D)
+    with pytest.raises(ValueError, match="state size"):
+        ops.selective_scan(u, dt, A[:, :12].contiguous(), B[..., :12],
+                           C[..., :12], D)

@@ -22,7 +22,8 @@ from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 ARCHS = ["olmo-1b", "yi-6b", "qwen2-7b", "starcoder2-15b",
-         "qwen3-moe-30b-a3b", "mixtral-8x22b"]
+         "qwen3-moe-30b-a3b", "mixtral-8x22b", "falcon-mamba-7b",
+         "hymba-1.5b"]
 
 
 def _setup(arch, seed=0):
@@ -194,7 +195,8 @@ def test_extend_prefill_matches_full():
 def test_params_tree_matches_jax_specs(arch):
     """init_params builds the JAX package's tree (names, shapes), follows
     its std rules, and keeps one compute-dtype copy of each weight: the
-    norms and the MoE router stay fp32."""
+    norms, the MoE router and the mixer's A_log, D and dt_bias stay fp32
+    (A_log log(1..N) and D ones, as the JAX initializer sets them)."""
     cfg = TC.get_smoke_config(arch)
     specs = JM.param_specs(JC.get_smoke_config(arch))
     tp = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -204,9 +206,17 @@ def test_params_tree_matches_jax_specs(arch):
     assert {k: tuple(v.shape) for k, v in flat.items()} == \
         {k: tuple(v.shape) for k, v in want.items()}
     for name, x in flat.items():
-        fp32 = name.startswith(("ln_", "final_norm")) or name == "moe.router"
+        fp32 = name.startswith(("ln_", "final_norm")) or name in (
+            "moe.router", "ssm.A_log", "ssm.D", "ssm.dt_bias")
         assert x.dtype == (torch.float32 if fp32 else torch.bfloat16), name
-    wq = tp["layers"]["attn.wq"].float()
-    assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    if "ssm.A_log" in tp["layers"]:
+        jp = JM.init_params(JC.get_smoke_config(arch), jax.random.PRNGKey(0))
+        for name in ("ssm.A_log", "ssm.D", "ssm.conv_b", "ssm.dt_bias"):
+            np.testing.assert_allclose(tp["layers"][name].float().numpy(),
+                                       np.asarray(jp["layers"][name]),
+                                       rtol=1e-6)
+    if "attn.wq" in tp["layers"]:
+        wq = tp["layers"]["attn.wq"].float()
+        assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
     if "attn.bq" in tp["layers"]:        # 2-D biases draw like matrices
         assert float(tp["layers"]["attn.bq"].float().std()) > 0

@@ -133,18 +133,37 @@ def prefix_case(seed, B, S, H, KV, D, ps, P, npre, plen=None):
     return q, k, v, pos, kp, vp, ptab, plen
 
 
+
+def scan_case(seed, Bz, S, Di, N, h0=True):
+    """Selective-scan inputs as the Mamba mixer makes them: u (Bz, S, Di);
+    dt = softplus of a normal (positive, about 0.05 to 3); A = -exp(A_log)
+    with A_log = log(1..N) plus noise, as the initializer sets it; B, C
+    (Bz, S, N); D (Di,); h0 (Bz, Di, N), or None for a scan from zeros."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((Bz, S, Di)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(-1.0, 1.0, (Bz, S, Di)))).astype(
+        np.float32)
+    A = -np.exp(np.log(np.arange(1, N + 1, dtype=np.float32))[None]
+                + 0.1 * rng.standard_normal((Di, N))).astype(np.float32)
+    B = rng.standard_normal((Bz, S, N)).astype(np.float32)
+    C = rng.standard_normal((Bz, S, N)).astype(np.float32)
+    D = rng.standard_normal(Di).astype(np.float32)
+    h = rng.standard_normal((Bz, Di, N)).astype(np.float32) if h0 else None
+    return u, dt, A, B, C, D, h
+
 # -- JAX/torch engine pairs (the parity tests; jax is imported on first use,
 # so this module stays importable where jax is not installed) --------------
 _PAIRS = {}
 
 
-def engine_pair(arch="olmo-1b", **kw):
+def engine_pair(arch="olmo-1b", config=(), **kw):
     """A JAX and a torch InferenceEngine of `arch`'s smoke config (vocab
-    259, float32, max_len 256, paged unless kv_layout says otherwise) on
-    the same weights, put back to a fresh state: sampling seed, prefix
-    memo, totals and page pool.  One pair per arch and option set, so the
-    JAX compile caches are reused across tests."""
-    key = (arch,) + tuple(sorted(kw.items()))
+    259, float32, max_len 256, paged unless kv_layout says otherwise; the
+    (field, value) pairs of `config` replaced in it) on the same weights,
+    put back to a fresh state: sampling seed, prefix memo, totals and page
+    pool.  One pair per arch, config and option set, so the JAX compile
+    caches are reused across tests."""
+    key = (arch, tuple(config)) + tuple(sorted(kw.items()))
     if key not in _PAIRS:
         import jax
 
@@ -155,10 +174,10 @@ def engine_pair(arch="olmo-1b", **kw):
         from repro_torch.serving.engine import InferenceEngine as TorchEngine
         kw = dict(kw)
         layout = kw.pop("kv_layout", "paged")
-        jcfg = JC.get_smoke_config(arch).replace(vocab_size=259,
-                                                 compute_dtype="float32")
-        tcfg = TC.get_smoke_config(arch).replace(vocab_size=259,
-                                                 compute_dtype="float32")
+        jcfg = JC.get_smoke_config(arch).replace(
+            vocab_size=259, compute_dtype="float32", **dict(config))
+        tcfg = TC.get_smoke_config(arch).replace(
+            vocab_size=259, compute_dtype="float32", **dict(config))
         je = JaxEngine(jcfg, max_len=256, seed=0, kv_layout=layout, **kw)
         te = TorchEngine(tcfg, params_from_jax(
             tcfg, jax.tree.map(np.asarray, je.params), "cpu"),
