@@ -2,12 +2,15 @@
 """Drive repro_torch's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
+    python3 chip_smoke.py --only gmm,flash_attention   # phases 1-2 only
 
 Phases, each reported on its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    Hopper kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, one
-   process per source, all started together);
+   process per source, all started together), with one line per kernel of
+   the tensor-core sources (``TENSOR_CORE_SOURCES``) giving what ``nvcc
+   -Xptxas -v`` reports: registers, shared memory, spills;
 2. each kernel at the shapes the SQL paths give it, in bfloat16 and float32,
    once for each config whose paths run it (olmo-1b's 16 heads x 128 and
    vocabulary, qwen3-moe-30b-a3b's 32 heads x 64 on 4 kv heads and
@@ -19,7 +22,9 @@ Phases, each reported on its own lines:
    computing the same function where there is one (a yardstick only; the
    port never calls it), beside the least time the card could take
    (``bound_ms``: the bytes the function needs over the memory rate, or
-   its operations over the peak rate, the larger);
+   its operations over the peak rate, the larger); for kernels 1, C, 6 and
+   7 also the profiler's device time of the kernel alone (``device_ms``),
+   and for C the same numbers over int8 frozen prefix pages;
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
@@ -67,7 +72,9 @@ Phases, each reported on its own lines:
    it, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
-line.  Without a GPU it exits 2 at once.
+line.  Without a GPU it exits 2 at once.  ``--only`` runs phases 1 and 2
+for the named kernels, prints their JSON line and stops, without the last
+line (for comparing kernel versions on one card in one call).
 """
 from __future__ import annotations
 
@@ -198,6 +205,40 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+#: the sources whose kernels run on the tensor cores; their resources (as
+#: ``nvcc -Xptxas -v`` reports them) are printed after the build
+TENSOR_CORE_SOURCES = ("gmm.cu", "flash_attention.cu")
+
+
+def ptxas_resources(log: str) -> list:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its (demangled)
+    name, registers, static shared memory and spills."""
+    names, out, cur, spill = [], [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1]
+        elif "bytes stack frame" in line and cur:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and cur:
+            names.append(cur)
+            out.append(line.split(":", 1)[1].strip() + "; " + spill)
+            cur, spill = None, ""
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.split("\n")
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    lines = []
+    for n, o in zip(names, out):
+        # the name and its first argument's type (overloads differ there)
+        n = n.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name, _, args = n.partition("(")
+        first = args.split(",")[0].rstrip(")")
+        lines.append(f"{name}({first}{', ...' if ',' in args else ''}): {o}")
+    return lines
+
+
 # ------------------------------ phase 2: kernels -------------------------------
 def check_decode(ops, ref, dtype, gen, shape):
     B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
@@ -269,6 +310,7 @@ def check_flash(ops, ref, dtype, gen, shape):
             attn_mask=mask[:, None], enable_gqa=H != KV)
     return dict(max_abs_err=err.item(),
                 ms=time_ms(kernel, sets),
+                device_ms=device_ms(kernel, sets[0], "flash_attention_kernel"),
                 plain_ms=time_ms(plain, sets),
                 library_ms=time_ms(library, sets),
                 bound_ms=b_ms, bound_by=b_by)
@@ -430,30 +472,44 @@ def check_flash_prefix(ops, ref, dtype, gen, shape):
         kp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
         vp = torch.randn(KV, P, ps, D, generator=gen, device=dev).to(dtype)
         sets.append((q, k, v, pos, kp, vp, ptab, plen))
-    args = sets[0]
-    kq, ks, flags = quantize_pages(args[4], ptab.long())
-    vq, vs, _ = quantize_pages(args[5], ptab.long())
-    qd = {"kq": kq, "vq": vq, "kscale": ks, "vscale": vs, "flags": flags}
-    err = max((ops.flash_attention_prefix(*args, quant).float()
-               - ref.flash_attention_prefix_ref(*args, quant).float()
-               )[valid].abs().max().item() for quant in (None, qd))
+    qsets = []
+    for args in sets:
+        kq, ks, flags = quantize_pages(args[4], ptab.long())
+        vq, vs, _ = quantize_pages(args[5], ptab.long())
+        qsets.append(args + ({"kq": kq, "vq": vq, "kscale": ks, "vscale": vs,
+                              "flags": flags},))
+    err = max((ops.flash_attention_prefix(*args).float()
+               - ref.flash_attention_prefix_ref(*args).float()
+               )[valid].abs().max().item() for args in (sets[0], qsets[0]))
     tl = ptab.long()
     mask = torch.cat([(pos >= 0)[:, :, None].expand(B, S, plen),
                       (pos[:, None, :] <= pos[:, :, None])
                       & (pos[:, None, :] >= 0)], dim=2)[:, None]
 
-    def library(q, k, v, _pos, kp, vp, _ptab, _plen):
+    def library(q, k, v, _pos, kp, vp, _ptab, _plen, qd=None):
+        if qd is not None:
+            kp = _dequant(kp, qd["kq"], qd["kscale"], qd["flags"])
+            vp = _dequant(vp, qd["vq"], qd["vscale"], qd["flags"])
         kpre = kp[:, tl].reshape(KV, plen, D)[None].expand(B, -1, -1, -1)
         vpre = vp[:, tl].reshape(KV, plen, D)[None].expand(B, -1, -1, -1)
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), torch.cat([kpre, k.transpose(1, 2)], 2),
             torch.cat([vpre, v.transpose(1, 2)], 2), attn_mask=mask,
             enable_gqa=H != KV)
-    return dict(max_abs_err=err,
-                ms=time_ms(ops.flash_attention_prefix, sets),
+    fn, name = ops.flash_attention_prefix, "flash_attention_prefix_kernel"
+    # the int8 pages' numbers: the kernel reads the frozen pages' int8
+    # shadows, the library call dequantizes them first
+    int8 = dict(ms=time_ms(fn, qsets), device_ms=device_ms(fn, qsets[0], name),
+                library_ms=time_ms(library, qsets))
+    print(f"  flash_attention_prefix {str(dtype)[6:]} int8 pages: ms "
+          f"{int8['ms']:.4f} (device_ms {int8['device_ms']:.4f}) library_ms "
+          f"(dequantize, prefix gather + SDPA) {int8['library_ms']:.4f}",
+          flush=True)
+    return dict(max_abs_err=err, ms=time_ms(fn, sets),
+                device_ms=device_ms(fn, sets[0], name),
                 plain_ms=time_ms(ref.flash_attention_prefix_ref, sets),
                 library_ms=time_ms(library, sets),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, int8_pages=int8)
 
 
 def gmm_case(gen, shape, tokens, M, N, dtype):
@@ -908,7 +964,13 @@ def profile(run_query) -> None:
 
 
 # ------------------------------------ main -------------------------------------
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", metavar="KERNEL[,KERNEL]",
+                    help="run phases 1-2 for these kernels only and print "
+                    "their JSON line (no SQL paths, no last 'ok' line)")
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -928,6 +990,9 @@ def main() -> int:
     ops.build()
     print(f"kernels built in {time.time() - t:.1f} s (nvcc sm_90a, one process "
           f"per source)", flush=True)
+    for src in TENSOR_CORE_SOURCES:
+        for line in ptxas_resources(ops.build_log(src)):
+            print(f"ptxas {src} {line}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -937,6 +1002,8 @@ def main() -> int:
     shapes = {a: path_shapes(C.get_config(a)) for a in ALL}
     report = {}
     for kname, replaces, check, path_dtype, src, path, archs in KERNELS:
+        if only and kname not in only.split(","):
+            continue
         for arch in archs:
             for dtype in (torch.bfloat16, torch.float32):
                 r = check(ops, ref, dtype, gen, shapes[arch][kname])
@@ -945,10 +1012,12 @@ def main() -> int:
                 ok = r["max_abs_err"] <= tol
                 lib = "none" if r["library_ms"] is None else \
                     f"{r['library_ms']:.4f}"
+                dev = "" if "device_ms" not in r else \
+                    f" (device_ms {r['device_ms']:.4f})"
                 print(f"kernel {kname} {str(dtype)[6:]} at {arch}'s shapes: "
                       f"max_abs_err {r['max_abs_err']} (tolerance {tol}) ms "
-                      f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
-                      f"{lib} bound_ms {r['bound_ms']:.5f} "
+                      f"{r['ms']:.4f}{dev} plain_ms {r['plain_ms']:.4f} "
+                      f"library_ms {lib} bound_ms {r['bound_ms']:.5f} "
                       f"({r['bound_by']})", flush=True)
                 if not ok:
                     fail(f"{kname} {dtype} at {arch}'s shapes: kernel "
@@ -962,8 +1031,13 @@ def main() -> int:
                         replaces=replaces, path=path, launches_by_path={},
                         by_config={}, **r)
                 report[kname]["by_config"][arch] = {
-                    k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by")}
+                    k: r[k] for k in ("max_abs_err", "ms", "device_ms",
+                                      "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "int8_pages") if k in r}
+
+    if only:
+        print(json.dumps({"kernels": list(report.values())}), flush=True)
+        return 0
 
     check_forward_full_width(C, MDL, init_params, ref, DENSE_ARCH, SEED + 1)
     torch.cuda.empty_cache()
@@ -1103,8 +1177,8 @@ def main() -> int:
             "bound_by", "library_ms")
     print("kernels: " + ", ".join(report), flush=True)
     print(json.dumps({"kernels": [
-        {k: report[n][k] for k in keys + ("device_ms", "by_shape",
-                                          "by_config")
+        {k: report[n][k] for k in keys + ("device_ms", "int8_pages",
+                                          "by_shape", "by_config")
          if k in report[n]}
         for n in report]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -114,6 +114,7 @@ def build(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failed.append(f"{src}: nvcc exited {proc.returncode}\n{log}")
             else:
+                lib.with_suffix(".log").write_text(log)
                 os.replace(tmp, lib)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -124,6 +125,12 @@ def build(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
             fn.restype = ctypes.c_int
         _libs.update(libs)
         return _libs
+
+
+def build_log(src: str) -> str:
+    """The output of the nvcc run that built `src`'s library (``-Xptxas
+    -v``: each kernel's registers, shared memory and spills)."""
+    return Path(build()[src]._name).with_suffix(".log").read_text()
 
 
 def _fn(name: str):

@@ -35,12 +35,28 @@ def cuda():
     return torch.device("cuda")
 
 
+#: FLASH_CASES and the shapes of the tensor-core path: olmo-1b's SQL
+#: bucket (256 rows, 31 of them left pads in the first 64-row query tile,
+#: 16 heads of 128, GQA 1), query counts that are no multiple of the
+#: 64-row tile at GQA 5 and 8, and head dims rounded up to 64/128/256
+#: (24: half a k16 step; 80: hubert-xlarge's; 256: paligemma-3b's)
+FLASH_CUDA_CASES = {
+    **FLASH_CASES,
+    "olmo_bucket": dict(B=1, S=256, H=16, KV=16, D=128, npad=31),
+    "gqa5_d64": dict(B=2, S=100, H=10, KV=2, D=64, npad=9),
+    "gqa8_d128": dict(B=1, S=130, H=16, KV=2, D=128, npad=3),
+    "d24": dict(B=1, S=65, H=2, KV=1, D=24, npad=4),
+    "d80": dict(B=1, S=70, H=4, KV=2, D=80, npad=2),
+    "d256": dict(B=1, S=96, H=2, KV=1, D=256, npad=5),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", list(FLASH_CASES))
+@pytest.mark.parametrize("case", list(FLASH_CUDA_CASES))
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     q, k, v, qpos, kpos = (t(a).to(cuda) for a in
-                           prefill_case(5, **FLASH_CASES[case]))
+                           prefill_case(5, **FLASH_CUDA_CASES[case]))
     q, k, v = (x.to(dtype) for x in (q, k, v))
     for kw in MASKS.values():
         n = ops.flash_attention.launches
@@ -193,6 +209,12 @@ def test_decode_attention_paged_kernel_matches_plain(cuda, case, dtype,
     (1, 256, 32, 4, 64, 64, 12, 3, None),       # qwen3-moe-30b-a3b's heads
     (3, 40, 8, 2, 32, 16, 10, 4, 50),           # a partial last page
     (2, 33, 4, 4, 16, 32, 5, 0, None),          # no prefix
+    # prefixes that end mid-page at the path's page size, D 128 and GQA 8
+    (2, 64, 16, 16, 128, 64, 12, 3, 150),
+    (1, 64, 32, 4, 64, 64, 12, 3, 170),
+    # pages smaller and larger than the 64-key tile, GQA 5, 70 queries
+    (2, 70, 10, 2, 64, 32, 10, 4, 100),
+    (1, 40, 4, 4, 64, 128, 6, 2, 200),
 ])
 def test_flash_attention_prefix_kernel_matches_plain(cuda, dtype, quant, B,
                                                      S, H, KV, D, ps, P, npre,
@@ -229,6 +251,14 @@ GMM_CASES = {
     "sum_lt_T": (40, 64, 136, [3, 0, 7, 0, 1, 9]),
     # a group spanning several row tiles
     "long_group": (100, 128, 256, [0, 70, 0, 30]),
+    # groups on both sides of the 16-row slices and the 64-row tile,
+    # consecutive empty experts, N = 200 not a multiple of the 64-column
+    # unit, M = 96 not a multiple of the 64-value contraction chunk
+    "group_sizes": (340, 96, 200, [0, 1, 0, 0, 15, 16, 17, 20, 0, 64, 65,
+                                   130]),
+    "one_expert": (80, 72, 72, [70]),
+    "e1024": (64, 64, 136, [3, 0, 0, 0, 0, 1] + [0] * 505 + [20]
+              + [0] * 511 + [17]),
 }
 
 
