@@ -9,7 +9,8 @@ Phases, each reported on its own lines:
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    Hopper kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, one
    process per source, all started together), with one line per kernel of
-   the tensor-core sources (``TENSOR_CORE_SOURCES``) giving what ``nvcc
+   the redesigned sources (``PTXAS_SOURCES``: the tensor-core kernels and
+   the cluster-split decode attention and sampler) giving what ``nvcc
    -Xptxas -v`` reports: registers, shared memory, spills;
 2. each kernel at the shapes the SQL paths give it, in bfloat16 and float32,
    once for each config whose paths run it (olmo-1b's 16 heads x 128 and
@@ -22,9 +23,10 @@ Phases, each reported on its own lines:
    computing the same function where there is one (a yardstick only; the
    port never calls it), beside the least time the card could take
    (``bound_ms``: the bytes the function needs over the memory rate, or
-   its operations over the peak rate, the larger); for kernels 1, C, 6 and
-   7 also the profiler's device time of the kernel alone (``device_ms``),
-   and for C the same numbers over int8 frozen prefix pages;
+   its operations over the peak rate, the larger); for kernels 1, 2, 3, C,
+   6 and 7 also the profiler's device time of the kernel alone
+   (``device_ms``), and for C the same numbers over int8 frozen prefix
+   pages;
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
@@ -173,23 +175,32 @@ def time_ms(fn, inputs, iters=40, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, args, kernel: str, iters=20) -> float:
+def device_ms(fn, args, kernel: str, iters=20, tries=3):
     """The device time of one launch of `kernel` (a substring of its
     symbol) in fn(*args), from the profiler: without the host's share,
     which time_ms's events include whenever the wrapper's Python and
-    launch take longer than the kernel."""
+    launch take longer than the kernel.  A profiled window that recorded
+    no launch of the kernel (the profiler drops a window now and then) is
+    taken again; None, printed as "not measured", if all `tries` did."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     fn(*args)
     torch.cuda.synchronize()
-    with prof_ctx(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn(*args)
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and kernel in e.key
-               ) / 1e3 / iters
+    for _ in range(tries):
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn(*args)
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and kernel in e.key)
+        if total > 0:
+            return total / 1e3 / iters
+    return None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def rotations(needed_bytes: float) -> int:
@@ -205,9 +216,11 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
-#: the sources whose kernels run on the tensor cores; their resources (as
-#: ``nvcc -Xptxas -v`` reports them) are printed after the build
-TENSOR_CORE_SOURCES = ("gmm.cu", "flash_attention.cu")
+#: the redesigned sources (tensor cores; cluster splits merged through
+#: distributed shared memory); their kernels' resources, as ``nvcc -Xptxas
+#: -v`` reports them, are printed after the build
+PTXAS_SOURCES = ("gmm.cu", "flash_attention.cu", "decode_attention.cu",
+                 "constrained_sample.cu")
 
 
 def ptxas_resources(log: str) -> list:
@@ -268,6 +281,8 @@ def check_decode(ops, ref, dtype, gen, shape):
             q4, k, v, attn_mask=mask, enable_gqa=H != KV)
     return dict(max_abs_err=err.item(),
                 ms=time_ms(ops.decode_attention, sets),
+                device_ms=device_ms(ops.decode_attention, sets[0],
+                                    "decode_attention_kernel"),
                 plain_ms=time_ms(ref.decode_attention_ref, sets),
                 library_ms=time_ms(library, lib_sets),
                 bound_ms=b_ms, bound_by=b_by)
@@ -342,9 +357,11 @@ def check_sample(ops, ref, dtype, gen, shape):
 
     def library():
         return torch.argmax(torch.where(allowed, logits / T + noise, -1e30), -1)
+    def kernel(*a):
+        return ops.constrained_sample(*a, temperature=T)
     return dict(max_abs_err=0.0,
-                ms=time_ms(lambda *a: ops.constrained_sample(*a, temperature=T),
-                           [args]),
+                ms=time_ms(kernel, [args]),
+                device_ms=device_ms(kernel, args, "constrained_sample_kernel"),
                 plain_ms=time_ms(lambda *a: ref.constrained_sample_ref(
                     *a, temperature=T), [args]),
                 library_ms=time_ms(library, [()]),
@@ -502,7 +519,8 @@ def check_flash_prefix(ops, ref, dtype, gen, shape):
     int8 = dict(ms=time_ms(fn, qsets), device_ms=device_ms(fn, qsets[0], name),
                 library_ms=time_ms(library, qsets))
     print(f"  flash_attention_prefix {str(dtype)[6:]} int8 pages: ms "
-          f"{int8['ms']:.4f} (device_ms {int8['device_ms']:.4f}) library_ms "
+          f"{int8['ms']:.4f} (device_ms {fmt_ms(int8['device_ms'])}) "
+          f"library_ms "
           f"(dequantize, prefix gather + SDPA) {int8['library_ms']:.4f}",
           flush=True)
     return dict(max_abs_err=err, ms=time_ms(fn, sets),
@@ -574,7 +592,7 @@ def check_gmm(ops, ref, dtype, gen, shape):
               f"kept, capacity {r['capacity']}, {r['nonempty_experts']} "
               f"experts) M {r['M']} N {r['N']}: max_abs_err "
               f"{r['max_abs_err']} ms {r['ms']:.4f} (device_ms "
-              f"{r['device_ms']:.4f}) plain_ms "
+              f"{fmt_ms(r['device_ms'])}) plain_ms "
               f"{r['plain_ms']:.4f} library_ms (bmm over the capacity "
               f"buffer) {r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
               f"({r['bound_by']})", flush=True)
@@ -642,7 +660,7 @@ def check_scan(ops, ref, dtype, gen, shape):
         print(f"  selective_scan {str(dtype)[6:]} {k}: Bz {r['Bz']} S "
               f"{r['S']} Di {r['Di']} N {r['N']}: max_abs_err "
               f"{r['max_abs_err']} (|y| up to {r['tolerance_scale']:.3g}) ms "
-              f"{r['ms']:.4f} (device_ms {r['device_ms']:.4f}) plain_ms "
+              f"{r['ms']:.4f} (device_ms {fmt_ms(r['device_ms'])}) plain_ms "
               f"{r['plain_ms']:.4f} library_ms none bound_ms "
               f"{r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
     top = shapes["decode"]
@@ -990,7 +1008,7 @@ def main(argv=None) -> int:
     ops.build()
     print(f"kernels built in {time.time() - t:.1f} s (nvcc sm_90a, one process "
           f"per source)", flush=True)
-    for src in TENSOR_CORE_SOURCES:
+    for src in PTXAS_SOURCES:
         for line in ptxas_resources(ops.build_log(src)):
             print(f"ptxas {src} {line}", flush=True)
 
@@ -1013,7 +1031,7 @@ def main(argv=None) -> int:
                 lib = "none" if r["library_ms"] is None else \
                     f"{r['library_ms']:.4f}"
                 dev = "" if "device_ms" not in r else \
-                    f" (device_ms {r['device_ms']:.4f})"
+                    f" (device_ms {fmt_ms(r['device_ms'])})"
                 print(f"kernel {kname} {str(dtype)[6:]} at {arch}'s shapes: "
                       f"max_abs_err {r['max_abs_err']} (tolerance {tol}) ms "
                       f"{r['ms']:.4f}{dev} plain_ms {r['plain_ms']:.4f} "

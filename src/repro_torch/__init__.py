@@ -1,18 +1,22 @@
 """repro_torch — iPDB's semantic SQL engine on PyTorch and CUDA (NVIDIA H100).
 
 A second package beside ``repro`` (the JAX reference).  It runs a semantic
-SQL query end to end on either KV layout of the dense and the MoE model
-families (the SSM, hybrid, VLM and encoder families are not ported yet):
+SQL query end to end for the dense, MoE, SSM (Mamba) and hybrid model
+families, on either KV layout where the reference allows it (the paged
+layout needs attention and no sliding window); the VLM and encoder
+families are not ported yet:
 
     IPDB.sql → TorchExecutor → ContinuousBatcher / InferenceEngine.generate
-      → models.model.forward (dense or MoE family) → kernels.ops
+      → models.model.forward (dense, MoE, ssm or hybrid family) → kernels.ops
         dense layout: prefill flash attention, dense decode attention
         paged layout (page pool, radix prefix tree, copy-on-write forks,
           int8 frozen pages): prefill flash attention with or without a
           shared prefix read from the pool, paged decode attention over fp
           or int8 pages
         MoE family (models.moe): the grouped matmul of the expert FFNs
-        both: constrained sampling
+        SSM and hybrid families (models.mamba): the selective scan of the
+          Mamba mixers, its state carried per row
+        every family: constrained sampling
 
 Ground rules:
 

@@ -133,13 +133,83 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, B, H, KV, D, L):
     torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
 
 
+def _wrapped_ring(q, kc, vc, spos, qpos):
+    """Roll each row of decode_case's ring along L so that its newest
+    positions sit in its first slots: slots 0..k-1 hold positions
+    fill-k..fill-1, the oldest ones the ring's end, empty slots between."""
+    for b in range(spos.shape[0]):
+        fill = int(qpos[b]) + 1
+        shift = spos.shape[1] - fill + fill // 2 + 1
+        kc[b], vc[b], spos[b] = [np.roll(x[b], shift, axis=0)
+                                 for x in (kc, vc, spos)]
+    return q, kc, vc, spos, qpos
+
+
+def _last_split_only(q, kc, vc, spos, qpos):
+    """Row 0's only valid slot is the ring's last (in the last split of
+    the cluster), row 1's the last slot of the first half."""
+    L = spos.shape[1]
+    for b, slot in ((0, L - 1), (1, L // 2 - 1)):
+        spos[b] = -1
+        spos[b, slot] = qpos[b]
+    return q, kc, vc, spos, qpos
+
+
+#: the split design's cases: (B, H, KV, D, L, how the ring is laid out).
+#: B * KV = 1 and 128 move the number of splits between 8 and 2; L = 333
+#: is no multiple of the 32-slot tile, and its 11 tiles leave the last
+#: splits empty at 8; bfloat16 runs on the tensor cores where D % 16 == 0
+#: and D <= 128, and on the CUDA cores at D = 24 and 256; 16 query heads
+#: a kv head take two blocks of 8
+DECODE_SPLIT_CASES = {
+    "wrapped_ring": (8, 32, 4, 64, 512, _wrapped_ring),
+    "wrapped_ring_gqa5": (8, 25, 5, 64, 512, _wrapped_ring),
+    "last_split_only": (8, 32, 4, 64, 512, _last_split_only),
+    "bkv1": (1, 8, 1, 128, 512, None),
+    "bkv128": (16, 32, 8, 64, 512, None),
+    "odd_L": (4, 8, 2, 64, 333, None),
+    "odd_L_wrapped": (4, 8, 2, 128, 333, _wrapped_ring),
+    "d24": (4, 8, 2, 24, 100, None),
+    "d256_wrapped": (3, 4, 1, 256, 200, _wrapped_ring),
+    "gqa16": (3, 32, 2, 64, 130, _wrapped_ring),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(DECODE_SPLIT_CASES))
+def test_decode_attention_kernel_split_cases(cuda, case, dtype):
+    """Slot layouts that the cluster split and the dead-tile skip must get
+    right; the last row (when B > 1) has no valid slot: mean of V."""
+    B, H, KV, D, L, layout = DECODE_SPLIT_CASES[case]
+    arrays = decode_case(17, B, H, KV, D, L)
+    if layout is not None:
+        arrays = layout(*arrays)
+    q, kc, vc, spos, qpos = (t(np.ascontiguousarray(a)).to(cuda)
+                             for a in arrays)
+    q, kc, vc = (x.to(dtype) for x in (q, kc, vc))
+    if B > 2:
+        spos[-1] = -1
+    n = ops.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, spos, qpos)
+    assert ops.decode_attention.launches == n + 1
+    r = ref.decode_attention_ref(q, kc, vc, spos, qpos)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("temperature", [0.0, 0.7])
-def test_constrained_sample_kernel_matches_plain(cuda, temperature):
-    logits, mask, rng = sample_case(7, 8, 50432, ties=False)
+@pytest.mark.parametrize("V", [50432, 152064, 65024, 32001])
+def test_constrained_sample_kernel_matches_plain(cuda, temperature, V):
+    """olmo-1b's, qwen3-moe-30b-a3b's and falcon-mamba-7b's padded
+    vocabularies, and hymba-1.5b's 32001 (odd: row b's mask starts at byte
+    b * V, so every split's 16-byte loads have an unaligned head and
+    tail)."""
+    logits, mask, rng = sample_case(7, 8, V, ties=False)
     noise = None
     if temperature > 0:
-        noise = t(-np.log(-np.log(rng.uniform(1e-9, 1.0, (8, 50432))))).to(cuda)
+        noise = t(-np.log(-np.log(rng.uniform(1e-9, 1.0, (8, V))))).to(cuda)
     T = temperature if temperature > 0 else 1.0
     lg, mk = t(logits).to(cuda), t(mask).to(cuda)
     out = ops.constrained_sample(lg, mk, noise, temperature=T)
@@ -156,6 +226,45 @@ def test_constrained_sample_kernel_divides_by_temperature(cuda):
                         np.float32)).to(cuda)
     mask = torch.ones((1, 2), dtype=torch.int8, device=cuda)
     assert ops.constrained_sample(logits, mask, temperature=0.7).item() == 1
+
+
+@pytest.mark.cuda
+def test_constrained_sample_kernel_ties_across_splits(cuda):
+    """Greedy over few distinct logits (exact ties in every split), and a
+    maximum at two indices in different splits of the row: the lower
+    index wins, as in np.argmax."""
+    V = 152064
+    logits, mask, _ = sample_case(19, 8, V, ties=True)
+    lg, mk = t(logits).to(cuda), t(mask).to(cuda)
+    out = ops.constrained_sample(lg, mk, None)
+    assert torch.equal(out, ref.constrained_sample_ref(lg, mk, None))
+    per = V // 8
+    for b, (i, j) in enumerate([(2 * per + 5, 5 * per + 7), (per - 1, per),
+                                (3, 7 * per + 1)]):
+        logits[b, i] = logits[b, j] = 100.0
+        mask[b, i] = mask[b, j] = 1
+    lg, mk = t(logits).to(cuda), t(mask).to(cuda)
+    out = ops.constrained_sample(lg, mk, None)
+    assert torch.equal(out, ref.constrained_sample_ref(lg, mk, None))
+    assert out[:3].tolist() == [2 * per + 5, per - 1, 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [152064, 32001])
+def test_constrained_sample_kernel_only_last_entry_allowed(cuda, V):
+    """Row 0 allows only its last entry, row 1 nothing at all (every entry
+    at -1e30: index 0, as np.argmax), row 2 only its first."""
+    logits, mask, rng = sample_case(20, 4, V, ties=False)
+    mask[:3] = 0
+    mask[0, V - 1] = 1
+    mask[2, 0] = 1
+    lg, mk = t(logits).to(cuda), t(mask).to(cuda)
+    noise = t(-np.log(-np.log(rng.uniform(1e-9, 1.0, (4, V))))).to(cuda)
+    for nz, temp in ((None, 1.0), (noise, 0.7)):
+        out = ops.constrained_sample(lg, mk, nz, temperature=temp)
+        assert torch.equal(out, ref.constrained_sample_ref(lg, mk, nz,
+                                                           temperature=temp))
+        assert out[:3].tolist() == [V - 1, 0, 0]
 
 
 def _quant(kp, vp, cuda):
