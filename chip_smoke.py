@@ -3,15 +3,15 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
     python3 chip_smoke.py --only gmm,flash_attention   # phases 1-2 only
+    python3 chip_smoke.py --only selective_scan,decode_attention_paged_quant
 
 Phases, each reported on its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    Hopper kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, one
    process per source, all started together), with one line per kernel of
-   the redesigned sources (``PTXAS_SOURCES``: the tensor-core kernels and
-   the cluster-split decode attention and sampler) giving what ``nvcc
-   -Xptxas -v`` reports: registers, shared memory, spills;
+   every source (``PTXAS_SOURCES``) giving what ``nvcc -Xptxas -v``
+   reports: registers, shared memory, spills;
 2. each kernel at the shapes the SQL paths give it, in bfloat16 and float32,
    once for each config whose paths run it (olmo-1b's 16 heads x 128 and
    vocabulary, qwen3-moe-30b-a3b's 32 heads x 64 on 4 kv heads and
@@ -23,10 +23,10 @@ Phases, each reported on its own lines:
    computing the same function where there is one (a yardstick only; the
    port never calls it), beside the least time the card could take
    (``bound_ms``: the bytes the function needs over the memory rate, or
-   its operations over the peak rate, the larger); for kernels 1, 2, 3, C,
-   6 and 7 also the profiler's device time of the kernel alone
-   (``device_ms``), and for C the same numbers over int8 frozen prefix
-   pages;
+   its operations over the peak rate, the larger); for every kernel also
+   the profiler's device time of the kernel alone (``device_ms``), for the
+   selective scan the host time of its wrapper per call (``host_ms``), and
+   for C the same numbers over int8 frozen prefix pages;
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
@@ -42,7 +42,8 @@ Phases, each reported on its own lines:
       ``n_samples`` 3.  Each path's kernel launches are counted from zero
       around it, every answer must parse under the grammar, the paged
       queries must hit the radix tree and the ``n_samples`` queries must
-      fork copy-on-write pages.  One warm query of each layout is profiled;
+      fork copy-on-write pages.  One warm query of each layout, and one
+      of the int8 pages, is profiled;
 4. the qwen3-moe-30b-a3b configuration (MoE family: 128 experts, top-8,
    d_ff 768, 32 heads x 64 on 4 kv heads, vocab 151936, random weights):
    a. at full width and 4 of its 48 layers in float32, the logits of a
@@ -199,6 +200,20 @@ def device_ms(fn, args, kernel: str, iters=20, tries=3):
     return None
 
 
+def host_ms(fn, args, iters=200) -> float:
+    """The host time of one call of fn(*args): the wall time of `iters`
+    calls enqueued back to back, before the device is waited for (the
+    device finishes each call faster than the host enqueues the next)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    ms = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f}"
 
@@ -216,11 +231,11 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
-#: the redesigned sources (tensor cores; cluster splits merged through
-#: distributed shared memory); their kernels' resources, as ``nvcc -Xptxas
-#: -v`` reports them, are printed after the build
+#: the kernel sources whose kernels' resources, as ``nvcc -Xptxas -v``
+#: reports them, are printed after the build
 PTXAS_SOURCES = ("gmm.cu", "flash_attention.cu", "decode_attention.cu",
-                 "constrained_sample.cu")
+                 "constrained_sample.cu", "decode_attention_paged.cu",
+                 "selective_scan.cu")
 
 
 def ptxas_resources(log: str) -> list:
@@ -438,8 +453,9 @@ def check_decode_paged(ops, ref, dtype, gen, shape, quant=False):
             args.append({"kq": kq, "vq": vq, "kscale": ks, "vscale": vs,
                          "flags": flags})
         sets.append(tuple(args))
-    fn = ops.decode_attention_paged_quant if quant else \
-        ops.decode_attention_paged
+    fn, name = (ops.decode_attention_paged_quant,
+                "decode_attention_paged_quant_kernel") if quant else \
+        (ops.decode_attention_paged, "decode_attention_paged_kernel")
     plain = ref.decode_attention_paged_ref
     err = (fn(*sets[0]).float() - plain(*sets[0]).float()).abs().max()
     pos = torch.arange(NB * ps, device=dev)
@@ -456,6 +472,7 @@ def check_decode_paged(ops, ref, dtype, gen, shape, quant=False):
         return torch.nn.functional.scaled_dot_product_attention(
             q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=H != KV)
     return dict(max_abs_err=err.item(), ms=time_ms(fn, sets),
+                device_ms=device_ms(fn, sets[0], name),
                 plain_ms=time_ms(plain, sets),
                 library_ms=time_ms(library, sets),
                 bound_ms=b_ms, bound_by=b_by)
@@ -616,8 +633,9 @@ def check_scan(ops, ref, dtype, gen, shape):
     and tick, the most frequent); both are printed and kept under
     "by_shape".  The error is held against the tolerance times the largest
     |output| (at least 1): the kernel and the plain version compute in
-    float32 from the same inputs, the N-term sum in another order.  No
-    single PyTorch call computes the scan: library_ms is None."""
+    float32 from the same inputs, the N-term sum in another order.
+    host_ms is the wrapper's host time per call.  No single PyTorch call
+    computes the scan: library_ms is None."""
     Di, N, R = shape["Di"], shape["N"], 16
     dev = "cuda"
     shapes = {}
@@ -654,13 +672,15 @@ def check_scan(ops, ref, dtype, gen, shape):
             Bz=Bz, S=S, Di=Di, N=N, max_abs_err=err, tolerance_scale=scale,
             ms=time_ms(kernel, sets),
             device_ms=device_ms(kernel, sets[0], "selective_scan_kernel"),
+            host_ms=host_ms(kernel, sets[0]),
             plain_ms=time_ms(ref.selective_scan_ref, sets), library_ms=None,
             bound_ms=b_ms, bound_by=b_by)
     for k, r in shapes.items():
         print(f"  selective_scan {str(dtype)[6:]} {k}: Bz {r['Bz']} S "
               f"{r['S']} Di {r['Di']} N {r['N']}: max_abs_err "
               f"{r['max_abs_err']} (|y| up to {r['tolerance_scale']:.3g}) ms "
-              f"{r['ms']:.4f} (device_ms {fmt_ms(r['device_ms'])}) plain_ms "
+              f"{r['ms']:.4f} (device_ms {fmt_ms(r['device_ms'])}, host_ms "
+              f"{r['host_ms']:.4f}) plain_ms "
               f"{r['plain_ms']:.4f} library_ms none bound_ms "
               f"{r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
     top = shapes["decode"]
@@ -697,7 +717,7 @@ KERNELS = [
     ("decode_attention_paged_quant",
      "src/repro/kernels/decode_attention.py:234",
      functools.partial(check_decode_paged, quant=True),
-     torch.bfloat16, "decode_attention_paged.cu", "paged", (DENSE_ARCH,)),
+     torch.bfloat16, "decode_attention_paged.cu", "paged", BOTH),
     # the prefix extension of kernel 1 (the JAX package's paged prefill,
     # layers.prefix_suffix_attention, is plain jnp)
     ("flash_attention_prefix", "src/repro/kernels/flash_attention.py:89",
@@ -1130,6 +1150,11 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     profile(lambda: paged["none"]("More", "paged batcher over More (warm)",
                                   16)["wall_s"])
+    print(f"peak device memory during the profiled query: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    profile(lambda: paged["int8"]("More", "paged batcher over More (warm) "
+                                  "kv_quant int8", 16)["wall_s"])
     print(f"peak device memory during the profiled query: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 

@@ -2,9 +2,15 @@
 // nvcc into plain-C shared libraries, loaded from Python with ctypes).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace repro {
 
@@ -119,6 +125,23 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// allow_smem once per (device, kernel, size): the attribute is set on the
+// first launch and not set again on every call (a CUDA API call each)
+template <typename K>
+cudaError_t allow_smem_once(K kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& set = done[{dev, reinterpret_cast<const void*>(kernel)}];
+  if (bytes <= set) return cudaSuccess;
+  e = allow_smem(kernel, bytes);
+  if (e == cudaSuccess) set = bytes;
+  return e;
+}
+
 // ---- the tensor-core kernels' building blocks (gmm.cu, flash_attention.cu) ----
 
 // 16-byte asynchronous copy global -> shared; pred false fills the 16 bytes
@@ -182,5 +205,441 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+
+// ---- split decode attention (decode_attention.cu, decode_attention_paged.cu) ----
+//
+// One query token per (row, kv head) against its keys, split across the S
+// blocks of a thread-block cluster: each block owns a range of 32-slot tiles
+// and deals them to its warps; each warp keeps its own online-softmax state
+// (m, l, acc) over its tiles, on the tensor cores (bf16, D % 16 == 0, D <=
+// 128) or on the CUDA cores; the warps' partials merge in the block's shared
+// memory, and the S blocks' partials through distributed shared memory, in
+// rank order (one launch, no workspace, the same sums in every run).  A warp
+// or split with no tile merges as m = -inf with weight 0.  `uniform` makes
+// every valid slot score 0 (the reference's softmax over all-masked scores:
+// the mean of V over the slots).
+namespace split {
+
+constexpr int kTile = 32;       // slots per warp tile: one validity word
+constexpr int kHeads = 8;       // query heads of one kv head per block
+constexpr int kMaxSplits = 8;   // the portable cluster size
+
+// padded K/V row stride in elements (16 bytes more than a row: the 8 rows an
+// ldmatrix or a lane-per-row read touches fall in 8 different bank groups)
+template <typename T>
+__host__ __device__ constexpr int row_stride(int D) {
+  return D + 16 / (int)sizeof(T);
+}
+
+// the query heads of a block's group laid out in shared memory
+__host__ __device__ inline int group_heads(int G) { return G < kHeads ? G : kHeads; }
+
+// bytes of the q region: fp32 rows for the CUDA cores, or 16 bf16 rows (the
+// mma A operand, rows past the group zero) for the tensor cores
+template <typename T>
+__host__ __device__ inline int q_bytes(int G, int D, bool mma) {
+  return mma ? 16 * row_stride<T>(D) * (int)sizeof(T) : group_heads(G) * D * 4;
+}
+
+// the group's Gh query heads from q (Gh x D) into shared memory: bf16 rows
+// of the mma A operand (16 rows, those past Gh zero; the scale is applied to
+// the scores) or fp32 rows times the scale
+template <typename T>
+__device__ __forceinline__ void stage_q(void* qraw, const T* q, int Gh, int D, float scale,
+                                        bool mma) {
+  if (mma) {
+    T* q16 = static_cast<T*>(qraw);
+    const int RS = row_stride<T>(D);
+    for (int i = threadIdx.x; i < 16 * D; i += blockDim.x) {
+      const int r = i / D, d = i - r * D;
+      q16[r * RS + d] = r < Gh ? q[i] : from_f<T>(0.f);
+    }
+  } else {
+    float* qs = static_cast<float*>(qraw);
+    for (int i = threadIdx.x; i < Gh * D; i += blockDim.x) qs[i] = to_f(q[i]) * scale;
+  }
+}
+
+// N consecutive elements of T (N * sizeof(T) bytes, as aligned) as floats
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
+  constexpr int bytes = N * (int)sizeof(T);
+  if constexpr (bytes % 16 == 0) {
+    constexpr int per = 16 / (int)sizeof(T);
+#pragma unroll
+    for (int u = 0; u < bytes / 16; ++u) {
+      const uint4 raw = reinterpret_cast<const uint4*>(p)[u];
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int x = 0; x < per; ++x) out[u * per + x] = to_f(e[x]);
+    }
+  } else if constexpr (bytes == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int x = 0; x < N; ++x) out[x] = to_f(e[x]);
+  } else {
+    static_assert(bytes == 4, "4, 8 or a multiple of 16 bytes");
+    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int x = 0; x < N; ++x) out[x] = to_f(e[x]);
+  }
+}
+
+// ---- the tensor-core warp (bf16, D % 16 == 0, D <= DK) ----
+
+// the group's query rows as A fragments: row g = lane / 4 of every fragment
+// is head g (rows g + 8 are never used)
+template <int DK>
+__device__ __forceinline__ void mma_load_q(uint32_t (&qa)[DK / 16][4],
+                                           const __nv_bfloat16* q16, int D, int lane) {
+  const int RS = row_stride<__nv_bfloat16>(D);
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk)
+    if (16 * kk < D) ldmatrix_x4(qa[kk], q16 + (lane & 15) * RS + (2 * kk + (lane >> 4)) * 8);
+}
+
+// One tile of kTile slots (K and V rows in ks/vs, row stride RS) into the
+// warp's state: S = Q K^T on mma.sync.m16n8k16, the fp32 online softmax per
+// row (a quad of lanes holds a row's 8 slots of each n8 fragment), and
+// O += P V with P split into a bf16 high part and the bf16 rounding of its
+// remainder (P to ~16 bits, two products).  `valid` has a bit per slot and
+// at least one set, so m stays finite.
+template <int DK>
+__device__ __forceinline__ void mma_tile(const uint32_t (&qa)[DK / 16][4],
+                                         const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                         int D, unsigned valid, float scale, bool uniform,
+                                         float (&o)[DK / 8][4], float& mr, float& lr,
+                                         int lane) {
+  const int RS = row_stride<__nv_bfloat16>(D);
+  float sc[4][4] = {};
+  if (!uniform) {
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      if (16 * kk >= D) break;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                            (2 * kk + ((lane >> 3) & 1)) * 8);
+        mma_bf16(sc[2 * jj], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[2 * jj + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+  }
+  // row g's scores: fragment (jn, e < 2) is slot 8 jn + 2 (lane % 4) + e
+  float mx = -INFINITY;
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * jn + 2 * (lane & 3) + e;
+      sc[jn][e] = (valid >> c) & 1u ? sc[jn][e] * scale : -INFINITY;
+      mx = fmaxf(mx, sc[jn][e]);
+    }
+  }
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const float m_new = fmaxf(mr, mx);
+  const float corr = expf(mr - m_new);
+  mr = m_new;
+  float sum = 0.f;
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn) {
+    sc[jn][0] = expf(sc[jn][0] - m_new);
+    sc[jn][1] = expf(sc[jn][1] - m_new);
+    sc[jn][2] = sc[jn][3] = 0.f;
+    sum += sc[jn][0] + sc[jn][1];
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  lr = lr * corr + sum;
+#pragma unroll
+  for (int jd = 0; jd < DK / 8; ++jd) {
+    o[jd][0] *= corr;
+    o[jd][1] *= corr;
+  }
+  // P as the A operand: a bf16 high part and the bf16 rounding of what it
+  // leaves (P = hi + lo to ~16 bits), as in flash_attention.cu
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float p0 = sc[2 * kk + (f >> 1)][2 * (f & 1)];
+      const float p1 = sc[2 * kk + (f >> 1)][2 * (f & 1) + 1];
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+      hi[f] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[f] = pack_bf16(p0 - __low2float(h2), p1 - __high2float(h2));
+    }
+#pragma unroll
+    for (int dp = 0; dp < DK / 16; ++dp) {
+      if (16 * dp >= D) break;
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 15)) * RS + (2 * dp + (lane >> 4)) * 8);
+      mma_bf16(o[2 * dp], hi, vb[0], vb[1]);
+      mma_bf16(o[2 * dp + 1], hi, vb[2], vb[3]);
+      mma_bf16(o[2 * dp], lo, vb[0], vb[1]);
+      mma_bf16(o[2 * dp + 1], lo, vb[2], vb[3]);
+    }
+  }
+}
+
+// the warp's partial at `mine`: m (kHeads), l (kHeads), acc (Gh x D)
+template <int DK>
+__device__ __forceinline__ void mma_partial(float* mine, const float (&o)[DK / 8][4],
+                                            float mr, float lr, int Gh, int D, int lane) {
+  const int g = lane >> 2;
+  if (g >= Gh) return;
+  if ((lane & 3) == 0) {
+    mine[g] = mr;
+    mine[kHeads + g] = lr;
+  }
+#pragma unroll
+  for (int jd = 0; jd < DK / 8; ++jd) {
+    const int d = 8 * jd + 2 * (lane & 3);
+    if (d < D) {
+      mine[2 * kHeads + g * D + d] = o[jd][0];
+      mine[2 * kHeads + g * D + d + 1] = o[jd][1];
+    }
+  }
+}
+
+// ---- the CUDA-core warp (float32, other head dims): DPL output columns a lane ----
+
+// One tile into the warp's state: a lane scores one slot for every head of
+// the group (q broadcast from shared memory, already scaled: every lane
+// works at G = 1 too), a warp max and sum per head, and P.V over the first
+// `rows` rows of the tile (pwarp: the warp's kHeads x kTile p's).
+template <typename T, int DPL>
+__device__ __forceinline__ void fma_tile(const float* qs, const T* ks, const T* vs, int D,
+                                         unsigned valid, int rows, bool uniform, int Gh,
+                                         float* pwarp, float (&m)[kHeads],
+                                         float (&l)[kHeads], float (&acc)[kHeads][DPL],
+                                         int lane) {
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte chunk
+  const int C = D / E;
+  const int RS = row_stride<T>(D);
+  // scores: lane = slot, all heads of the group (two partial sums each)
+  float s[kHeads][2];
+#pragma unroll
+  for (int g = 0; g < kHeads; ++g) s[g][0] = s[g][1] = 0.f;
+  if (!uniform) {
+    const T* krow = ks + lane * RS;
+    auto chunk = [&](int c, int h) {  // h: which partial sum (a constant)
+      float kf[E];
+      load_vec<T, E>(krow + c * E, kf);
+#pragma unroll
+      for (int g = 0; g < kHeads; ++g) {
+        if (g < Gh) {
+          const float4* qg = reinterpret_cast<const float4*>(qs + g * D + c * E);
+#pragma unroll
+          for (int u = 0; u < E / 4; ++u) {
+            const float4 qv = qg[u];
+            s[g][h] = fmaf(qv.x, kf[4 * u], s[g][h]);
+            s[g][h] = fmaf(qv.y, kf[4 * u + 1], s[g][h]);
+            s[g][h] = fmaf(qv.z, kf[4 * u + 2], s[g][h]);
+            s[g][h] = fmaf(qv.w, kf[4 * u + 3], s[g][h]);
+          }
+        }
+      }
+    };
+    int c = 0;
+    for (; c + 1 < C; c += 2) {
+      chunk(c, 0);
+      chunk(c + 1, 1);
+    }
+    if (c < C) chunk(c, 0);
+  }
+  // online softmax; a tile has a valid slot, so m_new is finite
+  const bool ok = (valid >> lane) & 1u;
+#pragma unroll
+  for (int g = 0; g < kHeads; ++g) {
+    if (g < Gh) {
+      const float sg = ok ? s[g][0] + s[g][1] : -INFINITY;
+      const float m_new = fmaxf(m[g], warp_max(sg));
+      const float p = expf(sg - m_new);
+      const float corr = expf(m[g] - m_new);
+      l[g] = l[g] * corr + warp_sum(p);
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[g][e] *= corr;
+      pwarp[g * kTile + lane] = p;
+    }
+  }
+  __syncwarp();
+  // P.V: DPL columns a lane
+  const int d0 = lane * DPL;
+  if (d0 < D) {
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      float vf[DPL];
+      load_vec<T, DPL>(vs + r * RS + d0, vf);
+#pragma unroll
+      for (int g = 0; g < kHeads; ++g) {
+        if (g < Gh) {
+          const float pr = pwarp[g * kTile + r];
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
+        }
+      }
+    }
+  }
+}
+
+// the warp's partial at `mine`, as mma_partial
+template <int DPL>
+__device__ __forceinline__ void fma_partial(float* mine, const float (&m)[kHeads],
+                                            const float (&l)[kHeads],
+                                            const float (&acc)[kHeads][DPL], int Gh, int D,
+                                            int lane) {
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < kHeads; ++g) {
+      mine[g] = m[g];
+      mine[kHeads + g] = l[g];
+    }
+  }
+  const int d0 = lane * DPL;
+  if (d0 < D) {
+#pragma unroll
+    for (int g = 0; g < kHeads; ++g)
+      if (g < Gh)
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) mine[2 * kHeads + g * D + d0 + e] = acc[g][e];
+  }
+}
+
+// ---- the merges ----
+
+// The W warps' partials (each PW floats at wpart: m, l, acc) into the
+// block's m (bm), l (bl) and acc (bacc, Gh x D).  After a block barrier.
+__device__ __forceinline__ void merge_warps(const float* wpart, int PW, int W, int Gh, int D,
+                                            float* bacc, float* bm, float* bl) {
+  for (int i = threadIdx.x; i < Gh * D; i += blockDim.x) {
+    const int g = i / D;
+    float M = -INFINITY;
+    for (int w = 0; w < W; ++w) M = fmaxf(M, wpart[w * PW + g]);
+    float lt = 0.f, x = 0.f;
+    if (M != -INFINITY) {
+      for (int w = 0; w < W; ++w) {
+        const float mw = wpart[w * PW + g];
+        if (mw == -INFINITY) continue;  // a warp with no tile
+        const float wt = expf(mw - M);
+        lt = fmaf(wpart[w * PW + kHeads + g], wt, lt);
+        x = fmaf(wpart[w * PW + 2 * kHeads + i], wt, x);
+      }
+    }
+    bacc[i] = x;
+    if (i - g * D == 0) {
+      bm[g] = M;
+      bl[g] = lt;
+    }
+  }
+}
+
+// The cluster's S partials, in rank order through distributed shared
+// memory, each block a share of the Gh x D outputs, written to out (Gh x
+// D).  When no split has a valid slot (M = -inf), output i is empty(i).
+// Synchronises the cluster before (the partials are written) and after (no
+// block leaves while another still reads its shared memory).
+template <typename T, typename Empty>
+__device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& cluster,
+                                             float* bm, float* bl, float* bacc, int Gh,
+                                             int D, T* out, Empty empty) {
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  for (int i = rank * blockDim.x + threadIdx.x; i < Gh * D; i += S * blockDim.x) {
+    const int g = i / D;
+    float ms[kMaxSplits];
+    float M = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      ms[s] = s < S ? *cluster.map_shared_rank(bm + g, s) : -INFINITY;
+      M = fmaxf(M, ms[s]);
+    }
+    float o;
+    if (M == -INFINITY) {
+      o = empty(i);
+    } else {
+      float lt = 0.f, x = 0.f;
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s) {
+        if (ms[s] == -INFINITY) continue;  // past S, or a split with no valid slot
+        const float w = expf(ms[s] - M);
+        lt = fmaf(*cluster.map_shared_rank(bl + g, s), w, lt);
+        x = fmaf(*cluster.map_shared_rank(bacc + i, s), w, x);
+      }
+      o = x / lt;
+    }
+    out[i] = from_f<T>(o);
+  }
+  cluster.sync();
+}
+
+// The number of splits: the largest S in {1, 2, 4, 8} whose clusters all fit
+// on the card at once (one wave, as cudaOccupancyMaxActiveClusters counts
+// them for this kernel's shared memory) while every split keeps a tile.
+// More splits than fit would queue whole clusters behind the first wave.
+// Cached per (kernel, block size, shared memory, S).
+template <typename K>
+int pick_splits(K kernel, int rows, int ntiles, int threads, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t, int>, int> fits;  // -> clusters
+  std::lock_guard<std::mutex> lock(mu);
+  int S = 1;
+  for (int cand = 2; cand <= kMaxSplits && cand <= ntiles; cand *= 2) {
+    const auto key =
+        std::make_tuple(reinterpret_cast<const void*>(kernel), threads, smem, cand);
+    auto it = fits.find(key);
+    if (it == fits.end()) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(cand);
+      cfg.blockDim = dim3(threads);
+      cfg.dynamicSmemBytes = smem;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = cand;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+        cudaGetLastError();  // a query, not a launch: leave no error behind
+        n = 0;
+      }
+      it = fits.emplace(key, n).first;
+    }
+    if (rows > it->second) break;
+    S = cand;
+  }
+  return S;
+}
+
+// Launch `kernel(args)` on grid (S, gy, gz) with clusters of (S, 1, 1).
+template <typename K, typename A>
+cudaError_t launch_cluster(K kernel, const A& args, int S, int gy, int gz, int threads,
+                           size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, gy, gz);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+}  // namespace split
 
 }  // namespace repro

@@ -61,27 +61,23 @@
 // A warp or split with no live tile merges as m = -inf with weight 0 (never
 // exp(-inf - -inf)).  When no split of the cluster has a valid slot, the
 // row is the reference's uniform softmax over all L slots: the merge
-// computes the mean of V directly.
+// computes the mean of V directly.  The warp tiles, the merges, the choice
+// of S and the cluster launch are repro::split in common.cuh, which the
+// int8 paged decode (decode_attention_paged.cu) shares.
 
 #include <cooperative_groups.h>
-#include <math.h>
 
 #include <algorithm>
-#include <map>
-#include <mutex>
-#include <tuple>
 
 #include "common.cuh"
 
 using namespace repro;
+using namespace repro::split;
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 32;       // slots per warp tile: one validity word
 constexpr int kMaxWarps = 4;
-constexpr int kHeads = 8;       // query heads of one kv head per block
-constexpr int kMaxSplits = 8;   // the portable cluster size
 constexpr size_t kTileBudget = 140 * 1024;  // shared memory for the warps' tiles
 
 struct DecodeArgs {
@@ -97,22 +93,6 @@ struct DecodeArgs {
   float scale;
 };
 
-// padded K/V row stride in elements (16 bytes more than a row)
-template <typename T>
-__host__ __device__ constexpr int row_stride(int D) {
-  return D + 16 / (int)sizeof(T);
-}
-
-// the query heads of a block's group laid out in shared memory
-__host__ __device__ inline int group_heads(int G) { return G < kHeads ? G : kHeads; }
-
-// bytes of the q region: fp32 rows for the CUDA cores, or 16 bf16 rows (the
-// mma A operand, rows past the group zero) for the tensor cores
-template <typename T>
-__host__ __device__ inline int q_bytes(int G, int D, bool mma) {
-  return mma ? 16 * row_stride<T>(D) * (int)sizeof(T) : group_heads(G) * D * 4;
-}
-
 template <typename T>
 size_t smem_bytes(int W, int G, int D, int tiles_per_split, bool mma) {
   return (size_t)W * 2 * kTile * row_stride<T>(D) * sizeof(T) +  // warps' K/V tiles
@@ -123,40 +103,12 @@ size_t smem_bytes(int W, int G, int D, int tiles_per_split, bool mma) {
          sizeof(int) * (2 * tiles_per_split + 1);                  // bits, live list
 }
 
-// N consecutive elements of T (N * sizeof(T) bytes, as aligned) as floats
-template <typename T, int N>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
-  constexpr int bytes = N * (int)sizeof(T);
-  if constexpr (bytes % 16 == 0) {
-    constexpr int per = 16 / (int)sizeof(T);
-#pragma unroll
-    for (int u = 0; u < bytes / 16; ++u) {
-      const uint4 raw = reinterpret_cast<const uint4*>(p)[u];
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int x = 0; x < per; ++x) out[u * per + x] = to_f(e[x]);
-    }
-  } else if constexpr (bytes == 8) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int x = 0; x < N; ++x) out[x] = to_f(e[x]);
-  } else {
-    static_assert(bytes == 4, "4, 8 or a multiple of 16 bytes");
-    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int x = 0; x < N; ++x) out[x] = to_f(e[x]);
-  }
-}
-
 // DK > 0: the tensor-core path (bf16, D % 16 == 0, D <= DK); DK == 0: the
 // CUDA-core path, DPL output columns a lane (D <= 32 * DPL)
 template <typename T, int DPL, int DK>
 __global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(DecodeArgs a) {
   constexpr bool kMma = DK > 0;
   cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int kv = blockIdx.y / a.NG, g0 = (blockIdx.y % a.NG) * kHeads;
   const int b = blockIdx.z;
@@ -194,17 +146,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(Decode
     const unsigned w = __ballot_sync(0xffffffffu, p >= 0 && p <= qp);
     if (lane == 0) bits[i / 32] = w;
   }
-  const T* q = static_cast<const T*>(a.q) + head0 * D;
-  if constexpr (kMma) {
-    T* q16 = reinterpret_cast<T*>(qraw);   // 16 x RS, the scale applied to S
-    for (int i = tid; i < 16 * D; i += blockDim.x) {
-      const int r = i / D, d = i - r * D;
-      q16[r * RS + d] = r < Gh ? q[i] : from_f<T>(0.f);
-    }
-  } else {
-    float* qs = reinterpret_cast<float*>(qraw);
-    for (int i = tid; i < Gh * D; i += blockDim.x) qs[i] = to_f(q[i]) * a.scale;
-  }
+  stage_q(qraw, static_cast<const T*>(a.q) + head0 * D, Gh, D, a.scale, kMma);
   __syncthreads();
   if (tid == 0) {
     int n = 0;
@@ -251,116 +193,24 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(Decode
   float* mine = wpart + warp * PW;
 
   if constexpr (kMma) {
-    // S = Q K^T and O += P V on mma.sync.m16n8k16: the A operand is the
-    // group's query rows (16 rows, those past Gh zero), so row g = lane / 4
-    // of every fragment is head g; rows g + 8 are never used
-    const T* q16 = reinterpret_cast<const T*>(qraw);
     uint32_t qa[DK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < DK / 16; ++kk)
-      if (16 * kk < D) ldmatrix_x4(qa[kk], q16 + (lane & 15) * RS + (2 * kk + (lane >> 4)) * 8);
+    mma_load_q<DK>(qa, reinterpret_cast<const __nv_bfloat16*>(qraw), D, lane);
     float o[DK / 8][4] = {};
     float mr = -INFINITY, lr = 0.f;
     for (int j = warp; j < n_live; j += W) {
       const int t = live[j];
       const int t0 = s0 + t * kTile;
-      const unsigned valid = bits[t];   // only slots inside the cache
       __syncwarp();   // the previous tile's reads are done
       load_tile(t0);
-      float sc[4][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk) {
-        if (16 * kk >= D) break;
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * RS +
-                              (2 * kk + ((lane >> 3) & 1)) * 8);
-          mma_bf16(sc[2 * jj], qa[kk], kb[0], kb[1]);
-          mma_bf16(sc[2 * jj + 1], qa[kk], kb[2], kb[3]);
-        }
-      }
-      // row g's scores: fragment (jn, e < 2) is slot 8 jn + 2 (lane % 4) + e;
-      // a live tile has a valid slot, so m_new is finite
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * jn + 2 * (lane & 3) + e;
-          sc[jn][e] = (valid >> c) & 1u ? sc[jn][e] * a.scale : -INFINITY;
-          mx = fmaxf(mx, sc[jn][e]);
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(mr, mx);
-      const float corr = expf(mr - m_new);
-      mr = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        sc[jn][0] = expf(sc[jn][0] - m_new);
-        sc[jn][1] = expf(sc[jn][1] - m_new);
-        sc[jn][2] = sc[jn][3] = 0.f;
-        sum += sc[jn][0] + sc[jn][1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      lr = lr * corr + sum;
-#pragma unroll
-      for (int jd = 0; jd < DK / 8; ++jd) {
-        o[jd][0] *= corr;
-        o[jd][1] *= corr;
-      }
-      // P as the A operand: a bf16 high part and the bf16 rounding of what
-      // it leaves (P = hi + lo to ~16 bits), as in flash_attention.cu
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t hi[4], lo[4];
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          const float p0 = sc[2 * kk + (f >> 1)][2 * (f & 1)];
-          const float p1 = sc[2 * kk + (f >> 1)][2 * (f & 1) + 1];
-          const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
-          hi[f] = *reinterpret_cast<const uint32_t*>(&h2);
-          lo[f] = pack_bf16(p0 - __low2float(h2), p1 - __high2float(h2));
-        }
-#pragma unroll
-        for (int dp = 0; dp < DK / 16; ++dp) {
-          if (16 * dp >= D) break;
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 15)) * RS + (2 * dp + (lane >> 4)) * 8);
-          mma_bf16(o[2 * dp], hi, vb[0], vb[1]);
-          mma_bf16(o[2 * dp + 1], hi, vb[2], vb[3]);
-          mma_bf16(o[2 * dp], lo, vb[0], vb[1]);
-          mma_bf16(o[2 * dp + 1], lo, vb[2], vb[3]);
-        }
-      }
+      mma_tile<DK>(qa, ks, vs, D, bits[t], a.scale, false, o, mr, lr, lane);
     }
     // the warp's partial (over the tiles, free once every warp is done)
     cp_async_wait<0>();
     __syncthreads();
-    const int g = lane >> 2;
-    if (g < Gh) {
-      if ((lane & 3) == 0) {
-        mine[g] = mr;
-        mine[kHeads + g] = lr;
-      }
-#pragma unroll
-      for (int jd = 0; jd < DK / 8; ++jd) {
-        const int d = 8 * jd + 2 * (lane & 3);
-        if (d < D) {
-          mine[2 * kHeads + g * D + d] = o[jd][0];
-          mine[2 * kHeads + g * D + d + 1] = o[jd][1];
-        }
-      }
-    }
+    mma_partial<DK>(mine, o, mr, lr, Gh, D, lane);
   } else {
     const float* qs = reinterpret_cast<const float*>(qraw);
     float* pwarp = pw + warp * kHeads * kTile;
-    const int d0 = lane * DPL;
-    const bool has_d = d0 < D;
     float m[kHeads], l[kHeads], acc[kHeads][DPL];
 #pragma unroll
     for (int g = 0; g < kHeads; ++g) {
@@ -372,207 +222,31 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(Decode
     for (int j = warp; j < n_live; j += W) {
       const int t = live[j];
       const int t0 = s0 + t * kTile;
-      const unsigned valid = bits[t];   // only slots inside the cache
       __syncwarp();   // the previous tile's reads are done
       load_tile(t0);
-
-      // scores: lane = slot, all heads of the group (two partial sums each)
-      float s[kHeads][2];
-#pragma unroll
-      for (int g = 0; g < kHeads; ++g) s[g][0] = s[g][1] = 0.f;
-      const T* krow = ks + lane * RS;
-      auto chunk = [&](int c, int h) {   // h: which partial sum (a constant)
-        float kf[E];
-        load_vec<T, E>(krow + c * E, kf);
-#pragma unroll
-        for (int g = 0; g < kHeads; ++g) {
-          if (g < Gh) {
-            const float4* qg = reinterpret_cast<const float4*>(qs + g * D + c * E);
-#pragma unroll
-            for (int u = 0; u < E / 4; ++u) {
-              const float4 qv = qg[u];
-              s[g][h] = fmaf(qv.x, kf[4 * u], s[g][h]);
-              s[g][h] = fmaf(qv.y, kf[4 * u + 1], s[g][h]);
-              s[g][h] = fmaf(qv.z, kf[4 * u + 2], s[g][h]);
-              s[g][h] = fmaf(qv.w, kf[4 * u + 3], s[g][h]);
-            }
-          }
-        }
-      };
-      int c = 0;
-      for (; c + 1 < C; c += 2) {
-        chunk(c, 0);
-        chunk(c + 1, 1);
-      }
-      if (c < C) chunk(c, 0);
-      // online softmax; a live tile has a valid slot, so m_new is finite
-      const bool ok = (valid >> lane) & 1u;
-#pragma unroll
-      for (int g = 0; g < kHeads; ++g) {
-        if (g < Gh) {
-          const float sg = ok ? s[g][0] + s[g][1] : -INFINITY;
-          const float m_new = fmaxf(m[g], warp_max(sg));
-          const float p = expf(sg - m_new);
-          const float corr = expf(m[g] - m_new);
-          l[g] = l[g] * corr + warp_sum(p);
-          m[g] = m_new;
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) acc[g][e] *= corr;
-          pwarp[g * kTile + lane] = p;
-        }
-      }
-      __syncwarp();
-      // P.V: DPL columns a lane, every row of the tile inside the cache
-      if (has_d) {
-        const int n = min(kTile, L - t0);
-#pragma unroll 4
-        for (int r = 0; r < n; ++r) {
-          float vf[DPL];
-          load_vec<T, DPL>(vs + r * RS + d0, vf);
-#pragma unroll
-          for (int g = 0; g < kHeads; ++g) {
-            if (g < Gh) {
-              const float pr = pwarp[g * kTile + r];
-#pragma unroll
-              for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
-            }
-          }
-        }
-      }
+      // P.V over every row of the tile inside the cache
+      fma_tile<T, DPL>(qs, ks, vs, D, bits[t], min(kTile, L - t0), false, Gh, pwarp, m, l,
+                       acc, lane);
     }
     // the warp's partial (over the tiles, free once every warp is done)
     cp_async_wait<0>();
     __syncthreads();
-    if (lane == 0) {
-#pragma unroll
-      for (int g = 0; g < kHeads; ++g) {
-        mine[g] = m[g];
-        mine[kHeads + g] = l[g];
-      }
-    }
-    if (has_d) {
-#pragma unroll
-      for (int g = 0; g < kHeads; ++g)
-        if (g < Gh)
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) mine[2 * kHeads + g * D + d0 + e] = acc[g][e];
-    }
+    fma_partial<DPL>(mine, m, l, acc, Gh, D, lane);
   }
 
-  // 3a. the warps' partials into the block's
+  // 3. the warps' partials into the block's, then the S blocks' in rank
+  //    order through distributed shared memory
   __syncthreads();
-  for (int i = tid; i < Gh * D; i += blockDim.x) {
-    const int g = i / D;
-    float M = -INFINITY;
-    for (int w = 0; w < W; ++w) M = fmaxf(M, wpart[w * PW + g]);
-    float lt = 0.f, x = 0.f;
-    if (M != -INFINITY) {
-      for (int w = 0; w < W; ++w) {
-        const float mw = wpart[w * PW + g];
-        if (mw == -INFINITY) continue;   // a warp with no live tile
-        const float wt = expf(mw - M);
-        lt = fmaf(wpart[w * PW + kHeads + g], wt, lt);
-        x = fmaf(wpart[w * PW + 2 * kHeads + i], wt, x);
-      }
-    }
-    bacc[i] = x;
-    if (i - g * D == 0) {
-      bm[g] = M;
-      bl[g] = lt;
-    }
-  }
-
-  // 3b. merge the S partials in rank order through distributed shared memory
-  cluster.sync();
-  T* out = static_cast<T*>(a.out) + head0 * D;
-  for (int i = rank * blockDim.x + tid; i < Gh * D; i += S * blockDim.x) {
-    const int g = i / D;
-    float ms[kMaxSplits];
-    float M = -INFINITY;
-#pragma unroll
-    for (int s = 0; s < kMaxSplits; ++s) {
-      ms[s] = s < S ? *cluster.map_shared_rank(bm + g, s) : -INFINITY;
-      M = fmaxf(M, ms[s]);
-    }
-    float o;
-    if (M == -INFINITY) {
-      // no valid slot in the whole row: every slot scores -1e30 in the
-      // reference, whose softmax is then uniform over the L slots
-      const int d = i - g * D;
-      float x = 0.f;
-      for (int r = 0; r < L; ++r) x += to_f(vbase[(size_t)r * slot_stride + d]);
-      o = x / (float)L;
-    } else {
-      float lt = 0.f, x = 0.f;
-#pragma unroll
-      for (int s = 0; s < kMaxSplits; ++s) {
-        if (ms[s] == -INFINITY) continue;   // past S, or a split with no valid slot
-        const float w = expf(ms[s] - M);
-        lt = fmaf(*cluster.map_shared_rank(bl + g, s), w, lt);
-        x = fmaf(*cluster.map_shared_rank(bacc + i, s), w, x);
-      }
-      o = x / lt;
-    }
-    out[i] = from_f<T>(o);
-  }
-  // no block may leave while another still reads its shared memory
-  cluster.sync();
-}
-
-// allow_smem once per (device, kernel, size): the attribute is set on the
-// first launch and not set again on every call (a CUDA API call each)
-template <typename K>
-cudaError_t allow_smem_once(K kernel, size_t bytes) {
-  static std::mutex mu;
-  static std::map<std::pair<int, const void*>, size_t> done;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  size_t& set = done[{dev, reinterpret_cast<const void*>(kernel)}];
-  if (bytes <= set) return cudaSuccess;
-  e = allow_smem(kernel, bytes);
-  if (e == cudaSuccess) set = bytes;
-  return e;
-}
-
-// The number of splits: the largest S in {1, 2, 4, 8} whose clusters all fit
-// on the card at once (one wave, as cudaOccupancyMaxActiveClusters counts
-// them for this kernel's shared memory) while every split keeps a tile.
-// More splits than fit would queue whole clusters behind the first wave.
-template <typename K>
-int pick_splits(K kernel, int rows, int ntiles, int threads, size_t smem) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, size_t, int>, int> fits;  // -> clusters
-  std::lock_guard<std::mutex> lock(mu);
-  int S = 1;
-  for (int cand = 2; cand <= kMaxSplits && cand <= ntiles; cand *= 2) {
-    const auto key =
-        std::make_tuple(reinterpret_cast<const void*>(kernel), threads, smem, cand);
-    auto it = fits.find(key);
-    if (it == fits.end()) {
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(cand);
-      cfg.blockDim = dim3(threads);
-      cfg.dynamicSmemBytes = smem;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = cand;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      int n = 0;
-      if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
-        cudaGetLastError();   // a query, not a launch: leave no error behind
-        n = 0;
-      }
-      it = fits.emplace(key, n).first;
-    }
-    if (rows > it->second) break;
-    S = cand;
-  }
-  return S;
+  merge_warps(wpart, PW, W, Gh, D, bacc, bm, bl);
+  // no valid slot in the whole row: every slot scores -1e30 in the
+  // reference, whose softmax is then uniform over the L slots
+  merge_splits(cluster, bm, bl, bacc, Gh, D, static_cast<T*>(a.out) + head0 * D,
+               [&](int i) {
+                 const int d = i % D;
+                 float x = 0.f;
+                 for (int r = 0; r < L; ++r) x += to_f(vbase[(size_t)r * slot_stride + d]);
+                 return x / (float)L;
+               });
 }
 
 template <typename T, int DPL, int DK>
@@ -586,21 +260,7 @@ int launch_kernel(DecodeArgs a, int B, int ntiles, int W, cudaStream_t stream) {
   if (e != cudaSuccess) return (int)e;
   const int S = pick_splits(kernel, B * a.KV * a.NG, ntiles, 32 * W, smem);
   a.tiles_per_split = (ntiles + S - 1) / S;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S, a.KV * a.NG, B);
-  cfg.blockDim = dim3(32 * W);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)launch_cluster(kernel, a, S, a.KV * a.NG, B, 32 * W, smem, stream);
 }
 
 template <typename T>

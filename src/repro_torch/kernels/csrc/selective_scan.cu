@@ -6,28 +6,68 @@
 //
 // Replaces: repro/kernels/selective_scan.py::selective_scan_pallas (the TPU
 // kernel behind ops.selective_scan), extended by an optional initial state
-// h0 and an output state h_out that may alias it: each thread reads its own
-// state once before the time loop and writes it once after, so the scan can
-// continue a carried state in place.  The SQL path runs it in every layer of
-// the ssm and hybrid families, at prefill (S = the bucket, h0 = the cache's
-// state) and at every decode tick (S = 1, the JAX package's single-step
+// h0 and an output state h_out that may alias it, so the scan can continue
+// a carried state in place.  The SQL path runs it in every layer of the ssm
+// and hybrid families, at prefill (S = the bucket, h0 = the cache's state)
+// and at every decode tick (S = 1, the JAX package's single-step
 // recurrence).  Plain version: kernels/ref.py selective_scan_ref.
 //
-// Bound on the H100: bytes.  Each element of u, dt, y is touched once, B/C
-// rows and A/D/h0/h_out once; the work is ~6 float32 operations per
-// (t, d, n), far below the card's compute line.
+// Bound on the H100.  By bytes, each element of u, dt, y is touched once,
+// the B/C rows and A/D/h0/h_out once: ~7 us at falcon-mamba-7b's prefill
+// (Bz 1, S 256, Di 8192, N 16) and ~3 us at its decode tick (Bz 8, S 1),
+// the bound chip_smoke.py reports.  But every (t, d, n) also takes one
+// exponential, and the card computes 16 of those a clock per SM (the
+// special-function units), ~9 us at falcon's prefill.  The decode tick is
+// bound by bytes: the state, read and written.
 //
-// Design.  The TPU kernel walks the time chunks as a sequential grid axis
-// with h (block_d, N) held in VMEM scratch.  Here the time loop runs inside
-// the block, and the state lives in registers: one thread per (d, n) pair,
-// N lanes per channel (N a power of two up to 32), so a block of 128
-// threads owns 128 / N channels and falcon-mamba's 8192 channels give 1024
-// blocks (one thread per channel would give 64 blocks of 128 threads, too
-// few for 132 SMs).  y_t[d] is a shuffle reduction over the channel's N
-// lanes.  Per chunk of 64 time steps the block stages the B/C rows and its
-// channels' u and dt in shared memory with coalesced loads; lane 0 of each
-// channel writes y.  Arithmetic in float32 with expf, accumulated as the
-// plain version does up to the order of the N-term sum.
+// Design.  A thread owns a channel: it keeps the channel's N states in
+// registers, pre-scales A by log2(e) so that each decay is one
+// ex2.approx.ftz (one special-function instruction), and sums y_t over n
+// in registers (no shuffle).  Arithmetic in float32.
+//
+// - Decode (S = 1, A and the state 16-byte aligned, as the mixer's always
+//   are; else the prefill kernel runs it as one chunk):
+//   selective_scan_kernel_decode, one thread per (b, d),
+//   128 channels of one row a block.  The thread loads its state and its A
+//   row as N / 4 float4s each, all in flight together, and stores the new
+//   state the same way.  B_t and C_t of row b are the same for the whole
+//   block: warp-uniform loads, one transaction a warp each.
+// - Prefill (S > 1): selective_scan_kernel.  One thread a channel would give
+//   only Bz * Di threads (falcon 8192, hymba 3200: two warps an SM), so a
+//   block holds 32 channels (a warp, so that u, dt and y move as coalesced
+//   rows) times T time chunks of L steps, one warp a chunk, T chosen on the
+//   host to give the card about 8 warps an SM (falcon T 8, hymba 16).  This
+//   is the shape of the Mamba authors' public selective_scan_fwd kernel: a
+//   block-wide scan over time of (decay, input) pairs.
+//   1. Pass 1: chunk k scans its L steps from a zero state and keeps its
+//      end state h_k[n] and its sum of dt; the decay across the whole chunk
+//      is exp(A[n] * sum dt), one exponential per n.  Chunk 0 starts from
+//      h0 instead and writes y on the way (it needs no second pass); the
+//      last chunk skips pass 1 (nobody needs its carry).
+//   2. Combine: the carries combine in order, in shared memory, one thread
+//      per (channel, n): H_k = exp(A * sum dt_k) * H_{k-1} + h_k from H_0.
+//   3. Pass 2: chunk k >= 1 reruns its steps from H_{k-1}, writes y, and the
+//      last chunk writes the final state.
+//   So 7/8 of the steps run twice at T = 8: ~1.75 exponentials per
+//   (t, d, n).  Each warp works through its chunk in slabs of kSlab steps:
+//   the next slab's u, dt and B/C entries are loaded into registers (one
+//   coalesced pass; the rows' 2-byte alignment rules out vector loads)
+//   before this slab's steps run, and this slab's B/C rows go to the
+//   warp's own shared memory as float, from where every lane reads them
+//   as 16-byte broadcasts.  A step then costs five instructions per n
+//   (the decay's product and exponential, dt u B, the state's and y's
+//   fused multiply-adds), and the instruction issue, not the
+//   special-function units, bounds the prefill: staging bfloat16 (an
+//   unpack per value read) and computing part of the exponentials with a
+//   polynomial on the FP32 pipe were both slower.
+// - In place: h_out may alias h0 (models/mamba.py passes the cache's state
+//   as both).  All the chunks of a channel live in one block; the h0 read
+//   (chunk 0, pass 1) comes before the block's first barrier and the final
+//   state write (the last chunk, pass 2) after it, and no other block
+//   touches the channel.  The decode kernel reads and writes each state
+//   word in the same thread.
+// - Unchanged: u/B/C in float32 or bfloat16; N in {4, 8, 16, 32}; B and C
+//   as strided slices of one projection (ldbc); ragged S and Di.
 
 #include <math.h>
 
@@ -37,91 +77,280 @@ using namespace repro;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDecodeThreads = 128;  // channels of one row per decode block
+constexpr int kSlab = 8;             // time steps a warp stages at once
+constexpr int kMaxChunks = 16;       // warps (time chunks) per prefill block
+// N = 32 threads hold twice the state: half the chunks, so that the
+// launch bound leaves them the registers
+template <int N>
+constexpr int kChunksFor = N >= 32 ? kMaxChunks / 2 : kMaxChunks;
+constexpr int kMinChunkLen = 8;      // steps per chunk, at least
+constexpr int kWarpsPerSm = 8;       // what the chunk count aims for
+
+struct ScanArgs {
+  const void* u;      // (Bz, S, Di) T
+  const float* dt;    // (Bz, S, Di)
+  const float* A;     // (Di, N)
+  const void* B;      // row (b, t) at (b * S + t) * ldbc, N values of T
+  const void* C;
+  const float* D;     // (Di,)
+  const float* h0;    // (Bz, Di, N) or null; may be h_out
+  float* y;           // (Bz, S, Di)
+  float* h_out;       // (Bz, Di, N)
+  int S, Di, ldbc;
+};
+
+// 2^x in one special-function instruction (flushing a subnormal result to
+// zero: a decay below 1.2e-38)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One slab's inputs for this lane: its kSlab values of u and dt and its
+// share of the slab's B/C rows (kSlab * 2N values, lane e of 32 takes
+// entries e, e + 32, ...), loaded into registers so that one slab's loads
+// are in flight while the previous slab is computed.
+template <int N>
+struct Slab {
+  float u[kSlab], dt[kSlab], bc[kSlab * 2 * N / 32];
+};
 
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
-                      const float* __restrict__ A, const T* __restrict__ Bm,
-                      const T* __restrict__ Cm, const float* __restrict__ Dv,
-                      const float* h0, float* __restrict__ y, float* h_out,
-                      int S, int Di, int ldbc) {
-  constexpr int CH = kThreads / N;          // channels per block
-  __shared__ float sB[kChunk][N], sC[kChunk][N];
-  __shared__ float su[kChunk][CH], sdt[kChunk][CH];
-
-  const int b = blockIdx.y;
-  const int n = threadIdx.x % N;
-  const int c = threadIdx.x / N;
-  const int d0 = blockIdx.x * CH;
-  const int d = d0 + c;
-  const bool live = d < Di;
-  const size_t row0 = (size_t)b * S;        // first (b, t) row
-
-  const float a_dn = live ? A[(size_t)d * N + n] : 0.f;
-  const float Dd = live ? Dv[d] : 0.f;
-  const size_t hidx = ((size_t)b * Di + d) * N + n;
-  float h = (live && h0 != nullptr) ? h0[hidx] : 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int tc = min(kChunk, S - t0);
-    __syncthreads();                        // the previous chunk is consumed
-    for (int i = threadIdx.x; i < tc * N; i += kThreads) {
-      const int r = i / N, k = i - r * N;
-      const size_t off = (row0 + t0 + r) * (size_t)ldbc + k;
-      sB[r][k] = to_f(Bm[off]);
-      sC[r][k] = to_f(Cm[off]);
-    }
-    for (int i = threadIdx.x; i < tc * CH; i += kThreads) {
-      const int r = i / CH, k = i - r * CH;
-      const size_t off = (row0 + t0 + r) * (size_t)Di + d0 + k;
-      const bool ok = d0 + k < Di;
-      su[r][k] = ok ? to_f(u[off]) : 0.f;
-      sdt[r][k] = ok ? dt[off] : 0.f;
-    }
-    __syncthreads();
-    for (int r = 0; r < tc; ++r) {
-      const float dtv = sdt[r][c], uv = su[r][c];
-      h = expf(dtv * a_dn) * h + (dtv * uv) * sB[r][n];
-      float p = h * sC[r][n];
+__device__ __forceinline__ void load_slab(const ScanArgs& a, size_t row0, int d, bool live,
+                                          int t, int t1, int lane, Slab<N>& x) {
+  const T* up = static_cast<const T*>(a.u);
+  const T* Bp = static_cast<const T*>(a.B);
+  const T* Cp = static_cast<const T*>(a.C);
+  const int n_steps = min(kSlab, t1 - t);
 #pragma unroll
-      for (int o = N / 2; o > 0; o >>= 1)
-        p += __shfl_xor_sync(0xffffffffu, p, o, N);
-      if (n == 0 && live) y[(row0 + t0 + r) * (size_t)Di + d] = p + Dd * uv;
+  for (int i = 0; i < kSlab * 2 * N / 32; ++i) {
+    const int e = lane + 32 * i;  // entry (r, j): B_t for j < N, then C_t
+    const int r = e / (2 * N), j = e % (2 * N);
+    const size_t off = (row0 + t + r) * (size_t)a.ldbc;
+    x.bc[i] = r < n_steps ? to_f(j < N ? Bp[off + j] : Cp[off + j - N]) : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < kSlab; ++r) {
+    const bool ok = live && r < n_steps;
+    const size_t off = (row0 + t + r) * (size_t)a.Di + d;
+    x.u[r] = ok ? to_f(up[off]) : 0.f;
+    x.dt[r] = ok ? a.dt[off] : 0.f;
+  }
+}
+
+// Steps [t0, t1) of channel d of row b from the state h, slab by slab: the
+// next slab's loads are issued before this slab's steps run.  Y: write y_t;
+// otherwise add dt_t to dsum (pass 1 of a chunk k >= 1).
+template <typename T, int N, bool Y>
+__device__ __forceinline__ void scan_steps(const ScanArgs& a, int b, int d, bool live,
+                                           int t0, int t1, const float (&a2)[N], float Dd,
+                                           float (&h)[N], float& dsum, float* slab, int lane) {
+  const size_t row0 = (size_t)b * a.S;
+  Slab<N> cur, nxt;
+  if (t0 < t1) load_slab<T, N>(a, row0, d, live, t0, t1, lane, nxt);
+  for (int t = t0; t < t1; t += kSlab) {
+    const int n_steps = min(kSlab, t1 - t);
+    cur = nxt;
+    __syncwarp();  // the previous slab's rows are read
+#pragma unroll
+    for (int i = 0; i < kSlab * 2 * N / 32; ++i) slab[lane + 32 * i] = cur.bc[i];
+    __syncwarp();
+    if (t + kSlab < t1) load_slab<T, N>(a, row0, d, live, t + kSlab, t1, lane, nxt);
+#pragma unroll
+    for (int r = 0; r < kSlab; ++r) {
+      if (r < n_steps) {
+        const float dtv = cur.dt[r], dtu = dtv * cur.u[r];
+        const float4* row = reinterpret_cast<const float4*>(slab + r * 2 * N);
+        float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q) {
+          const float4 bq = row[q], cq = row[N / 4 + q];
+          h[4 * q] = fmaf(ex2(dtv * a2[4 * q]), h[4 * q], dtu * bq.x);
+          h[4 * q + 1] = fmaf(ex2(dtv * a2[4 * q + 1]), h[4 * q + 1], dtu * bq.y);
+          h[4 * q + 2] = fmaf(ex2(dtv * a2[4 * q + 2]), h[4 * q + 2], dtu * bq.z);
+          h[4 * q + 3] = fmaf(ex2(dtv * a2[4 * q + 3]), h[4 * q + 3], dtu * bq.w);
+          y0 = fmaf(h[4 * q], cq.x, y0);
+          y1 = fmaf(h[4 * q + 1], cq.y, y1);
+          y0 = fmaf(h[4 * q + 2], cq.z, y0);
+          y1 = fmaf(h[4 * q + 3], cq.w, y1);
+        }
+        if constexpr (Y) {
+          if (live) a.y[(row0 + t + r) * (size_t)a.Di + d] = y0 + y1 + Dd * cur.u[r];
+        } else {
+          dsum += dtv;
+        }
+      }
     }
   }
-  if (live) h_out[hidx] = h;
+}
+
+// Prefill: grid (ceil(Di / 32), Bz), blockDim 32 * T (T chunks of L steps).
+template <typename T, int N>
+__global__ void __launch_bounds__(32 * kChunksFor<N>)
+selective_scan_kernel(ScanArgs a, int L) {
+  const int nch = blockDim.x / 32;
+  const int lane = threadIdx.x % 32, k = threadIdx.x / 32;
+  const int b = blockIdx.y;
+  const int d = blockIdx.x * 32 + lane;
+  const bool live = d < a.Di;
+
+  extern __shared__ __align__(16) float smem[];
+  float* carry = smem;                          // (nch - 1) x N x 32: h_k, then H_k
+  float* sdt = carry + (nch - 1) * N * 32;      // (nch - 1) x 32: sum of dt of chunk k
+  float* slab = sdt + (nch - 1) * 32 + k * kSlab * 2 * N;  // this warp's B/C rows
+
+  float a2[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) a2[n] = live ? a.A[(size_t)d * N + n] * kLog2e : 0.f;
+  const float Dd = live ? a.D[d] : 0.f;
+  const int t0 = min(a.S, k * L), t1 = min(a.S, t0 + L);
+  const size_t hidx = ((size_t)b * a.Di + d) * N;
+  float h[N];
+  float dsum = 0.f;
+
+  // 1. pass 1: chunk 0 from h0, writing y; chunks 1 .. nch-2 from zero
+  if (k == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) h[n] = (live && a.h0 != nullptr) ? a.h0[hidx + n] : 0.f;
+    scan_steps<T, N, true>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
+  } else if (k < nch - 1) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) h[n] = 0.f;
+    scan_steps<T, N, false>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
+  }
+  if (nch == 1) {  // one chunk: the whole scan was pass 1
+    if (live)
+#pragma unroll
+      for (int n = 0; n < N; ++n) a.h_out[hidx + n] = h[n];
+    return;
+  }
+  if (k < nch - 1) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) carry[(k * N + n) * 32 + lane] = h[n];
+    sdt[k * 32 + lane] = dsum;
+  }
+  __syncthreads();
+
+  // 2. combine in chunk order: carry[k] becomes the state after chunk k
+  for (int p = threadIdx.x; p < N * 32; p += blockDim.x) {
+    const int n = p / 32, c = p % 32;
+    const int dc = blockIdx.x * 32 + c;
+    const float an = dc < a.Di ? a.A[(size_t)dc * N + n] * kLog2e : 0.f;
+    float H = carry[n * 32 + c];
+    for (int kk = 1; kk < nch - 1; ++kk) {
+      float* hk = carry + (kk * N + n) * 32 + c;
+      H = fmaf(ex2(an * sdt[kk * 32 + c]), H, *hk);
+      *hk = H;
+    }
+  }
+  __syncthreads();
+
+  // 3. pass 2: chunks 1 .. nch-1 from the state before them, writing y
+  if (k == 0) return;
+#pragma unroll
+  for (int n = 0; n < N; ++n) h[n] = carry[((k - 1) * N + n) * 32 + lane];
+  scan_steps<T, N, true>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
+  if (k == nch - 1 && live)
+#pragma unroll
+    for (int n = 0; n < N; ++n) a.h_out[hidx + n] = h[n];
+}
+
+// Decode: one step (S = 1) from the carried state; grid (ceil(Di / 128), Bz).
+template <typename T, int N>
+__global__ void __launch_bounds__(kDecodeThreads)
+selective_scan_kernel_decode(ScanArgs a) {
+  const int b = blockIdx.y;
+  const int d = blockIdx.x * kDecodeThreads + threadIdx.x;
+  if (d >= a.Di) return;  // no barrier below
+  const size_t hidx = ((size_t)b * a.Di + d) * N;
+  const size_t x = (size_t)b * a.Di + d;  // (b, t = 0, d)
+  float4 h[N / 4], av[N / 4];
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    h[q] = a.h0 != nullptr ? reinterpret_cast<const float4*>(a.h0 + hidx)[q]
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    av[q] = __ldg(reinterpret_cast<const float4*>(a.A + (size_t)d * N) + q);
+  }
+  const float uv = to_f(static_cast<const T*>(a.u)[x]);
+  const float dtv = a.dt[x], dtu = dtv * uv;
+  const float Dd = a.D[d];
+  const T* Bp = static_cast<const T*>(a.B) + (size_t)b * a.ldbc;
+  const T* Cp = static_cast<const T*>(a.C) + (size_t)b * a.ldbc;
+  float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    float* hq = reinterpret_cast<float*>(&h[q]);
+    const float* aq = reinterpret_cast<const float*>(&av[q]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * q + i;
+      hq[i] = fmaf(ex2(dtv * (aq[i] * kLog2e)), hq[i], dtu * to_f(Bp[n]));
+      if (i % 2 == 0)
+        y0 = fmaf(hq[i], to_f(Cp[n]), y0);
+      else
+        y1 = fmaf(hq[i], to_f(Cp[n]), y1);
+    }
+  }
+  a.y[x] = y0 + y1 + Dd * uv;
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) reinterpret_cast<float4*>(a.h_out + hidx)[q] = h[q];
+}
+
+// The prefill's chunk count: the smallest power of two that gives the card
+// about kWarpsPerSm warps an SM, at most `cap`, with chunks of at least
+// kMinChunkLen steps.  The SM count is read once per device.
+int pick_chunks(int groups, int S, int cap) {
+  static int sms[16] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16) return 1;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    cudaGetLastError();  // a query, not a launch: leave no error behind
+    sms[dev] = 132;
+  }
+  int T = 1;
+  while (T < cap && (long)groups * T < (long)kWarpsPerSm * sms[dev] &&
+         (S + 2 * T - 1) / (2 * T) >= kMinChunkLen)
+    T *= 2;
+  return T;
 }
 
 template <typename T, int N>
-int launch(const void* u, const void* dt, const void* A, const void* B,
-           const void* C, const void* D, const void* h0, void* y, void* h_out,
-           int Bz, int S, int Di, int ldbc, cudaStream_t stream) {
-  const dim3 grid((Di + kThreads / N - 1) / (kThreads / N), Bz);
-  selective_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(u), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<const float*>(D),
-      static_cast<const float*>(h0), static_cast<float*>(y),
-      static_cast<float*>(h_out), S, Di, ldbc);
+int launch(const ScanArgs& a, int Bz, cudaStream_t stream) {
+  // the decode kernel's float4 state and A loads need 16-byte alignment;
+  // an unaligned step runs as a one-chunk scan
+  const bool aligned = ((uintptr_t)a.A | (uintptr_t)a.h0 | (uintptr_t)a.h_out) % 16 == 0;
+  if (a.S == 1 && aligned) {
+    const dim3 grid((a.Di + kDecodeThreads - 1) / kDecodeThreads, Bz);
+    selective_scan_kernel_decode<T, N><<<grid, kDecodeThreads, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const int groups = (a.Di + 31) / 32;
+  const int nch = pick_chunks(groups * Bz, a.S, kChunksFor<N>);
+  const int L = (a.S + nch - 1) / nch;
+  const size_t smem =
+      sizeof(float) * ((size_t)(nch - 1) * (N + 1) * 32 + (size_t)nch * kSlab * 2 * N);
+  auto kernel = selective_scan_kernel<T, N>;
+  cudaError_t e = allow_smem_once(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(groups, Bz), 32 * nch, smem, stream>>>(a, L);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_n(int N, const void* u, const void* dt, const void* A,
-               const void* B, const void* C, const void* D, const void* h0,
-               void* y, void* h_out, int Bz, int S, int Di, int ldbc,
-               cudaStream_t s) {
+int dispatch_n(int N, const ScanArgs& a, int Bz, cudaStream_t s) {
   switch (N) {
     case 4:
-      return launch<T, 4>(u, dt, A, B, C, D, h0, y, h_out, Bz, S, Di, ldbc, s);
+      return launch<T, 4>(a, Bz, s);
     case 8:
-      return launch<T, 8>(u, dt, A, B, C, D, h0, y, h_out, Bz, S, Di, ldbc, s);
+      return launch<T, 8>(a, Bz, s);
     case 16:
-      return launch<T, 16>(u, dt, A, B, C, D, h0, y, h_out, Bz, S, Di, ldbc, s);
+      return launch<T, 16>(a, Bz, s);
     case 32:
-      return launch<T, 32>(u, dt, A, B, C, D, h0, y, h_out, Bz, S, Di, ldbc, s);
+      return launch<T, 32>(a, Bz, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -133,8 +362,8 @@ int dispatch_n(int N, const void* u, const void* dt, const void* A,
 // contiguous; A (Di, N) and D (Di,) float32; B, C (Bz, S, N) of u's dtype,
 // row t of batch b at (b * S + t) * ldbc (slices of one projection); h0
 // (Bz, Di, N) float32 or NULL (zeros); y (Bz, S, Di) float32; h_out (Bz, Di,
-// N) float32, may be h0.  N in {4, 8, 16, 32}.  Returns the CUDA error code
-// of the launch (0 on success).
+// N) float32, may be h0.  N in {4, 8, 16, 32}.  Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int repro_selective_scan(int dtype, const void* u, const void* dt,
                                     const void* A, const void* B,
                                     const void* C, const void* D,
@@ -143,13 +372,14 @@ extern "C" int repro_selective_scan(int dtype, const void* u, const void* dt,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Bz <= 0 || S <= 0 || Di <= 0) return (int)cudaErrorInvalidValue;
+  const ScanArgs a{u, static_cast<const float*>(dt), static_cast<const float*>(A), B, C,
+                   static_cast<const float*>(D), static_cast<const float*>(h0),
+                   static_cast<float*>(y), static_cast<float*>(h_out), S, Di, ldbc};
   switch (dtype) {
     case kFloat32:
-      return dispatch_n<float>(N, u, dt, A, B, C, D, h0, y, h_out, Bz, S, Di,
-                               ldbc, s);
+      return dispatch_n<float>(N, a, Bz, s);
     case kBFloat16:
-      return dispatch_n<__nv_bfloat16>(N, u, dt, A, B, C, D, h0, y, h_out, Bz,
-                                       S, Di, ldbc, s);
+      return dispatch_n<__nv_bfloat16>(N, a, Bz, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -133,9 +133,16 @@ def build_log(src: str) -> str:
     return Path(build()[src]._name).with_suffix(".log").read_text()
 
 
+_fns: Dict[str, object] = {}
+
+
 def _fn(name: str):
-    src, sym, _ = KERNELS[name]
-    return getattr(build()[src], sym)
+    """The kernel's C entry point, built and resolved at its first call."""
+    fn = _fns.get(name)
+    if fn is None:
+        src, sym, _ = KERNELS[name]
+        fn = _fns[name] = getattr(build()[src], sym)
+    return fn
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -143,7 +150,10 @@ def _ptr(t: torch.Tensor) -> int:
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The handle of PyTorch's current stream on the current device, by the
+    raw accessor: building a torch.cuda.Stream object costs the SQL path's
+    wrappers several microseconds of host time a call."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _check(name: str, err: int) -> None:
@@ -434,42 +444,51 @@ def selective_scan(u, dt, A, B, C, D, h0=None, h_out=None):
     row stride (slices of one (Bz, S, R + 2N) projection are taken as they
     are); D (Di,) float32; h0 (Bz, Di, N) float32 or None (zeros).  The
     final state is written to `h_out` (Bz, Di, N) float32, which may be h0,
-    or to a new tensor.  Returns (y (Bz, S, Di) float32, the final state)."""
+    or to a new tensor.  Returns (y (Bz, S, Di) float32, the final
+    state).
+
+    The SQL path calls it once per mixer layer and decode tick, so its
+    checks are written for host time: each condition is tested in place and
+    its message formatted only when it fails."""
     if not u.is_cuda:
         return ref.selective_scan_ref(u, dt, A, B, C, D, h0, h_out)
     Bz, S, Di = u.shape
     N = A.shape[-1]
-    _require(u.dtype in _DTYPES and B.dtype == u.dtype and C.dtype == u.dtype,
-             f"selective_scan: u, B and C must share one of {list(_DTYPES)}")
-    _require(u.is_cuda and u.is_contiguous() and dt.is_cuda
-             and dt.dtype == torch.float32 and dt.is_contiguous()
-             and dt.shape == u.shape,
-             "selective_scan: u and dt must be contiguous (Bz, S, Di) CUDA "
-             "tensors, dt float32")
+    dtype, f32 = u.dtype, torch.float32
+    if not (dtype in _DTYPES and B.dtype is dtype and C.dtype is dtype):
+        raise ValueError("selective_scan: u, B and C must share one of "
+                         f"{list(_DTYPES)}")
+    if not (dt.dtype is f32 and dt.is_cuda and dt.shape == u.shape
+            and u.is_contiguous() and dt.is_contiguous()):
+        raise ValueError("selective_scan: u and dt must be contiguous (Bz, "
+                         "S, Di) CUDA tensors, dt float32")
     for name, x, shape in (("A", A, (Di, N)), ("D", D, (Di,)),
                            ("h0", h0, (Bz, Di, N)),
                            ("h_out", h_out, (Bz, Di, N))):
-        _require(x is None or (x.is_cuda and x.dtype == torch.float32
-                               and x.is_contiguous()
-                               and tuple(x.shape) == shape),
-                 f"selective_scan: {name} must be a contiguous float32 CUDA "
-                 f"tensor of shape {shape}")
+        if x is not None and not (
+                x.dtype is f32 and x.is_cuda and x.is_contiguous()
+                and x.shape == shape):
+            raise ValueError(f"selective_scan: {name} must be a contiguous "
+                             f"float32 CUDA tensor of shape {shape}")
     ld = B.stride(0) // S             # row t of batch b at (b * S + t) * ld
     for x in (B, C):
-        _require(x.is_cuda and tuple(x.shape) == (Bz, S, N)
-                 and x.stride(0) == S * ld and x.stride(2) == 1
-                 and (S == 1 or x.stride(1) == ld),
-                 "selective_scan: B and C must be (Bz, S, N) CUDA tensors "
-                 "with unit stride along N and one row stride")
-    _require(N in (4, 8, 16, 32), f"selective_scan: state size {N} "
-             "unsupported (4, 8, 16 or 32)")
-    y = torch.empty(Bz, S, Di, dtype=torch.float32, device=u.device)
+        st = x.stride()
+        if not (x.is_cuda and x.shape == (Bz, S, N) and st[0] == S * ld
+                and st[2] == 1 and (S == 1 or st[1] == ld)):
+            raise ValueError("selective_scan: B and C must be (Bz, S, N) CUDA "
+                             "tensors with unit stride along N and one row "
+                             "stride")
+    if N not in (4, 8, 16, 32):
+        raise ValueError(f"selective_scan: state size {N} unsupported (4, 8, "
+                         "16 or 32)")
+    y = torch.empty(Bz, S, Di, dtype=f32, device=u.device)
     if h_out is None:
-        h_out = torch.empty(Bz, Di, N, dtype=torch.float32, device=u.device)
+        h_out = torch.empty(Bz, Di, N, dtype=f32, device=u.device)
     err = _fn("selective_scan")(
-        _DTYPES[u.dtype], _ptr(u), _ptr(dt), _ptr(A), _ptr(B), _ptr(C),
-        _ptr(D), None if h0 is None else _ptr(h0), _ptr(y), _ptr(h_out),
-        Bz, S, Di, N, ld, _stream())
+        _DTYPES[dtype], u.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        B.data_ptr(), C.data_ptr(), D.data_ptr(),
+        None if h0 is None else h0.data_ptr(), y.data_ptr(),
+        h_out.data_ptr(), Bz, S, Di, N, ld, _stream())
     _check("selective_scan", err)
     selective_scan.launches += 1
     return y, h_out

@@ -15,7 +15,9 @@ routes them.  The grouped matmul: float32 1e-4 and bfloat16 2e-2 (sums of
 up to 2048 products of order 1, in another order).  The selective scan:
 1e-4 in both dtypes, relative to values of order 1 to 10 (the kernel and
 its plain version compute in float32 from the same inputs; the kernel sums
-the N terms of y in a shuffle tree and takes expf).
+the N terms of y in another order, takes exp2f of a pre-scaled A, and
+carries the state across time chunks as exp(A * sum dt) times the chunk's
+start state).
 """
 import numpy as np
 import pytest
@@ -267,9 +269,12 @@ def test_constrained_sample_kernel_only_last_entry_allowed(cuda, V):
         assert out[:3].tolist() == [V - 1, 0, 0]
 
 
-def _quant(kp, vp, cuda):
-    kq, ks, flags = quantize_pool(kp)
-    vq, vs, _ = quantize_pool(vp)
+def _quant(kp, vp, cuda, frozen_every=2):
+    """The int8 shadows of two pools; frozen_every None freezes no page."""
+    kq, ks, flags = quantize_pool(kp, frozen_every or 1)
+    vq, vs, _ = quantize_pool(vp, frozen_every or 1)
+    if frozen_every is None:
+        flags[:] = 0
     return {"kq": t(kq).to(cuda), "vq": t(vq).to(cuda),
             "kscale": t(ks).to(cuda), "vscale": t(vs).to(cuda),
             "flags": t(flags).to(cuda)}
@@ -308,6 +313,71 @@ def test_decode_attention_paged_kernel_matches_plain(cuda, case, dtype,
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol,
                                msg=w)
+
+
+def paged_scenario(seed, H, KV, D, layout):
+    """Block tables for the int8 kernel's cluster split, numpy: q (B, H, D),
+    pools (KV, P, ps, D), table (B, NB), qpos (B,).
+
+    "rows": 8 rows over pages of 64 (NB 8, the first 2 pages shared): a
+    mid-page fill, an idle row (table all -1), fills at a page edge (qpos =
+    2 ps - 1 and 2 ps), a -1 entry below the fill, a 3-token fill (its
+    later splits hold no tile), a row with qpos -1 over real pages (no
+    valid token: the mean over its pages) and a full table.
+    "wide": pages of 128 (NB 2): 8 tiles of 32, so up to 8 splits, more
+    than the pages; row 1's 6-token fill leaves every split but one empty.
+    """
+    rng = np.random.default_rng(seed)
+    if layout == "rows":
+        B, ps, NB, P = 8, 64, 8, 64
+        qpos = np.array([300, 0, 2 * ps - 1, 2 * ps, 400, 2, -1, NB * ps - 1],
+                        np.int32)
+    else:
+        B, ps, NB, P = 2, 128, 2, 5
+        qpos = np.array([200, 5], np.int32)
+    perm = iter(rng.permutation(P))
+    shared = [next(perm) for _ in range(min(2, NB))]
+    table = np.full((B, NB), -1, np.int32)
+    for b in range(B):
+        table[b, :len(shared)] = shared
+        for j in range(len(shared), NB):
+            table[b, j] = next(perm, 0)
+    if layout == "rows":
+        table[1] = -1                   # an idle batcher slot
+        table[4, 3] = -1                # a hole below the fill (400)
+    q = rng.standard_normal((B, H, D), np.float32)
+    kp = rng.standard_normal((KV, P, ps, D), np.float32)
+    vp = rng.standard_normal((KV, P, ps, D), np.float32)
+    return q, kp, vp, table, qpos
+
+
+#: frozen pages: none, every other page, all (quantize_pool's frozen_every)
+FROZEN = {"none": None, "mixed": 2, "all": 1}
+#: olmo-1b's heads (G 1, D 128), qwen3-moe-30b-a3b's (G 8, D 64) and
+#: hymba-1.5b's (G 5, D 64)
+PAGED_HEADS = {"olmo": (16, 16, 128), "qwen3_moe": (32, 4, 64),
+               "hymba": (25, 5, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rows", "wide"])
+@pytest.mark.parametrize("frozen", list(FROZEN))
+@pytest.mark.parametrize("heads", list(PAGED_HEADS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_paged_quant_kernel_split_cases(cuda, dtype, heads,
+                                                         frozen, layout):
+    """Kernel B's cluster split over pages against its plain version."""
+    H, KV, D = PAGED_HEADS[heads]
+    q, kp, vp, table, qpos = paged_scenario(31, H, KV, D, layout)
+    qd = _quant(kp, vp, cuda, FROZEN[frozen])
+    q, kpd, vpd = (t(a).to(cuda).to(dtype) for a in (q, kp, vp))
+    table, qpos = t(table).to(cuda), t(qpos).to(cuda)
+    n = ops.decode_attention_paged_quant.launches
+    out = ops.decode_attention_paged_quant(q, kpd, vpd, table, qpos, qd)
+    assert ops.decode_attention_paged_quant.launches == n + 1
+    r = ref.decode_attention_paged_ref(q, kpd, vpd, table, qpos, qd)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -456,6 +526,47 @@ def test_selective_scan_kernel_matches_plain(cuda, dtype, S, Di):
     _assert_scan_close((y, h), want)
 
 
+#: (Bz, Di) pairs: falcon-mamba-7b's prefill row and channels, a ragged
+#: channel count (no multiple of the 32-channel group or the 128-thread
+#: decode block), hymba-1.5b's channels at the decode slots
+SCAN_ROWS = [(1, 8192), (3, 100), (8, 3200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bz,Di", SCAN_ROWS)
+@pytest.mark.parametrize("S", [1, 2, 33, 64, 255, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_chunk_shapes(cuda, dtype, S, Bz, Di):
+    """The decode launch (S = 1) and the chunked prefill at lengths that
+    are and are not multiples of the chunks and slabs, from zeros, from a
+    state, and in place (h_out is h0)."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda, dtype, Bz, S, Di, 16, S + Bz)
+    _assert_scan_close(ops.selective_scan(u, dt, A, B, C, D),
+                       ref.selective_scan_ref(u, dt, A, B, C, D))
+    want = ref.selective_scan_ref(u, dt, A, B, C, D, h0)
+    _assert_scan_close(ops.selective_scan(u, dt, A, B, C, D, h0), want)
+    state = h0.clone()
+    n = ops.selective_scan.launches
+    y, h = ops.selective_scan(u, dt, A, B, C, D, state, h_out=state)
+    assert h is state and ops.selective_scan.launches == n + 1
+    _assert_scan_close((y, h), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 8, 32])
+@pytest.mark.parametrize("S", [1, 33, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_state_sizes(cuda, dtype, S, N):
+    """The other state sizes, at hymba's channels over 3 rows, in place."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda, dtype, 3, S, 3200, N, S + N)
+    want = ref.selective_scan_ref(u, dt, A, B, C, D, h0)
+    state = h0.clone()
+    _assert_scan_close(ops.selective_scan(u, dt, A, B, C, D, state,
+                                          h_out=state), want)
+    _assert_scan_close(ops.selective_scan(u, dt, A, B, C, D),
+                       ref.selective_scan_ref(u, dt, A, B, C, D))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_selective_scan_kernel_decode_with_idle_slots(cuda, dtype):
@@ -470,6 +581,28 @@ def test_selective_scan_kernel_decode_with_idle_slots(cuda, dtype):
     got = ops.selective_scan(u, dt, A, B, C, D, state, h_out=state)
     _assert_scan_close(got, want)
     assert torch.equal(state[idle], h0[idle])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 40])
+def test_selective_scan_kernel_unaligned_state(cuda, S):
+    """A state and an A that are contiguous but not 16-byte aligned (views
+    one float into a buffer): the decode step falls back to a one-chunk
+    scan, in place as before."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda, torch.bfloat16, 3, S, 100, 16,
+                                         23)
+    want = ref.selective_scan_ref(u, dt, A, B, C, D, h0)
+
+    def unaligned(x):
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+    state, A1 = unaligned(h0), unaligned(A)
+    assert state.data_ptr() % 16 and A1.data_ptr() % 16
+    y, h = ops.selective_scan(u, dt, A1, B, C, D, state, h_out=state)
+    assert h is state
+    _assert_scan_close((y, h), want)
 
 
 @pytest.mark.cuda
