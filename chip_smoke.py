@@ -25,8 +25,9 @@ Phases, each reported on its own lines:
    (``bound_ms``: the bytes the function needs over the memory rate, or
    its operations over the peak rate, the larger); for every kernel also
    the profiler's device time of the kernel alone (``device_ms``), for the
-   selective scan the host time of its wrapper per call (``host_ms``), and
-   for C the same numbers over int8 frozen prefix pages;
+   selective scan the host time of its wrapper per call (``host_ms``), for
+   C the same numbers over int8 frozen prefix pages, and for the paged
+   decode kernels A and B the (splits, warps) of their launch;
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
@@ -81,6 +82,7 @@ line (for comparing kernel versions on one card in one call).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -422,9 +424,25 @@ def _dequant(pool, q8, scale, flags):
         pool.dtype), pool)
 
 
+def paged_split_shape(ops, dtype, quant, shape, P):
+    """The (splits, warps) with which kernel A (or B, `quant`) launches at
+    `shape`, as the library picks them (a query: nothing is launched)."""
+    fn = ops.build()["decode_attention_paged.cu"] \
+        .repro_decode_attention_paged_shape
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    err = fn(ops._DTYPES[dtype], int(quant), *(shape[k] for k in (
+        "B", "H", "KV")), P, shape["ps"], shape["NB"], shape["D"], out)
+    if err:
+        fail(f"decode_attention_paged shape query: CUDA error {err}")
+    return out[0], out[1]
+
+
 def check_decode_paged(ops, ref, dtype, gen, shape, quant=False):
     """Kernel A (fp pages) or B (`quant`: the shared prefix pages frozen in
-    int8, as the radix tree freezes committed prompt pages)."""
+    int8, as the radix tree freezes committed prompt pages).  Also reports
+    the (splits, warps) the kernel launches with there."""
     B, H, KV, D, ps, NB, sh = (shape[k] for k in
                                ("B", "H", "KV", "D", "ps", "NB", "shared"))
     dev = "cuda"
@@ -471,11 +489,12 @@ def check_decode_paged(ops, ref, dtype, gen, shape, quant=False):
         v = vp[:, tl].permute(1, 0, 2, 3, 4).reshape(B, KV, NB * ps, D)
         return torch.nn.functional.scaled_dot_product_attention(
             q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=H != KV)
+    splits, warps = paged_split_shape(ops, dtype, quant, shape, P)
     return dict(max_abs_err=err.item(), ms=time_ms(fn, sets),
                 device_ms=device_ms(fn, sets[0], name),
                 plain_ms=time_ms(plain, sets),
                 library_ms=time_ms(library, sets),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, splits=splits, warps=warps)
 
 
 def check_flash_prefix(ops, ref, dtype, gen, shape):
@@ -1052,6 +1071,8 @@ def main(argv=None) -> int:
                     f"{r['library_ms']:.4f}"
                 dev = "" if "device_ms" not in r else \
                     f" (device_ms {fmt_ms(r['device_ms'])})"
+                if "splits" in r:
+                    dev += f" splits {r['splits']} warps {r['warps']}"
                 print(f"kernel {kname} {str(dtype)[6:]} at {arch}'s shapes: "
                       f"max_abs_err {r['max_abs_err']} (tolerance {tol}) ms "
                       f"{r['ms']:.4f}{dev} plain_ms {r['plain_ms']:.4f} "
@@ -1071,7 +1092,8 @@ def main(argv=None) -> int:
                 report[kname]["by_config"][arch] = {
                     k: r[k] for k in ("max_abs_err", "ms", "device_ms",
                                       "plain_ms", "library_ms", "bound_ms",
-                                      "bound_by", "int8_pages") if k in r}
+                                      "bound_by", "splits", "warps",
+                                      "int8_pages") if k in r}
 
     if only:
         print(json.dumps({"kernels": list(report.values())}), flush=True)
@@ -1220,8 +1242,9 @@ def main(argv=None) -> int:
             "bound_by", "library_ms")
     print("kernels: " + ", ".join(report), flush=True)
     print(json.dumps({"kernels": [
-        {k: report[n][k] for k in keys + ("device_ms", "int8_pages",
-                                          "by_shape", "by_config")
+        {k: report[n][k] for k in keys + ("device_ms", "splits", "warps",
+                                          "int8_pages", "by_shape",
+                                          "by_config")
          if k in report[n]}
         for n in report]}), flush=True)
     print(json.dumps({"ok": True, "device": {

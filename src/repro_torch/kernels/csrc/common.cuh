@@ -242,22 +242,32 @@ __host__ __device__ inline int q_bytes(int G, int D, bool mma) {
   return mma ? 16 * row_stride<T>(D) * (int)sizeof(T) : group_heads(G) * D * 4;
 }
 
-// the group's Gh query heads from q (Gh x D) into shared memory: bf16 rows
-// of the mma A operand (16 rows, those past Gh zero; the scale is applied to
-// the scores) or fp32 rows times the scale
+// the group's Gh query heads from q (Gh x D, rows 16-byte aligned: D *
+// sizeof(T) % 16 == 0) into shared memory, 16 bytes a thread and step: bf16
+// rows of the mma A operand (16 rows, those past Gh zero; the scale is
+// applied to the scores) or fp32 rows times the scale
 template <typename T>
 __device__ __forceinline__ void stage_q(void* qraw, const T* q, int Gh, int D, float scale,
                                         bool mma) {
+  constexpr int E = 16 / (int)sizeof(T);   // elements of a 16-byte chunk
+  const int C = D / E;
   if (mma) {
     T* q16 = static_cast<T*>(qraw);
     const int RS = row_stride<T>(D);
-    for (int i = threadIdx.x; i < 16 * D; i += blockDim.x) {
-      const int r = i / D, d = i - r * D;
-      q16[r * RS + d] = r < Gh ? q[i] : from_f<T>(0.f);
+    for (int i = threadIdx.x; i < 16 * C; i += blockDim.x) {
+      const int r = i / C, c = i - r * C;
+      const uint4 v = r < Gh ? *reinterpret_cast<const uint4*>(q + r * D + c * E)
+                             : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(q16 + r * RS + c * E) = v;
     }
   } else {
     float* qs = static_cast<float*>(qraw);
-    for (int i = threadIdx.x; i < Gh * D; i += blockDim.x) qs[i] = to_f(q[i]) * scale;
+    for (int i = threadIdx.x; i < Gh * C; i += blockDim.x) {
+      const uint4 v = *reinterpret_cast<const uint4*>(q + i * E);
+      const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+      for (int x = 0; x < E; ++x) qs[i * E + x] = to_f(e[x]) * scale;
+    }
   }
 }
 

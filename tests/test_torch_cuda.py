@@ -380,6 +380,39 @@ def test_decode_attention_paged_quant_kernel_split_cases(cuda, dtype, heads,
     torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
 
 
+def _paged_fp_against_plain(cuda, dtype, H, KV, D, layout):
+    q, kp, vp, table, qpos = paged_scenario(37, H, KV, D, layout)
+    q, kpd, vpd = (t(a).to(cuda).to(dtype) for a in (q, kp, vp))
+    table, qpos = t(table).to(cuda), t(qpos).to(cuda)
+    n = ops.decode_attention_paged.launches
+    out = ops.decode_attention_paged(q, kpd, vpd, table, qpos)
+    assert ops.decode_attention_paged.launches == n + 1
+    r = ref.decode_attention_paged_ref(q, kpd, vpd, table, qpos)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rows", "wide"])
+@pytest.mark.parametrize("heads", list(PAGED_HEADS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_paged_kernel_split_cases(cuda, dtype, heads,
+                                                   layout):
+    """Kernel A's cluster split over pages (its two-stage warp ring)
+    against its plain version."""
+    _paged_fp_against_plain(cuda, dtype, *PAGED_HEADS[heads], layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rows", "wide"])
+@pytest.mark.parametrize("D", [40, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_paged_kernel_head_dims(cuda, dtype, D, layout):
+    """Head dims off the tensor-core path: 40 (five 16-byte chunks of
+    bf16 a row) and 256, on the CUDA cores in both dtypes."""
+    _paged_fp_against_plain(cuda, dtype, 8, 2, D, layout)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

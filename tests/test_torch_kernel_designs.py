@@ -10,19 +10,22 @@ and held against the JAX package on the same numpy inputs (float32, CPU).
   and the sequential oracle from a non-zero state at ragged lengths.
   Tolerance 1e-5: the chunk carry takes one exponential of a sum where the
   oracle multiplies per-step exponentials, and exp2 of a pre-scaled A.
-* ``split_paged_decode``: the int8 paged decode of
-  ``kernels/csrc/decode_attention_paged.cu`` -- each row's slots cut into
-  32-slot tiles, S splits owning contiguous tile ranges computed from the
-  row's qpos, each split's tiles with a valid slot dealt to W warps, each
-  warp's online softmax (m, l, acc) over its tiles, the warps' partials
-  merged per split and the splits' in rank order; a row with no valid
-  token makes every slot of its table (clamped to the pool) score 0.  Held
-  against the Pallas int8 kernel in interpret mode (tables without a -1
-  below the fill, which its wrapper rewrites: ROADMAP queue 3) and against
-  the jnp function the SQL engine runs and the port's plain version, with
-  such holes and with idle rows.  Tolerance 2e-5 (sums in another order),
-  as tests/test_torch_paged.py.
+* ``split_paged_decode``: the paged decode of
+  ``kernels/csrc/decode_attention_paged.cu``, A (fp pages) and B (int8
+  frozen pages) -- each row's slots cut into 32-slot tiles, S splits
+  owning contiguous tile ranges computed from the row's qpos, each split's
+  tiles with a valid slot dealt to W warps in list order (A's two-stage
+  ring loads a warp's next tile early but computes its tiles in the same
+  order), each warp's online softmax (m, l, acc) over its tiles, the
+  warps' partials merged per split and the splits' in rank order; a row
+  with no valid token makes every slot of its table (clamped to the pool)
+  score 0.  Held against the Pallas kernels in interpret mode (on rows
+  without a -1 below the fill and with a valid token: its wrapper rewrites
+  the others, ROADMAP queue 3) and against the jnp function the SQL engine
+  runs and the port's plain version, with such holes and with idle rows.
+  Tolerance 2e-5 (sums in another order), as tests/test_torch_paged.py.
 """
+import functools
 import math
 
 import jax.numpy as jnp
@@ -119,16 +122,19 @@ def _merge(states):
 
 
 def split_paged_decode(q, kp, vp, table, qpos, quant, S, W=4):
-    """decode_attention_paged.cu's int8 kernel with S splits of W warps."""
+    """decode_attention_paged.cu's kernel with S splits of W warps: A when
+    `quant` is None, else B over its int8 frozen pages."""
     Bn, H, D = q.shape
     KV, P, ps, _ = kp.shape
     NB = table.shape[1]
     G = H // KV
-    fr = (quant["flags"] > 0)[None, :, None, None]
-    kd = torch.where(fr, quant["kq"].float() * quant["kscale"][..., None, None],
-                     kp)
-    vd = torch.where(fr, quant["vq"].float() * quant["vscale"][..., None, None],
-                     vp)
+    kd, vd = kp, vp
+    if quant is not None:
+        fr = (quant["flags"] > 0)[None, :, None, None]
+        kd = torch.where(fr, quant["kq"].float()
+                         * quant["kscale"][..., None, None], kp)
+        vd = torch.where(fr, quant["vq"].float()
+                         * quant["vscale"][..., None, None], vp)
     out = torch.empty(Bn, H, D)
     for b in range(Bn):
         qp = int(qpos[b])
@@ -240,3 +246,60 @@ def test_split_paged_decode_holes_and_idle_rows(layout, S, frozen):
     plain = ref.decode_attention_paged_ref(tq, tkp, tvp, ttab, tqpos, quant)
     np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=PAGED_TOL,
                                rtol=PAGED_TOL)
+
+
+# ------------------------------- fp paged decode -------------------------------
+def _pallas_rows(table, qpos, ps):
+    """The rows the Pallas wrapper takes as they are: a valid token, and no
+    -1 entry below the fill."""
+    nblk = np.where(qpos < 0, 0, np.minimum(table.shape[1], qpos // ps + 1))
+    return np.array([q >= 0 and (table[b, :n] >= 0).all()
+                     for b, (q, n) in enumerate(zip(qpos, nblk))])
+
+
+@functools.lru_cache(maxsize=None)
+def _fp_scenario(layout):
+    """paged_scenario's case with the JAX package's three answers: the jnp
+    function of the SQL path, the Pallas kernel in interpret mode and the
+    port's plain version."""
+    q, kp, vp, table, qpos = paged_scenario(80, 8, 2, 32, layout)
+    args = (jnp.asarray(q), jnp.asarray(_pad(kp)), jnp.asarray(_pad(vp)),
+            jnp.asarray(table), jnp.asarray(qpos))
+    jnp_out = np.asarray(JL.decode_attention_paged(*args, head_dim=32))
+    pallas = np.asarray(JOPS.decode_attention_paged(*args, head_dim=32,
+                                                    interpret=True))
+    plain = ref.decode_attention_paged_ref(
+        *map(_t, (q, kp, vp, table, qpos))).numpy()
+    return (q, kp, vp, table, qpos), jnp_out, pallas, plain
+
+
+@pytest.mark.parametrize("W", [1, 3, 4])
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("layout", ["rows", "wide"])
+def test_split_paged_decode_fp_matches_jax(layout, S, W):
+    """Kernel A's split (W 3 is its choice at olmo-1b's shapes) over
+    paged_scenario's rows: an idle row, page-edge fills, a hole below the
+    fill, qpos -1 over real pages; pages of 128 split 8 ways."""
+    case, jnp_out, pallas, plain = _fp_scenario(layout)
+    out = split_paged_decode(*map(_t, case), None, S, W).numpy()
+    np.testing.assert_allclose(out, jnp_out, atol=PAGED_TOL, rtol=PAGED_TOL)
+    np.testing.assert_allclose(out, plain, atol=PAGED_TOL, rtol=PAGED_TOL)
+    rows = _pallas_rows(case[3], case[4], case[1].shape[2])
+    assert rows.sum() >= 2
+    np.testing.assert_allclose(out[rows], pallas[rows], atol=PAGED_TOL,
+                               rtol=PAGED_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_split_paged_decode_fp_ragged_matches_pallas(S):
+    """Ragged fills over a shared prefix page, pages of 16 (a 32-slot tile
+    spans two pages), decode pages allocated ahead or -1 past the fill:
+    every row as the Pallas kernel computes it."""
+    q, kp, vp, table, qpos = paged_case(90 + S, B=4, H=8, KV=2, D=32, ps=16,
+                                        NB=6, P=30, shared=1)
+    out = split_paged_decode(*map(_t, (q, kp, vp, table, qpos)), None, S, 3)
+    args = (jnp.asarray(q), jnp.asarray(_pad(kp)), jnp.asarray(_pad(vp)),
+            jnp.asarray(table), jnp.asarray(qpos))
+    pallas = JOPS.decode_attention_paged(*args, head_dim=32, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas),
+                               atol=PAGED_TOL, rtol=PAGED_TOL)
