@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repository root; needs one GPU
     python3 chip_smoke.py --only gmm,flash_attention   # phases 1-2 only
     python3 chip_smoke.py --only selective_scan,decode_attention_paged_quant
+    python3 chip_smoke.py --only flash_attention_bwd
 
 Phases, each reported on its own lines:
 
@@ -17,7 +18,8 @@ Phases, each reported on its own lines:
    vocabulary, qwen3-moe-30b-a3b's 32 heads x 64 on 4 kv heads and
    vocabulary, its experts for the grouped matmul, hymba-1.5b's 25 heads x
    64 on 5 kv heads, window 1024 and vocabulary, falcon-mamba-7b's
-   vocabulary, and both SSM configs' channels for the selective scan): its
+   vocabulary, and both SSM configs' channels for the selective scan; the
+   flash backward at the training path's shapes, phase 6): its
    largest error against its plain PyTorch version (tolerance stated), and
    the times of the kernel, the plain version and one PyTorch library call
    computing the same function where there is one (a yardstick only; the
@@ -72,8 +74,25 @@ Phases, each reported on its own lines:
       hymba through the batcher and ``generate``, counted as the ``hybrid``
       path; every answer parsed (both families run the dense layout only:
       the paged layout needs attention and no sliding window);
-6. a JSON line with every kernel's numbers at the dtype the SQL path gives
-   it, then the last line ``{"ok": true, "device": {...}}``.
+6. the training path (the dense, VLM and encoder families; kernel 1 with
+   its lse and the flash backward, ``flash_attention_bwd.cu``, which phase
+   2 checks at each trained config's shapes: olmo-1b's B 8 x 512 tokens of
+   16 heads x 128, causal; paligemma-3b's B 4 x (256 image + 128 text) of
+   8 x 256 on 1 kv head, prefix-LM; hubert-xlarge's B 8 x 512 of 16 x 80,
+   bidirectional), after the hybrid session is freed:
+   a. one train step in float32 at full width and 2 layers of each of the
+      three configs: logits, loss and the gradient of every master leaf
+      through the kernels against the plain autograd function;
+   b. ``repro_torch.launch.train`` in bfloat16 compute with float32 master
+      weights and AdamW state: olmo-1b at full width and depth for 8 steps,
+      deterministic (the loss must fall); 4 steps, a checkpoint, a restore
+      and 4 more, which must equal the 8 to the bit; hubert-xlarge at full
+      width and depth and paligemma-3b at full width and depth for 4 steps
+      each (at the driver's own 20 warm-up steps);
+      step times, tokens/s, model FLOP/s over the bf16 peak and peak
+      memory; the launches counted as the ``train`` path;
+7. a JSON line with every kernel's numbers at the dtype its path gives it,
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line.  Without a GPU it exits 2 at once.  ``--only`` runs phases 1 and 2
@@ -130,6 +149,12 @@ DENSE_ARCH = "olmo-1b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
 HYBRID_ARCH = "hymba-1.5b"
+VLM_ARCH = "paligemma-3b"
+ENC_ARCH = "hubert-xlarge"
+# the training path: global batch and sequence length of each trained config
+# (paligemma: 256 image-patch embeddings + 128 text tokens)
+TRAIN = {DENSE_ARCH: dict(B=8, S=512), VLM_ARCH: dict(B=4, S=384),
+         ENC_ARCH: dict(B=8, S=512)}
 
 
 def path_shapes(cfg) -> dict:
@@ -153,6 +178,11 @@ def path_shapes(cfg) -> dict:
                           d_model=cfg.d_model, d_ff=cfg.d_ff)
     if cfg.has_ssm:
         out["selective_scan"] = dict(SCAN, Di=cfg.d_inner, N=cfg.ssm_state)
+    if cfg.name in TRAIN:
+        out["flash_attention_bwd"] = dict(
+            TRAIN[cfg.name], H=cfg.padded_heads, KV=cfg.num_kv_heads,
+            D=cfg.head_dim, causal=cfg.causal,
+            prefix_len=cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
     return out
 
 
@@ -237,7 +267,7 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 #: reports them, are printed after the build
 PTXAS_SOURCES = ("gmm.cu", "flash_attention.cu", "decode_attention.cu",
                  "constrained_sample.cu", "decode_attention_paged.cu",
-                 "selective_scan.cu")
+                 "selective_scan.cu", "flash_attention_bwd.cu")
 
 
 def ptxas_resources(log: str) -> list:
@@ -713,6 +743,110 @@ def check_scan(ops, ref, dtype, gen, shape):
                 by_shape=shapes)
 
 
+def visible_pairs(S, causal, prefix_len) -> int:
+    """(query, key) pairs a head sees in an unpadded S-token sequence."""
+    if not causal:
+        return S * S
+    return sum(max(i + 1, prefix_len) for i in range(S))
+
+
+def check_flash_bwd(ops, ref, dtype, gen, shape):
+    """The flash backward (three launches: delta, dK/dV, dQ) at a training
+    shape, against its plain version on the same forward (the plain one's
+    output and lse), and the forward at that shape with its lse (kernel 1's
+    training launch) against the plain forward.  Each of dq, dk and dv is
+    held against the tolerance times its own largest |value| (dq and dk
+    carry the 1/sqrt(D) scale, dv does not): the two sum the same fp32
+    products in another order.  Two calls must give the same gradients to
+    the bit.  device_ms sums the three kernels;
+    library_ms is the backward of PyTorch's SDPA with a bool mask (the
+    yardstick), timed by autograd.grad on a kept graph."""
+    B, S, H, KV, D = (shape[k] for k in ("B", "S", "H", "KV", "D"))
+    mask = dict(causal=shape["causal"], prefix_len=shape["prefix_len"])
+    dev = "cuda"
+    pos = torch.arange(S, device=dev, dtype=torch.int32).repeat(B, 1)
+    s = torch.tensor([], dtype=dtype).element_size()
+    # q, k, v, o, dO and lse read; dq, dk, dv written; the positions
+    nbytes = (4 * B * S * H * D + 4 * B * S * KV * D) * s + B * S * H * 4 \
+        + 2 * pos.numel() * 4
+    pairs = B * H * visible_pairs(S, mask["causal"], mask["prefix_len"])
+    b_ms, b_by = bound(nbytes, 5 * 2 * pairs * D, dtype)
+    sets = []
+    for _ in range(rotations(nbytes)):
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        g = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+        out, lse = ref.flash_attention_fwd_ref(q, k, v, pos, pos, **mask)
+        sets.append((q, k, v, pos, pos, out, lse, g))
+    kernel = functools.partial(ops.flash_attention_bwd, **mask)
+    plain = functools.partial(ref.flash_attention_bwd_ref, **mask)
+    got, want = kernel(*sets[0]), plain(*sets[0])
+    worst = (0.0, 1.0)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = max(1e-30, b.float().abs().max().item())
+        rms = b.float().pow(2).mean().sqrt().item()
+        print(f"  flash_attention_bwd {str(dtype)[6:]} {name}: max_abs_err "
+              f"{err} (tolerance {TOL[dtype] * scale}: {TOL[dtype]} x its "
+              f"largest |value| {scale}; rms {rms:.4g})", flush=True)
+        if err / scale >= worst[0] / worst[1]:
+            worst = (err, scale)
+    again = kernel(*sets[0])
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"flash_attention_bwd {dtype}: two calls differ")
+
+    # the forward's training launch at this shape: output and lse
+    q, k, v = sets[0][:3]
+    lse = torch.empty(B, S, H, dtype=torch.float32, device=dev)
+
+    def fwd(q, k, v, *_):
+        return ops._flash_forward(q, k, v, pos, pos, mask["causal"], 0,
+                                  mask["prefix_len"], ref.FLASH_KV_BLOCK, lse)
+    out_k = fwd(q, k, v)
+    out_r, lse_r = sets[0][5], sets[0][6]
+    fwd_err = (out_k.float() - out_r.float()).abs().max().item()
+    lse_err = (lse - lse_r).abs().max().item()
+    fwd_dev = device_ms(fwd, sets[0], "flash_attention_kernel")
+    print(f"  flash_attention {str(dtype)[6:]} training forward (with lse) "
+          f"B {B} S {S} {H}x{D} on {KV} kv heads {mask}: max_abs_err "
+          f"{fwd_err} (tolerance {TOL[dtype]}) lse max_abs_err {lse_err} "
+          f"(tolerance 1e-4) ms {time_ms(fwd, sets):.4f} (device_ms "
+          f"{fmt_ms(fwd_dev)})", flush=True)
+    if not (fwd_err <= TOL[dtype] and lse_err <= 1e-4):
+        fail(f"flash_attention {dtype} training forward disagrees with the "
+             "plain version")
+
+    # the library yardstick: SDPA's backward through a kept graph
+    ok = ref.attention_mask(pos, pos, **mask)[:, None]
+    graphs = []
+    for q, k, v, *_, g in sets:
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v)]
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=ok, enable_gqa=H != KV)
+        graphs.append((o, leaves, g.transpose(1, 2)))
+
+    def library(o, leaves, g):
+        return torch.autograd.grad(o, leaves, g, retain_graph=True)
+    parts = {k: device_ms(kernel, sets[0], f"flash_bwd_{k}")
+             for k in ("delta", "dkdv", "dq")}
+    print(f"  flash_attention_bwd {str(dtype)[6:]} device_ms by launch: "
+          + ", ".join(f"{k} {fmt_ms(v)}" for k, v in parts.items()),
+          flush=True)
+    r = dict(max_abs_err=worst[0], tolerance_scale=worst[1],
+             ms=time_ms(kernel, sets),
+             device_ms=device_ms(kernel, sets[0], "flash_bwd_"),
+             device_ms_by_launch=parts,
+             plain_ms=time_ms(plain, sets, iters=10),
+             library_ms=time_ms(library, graphs),
+             bound_ms=b_ms, bound_by=b_by,
+             forward=dict(max_abs_err=fwd_err, lse_max_abs_err=lse_err,
+                          device_ms=fwd_dev))
+    del graphs, sets
+    return r
+
+
 # name, TPU kernel it replaces, check, the dtype the SQL path gives it
 # (bfloat16 q/k/v and caches, the compute dtype; float32 logits, which the
 # engine casts before sampling), source, the SQL path that ported it, and
@@ -722,6 +856,8 @@ def check_scan(ops, ref, dtype, gen, shape):
 # those of the porting path, "launches_by_path" those of each path.
 BOTH = (DENSE_ARCH, MOE_ARCH)
 ALL = BOTH + (SSM_ARCH, HYBRID_ARCH)
+#: a kernel's symbols in a profile, where not "<name>_kernel"
+SYMBOL = {"flash_attention_bwd": "flash_bwd_"}
 KERNELS = [
     ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash,
      torch.bfloat16, "flash_attention.cu", "dense", BOTH + (HYBRID_ARCH,)),
@@ -745,6 +881,9 @@ KERNELS = [
      "gmm.cu", "moe", (MOE_ARCH,)),
     ("selective_scan", "src/repro/kernels/selective_scan.py:49", check_scan,
      torch.bfloat16, "selective_scan.cu", "ssm", (SSM_ARCH, HYBRID_ARCH)),
+    # no Pallas twin: the JAX package's jnp custom_vjp backward
+    ("flash_attention_bwd", "src/repro/models/layers.py:210", check_flash_bwd,
+     torch.bfloat16, "flash_attention_bwd.cu", "train", tuple(TRAIN)),
 ]
 
 
@@ -986,9 +1125,10 @@ def sql_session(cfg, params, label, **engine_kw):
 
 
 def profile(run_query) -> None:
-    """Where the time of one batcher query goes: device busy time (the sum
-    of the device-side events -- kernels and copies, one stream) against
-    wall time, by category, and the kernels that take the most."""
+    """Where the time of one batcher query (or train step) goes: device busy
+    time (the sum of the device-side events -- kernels and copies, one
+    stream) against wall time, by category, and the kernels that take the
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -1003,7 +1143,8 @@ def profile(run_query) -> None:
     cats = {}
     for e in rows:
         k = e.key
-        cat = next((n[0] for n in KERNELS if n[0] + "_kernel" in k), None)
+        cat = next((n[0] for n in KERNELS if SYMBOL.get(n[0], n[0] + "_kernel")
+                    in k), None)
         if cat is None:
             cat = ("memcpy/memset" if k.startswith("Mem") else
                    "gemm" if any(t in k for t in ("nvjet", "gemm", "cutlass",
@@ -1018,6 +1159,180 @@ def profile(run_query) -> None:
     for e in rows[:10]:
         print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d} x "
               f"{e.key[:90]}", flush=True)
+
+
+# ------------------------------- phase 6: training ------------------------------
+def check_train_full_width(C, MDL, ref, arch, num_layers):
+    """One train step's float32 logits, loss and gradients of every master
+    leaf at `arch`'s full width and `num_layers` layers, at its training
+    batch and length, through the kernels (kernel 1 with its lse and the
+    backward) against the plain autograd function
+    (ref.flash_attention_grad_ref), from the same weights and batch."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.training import optim as OPT
+    from repro_torch.training.data import DataConfig, synthetic_batch
+    cfg = C.get_config(arch).replace(compute_dtype="float32",
+                                     num_layers=num_layers)
+    state = ST.init_train_state(cfg, torch.Generator("cuda").manual_seed(SEED),
+                                "cuda")
+    params = state["params"]
+    leaves = OPT.leaves(params)
+    shp = TRAIN[arch]
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in synthetic_batch(
+        cfg, DataConfig(batch=shp["B"], seq_len=shp["S"]), 0).items()}
+    runs = []
+    for attn_fn in (None, ref.flash_attention_grad_ref):
+        for p in leaves:
+            p.requires_grad_(True)
+        logits, _ = MDL.forward(cfg, params, batch, mode="train",
+                                attn_fn=attn_fn)
+        loss = MDL.lm_loss(cfg, logits, batch["labels"], batch["mask"])
+        grads = torch.autograd.grad(loss, leaves)
+        runs.append((logits.detach(), loss.detach(), grads))
+        del logits, loss
+        for p in leaves:
+            p.requires_grad_(False)
+    (lk, sk, gk), (lp, sp, gp) = runs
+    lerr = (lk - lp).abs().max().item()
+    gerr = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+               for a, b in zip(gk, gp))
+    tol = 1e-3
+    print(f"train step float32 ({arch}, full width, {num_layers} of "
+          f"{C.get_config(arch).num_layers} layers, B {shp['B']} S "
+          f"{shp['S']}): kernels vs plain attention: logits max_abs_err "
+          f"{lerr} (tolerance {tol}; logit std {lp.std().item()}), loss "
+          f"{sk.item()} vs {sp.item()}, gradients' largest error relative "
+          f"to the leaf's largest |gradient| {gerr} over {len(gk)} leaves "
+          f"(tolerance {tol})", flush=True)
+    if not (lerr < tol and gerr < tol):
+        fail(f"{arch} float32 train step: kernels disagree with the plain "
+             "attention")
+
+
+def train_run(TR, arch, steps, *extra):
+    """repro_torch.launch.train at `arch`'s training batch and length, with
+    the driver's own schedule (peak 3e-3 after 20 warm-up steps)."""
+    shp = TRAIN[arch]
+    return TR.train(["--arch", arch, "--steps", str(steps), "--batch",
+                     str(shp["B"]), "--seq-len", str(shp["S"]),
+                     "--log-every", "1", *extra])
+
+
+def model_flops(cfg, tokens, S) -> float:
+    """6 N per token for the weights (N without the embedding, which is a
+    gather, but with the tied or separate LM head), plus the attention's
+    score and value products: 6 x 2 L H D x the visible keys per token
+    (forward 2 products of 2 flops, backward twice that)."""
+    n = cfg.param_count()
+    if cfg.family != "encoder":
+        n -= cfg.vocab_size * cfg.d_model          # the embedding gather
+        if cfg.tie_embeddings:
+            n += cfg.vocab_size * cfg.d_model      # ... used as the LM head
+    P = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
+    keys = visible_pairs(S, cfg.causal, P) / S
+    return tokens * (6 * n + 12 * cfg.num_layers * cfg.num_heads
+                     * cfg.head_dim * keys)
+
+
+def report_train(label, hist, cfg, shp, smi):
+    """Step times (the first, which builds nothing but warms the caches,
+    left out), tokens/s, model FLOP/s over the bf16 peak."""
+    steady = hist["step_s"][1:] or hist["step_s"]
+    step_s = float(np.median(steady))
+    tokens = shp["B"] * shp["S"]
+    fl = model_flops(cfg, tokens, shp["S"])
+    print(f"train {label}: losses {[round(x, 4) for x in hist['losses']]}, "
+          f"step_s median {step_s:.4f} (first {hist['step_s'][0]:.4f}), "
+          f"tokens/s {tokens / step_s:.1f}, model TFLOP/s "
+          f"{fl / step_s / 1e12:.2f} = {fl / step_s / PEAK_FLOPS[torch.bfloat16]:.4f} "
+          f"of the bf16 peak [{smi}]", flush=True)
+    if not all(np.isfinite(hist["losses"])):
+        fail(f"train {label}: non-finite loss")
+    return step_s
+
+
+def train_path(C, smi):
+    """The training path through repro_torch.launch.train, in bfloat16
+    compute with float32 master weights and AdamW state: olmo-1b at full
+    width and depth for 8 steps in the driver's default mode (the loss must
+    fall); the same 8 steps deterministic, and 4 steps, a checkpoint, a
+    restore and 4 more, deterministic, which must equal them to the bit;
+    then hubert-xlarge at full width and depth and paligemma-3b at full
+    width and depth for 4 steps each."""
+    import shutil
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    n = train_run(TR, DENSE_ARCH, 8)
+    peak = torch.cuda.max_memory_allocated()
+    out["olmo"] = report_train(f"{DENSE_ARCH} (full width and depth)", n,
+                               n["cfg"], TRAIN[DENSE_ARCH], smi)
+    print(f"  peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    if not n["losses"][-1] < n["losses"][0]:
+        fail(f"{DENSE_ARCH}: the loss did not fall: {n['losses']}")
+    del n
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = train_run(TR, DENSE_ARCH, 8, "--deterministic")
+    out["olmo_deterministic"] = report_train(
+        f"{DENSE_ARCH} (full width and depth, deterministic)", a, a["cfg"],
+        TRAIN[DENSE_ARCH], smi)
+
+    ck = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    t = time.time()
+    train_run(TR, DENSE_ARCH, 4, "--deterministic", "--ckpt-dir", ck,
+              "--ckpt-every", "1000")
+    b = train_run(TR, DENSE_ARCH, 8, "--deterministic", "--ckpt-dir", ck,
+                  "--resume")
+    same, where = ST.state_equal(a["state"], b["state"])
+    print(f"resume: 4 steps, checkpoint, restore, 4 steps vs 8 steps: "
+          f"{'equal to the bit' if same else 'DIFFERENT at ' + where} "
+          f"(losses {b['losses']} vs {a['losses'][4:]}; started at step "
+          f"{b['start']}; {time.time() - t:.1f} s with two checkpoints)",
+          flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    if not (same and b["start"] == 4 and b["losses"] == a["losses"][4:]):
+        fail("resumed training differs from the uninterrupted run")
+
+    # where a warm olmo-1b step's time goes (one more step of the state)
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training import optim as OPT
+    from repro_torch.training.data import DataConfig, synthetic_batch
+    shp = TRAIN[DENSE_ARCH]
+    step_fn = ST.make_train_step(
+        a["cfg"], ShapeSpec("p", shp["S"], shp["B"], "train"),
+        opt_cfg=OPT.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=100))
+    batch = synthetic_batch(a["cfg"], DataConfig(batch=shp["B"],
+                                                 seq_len=shp["S"]), 8)
+
+    def one_step():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step_fn(b["state"], batch)
+        torch.cuda.synchronize()
+        return time.time() - t0
+    print(f"profile of one warm {DENSE_ARCH} train step:", flush=True)
+    profile(one_step)
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch in (ENC_ARCH, VLM_ARCH):
+        torch.cuda.reset_peak_memory_stats()
+        h = train_run(TR, arch, 4)
+        cfg = h["cfg"]
+        depth = f"{cfg.num_layers} of {C.get_config(arch).num_layers} layers"
+        out[arch] = report_train(f"{arch} (full width, {depth})", h, cfg,
+                                 TRAIN[arch], smi)
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        del h
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------ main -------------------------------------
@@ -1056,7 +1371,7 @@ def main(argv=None) -> int:
     print("comparisons: torch.backends.cuda.matmul.allow_tf32 = False, "
           "cudnn.allow_tf32 = False", flush=True)
     gen = torch.Generator("cuda").manual_seed(SEED)
-    shapes = {a: path_shapes(C.get_config(a)) for a in ALL}
+    shapes = {a: path_shapes(C.get_config(a)) for a in ALL + tuple(TRAIN)}
     report = {}
     for kname, replaces, check, path_dtype, src, path, archs in KERNELS:
         if only and kname not in only.split(","):
@@ -1093,7 +1408,8 @@ def main(argv=None) -> int:
                     k: r[k] for k in ("max_abs_err", "ms", "device_ms",
                                       "plain_ms", "library_ms", "bound_ms",
                                       "bound_by", "splits", "warps",
-                                      "int8_pages") if k in r}
+                                      "int8_pages", "forward",
+                                      "device_ms_by_launch") if k in r}
 
     if only:
         print(json.dumps({"kernels": list(report.values())}), flush=True)
@@ -1123,7 +1439,7 @@ def main(argv=None) -> int:
         ops.reset_launches()
         out = runs()
         launches = {k: w.launches for k, w in ops.WRAPPERS.items()}
-        print(f"launches during the {path} SQL path: {launches}", flush=True)
+        print(f"launches during the {path} path: {launches}", flush=True)
         for k in needed:
             if launches[k] <= 0:
                 fail(f"{k}: no launch on the {path} path")
@@ -1234,6 +1550,16 @@ def main(argv=None) -> int:
         ("selective_scan", "flash_attention", "decode_attention",
          "constrained_sample"))
     del hybrid, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the training path: float32 train steps at reduced depth (kernels vs
+    # plain), then the trainer in bfloat16
+    for arch in TRAIN:
+        check_train_full_width(C, MDL, ref, arch, 2)
+        torch.cuda.empty_cache()
+    count("train", lambda: train_path(C, smi),
+          ("flash_attention", "flash_attention_bwd"))
 
     for r in report.values():
         r["launches"] = r["launches_by_path"][r["path"]]

@@ -4,8 +4,13 @@
 //
 // Replaces: repro/kernels/flash_attention.py::flash_attention_pallas (the TPU
 // kernel behind ops.flash_attention).  Same function: softmax over the valid
-// keys with scale 1/sqrt(D), fp32 accumulation, no lse output.  Plain
-// version: kernels/ref.py flash_attention_ref.
+// keys with scale 1/sqrt(D), fp32 accumulation.  Plain version:
+// kernels/ref.py flash_attention_ref.  On the training path it also writes
+// each row's log-sum-exp (lse, fp32 (B, Sq, H)) for the backward
+// (flash_attention_bwd.cu), as the JAX package's forward rule keeps it
+// (models/layers.py:_flash_fwd; plain version flash_attention_fwd_ref): m +
+// log(l) in natural units, and -1e30 for a row with no visible key.  The
+// serving launches pass a null lse and write none.
 //
 // What bounds it on the H100.  At the SQL path's prefill shape (B = 1, one
 // prompt of 225 tokens in the 256-token bucket; olmo-1b 16 heads x 128,
@@ -115,6 +120,7 @@ struct FlashArgs {
   const int* qpos;        // (B, Sq)
   const int* kpos;        // (B, Skv)
   void* out;              // (B, Sq, H, D)
+  float* lse;             // (B, Sq, H) or null: each row's log-sum-exp
   int Sq, Skv, H, KV, D;
   float scale;
   int causal, window, prefix_len;
@@ -345,6 +351,8 @@ __device__ __forceinline__ void flash_body_fma(const FlashArgs& a) {
       out[(((size_t)b * Sq + row) * H + h) * D + d] = from_f<T>(acc[i] / div);
     }
   }
+  if (a.lse != nullptr && tid < kFmaBQ && q0 + tid < Sq)
+    a.lse[((size_t)b * Sq + q0 + tid) * H + h] = emp[tid] ? kMasked : m[tid] + logf(l[tid]);
 }
 
 
@@ -677,6 +685,9 @@ __device__ __forceinline__ void flash_body_mma(const FlashArgs& a) {
     const int r = 16 * warp + g + 8 * hh, row = q0 + r;
     if (row >= Sq) continue;
     const float div = emp[r] ? (float)a.empty_div : lrow[hh];
+    if (a.lse != nullptr && (lane & 3) == 0)  // m is in log2 units
+      a.lse[((size_t)b * Sq + row) * H + h] =
+          emp[r] ? kMasked : mrow[hh] * 0.6931471805599453f + logf(lrow[hh]);
     bf16* dst = out + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int jd = 0; jd < DK / 8; ++jd) {
@@ -751,17 +762,18 @@ int dispatch(int dtype, const FlashArgs& a, int B, cudaStream_t s) {
 }  // namespace
 
 // q (B, Sq, H, D); k, v (B, Skv, KV, D); qpos (B, Sq) int32; kpos (B, Skv)
-// int32; out (B, Sq, H, D).  All contiguous, q/k/v/out of one dtype.  A row
-// with no visible key is the sum of V over the Skv keys / empty_div.  Returns
-// the CUDA error code of the launch (0 on success).
+// int32; out (B, Sq, H, D); lse (B, Sq, H) float32 or null.  All contiguous,
+// q/k/v/out of one dtype.  A row with no visible key is the sum of V over the
+// Skv keys / empty_div (its lse -1e30).  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, const void* qpos,
-                                     const void* kpos, void* out, int B, int Sq,
-                                     int Skv, int H, int KV, int D, float scale,
-                                     int causal, int window, int prefix_len,
-                                     int empty_div, void* stream) {
+                                     const void* kpos, void* out, void* lse, int B,
+                                     int Sq, int Skv, int H, int KV, int D,
+                                     float scale, int causal, int window,
+                                     int prefix_len, int empty_div, void* stream) {
   FlashArgs a{};
-  a.q = q, a.k = k, a.v = v, a.out = out;
+  a.q = q, a.k = k, a.v = v, a.out = out, a.lse = static_cast<float*>(lse);
   a.qpos = static_cast<const int*>(qpos), a.kpos = static_cast<const int*>(kpos);
   a.Sq = Sq, a.Skv = Skv, a.H = H, a.KV = KV, a.D = D, a.scale = scale;
   a.causal = causal, a.window = window, a.prefix_len = prefix_len;

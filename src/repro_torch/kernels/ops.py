@@ -1,4 +1,4 @@
-"""Wrappers around the Hopper kernels of the SQL path.
+"""Wrappers around the Hopper kernels of the SQL and training paths.
 
 Each wrapper takes the JAX package's natural shapes (``repro/kernels/ops.py``
 signatures): q ``(B, S, H, D)``, caches ``(B, L, KV, D)``, page pools
@@ -38,8 +38,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
-                        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _I, _I, _I, _P]),
+                        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _F, _I, _I, _I, _I, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd.cu",
+                            "repro_flash_attention_bwd",
+                            [_I] + [_P] * 12 + [_I] * 6 + [_F] + [_I] * 3
+                            + [_P]),
     "flash_attention_prefix": (
         "flash_attention.cu", "repro_flash_attention_prefix",
         [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -187,12 +191,34 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal=True,
     """Prefill attention.  q (B, Sq, H, D); k, v (B, Skv, KV, D); positions
     (B, S) int32, -1 = padding.  A row with no visible key is the sum of V
     over the Skv keys divided by Skv rounded up to `kv_block` (see
-    ref.flash_attention_ref).  Returns (B, Sq, H, D) in q.dtype."""
+    ref.flash_attention_ref).  Returns (B, Sq, H, D) in q.dtype.
+
+    With grad enabled and q, k or v requiring it (the training path), the
+    call is differentiable: the forward keeps each row's log-sum-exp and
+    the backward is flash_attention_bwd (on the CPU, the plain versions:
+    ref.flash_attention_grad_ref).  Otherwise (the serving path) it is the
+    forward alone, with no lse written."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if not q.is_cuda:
+            return ref.flash_attention_grad_ref(
+                q, k, v, q_positions, kv_positions, causal=causal,
+                window=window, prefix_len=prefix_len, kv_block=kv_block)
+        return _FlashAttention.apply(q, k, v, q_positions, kv_positions,
+                                     causal, window, prefix_len, kv_block)
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, q_positions, kv_positions,
                                        causal=causal, window=window,
                                        prefix_len=prefix_len,
                                        kv_block=kv_block)
+    return _flash_forward(q, k, v, q_positions, kv_positions, causal, window,
+                          prefix_len, kv_block, None)
+
+
+def _flash_forward(q, k, v, q_positions, kv_positions, causal, window,
+                   prefix_len, kv_block, lse):
+    """Launch kernel 1; `lse` (B, Sq, H) float32 receives each row's
+    log-sum-exp, or is None (the serving launch, which writes none)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     _check_attention_inputs("flash_attention", q, k, v, q_positions,
@@ -204,9 +230,9 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal=True,
     out = torch.empty_like(q)
     err = _fn("flash_attention")(
         _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions),
-        _ptr(kv_positions), _ptr(out), B, Sq, Skv, H, KV, D,
-        1.0 / math.sqrt(D), int(causal), int(window), int(prefix_len),
-        ref.empty_row_divisor(Skv, kv_block), _stream())
+        _ptr(kv_positions), _ptr(out), None if lse is None else _ptr(lse), B,
+        Sq, Skv, H, KV, D, 1.0 / math.sqrt(D), int(causal), int(window),
+        int(prefix_len), ref.empty_row_divisor(Skv, kv_block), _stream())
     _check("flash_attention", err)
     flash_attention.launches += 1
     return out
@@ -215,11 +241,81 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal=True,
 flash_attention.launches = 0
 
 
+def _flash_forward_lse(q, k, v, q_positions, kv_positions, *, causal,
+                       window, prefix_len, kv_block):
+    """Kernel 1's training launch: the output and each row's lse."""
+    B, Sq, H, _ = q.shape
+    lse = torch.empty(B, Sq, H, dtype=torch.float32, device=q.device)
+    return _flash_forward(q, k, v, q_positions, kv_positions, causal, window,
+                          prefix_len, kv_block, lse), lse
+
+
+def flash_attention_bwd(q, k, v, q_positions, kv_positions, out, lse, g, *,
+                        causal=True, window=0, prefix_len=0):
+    """The gradient of flash_attention (ref.flash_attention_bwd_ref, the
+    JAX package's ``_flash_bwd``): q, out, g (B, Sq, H, D); k, v (B, Skv,
+    KV, D); positions as in flash_attention; lse (B, Sq, H) float32 from
+    the forward.  Returns (dq, dk, dv) in q's dtype.  One entry point,
+    three launches (delta, dK/dV, dQ); the result is the same to the bit
+    from run to run (no float atomics)."""
+    if not q.is_cuda:
+        return ref.flash_attention_bwd_ref(
+            q, k, v, q_positions, kv_positions, out, lse, g, causal=causal,
+            window=window, prefix_len=prefix_len)
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    _check_attention_inputs("flash_attention_bwd", q, k, v, q_positions,
+                            kv_positions)
+    out, g = out.contiguous(), g.contiguous()
+    for t in (out, g):
+        _require(t.is_cuda and t.is_contiguous() and t.dtype == q.dtype
+                 and t.shape == q.shape and t.data_ptr() % 16 == 0,
+                 "flash_attention_bwd: out and g must be contiguous CUDA "
+                 "tensors of q's shape and dtype")
+    _require(lse.is_cuda and lse.dtype == torch.float32 and lse.is_contiguous()
+             and lse.shape == (B, Sq, H),
+             "flash_attention_bwd: lse must be a contiguous (B, Sq, H) "
+             "float32 CUDA tensor")
+    _require(H % KV == 0 and k.shape == v.shape == (B, Skv, KV, D)
+             and q_positions.shape == (B, Sq)
+             and kv_positions.shape == (B, Skv),
+             "flash_attention_bwd: shape mismatch")
+    delta = torch.empty(B, Sq, H, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _fn("flash_attention_bwd")(
+        _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions),
+        _ptr(kv_positions), _ptr(out), _ptr(g), _ptr(lse), _ptr(delta),
+        _ptr(dq), _ptr(dk), _ptr(dv), B, Sq, Skv, H, KV, D,
+        1.0 / math.sqrt(D), int(causal), int(window), int(prefix_len),
+        _stream())
+    _check("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+#: kernel 1 with its lse, differentiated by flash_attention_bwd
+_FlashAttention = ref.differentiable_attention(_flash_forward_lse,
+                                               flash_attention_bwd)
+
+
+def _forward_only(name: str, *tensors) -> None:
+    """Refuse a differentiated call of a wrapper whose kernel has no
+    backward: its result would carry no gradient (ROADMAP queue 1)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: no backward kernel; it is reached only by the serving "
+            "path (training these paths is ROADMAP queue 1)")
+
+
 # ------------------------------ decode attention ------------------------------
 def decode_attention(q, k_cache, v_cache, slot_positions, q_position):
     """One query token per row against the dense ring cache.  q (B, H, D);
     caches (B, L, KV, D); slot_positions (B, L) int32 (-1 = empty);
     q_position (B,) int32.  Returns (B, H, D) in q.dtype."""
+    _forward_only("decode_attention", q, k_cache, v_cache)
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k_cache, v_cache, slot_positions,
                                         q_position)
@@ -296,6 +392,7 @@ def decode_attention_paged(q, k_pool, v_pool, block_tables, q_position):
     pools (KV, P, ps, D); block_tables (B, NB) int32 page ids (-1 = none);
     q_position (B,) int32.  Token t of block j is valid when the block has
     a page and j * ps + t <= qpos.  Returns (B, H, D) in q.dtype."""
+    _forward_only("decode_attention_paged", q, k_pool, v_pool)
     if not q.is_cuda:
         return ref.decode_attention_paged_ref(q, k_pool, v_pool, block_tables,
                                               q_position)
@@ -314,6 +411,7 @@ def decode_attention_paged_quant(q, k_pool, v_pool, block_tables, q_position,
     holds the layer's kq/vq (KV, P, ps, D) int8, kscale/vscale (KV, P)
     float32 and flags (P,) int8; a page with flags > 0 is read as
     int8 * scale rounded to the pool dtype."""
+    _forward_only("decode_attention_paged_quant", q, k_pool, v_pool)
     if not q.is_cuda:
         return ref.decode_attention_paged_ref(q, k_pool, v_pool,
                                               block_tables, q_position, quant)
@@ -336,6 +434,7 @@ def flash_attention_prefix(q, k, v, positions, k_pool, v_pool, prefix_table,
     non-pad query.  quant as in decode_attention_paged_quant.  Returns
     (B, S, H, D) in q.dtype; a pad row is the mean of V over the table's
     npre * ps prefix slots and the S suffix keys, as in the reference."""
+    _forward_only("flash_attention_prefix", q, k, v, k_pool, v_pool)
     if not q.is_cuda:
         return ref.flash_attention_prefix_ref(q, k, v, positions, k_pool,
                                               v_pool, prefix_table,
@@ -373,6 +472,7 @@ def constrained_sample(logits, mask, noise=None, *, temperature=1.0):
     ties; the numpy sampler's arithmetic (see ref.constrained_sample_ref).
     logits (B, V) float32/bfloat16; mask (B, V) int8; noise (B, V) float64
     Gumbel noise or None (greedy).  Returns (B,) int32."""
+    _forward_only("constrained_sample", logits)
     if not logits.is_cuda:
         return ref.constrained_sample_ref(logits, mask, noise,
                                           temperature=temperature)
@@ -408,6 +508,7 @@ def gmm(x, w, group_sizes):
     group_sizes (E,) int32 with sum <= T (read on the device: no host
     sync).  Rows [start_e, start_e + gs_e) of x times w[e], accumulated in
     fp32; rows past the sum are 0.  Returns (T, N) in x.dtype."""
+    _forward_only("gmm", x, w)
     if not x.is_cuda:
         return ref.gmm_ref(x, w, group_sizes)
     T, M = x.shape
@@ -450,6 +551,7 @@ def selective_scan(u, dt, A, B, C, D, h0=None, h_out=None):
     The SQL path calls it once per mixer layer and decode tick, so its
     checks are written for host time: each condition is tested in place and
     its message formatted only when it fails."""
+    _forward_only("selective_scan", u, dt, A, B, C, D, h0)
     if not u.is_cuda:
         return ref.selective_scan_ref(u, dt, A, B, C, D, h0, h_out)
     Bz, S, Di = u.shape
@@ -496,8 +598,9 @@ def selective_scan(u, dt, A, B, C, D, h0=None, h_out=None):
 
 selective_scan.launches = 0
 
-#: every kernel wrapper of the SQL path, by kernel name
+#: every kernel wrapper of the SQL and training paths, by kernel name
 WRAPPERS = {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "flash_attention_prefix": flash_attention_prefix,
             "decode_attention": decode_attention,
             "decode_attention_paged": decode_attention_paged,

@@ -5,8 +5,11 @@ They mirror ``repro/kernels/ref.py`` (``flash_attention_ref``,
 ``decode_attention_paged_quant_ref``, ``constrained_sample_ref``,
 ``gmm_ref``, ``selective_scan_ref``) and
 ``repro/models/layers.py::prefix_suffix_attention`` (``quant`` makes
-``decode_attention_paged_ref`` the plain version of the int8-page kernel),
-but take the natural
+``decode_attention_paged_ref`` the plain version of the int8-page kernel)
+and the training path's attention, the JAX package's ``custom_vjp``
+(``layers._flash_fwd`` / ``_flash_bwd``: ``flash_attention_fwd_ref`` with
+its lse, ``flash_attention_bwd_ref``, and ``flash_attention_grad_ref`` that
+joins them), but take the natural
 layouts the CUDA kernels read directly — q ``(B, S, H, D)``, caches
 ``(B, L, KV, D)``, page pools ``(KV, P, ps, D)`` — so no GQA fold copy is
 made on either path.  The wrappers in ``kernels/ops.py`` run these for CPU
@@ -69,6 +72,20 @@ def flash_attention_ref(q, k, v, q_positions, kv_positions, *, causal=True,
     kv_block=1 gives the mean of V, as ``layers.prefix_suffix_attention``
     without a prefix does.  Pad rows are never read by the dense family,
     but the MoE family routes them: they take expert capacity."""
+    return flash_attention_fwd_ref(q, k, v, q_positions, kv_positions,
+                                   causal=causal, window=window,
+                                   prefix_len=prefix_len,
+                                   kv_block=kv_block)[0]
+
+
+def flash_attention_fwd_ref(q, k, v, q_positions, kv_positions, *,
+                            causal=True, window=0, prefix_len=0,
+                            kv_block=FLASH_KV_BLOCK):
+    """flash_attention_ref's output and the fp32 log-sum-exp of each row's
+    masked scores, (B, Sq, H): what the JAX package's forward rule
+    (``layers._flash_fwd``) keeps for the backward.  A row with no visible
+    key has lse NEG_INF: the JAX forward's ``m + log(l)`` is -1e30 + log of
+    the padded key count, which rounds to -1e30 in float32."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -79,10 +96,94 @@ def flash_attention_ref(q, k, v, q_positions, kv_positions, *, causal=True,
     s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqj,bjkd->bqkgd", p, v.float())
+    empty = ~ok.any(-1)                                           # (B, Sq)
     empty_v = v.float().sum(1) / empty_row_divisor(Skv, kv_block)  # (B,KV,D)
-    o = torch.where((~ok.any(-1))[:, :, None, None, None],
+    o = torch.where(empty[:, :, None, None, None],
                     empty_v[:, None, :, None, :], o)
-    return o.reshape(B, Sq, H, D).to(q.dtype)
+    lse = torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2)         # (B,Sq,KV,G)
+    lse = torch.where(empty[:, :, None, None], torch.full_like(lse, NEG_INF),
+                      lse)
+    return (o.reshape(B, Sq, H, D).to(q.dtype).contiguous(),
+            lse.reshape(B, Sq, H).contiguous())
+
+
+def flash_attention_bwd_ref(q, k, v, q_positions, kv_positions, out, lse, g,
+                            *, causal=True, window=0, prefix_len=0):
+    """The gradient of flash attention as the JAX package's hand-written
+    backward computes it (``layers._flash_bwd``): delta = rowsum(dO · O),
+    P = exp(S - lse) with masked scores NEG_INF, dS = P (dP - delta), then
+    dq = dS K · scale, dk = dS^T (Q · scale) and dv = P^T dO, each kv
+    head's summed over its G query heads.  q (B, Sq, H, D); k, v (B, Skv,
+    KV, D); out, g (B, Sq, H, D) the forward's output and its gradient; lse
+    (B, Sq, H) float32 from flash_attention_fwd_ref.  Returns (dq, dk, dv)
+    in the dtypes of q, k and v.
+
+    It is not the gradient of flash_attention_ref by autograd.  A row with
+    no visible key has lse NEG_INF, so P = exp(NEG_INF - NEG_INF) = 1 for
+    every key of that row (not the 1/n of its forward): such a row adds dO
+    to every key's dv, as the JAX backward does."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, Sq, KV, G, D) * scale
+    gf = g.float().reshape(B, Sq, KV, G, D)
+    kf, vf = k.float(), v.float()
+    delta = (gf * out.float().reshape(B, Sq, KV, G, D)).sum(-1)  # (B,Sq,KV,G)
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qf, kf)
+    ok = attention_mask(q_positions, kv_positions, causal=causal,
+                        window=window, prefix_len=prefix_len)
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
+    lse_r = lse.float().reshape(B, Sq, KV, G).permute(0, 2, 3, 1)  # (B,KV,G,Sq)
+    p = torch.exp(s - lse_r[..., None])
+    dp = torch.einsum("bqkgd,bjkd->bkgqj", gf, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqj,bjkd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqj,bqkgd->bjkd", ds, qf)
+    dv = torch.einsum("bkgqj,bqkgd->bjkd", p, gf)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def differentiable_attention(fwd, bwd):
+    """An autograd.Function over the attention forward `fwd` (returning the
+    output and its lse) with `bwd` (q, k, v, positions, out, lse, g ->
+    dq, dk, dv) as its backward: the plain pair here, the kernels' pair in
+    ops.  Applied as (q, k, v, q_positions, kv_positions, causal, window,
+    prefix_len, kv_block)."""
+
+    class _Attention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, q_positions, kv_positions, causal, window,
+                    prefix_len, kv_block):
+            out, lse = fwd(q, k, v, q_positions, kv_positions, causal=causal,
+                           window=window, prefix_len=prefix_len,
+                           kv_block=kv_block)
+            ctx.save_for_backward(q, k, v, q_positions, kv_positions, out,
+                                  lse)
+            ctx.mask = dict(causal=causal, window=window,
+                            prefix_len=prefix_len)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return (*bwd(*ctx.saved_tensors, g, **ctx.mask),) + (None,) * 6
+
+    return _Attention
+
+
+_FlashAttentionRef = differentiable_attention(flash_attention_fwd_ref,
+                                              flash_attention_bwd_ref)
+
+
+def flash_attention_grad_ref(q, k, v, q_positions, kv_positions, *,
+                             causal=True, window=0, prefix_len=0,
+                             kv_block=FLASH_KV_BLOCK):
+    """flash_attention_ref, differentiable by flash_attention_bwd_ref: the
+    plain version of the training path's attention (the JAX package's
+    ``custom_vjp``)."""
+    return _FlashAttentionRef.apply(q, k, v, q_positions, kv_positions,
+                                    causal, window, prefix_len, kv_block)
 
 
 def decode_attention_ref(q, k_cache, v_cache, slot_positions, q_position):

@@ -1,4 +1,4 @@
-"""Shared neural-net layers (forward only): norms, RoPE, attention, MLPs.
+"""Shared neural-net layers: norms, RoPE, attention, MLPs.
 
 Port of ``repro/models/layers.py``.  ``flash_attention`` is the plain
 blockwise streamed-softmax forward (the JAX package's production fallback,
@@ -7,8 +7,10 @@ the prefill attention of its SQL path);
 and ``prefix_suffix_attention`` are the naive oracles.  The model calls the
 kernel wrappers in ``kernels/ops.py`` by default; these are the plain
 versions they are held against.  The dense and MoE families (``models/
-model.py``) use them all; the MoE block itself is ``models/moe.py``.  The backward pass waits for the
-training slice.
+model.py``) use them all; the MoE block itself is ``models/moe.py``.  The
+norms, RoPE and MLPs are differentiated by autograd; the attention's
+backward is the JAX package's hand-written one (``_flash_bwd``), as
+``kernels/ref.py::flash_attention_bwd_ref`` and its CUDA kernel.
 """
 from __future__ import annotations
 

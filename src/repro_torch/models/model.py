@@ -1,11 +1,14 @@
-"""Model assembly for the dense, MoE, ssm and hybrid families (port of
-``repro/models/model.py``).
+"""Model assembly for every family of the JAX package: dense, MoE, ssm,
+hybrid, VLM and encoder (port of ``repro/models/model.py``).
 
-One pre-norm decoder stack: embedding, per layer a residual block, final
-norm, tied or separate LM head.  The block by family:
-  dense / moe : norm → GQA attention with RoPE → residual → norm → SwiGLU |
-                GELU MLP | capacity-bounded top-k MoE (``models/moe.py``)
-                → residual
+One pre-norm stack: embedding (the encoder reads frame embeddings
+instead; the VLM prepends image-patch embeddings with bidirectional
+prefix-LM masking), per layer a residual block, final norm, tied or
+separate LM head.  The block by family:
+  dense / moe / vlm / encoder :
+                norm → GQA attention with RoPE (bidirectional for the
+                encoder) → residual → norm → SwiGLU | GELU MLP |
+                capacity-bounded top-k MoE (``models/moe.py``) → residual
   ssm         : norm → Mamba-1 mixer (``models/mamba.py``) → residual
   hybrid      : norm → attention ∥ mixer on the same input, their mean →
                 residual → norm → SwiGLU MLP → residual (hymba)
@@ -13,7 +16,11 @@ Params are the stacked tree of ``models/params.py``; the layers run in a
 Python loop over the stacked leaves in place of ``lax.scan``.
 
 Three modes, as in the JAX package:
-  train   — full-sequence forward, no cache, returns token logits
+  train   — full-sequence forward, no cache, returns token logits; with
+            master weights (``params.param_specs``) the forward casts them
+            to the compute dtype inside the autograd graph, as the JAX
+            forward's ``.astype(cd)`` does, so their gradients are fp32
+            (``launch/steps.py``)
   prefill — full-sequence forward that fills a decode cache (optionally
             extending a cached prefix: ``extend_offset``)
   decode  — single-token step against the KV cache
@@ -48,7 +55,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as MAMBA
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import HYBRID, SSM, VLM, ModelConfig
-from repro_torch.models.params import DTYPES, require_ported
+from repro_torch.models.params import DTYPES, _dtype, require_ported
+
+
+def param_count_actual(params: dict) -> int:
+    """Elements in a parameter tree."""
+    return sum(x.numel() for x in [*params["layers"].values(),
+                                   *(v for k, v in params.items()
+                                     if k != "layers")])
 
 
 # ================================ cache =======================================
@@ -275,6 +289,14 @@ def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
 
 
 # ============================== full forward ==================================
+def _leaf_cast(cfg: ModelConfig, params: dict):
+    """name, leaf → the leaf in its serving dtype.  The identity for a
+    serving tree; for master weights a cast, recorded by autograd."""
+    if all(v.dtype == _dtype(cfg, k) for k, v in params["layers"].items()):
+        return lambda _name, t: t
+    return lambda name, t: t.to(_dtype(cfg, name))
+
+
 def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             mode: str = "train", cache: Optional[Dict[str, Any]] = None, *,
             attn_fn=None, decode_attn_fn=None, prefix_attn_fn=None,
@@ -282,9 +304,14 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             num_groups: int = 1, last_only: bool = False,
             extend_offset: int = 0
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Run the stack.  batch: tokens (B, S) int, positions (B, S) int32.
-    Returns (logits (B, S, Vp) in the compute dtype, cache or None); the
-    cache is updated in place (see the module docstring).
+    """Run the stack.  batch: tokens (B, S) int | embeds (B, S, M) (the
+    encoder's frame embeddings), positions (B, S) int32; the VLM may add
+    prefix_embeds (B, P, M), prepended at positions 0..P-1 with the text
+    positions shifted by P, so the logits cover P + S positions.  Returns
+    (logits (B, S, Vp) in the compute dtype, cache or None); the cache is
+    updated in place (see the module docstring).  `params` is the serving
+    tree or the master tree (leaves in the param dtype), which is cast to
+    the serving dtypes on use.
 
     A cache holding ``block_tables`` (B, NB) int32 is the paged pool.  It
     also holds ``writes``, a (4, n) int64 tensor: the (row, token index,
@@ -306,10 +333,22 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     attn_fn = attn_fn or KOPS.flash_attention
     decode_attn_fn = decode_attn_fn or KOPS.decode_attention
     cd = DTYPES[cfg.compute_dtype]
+    cast = _leaf_cast(cfg, params)
     positions = batch["positions"]
-    x = params["embed"][batch["tokens"]]
-    if cfg.scale_embed:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
+    if "embeds" in batch:                       # encoder / stub frontend
+        x = batch["embeds"].to(cd)
+    else:
+        x = cast("embed", params["embed"])[batch["tokens"]]
+        if cfg.scale_embed:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
+        if cfg.family == VLM and "prefix_embeds" in batch:
+            pe = batch["prefix_embeds"]
+            P = pe.shape[1]
+            x = torch.cat([pe.to(cd), x], dim=1)
+            positions = torch.cat([
+                torch.arange(P, dtype=positions.dtype,
+                             device=positions.device).expand(pe.shape[0], P),
+                positions + P], dim=1)
     B, S = positions.shape
 
     slot_pos = write_slot = row_idx = paged = None
@@ -333,8 +372,11 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                                     device=x.device)
         slot_pos[torch.arange(B, device=x.device), write_slot] = positions[:, 0]
 
+    # one unbind a leaf: its backward stacks the layers' gradients once,
+    # where indexing each layer would add L zero-padded full-size ones
+    stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
     for i in range(cfg.num_layers):
-        lp = {k: v[i] for k, v in params["layers"].items()}
+        lp = {k: cast(k, v[i]) for k, v in stacked.items()}
         ck = cv = state = None
         if cache is not None and cfg.has_attention:
             ck, cv = cache["k"][i], cache["v"][i]
@@ -353,7 +395,8 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     x = L.apply_norm(cfg.norm_type, x, _norm_p(fn_params, "final_norm"))
     if last_only:
         x = x[:, -1:]
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    head = cast("embed", params["embed"]).t() if cfg.tie_embeddings else \
+        cast("lm_head", params["lm_head"])
     logits = x @ head
 
     if mode == "train" or cache is None:
@@ -377,3 +420,14 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                 slot_pos[:, off + S:] = -1
         new_cache["idx"] = off + S
     return logits, new_cache
+
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over the (padded) vocab in fp32, averaged over the
+    mask's positions (``repro/models/model.py::lm_loss``)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    true = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - true) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

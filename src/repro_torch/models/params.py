@@ -6,8 +6,11 @@ the 3-D ``attn.wq/wk/wv`` ``(M, H, hd)`` and ``attn.wo`` ``(H, hd, M)``
 leaves, so converting a JAX tree is a plain copy.
 
 The JAX forward casts the fp32 params to the compute dtype on every use
-(``.astype(cd)``).  The port keeps ONE compute-dtype copy of each weight
-instead, made at load time — the same numbers.  Norm scales and biases stay
+(``.astype(cd)``).  For serving, the port keeps ONE compute-dtype copy of
+each weight instead, made at load time — the same numbers.  Training keeps
+the JAX layout: master weights in the param dtype (``param_specs``,
+``init_params(..., master=True)``, ``train_state_from_jax``), which the
+forward casts inside the autograd graph.  Norm scales and biases stay
 fp32: the norms read them in fp32; so does the MoE router (``moe.router``),
 whose fp32 logits pick the experts, and so do the Mamba mixer's
 ``ssm.A_log``, ``ssm.D`` and ``ssm.dt_bias``, which it reads in fp32 (a
@@ -21,14 +24,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.config import DENSE, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.models.config import (DENSE, ENCODER, HYBRID, MOE, SSM, VLM,
+                                       ModelConfig)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
-#: the model families the port runs (the others: ROADMAP queue 1)
-PORTED_FAMILIES = (DENSE, MOE, SSM, HYBRID)
+#: the model families the port runs: all six of the JAX package
+PORTED_FAMILIES = (DENSE, MOE, SSM, HYBRID, VLM, ENCODER)
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -105,8 +109,10 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The leaves outside the layer stack; the encoder has no embedding
+    (it reads frame embeddings) and always its own LM head."""
     m, vp = cfg.d_model, cfg.padded_vocab
-    out = {"embed": (vp, m)}
+    out = {} if cfg.family == ENCODER else {"embed": (vp, m)}
     if not cfg.tie_embeddings:
         out["lm_head"] = (m, vp)
     if cfg.norm_type in ("rmsnorm", "layernorm"):
@@ -117,11 +123,31 @@ def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 def _dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """A leaf's serving dtype: the compute dtype, fp32 for _fp32_leaf."""
     return torch.float32 if _fp32_leaf(name) else DTYPES[cfg.compute_dtype]
+
+
+def _master_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """A leaf's training dtype, as the JAX ``param_specs`` gives it: the
+    param dtype, fp32 for the mixer's A_log and D."""
+    if name in ("ssm.A_log", "ssm.D"):
+        return torch.float32
+    return DTYPES[cfg.param_dtype]
 
 
 def _cast(cfg: ModelConfig, name: str, x: torch.Tensor) -> torch.Tensor:
     return x.to(_dtype(cfg, name))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """(shape, dtype) of every leaf of the master tree, in the param dtype
+    (``repro/models/model.py::param_specs``): ``{"layers": {name: ((L,) +
+    shape, dtype)}, "embed", ["lm_head"], ["final_norm.*"]}``."""
+    out = {"layers": {k: ((cfg.num_layers,) + s, _master_dtype(cfg, k))
+                      for k, s in _layer_shapes(cfg).items()}}
+    out.update({k: (s, _master_dtype(cfg, k))
+                for k, s in _top_shapes(cfg).items()})
+    return out
 
 
 def params_from_jax(cfg: ModelConfig, tree, device) -> dict:
@@ -136,7 +162,8 @@ def params_from_jax(cfg: ModelConfig, tree, device) -> dict:
     return out
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device, *,
+                master: bool = False) -> dict:
     """Random weights by the JAX initializer's rules (``model.py``
     ``init_params``): ``ssm.A_log`` is log(1..N) in every channel and
     ``ssm.D`` ones; other 1-D leaves are ones (scales) or zeros (biases); every
@@ -145,10 +172,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     come from `generator` (on `device`), so they differ from
     ``jax.random``'s.  A stacked leaf is drawn one layer at a time straight
     into its tensor, so the fp32 scratch is one layer's (a full-depth MoE
-    leaf would need tens of GB of it)."""
+    leaf would need tens of GB of it).  `master` draws the training tree's
+    master weights (param dtype, ``param_specs``) instead of the serving
+    tree; the draws are the same, so the serving tree equals the masters
+    cast to their serving dtypes."""
+    leaf_dtype = _master_dtype if master else _dtype
+
     def draw(name, shape, stacked):
         full = ((cfg.num_layers,) if stacked else ()) + shape
-        dt = _dtype(cfg, name)
+        dt = leaf_dtype(cfg, name)
         if name == "ssm.A_log":
             return torch.log(torch.arange(1, shape[-1] + 1, dtype=dt,
                                           device=device)).expand(full).clone()
@@ -174,3 +206,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
                       for k, s in _layer_shapes(cfg).items()}}
     out.update({k: draw(k, s, False) for k, s in _top_shapes(cfg).items()})
     return out
+
+
+def train_state_from_jax(cfg: ModelConfig, state, device) -> dict:
+    """The JAX train state ``{"params", "opt": {"m", "v"}, "step"}`` with
+    numpy leaves (``jax.tree.map(np.asarray, state)``) → the port's
+    (``launch/steps.py``): master params in the param dtype, fp32 moments,
+    the step as an int."""
+    def conv(tree, dtype_of):
+        def one(name, x):
+            return torch.from_numpy(np.array(x)).to(device, dtype_of(name))
+        out = {"layers": {k: one(k, v) for k, v in tree["layers"].items()}}
+        out.update({k: one(k, v) for k, v in tree.items() if k != "layers"})
+        return out
+
+    def f32(_name):
+        return torch.float32
+
+    return {"params": conv(state["params"],
+                           lambda name: _master_dtype(cfg, name)),
+            "opt": {"m": conv(state["opt"]["m"], f32),
+                    "v": conv(state["opt"]["v"], f32)},
+            "step": int(np.asarray(state["step"]))}

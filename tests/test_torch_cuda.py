@@ -17,7 +17,10 @@ up to 2048 products of order 1, in another order).  The selective scan:
 its plain version compute in float32 from the same inputs; the kernel sums
 the N terms of y in another order, takes exp2f of a pre-scaled A, and
 carries the state across time chunks as exp(A * sum dt) times the chunk's
-start state).
+start state).  The flash backward: 2e-2 (bfloat16) and 2e-5 (float32)
+times each gradient's largest |value| (at least 1), the same fp32 products
+summed in another order; two calls equal to the bit; the training
+forward's lse 1e-4.
 """
 import numpy as np
 import pytest
@@ -654,3 +657,124 @@ def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="state size"):
         ops.selective_scan(u, dt, A[:, :12].contiguous(), B[..., :12],
                            C[..., :12], D)
+
+
+# ---------------------- flash attention: the training path ---------------------
+#: the backward's shapes on the training path (chip_smoke.py phase 2):
+#: olmo-1b (B 8, S 512, 16 x 128, causal), paligemma-3b (B 4, 256 image
+#: tokens + 128 text, 8 x 256 on 1 kv head, prefix-LM), hubert-xlarge (B 8,
+#: S 512, 16 x 80, bidirectional)
+TRAIN_ATTENTION = {
+    "olmo-1b": (dict(B=8, S=512, H=16, KV=16, D=128), dict(causal=True)),
+    "paligemma-3b": (dict(B=4, S=384, H=8, KV=1, D=256),
+                     dict(causal=True, prefix_len=256)),
+    "hubert-xlarge": (dict(B=8, S=512, H=16, KV=16, D=80),
+                      dict(causal=False)),
+}
+
+
+def _bwd_inputs(cuda, dtype, seed, **shape):
+    q, k, v, qpos, kpos = (t(a).to(cuda) for a in prefill_case(seed, **shape))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed)
+                    ).to(cuda).to(dtype)
+    return q, k, v, qpos, kpos, g
+
+
+def _assert_grads_close(got, want, dtype):
+    """Each gradient within the tolerance times its own largest |value|
+    (dq and dk carry the 1/sqrt(D) scale, dv does not): the kernel and the
+    plain version sum the same fp32 products in another order (2e-2 in
+    bf16, whose outputs are rounded to 8 bits; 2e-5 in float32)."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = max(1e-30, b.float().abs().max().item())
+        tol = (2e-2 if dtype == torch.bfloat16 else 2e-5) * scale
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+def _bwd_against_plain(cuda, dtype, seed, shape, mask):
+    """The backward kernel against its plain version on the same forward
+    (the plain one's output and lse), twice, equal to the bit."""
+    q, k, v, qpos, kpos, g = _bwd_inputs(cuda, dtype, seed, **shape)
+    out, lse = ref.flash_attention_fwd_ref(q, k, v, qpos, kpos, **mask)
+    n = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, qpos, kpos, out, lse, g, **mask)
+    assert ops.flash_attention_bwd.launches == n + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, qpos, kpos, out, lse, g, **mask)
+    _assert_grads_close(got, want, dtype)
+    again = ops.flash_attention_bwd(q, k, v, qpos, kpos, out, lse, g, **mask)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("config", list(TRAIN_ATTENTION))
+def test_flash_attention_bwd_kernel_train_shapes(cuda, config, dtype):
+    shape, mask = TRAIN_ATTENTION[config]
+    _bwd_against_plain(cuda, dtype, 31, shape, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_CUDA_CASES))
+def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype, mask):
+    """FLASH_CUDA_CASES (left pads: rows with no visible key, whose P is 1
+    on every key; GQA 1 to 8; kv longer than q; head dims 16 to 256) under
+    every mask."""
+    _bwd_against_plain(cuda, dtype, 32, FLASH_CUDA_CASES[case], MASKS[mask])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("config", list(TRAIN_ATTENTION))
+def test_flash_attention_training_path_matches_plain(cuda, config, dtype):
+    """The differentiable ops.flash_attention (kernel 1 with its lse, then
+    the backward kernel) against the plain autograd function: the output,
+    the lse the forward kept, and the gradients."""
+    shape, mask = TRAIN_ATTENTION[config]
+    q, k, v, qpos, kpos, g = _bwd_inputs(cuda, dtype, 33, **shape)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    out = ops.flash_attention(*leaves, qpos, kpos, **mask)
+    got = torch.autograd.grad(out, leaves, g)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == (n[0] + 1, n[1] + 1)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    r = ref.flash_attention_grad_ref(*plain, qpos, kpos, **mask)
+    want = torch.autograd.grad(r, plain, g)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.detach().float(), r.detach().float(),
+                               atol=tol, rtol=tol)
+    _assert_grads_close(got, want, dtype)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    ops._flash_forward(q, k, v, qpos, kpos, mask.get("causal", True),
+                       mask.get("window", 0), mask.get("prefix_len", 0),
+                       ref.FLASH_KV_BLOCK, lse)
+    _, lse_ref = ref.flash_attention_fwd_ref(q, k, v, qpos, kpos, **mask)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_of_empty_rows(cuda, dtype):
+    """A left-pad row's lse is -1e30, as the JAX forward rounds it, so that
+    the backward gives it P = 1 on every key."""
+    q, k, v, qpos, kpos = (t(a).to(cuda) for a in prefill_case(
+        34, B=2, S=100, H=4, KV=2, D=64, npad=9))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    ops._flash_forward(q, k, v, qpos, kpos, True, 0, 0, ref.FLASH_KV_BLOCK,
+                       lse)
+    assert (lse[qpos < 0] == ref.NEG_INF).all()
+    assert torch.isfinite(lse[qpos >= 0]).all()
+
+
+@pytest.mark.cuda
+def test_forward_only_wrappers_refuse_differentiation(cuda):
+    q, kc, vc, spos, qpos = (t(a).to(cuda) for a in
+                             decode_case(6, 2, 4, 4, 16, 32))
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.decode_attention(q.requires_grad_(True), kc, vc, spos, qpos)

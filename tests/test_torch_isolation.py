@@ -19,6 +19,7 @@ import torch
 
 import repro_torch.configs as TC
 from repro_torch.core.database import IPDB
+from repro_torch.launch import train as TR
 from repro_torch.serving.engine import InferenceEngine
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -31,7 +32,7 @@ COPIES = (["relational/" + m + ".py" for m in (
         "cancel", "faults", "snapshot", "stats", "service", "predict",
         "optimizer", "rewrite", "cascade")]
     + ["serving/tokenizer.py", "serving/grammar.py", "serving/radix.py",
-       "models/config.py"]
+       "models/config.py", "training/data.py"]
     + sorted("configs/" + p.name for p in (SRC / "repro" / "configs").glob(
         "*.py") if p.name not in ("__init__.py", "common.py")))
 
@@ -80,3 +81,9 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
         IPDB()
     assert InferenceEngine(cfg, max_len=32, device="cpu").device.type == "cpu"
     assert IPDB(device="cpu").device.type == "cpu"
+    smoke = ["--smoke", "--steps", "1", "--batch", "2", "--seq-len", "16"]
+    with pytest.raises(RuntimeError, match="no GPU"):
+        TR.main(smoke)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        TR.train(smoke + ["--device", "cuda"])
+    assert TR.train(smoke + ["--device", "cpu"])["state"]["step"] == 1
