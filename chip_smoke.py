@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only gmm,flash_attention   # phases 1-2 only
     python3 chip_smoke.py --only selective_scan,decode_attention_paged_quant
     python3 chip_smoke.py --only flash_attention_bwd
+    python3 chip_smoke.py --only flash_attention_bwd --compare-bwd PARENT_CU
 
 Phases, each reported on its own lines:
 
@@ -28,8 +29,15 @@ Phases, each reported on its own lines:
    its operations over the peak rate, the larger); for every kernel also
    the profiler's device time of the kernel alone (``device_ms``), for the
    selective scan the host time of its wrapper per call (``host_ms``), for
-   C the same numbers over int8 frozen prefix pages, and for the paged
-   decode kernels A and B the (splits, warps) of their launch;
+   C the same numbers over int8 frozen prefix pages, for the paged
+   decode kernels A and B the (splits, warps) of their launch, and for the
+   flash backward its design (body, split of the query heads, ring stages;
+   P and dS always keep their low half), its device time per launch, the
+   training forward's bound and SDPA forward, and SDPA's backward with a
+   bool mask and with the least-masked arguments (``--compare-bwd`` also
+   times the parent's backward, built for that call, in turns with this
+   one, alone and in warm train steps of the three training
+   configurations, with one profiled step of each);
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
@@ -90,7 +98,8 @@ Phases, each reported on its own lines:
       width and depth and paligemma-3b at full width and depth for 4 steps
       each (at the driver's own 20 warm-up steps);
       step times, tokens/s, model FLOP/s over the bf16 peak and peak
-      memory; the launches counted as the ``train`` path;
+      memory, one warm step of each profiled; the launches counted as the
+      ``train`` path;
 7. a JSON line with every kernel's numbers at the dtype its path gives it,
    then the last line ``{"ok": true, "device": {...}}``.
 
@@ -750,20 +759,69 @@ def visible_pairs(S, causal, prefix_len) -> int:
     return sum(max(i + 1, prefix_len) for i in range(S))
 
 
+#: other builds of the backward's library timed beside it in check_flash_bwd
+#: (``--compare-bwd``): label -> its C entry point
+BWD_VARIANTS = {}
+
+
+def bwd_design(ops, dtype, B, S, H, KV, D) -> dict:
+    """The backward's design at a shape, as the library picks it (a query:
+    nothing is launched): its body, the dK/dV launch's split of the query
+    heads over a cluster, the ring's stages."""
+    fn = ops.build()["flash_attention_bwd.cu"].repro_flash_attention_bwd_design
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(ops._DTYPES[dtype], B, S, S, H, KV, D, out)
+    if err:
+        fail(f"flash_attention_bwd design query: CUDA error {err}")
+    return dict(body="wgmma" if out[0] else "cuda cores", splits=out[1],
+                stages=out[2])
+
+
+def build_parent_bwd(ops, parent_src: str) -> None:
+    """Build, for this call only, the parent's backward (`parent_src`, its
+    .cu beside its own common.cuh) with ops.build's flags into
+    build/chip_smoke_variants/, and put it in BWD_VARIANTS."""
+    out = os.path.join(ROOT, "build", "chip_smoke_variants")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "parent_bwd.so")
+    proc = subprocess.run(
+        [ops._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib, parent_src],
+        capture_output=True, text=True)
+    if proc.returncode:
+        fail(f"flash_attention_bwd parent: nvcc failed\n{proc.stdout}"
+             f"{proc.stderr}")
+    fn = ctypes.CDLL(lib).repro_flash_attention_bwd
+    fn.argtypes = ops.KERNELS["flash_attention_bwd"][2]
+    fn.restype = ctypes.c_int
+    BWD_VARIANTS["parent"] = fn
+    print(f"flash_attention_bwd: the parent's source built for this call "
+          f"({parent_src})", flush=True)
+
+
 def check_flash_bwd(ops, ref, dtype, gen, shape):
-    """The flash backward (three launches: delta, dK/dV, dQ) at a training
-    shape, against its plain version on the same forward (the plain one's
+    """The flash backward (in bf16 two launches, dQ with delta then dK/dV;
+    in float32 three: delta, dK/dV, dQ) at a training shape, against its plain version on the same forward (the plain one's
     output and lse), and the forward at that shape with its lse (kernel 1's
-    training launch) against the plain forward.  Each of dq, dk and dv is
-    held against the tolerance times its own largest |value| (dq and dk
-    carry the 1/sqrt(D) scale, dv does not): the two sum the same fp32
-    products in another order.  Two calls must give the same gradients to
-    the bit.  device_ms sums the three kernels;
-    library_ms is the backward of PyTorch's SDPA with a bool mask (the
-    yardstick), timed by autograd.grad on a kept graph."""
+    training launch) against the plain forward, with its bound and SDPA's
+    forward beside it.  Each of dq, dk and dv is held against the
+    tolerance times its own largest |value| (dq and dk carry the 1/sqrt(D)
+    scale, dv does not): the two sum the same fp32 products in another
+    order.  Two calls must give the same gradients to the bit.  device_ms
+    sums the launches; library_ms is the backward of PyTorch's SDPA
+    with a bool mask (the yardstick), timed by autograd.grad on a kept
+    graph; beside it SDPA's backward with the least-masked arguments that
+    compute the same function (is_causal at a causal shape with positions
+    0..S-1 and no prefix, no mask at a bidirectional one), which lets
+    PyTorch choose its flash backend.  With --compare-bwd, the parent's
+    build runs through the same wrapper: its errors, and its times in turns
+    with this build's."""
     B, S, H, KV, D = (shape[k] for k in ("B", "S", "H", "KV", "D"))
     mask = dict(causal=shape["causal"], prefix_len=shape["prefix_len"])
     dev = "cuda"
+    dt = str(dtype)[6:]
     pos = torch.arange(S, device=dev, dtype=torch.int32).repeat(B, 1)
     s = torch.tensor([], dtype=dtype).element_size()
     # q, k, v, o, dO and lse read; dq, dk, dv written; the positions
@@ -771,6 +829,11 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
         + 2 * pos.numel() * 4
     pairs = B * H * visible_pairs(S, mask["causal"], mask["prefix_len"])
     b_ms, b_by = bound(nbytes, 5 * 2 * pairs * D, dtype)
+    design = bwd_design(ops, dtype, B, S, H, KV, D)
+    print(f"  flash_attention_bwd {dt} design at B {B} S {S} {H}x{D} on {KV} "
+          f"kv heads: {design}"
+          + (", P and dS with their low half" if design["body"] == "wgmma"
+             else ""), flush=True)
     sets = []
     for _ in range(rotations(nbytes)):
         q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
@@ -781,22 +844,33 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
         sets.append((q, k, v, pos, pos, out, lse, g))
     kernel = functools.partial(ops.flash_attention_bwd, **mask)
     plain = functools.partial(ref.flash_attention_bwd_ref, **mask)
-    got, want = kernel(*sets[0]), plain(*sets[0])
-    worst = (0.0, 1.0)
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        err = (a.float() - b.float()).abs().max().item()
-        scale = max(1e-30, b.float().abs().max().item())
-        rms = b.float().pow(2).mean().sqrt().item()
-        print(f"  flash_attention_bwd {str(dtype)[6:]} {name}: max_abs_err "
-              f"{err} (tolerance {TOL[dtype] * scale}: {TOL[dtype]} x its "
-              f"largest |value| {scale}; rms {rms:.4g})", flush=True)
-        if err / scale >= worst[0] / worst[1]:
-            worst = (err, scale)
+    want = plain(*sets[0])
+
+    def errors(label, got):
+        """Each gradient's error against the plain version's, beside its
+        tolerance; the worst (err, scale) pair."""
+        worst = (0.0, 1.0)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            scale = max(1e-30, b.float().abs().max().item())
+            rms = b.float().pow(2).mean().sqrt().item()
+            margin = f"{TOL[dtype] * scale / err:.1f}x" if err else "exact"
+            print(f"  flash_attention_bwd {dt} {label}{name}: max_abs_err "
+                  f"{err} (tolerance {TOL[dtype] * scale}: {TOL[dtype]} x "
+                  f"its largest |value| {scale}; rms {rms:.4g}; inside it "
+                  f"{margin})", flush=True)
+            if err / scale >= worst[0] / worst[1]:
+                worst = (err, scale)
+        return worst
+    got = kernel(*sets[0])
+    worst = errors("", got)
     again = kernel(*sets[0])
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"flash_attention_bwd {dtype}: two calls differ")
 
-    # the forward's training launch at this shape: output and lse
+    # the forward's training launch at this shape: output and lse, its
+    # bound (q, k, v read, out and lse written, the positions) and SDPA's
+    # forward with the same mask
     q, k, v = sets[0][:3]
     lse = torch.empty(B, S, H, dtype=torch.float32, device=dev)
 
@@ -808,42 +882,86 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
     fwd_err = (out_k.float() - out_r.float()).abs().max().item()
     lse_err = (lse - lse_r).abs().max().item()
     fwd_dev = device_ms(fwd, sets[0], "flash_attention_kernel")
-    print(f"  flash_attention {str(dtype)[6:]} training forward (with lse) "
+    fwd_bytes = (2 * B * S * H * D + 2 * B * S * KV * D) * s + B * S * H * 4 \
+        + 2 * pos.numel() * 4
+    fwd_b, fwd_by = bound(fwd_bytes, 2 * 2 * pairs * D, dtype)
+    ok = ref.attention_mask(pos, pos, **mask)[:, None]
+    # the least-masked SDPA arguments that compute the same function here
+    least = {} if not mask["causal"] else \
+        dict(is_causal=True) if not mask["prefix_len"] else None
+    lib_args = [tuple(x.transpose(1, 2) for x in st[:3]) for st in sets]
+
+    def sdpa(q, k, v, masked=True):
+        kw = dict(attn_mask=ok) if masked else least
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, enable_gqa=H != KV, **kw)
+    fwd_lib = time_ms(sdpa, lib_args)
+    fwd_lib_least = None if least is None else \
+        time_ms(functools.partial(sdpa, masked=False), lib_args)
+    print(f"  flash_attention {dt} training forward (with lse) "
           f"B {B} S {S} {H}x{D} on {KV} kv heads {mask}: max_abs_err "
           f"{fwd_err} (tolerance {TOL[dtype]}) lse max_abs_err {lse_err} "
           f"(tolerance 1e-4) ms {time_ms(fwd, sets):.4f} (device_ms "
-          f"{fmt_ms(fwd_dev)})", flush=True)
+          f"{fmt_ms(fwd_dev)}) bound_ms {fwd_b:.5f} ({fwd_by}) library_ms "
+          f"{fwd_lib:.4f} (SDPA, bool mask), {fmt_ms(fwd_lib_least)} "
+          f"(SDPA, least-masked {least})", flush=True)
     if not (fwd_err <= TOL[dtype] and lse_err <= 1e-4):
         fail(f"flash_attention {dtype} training forward disagrees with the "
              "plain version")
 
-    # the library yardstick: SDPA's backward through a kept graph
-    ok = ref.attention_mask(pos, pos, **mask)[:, None]
-    graphs = []
-    for q, k, v, *_, g in sets:
-        leaves = [x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v)]
-        o = torch.nn.functional.scaled_dot_product_attention(
-            *leaves, attn_mask=ok, enable_gqa=H != KV)
-        graphs.append((o, leaves, g.transpose(1, 2)))
+    # the library yardsticks: SDPA's backward through a kept graph, with
+    # the bool mask and least-masked
+    def graphs(masked):
+        out = []
+        for st in sets:
+            leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in st[:3]]
+            out.append((sdpa(*leaves, masked=masked), leaves,
+                        st[7].transpose(1, 2)))
+        return out
 
     def library(o, leaves, g):
         return torch.autograd.grad(o, leaves, g, retain_graph=True)
+    lib_ms = time_ms(library, graphs(True))
+    lib_least = None if least is None else time_ms(library, graphs(False))
+    # the wgmma body computes delta inside its dQ launch
+    launches = ("dq", "dkdv") if design["body"] == "wgmma" else \
+        ("delta", "dkdv", "dq")
     parts = {k: device_ms(kernel, sets[0], f"flash_bwd_{k}")
-             for k in ("delta", "dkdv", "dq")}
-    print(f"  flash_attention_bwd {str(dtype)[6:]} device_ms by launch: "
-          + ", ".join(f"{k} {fmt_ms(v)}" for k, v in parts.items()),
-          flush=True)
+             for k in launches}
+    print(f"  flash_attention_bwd {dt} device_ms by launch: "
+          + ", ".join(f"{k} {fmt_ms(v)}" for k, v in parts.items())
+          + f"; SDPA backward ms {lib_ms:.4f} (bool mask), "
+          f"{fmt_ms(lib_least)} (least-masked {least})", flush=True)
     r = dict(max_abs_err=worst[0], tolerance_scale=worst[1],
              ms=time_ms(kernel, sets),
              device_ms=device_ms(kernel, sets[0], "flash_bwd_"),
              device_ms_by_launch=parts,
              plain_ms=time_ms(plain, sets, iters=10),
-             library_ms=time_ms(library, graphs),
+             library_ms=lib_ms,
              bound_ms=b_ms, bound_by=b_by,
              forward=dict(max_abs_err=fwd_err, lse_max_abs_err=lse_err,
                           device_ms=fwd_dev))
-    del graphs, sets
+    if dtype == torch.bfloat16 and BWD_VARIANTS:
+        own = ops._fns["flash_attention_bwd"]
+        try:
+            for label, fn in BWD_VARIANTS.items():
+                ops._fns["flash_attention_bwd"] = fn
+                errors(f"{label}: ", kernel(*sets[0]))
+            times = {label: [] for label in ("this", *BWD_VARIANTS)}
+            for _ in range(2):      # this, variants, this, variants
+                for label in times:
+                    ops._fns["flash_attention_bwd"] = \
+                        own if label == "this" else BWD_VARIANTS[label]
+                    times[label].append((time_ms(kernel, sets), device_ms(
+                        kernel, sets[0], "flash_bwd_")))
+        finally:
+            ops._fns["flash_attention_bwd"] = own
+        print(f"  flash_attention_bwd {dt} in turns, ms (device_ms): "
+              + "; ".join(f"{label} " + ", ".join(
+                  f"{m:.4f} ({fmt_ms(d)})" for m, d in ts)
+                  for label, ts in times.items()), flush=True)
+    del sets
     return r
 
 
@@ -1234,6 +1352,66 @@ def model_flops(cfg, tokens, S) -> float:
                      * cfg.head_dim * keys)
 
 
+def warm_step(ST, cfg, arch, state, step):
+    """One more train step of `state` at `arch`'s training batch and length
+    (the synthetic data's batch `step`), between two device
+    synchronisations: a function of no arguments that returns its wall
+    seconds."""
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training import optim as OPT
+    from repro_torch.training.data import DataConfig, synthetic_batch
+    shp = TRAIN[arch]
+    step_fn = ST.make_train_step(
+        cfg, ShapeSpec("p", shp["S"], shp["B"], "train"),
+        opt_cfg=OPT.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=100))
+    batch = synthetic_batch(cfg, DataConfig(batch=shp["B"],
+                                            seq_len=shp["S"]), step)
+
+    def one_step():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        return time.time() - t0
+    return one_step
+
+
+def compare_bwd_steps(ops):
+    """With --compare-bwd: warm bfloat16 train steps of each training
+    configuration at full width and depth, with this build's backward and
+    the other builds' in turns (this, others, others reversed, this; a
+    warm-up step after each switch, then 3 timed steps), and one profiled
+    step with each: what the backward's change does to the step."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    own = ops._fns["flash_attention_bwd"]
+    builds = {"this": own, **BWD_VARIANTS}
+    try:
+        for arch in TRAIN:
+            h = train_run(TR, arch, 1)
+            step = warm_step(ST, h["cfg"], arch, h["state"], 1)
+            times = {label: [] for label in builds}
+            for label in [*builds, *reversed(builds)]:
+                ops._fns["flash_attention_bwd"] = builds[label]
+                step()
+                times[label] += [step() for _ in range(3)]
+            print(f"train step {arch} bfloat16 (full width and depth) with "
+                  f"each backward in turns, s: " + "; ".join(
+                      f"{label} median {np.median(ts):.4f} ("
+                      + ", ".join(f"{t:.4f}" for t in ts) + ")"
+                      for label, ts in times.items()), flush=True)
+            for label in builds:
+                ops._fns["flash_attention_bwd"] = builds[label]
+                print(f"profile of one warm {arch} train step, {label} "
+                      f"backward:", flush=True)
+                profile(step)
+            del h, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        ops._fns["flash_attention_bwd"] = own
+
+
 def report_train(label, hist, cfg, shp, smi):
     """Step times (the first, which builds nothing but warms the caches,
     left out), tokens/s, model FLOP/s over the bf16 peak."""
@@ -1258,7 +1436,8 @@ def train_path(C, smi):
     fall); the same 8 steps deterministic, and 4 steps, a checkpoint, a
     restore and 4 more, deterministic, which must equal them to the bit;
     then hubert-xlarge at full width and depth and paligemma-3b at full
-    width and depth for 4 steps each."""
+    width and depth for 4 steps each.  One more step of each is
+    profiled."""
     import shutil
     from repro_torch.launch import steps as ST
     from repro_torch.launch import train as TR
@@ -1296,25 +1475,9 @@ def train_path(C, smi):
     if not (same and b["start"] == 4 and b["losses"] == a["losses"][4:]):
         fail("resumed training differs from the uninterrupted run")
 
-    # where a warm olmo-1b step's time goes (one more step of the state)
-    from repro_torch.models.config import ShapeSpec
-    from repro_torch.training import optim as OPT
-    from repro_torch.training.data import DataConfig, synthetic_batch
-    shp = TRAIN[DENSE_ARCH]
-    step_fn = ST.make_train_step(
-        a["cfg"], ShapeSpec("p", shp["S"], shp["B"], "train"),
-        opt_cfg=OPT.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=100))
-    batch = synthetic_batch(a["cfg"], DataConfig(batch=shp["B"],
-                                                 seq_len=shp["S"]), 8)
-
-    def one_step():
-        torch.cuda.synchronize()
-        t0 = time.time()
-        step_fn(b["state"], batch)
-        torch.cuda.synchronize()
-        return time.time() - t0
+    # where a warm step's time goes (one more step of the state)
     print(f"profile of one warm {DENSE_ARCH} train step:", flush=True)
-    profile(one_step)
+    profile(warm_step(ST, a["cfg"], DENSE_ARCH, b["state"], 8))
     del a, b
     gc.collect()
     torch.cuda.empty_cache()
@@ -1329,6 +1492,8 @@ def train_path(C, smi):
         print(f"  peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
+        print(f"profile of one warm {arch} train step:", flush=True)
+        profile(warm_step(ST, cfg, arch, h["state"], 4))
         del h
         gc.collect()
         torch.cuda.empty_cache()
@@ -1342,7 +1507,12 @@ def main(argv=None) -> int:
     ap.add_argument("--only", metavar="KERNEL[,KERNEL]",
                     help="run phases 1-2 for these kernels only and print "
                     "their JSON line (no SQL paths, no last 'ok' line)")
-    only = ap.parse_args(argv).only
+    ap.add_argument("--compare-bwd", metavar="PARENT_CU",
+                    help="also build the given flash_attention_bwd.cu (the "
+                    "parent's, beside its common.cuh) and time it in turns "
+                    "with this build at the training shapes")
+    args = ap.parse_args(argv)
+    only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1365,6 +1535,9 @@ def main(argv=None) -> int:
     for src in PTXAS_SOURCES:
         for line in ptxas_resources(ops.build_log(src)):
             print(f"ptxas {src} {line}", flush=True)
+
+    if args.compare_bwd:
+        build_parent_bwd(ops, os.path.abspath(args.compare_bwd))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1411,6 +1584,8 @@ def main(argv=None) -> int:
                                       "int8_pages", "forward",
                                       "device_ms_by_launch") if k in r}
 
+    if args.compare_bwd and "flash_attention_bwd" in report:
+        compare_bwd_steps(ops)
     if only:
         print(json.dumps({"kernels": list(report.values())}), flush=True)
         return 0

@@ -12,37 +12,32 @@
 // has lse -1e30, so P = exp(-1e30 - (-1e30)) = 1 for every key of it: it adds
 // dO to every key's dv, as the JAX backward does.
 //
-// Three launches behind one entry point:
-//   delta   one warp a (b, q, h) row: rowsum(dO . O) in fp32;
-//   dK/dV   a block a (b, kv head, key tile): K and V staged once, then a
-//           loop over the G query heads of the kv head and the query tiles,
-//           each recomputing S and dP and adding P^T dO and dS^T Q to the
-//           tile's dK and dV, held in registers;
-//   dQ      a block a (b, head, query tile): Q and dO staged once, then a
-//           loop over the key tiles adding dS K to the tile's dQ.
-// Every output element is summed by one thread in a fixed order: no atomics,
-// so the result is the same to the bit from run to run (a resumed training
-// run equals an uninterrupted one).  A (query tile, key tile) pair with no
-// visible (query, key) pair is skipped, unless the query tile holds a row
-// with no visible key (its P is 1 on every key).
-//
-// Two bodies for the two big launches.  bfloat16 with D % 16 == 0 (every
-// trained config: 128, 256, 80) runs on the tensor cores (namespace mma
-// below: mma.sync on 64-row tiles, kernel 1's fragment layouts).  float32,
-// and bf16 at other head dims, runs on the CUDA cores in fp32: 32-row
-// tiles staged as fp32, 16-byte shared-memory reads, 4 x 4 register tiles
-// per thread (TF32 would lose the float32 checks' 2e-5, as in kernel 1).
+// Two bodies behind one entry point.  bfloat16 with D % 16 == 0 (every
+// trained config: 128, 256, 80) runs on the tensor cores through wgmma
+// (namespace hopper below) in two launches: dQ, which also computes delta,
+// then dK/dV.  float32, and bf16 at other head dims, runs on the CUDA cores
+// in fp32 (three launches: delta, dK/dV, dQ; 32-row tiles staged as fp32,
+// 16-byte shared-memory reads, 4 x 4 register tiles per thread; TF32 would
+// lose the float32 checks' 2e-5, as in kernel 1).  Every output element is
+// summed by one owner in a fixed order, with no float atomics: the result
+// is the same to the bit from run to run (a resumed training run equals an
+// uninterrupted one).
 //
 // What bounds it on the H100.  At olmo-1b's training shape (B 8, S 512, 16
-// heads x 128, causal) the function needs ~134 MB of HBM traffic (q, k, v,
-// o, dO and lse read, dq, dk and dv written: 0.04 ms at 3.35 TB/s) and ~21
-// GFLOP of products (S, dP, dV, dK, dQ over the causal pairs: 0.02 ms of bf16
-// tensor-core time).  Neither binds this first version: it computes S and dP
-// twice (once in each big launch), runs each tile's five products one after
-// another with no load in flight (a tile is loaded, waited for and used),
-// and splits P and dS into two bf16 parts (twice the mma count of those
-// products); its time is that chain's.  Overlapping the loads with the
-// products and one launch for dK, dV and dQ are later work.
+// heads x 128, causal) the function needs ~134 MB of HBM traffic (0.04 ms
+// at 3.35 TB/s) and ~21 GFLOP of products over the causal pairs (0.02 ms of
+// bf16 tensor-core time); the kernels issue the work of 10 products where 5
+// suffice (the dQ launch recomputes S and dP; dV, dK and dQ run twice to
+// keep the low half of P and dS).  Neither bound binds: per tile pair the
+// products take a minority of the time beside the score-to-gradient chain
+// (scores, exp, dS, the products' operand conversion) and each block's
+// fixed work (position ranges, the first loads, the epilogue), with one
+// dK/dV block of two warpgroups per SM.  The design's answers: wgmma from
+// the swizzled tiles of a two-stage cp.async ring (the next tile's loads in
+// flight during the products), scores once per tile pair in the dK/dV launch,
+// masks only where a tile pair needs them, dead pairs never loaded, and a
+// kv head's query heads split over a cluster so that GQA shapes fill the
+// card.
 
 #include <limits.h>
 
@@ -91,18 +86,42 @@ struct BwdArgs {
 };
 
 // ---------------------------------- delta ------------------------------------
+// rowsum(dO . O) in fp32.  Rows of 16-byte multiples (D * sizeof(T) % 16 ==
+// 0) are read 16 bytes a lane, `delta_lanes` lanes a row (several rows a
+// warp for narrow heads); others a warp a row, an element a lane.
+__host__ __device__ inline int delta_lanes(int D, int size) {
+  const int chunks = D * size / 16;
+  if (D * size % 16 != 0) return 32;
+  return chunks <= 8 ? 8 : chunks <= 16 ? 16 : 32;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(BwdArgs a) {
   const size_t rows = (size_t)a.B * a.Sq * a.H;
-  const size_t row = (size_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* o = static_cast<const T*>(a.out) + row * a.D;
-  const T* g = static_cast<const T*>(a.dout) + row * a.D;
+  const int L = delta_lanes(a.D, sizeof(T)), lane = threadIdx.x % 32;
+  const size_t row = ((size_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32) * (32 / L) +
+                     lane / L;
+  const bool in = row < rows;  // the lanes of a warp leave together (shuffles)
+  const T* o = static_cast<const T*>(a.out) + (in ? row : 0) * a.D;
+  const T* g = static_cast<const T*>(a.dout) + (in ? row : 0) * a.D;
   float s = 0.f;
-  for (int d = lane; d < a.D; d += 32) s = fmaf(to_f(g[d]), to_f(o[d]), s);
-  s = warp_sum(s);
-  if (lane == 0) a.delta[row] = s;
+  if (a.D * sizeof(T) % 16 == 0) {
+    constexpr int E = 16 / sizeof(T);
+    for (int c = lane % L; in && c < a.D / E; c += L) {
+      const uint4 ov = reinterpret_cast<const uint4*>(o)[c];
+      const uint4 gv = reinterpret_cast<const uint4*>(g)[c];
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+      for (int x = 0; x < E; ++x) s = fmaf(to_f(ge[x]), to_f(oe[x]), s);
+    }
+    for (int off = L / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (in && lane % L == 0) a.delta[row] = s;
+  } else {
+    for (int d = lane; in && d < a.D; d += 32) s = fmaf(to_f(g[d]), to_f(o[d]), s);
+    s = warp_sum(s);
+    if (in && lane == 0) a.delta[row] = s;
+  }
 }
 
 // ------------------------------ shared helpers -------------------------------
@@ -435,354 +454,795 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
 }
 
 // ------------------------- bfloat16: the tensor cores -------------------------
-// The two big launches again, their five products on mma.sync.m16n8k16 (bf16
-// in, fp32 accumulation), for bf16 with D % 16 == 0.  A block has 4 warps
-// and 64-row tiles (16 rows a warp: keys in dK/dV, queries in dQ), tiles in
-// shared memory as bf16 rows of swizzled 16-byte chunks (swz, common.cuh),
-// loaded by cp.async.  The fragment layouts are kernel 1's
-// (flash_attention.cu): S^T = K Q^T and dP^T = V dO^T take K / V rows as A
-// and Q / dO rows as B, as the forward's S = Q K^T does; P^T dO and dS^T Q
-// take P^T / dS^T from the score accumulators as A and dO / Q through
-// ldmatrix.trans as B, as the forward's P V does.  P and dS enter their
-// products as a bf16 high part plus the bf16 rounding of the remainder (~16
-// bits), as kernel 1's P does.  Scores are scaled in fp32 after their
-// product (bf16(q scale) would round q); dK is scaled once at the end.  The
-// scores of a 64-row tile are taken 32 columns at a time, to keep the
-// accumulators in registers.  A head dim above 128 (paligemma's 256) splits
-// the output columns over two blocks (DOUT = 128), each recomputing the
-// scores over the full D.
-namespace mma {
+// The two launches on wgmma (bf16 in, fp32 sums), for bf16 with D % 16 ==
+// 0.  Every tile is 64 rows in common.cuh's 128-byte-swizzled layout
+// (wg::sw128), loaded by cp.async into a ring of two stages; S and dP
+// take both operands from shared memory, and P, dS enter the gradient
+// products from the score accumulators' registers as the A operand, one
+// product of the head dim's width a k16 step.
+//
+// dQ (first): a block of one warpgroup owns 64 query rows of one head (Q
+// and dO staged once; delta = rowsum(dO . O) computed for them and written
+// for dK/dV) and walks the live key tiles: S = Q K^T, dP = dO V^T, dS,
+// dQ += dS K.
+//
+// dK/dV: a block of two warpgroups owns 64 keys of one kv head (K and V
+// staged once) and walks the live (query head, query tile) pairs of its
+// share of the G query heads.  For D <= 128 the warpgroups split each query
+// tile: warpgroup w takes its 32 queries, computes S^T = K Q_w^T and dP^T =
+// V dO_w^T, P^T and dS^T, and adds P^T dO_w and dS^T Q_w to its own dV and
+// dK; warpgroup 0 adds warpgroup 1's sums to its own at the end.  At D =
+// 256 a warpgroup cannot hold two 64 x 256 sums, so the products split:
+//   warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO
+//   warpgroup 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q
+// with P^T passed through shared memory (fp32, each thread the positions it
+// holds).  S and dP are computed once per tile pair either way.  A GQA kv
+// head's G query heads are split over a thread-block cluster of S blocks
+// (split::pick_splits); each block sums its heads' partial dK and dV, and
+// the cluster adds the S partials in rank order through distributed shared
+// memory (in the ring's space).
+//
+// A (query tile, key tile) pair is dead (skipped: no visible pair, no row
+// without a visible key), full (every pair visible: no mask, no position
+// read) or partial (visible() per element), from the tiles' position
+// ranges, listed once per block.  A head dim is padded with zero columns to
+// DP = 64, 128 or 256, except 80 (hubert's) for which the products are 80
+// wide.  P and dS enter dV, dK and dQ as a bf16 high part plus the bf16
+// rounding of the remainder (~16 bits; without the remainder dk, dv and dq
+// fall below 4x inside chip_smoke's tolerance at the training shapes).
+namespace hopper {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;
-constexpr int kT = 64;  // rows of a tile, 16 a warp
+constexpr int kT = 64;        // rows of every tile
+constexpr int kStages = 2;    // the ring
+constexpr float kLog2e = 1.4426950408889634f;
+enum : int { kDead = 0, kPartial = 1, kFull = 2 };
+constexpr int kFullBit = 1 << 30;  // a live list entry: tile | kFullBit if full
 
-template <int DK>
-struct Tiles {
-  static constexpr int kChunks = DK / 8;
-  static constexpr int kTile = kT * DK;  // bf16 elements of a tile
-  static size_t smem() {
-    return sizeof(bf16) * 4 * kTile + sizeof(float) * 2 * kT + sizeof(int) * (2 * kT + 4);
+// DP: the head dim the products cover (64, 80, 128 or 256: D padded with
+// zero columns), DK: the tile width in shared memory (DP rounded up to 64
+// columns).  Shared memory: a head of small arrays, then the tiles from the
+// next 1024-byte boundary.
+template <int DP>
+struct Cfg {
+  static constexpr int DK = (DP + 63) / 64 * 64;
+  static constexpr int kSteps = DP / 16;  // k16 steps of the score products
+  static constexpr int kTileBytes = kT * DK * 2;
+  // dK/dV: P^T (fp32, 64 x 64), each stage's qpos, lse and delta, the key
+  // positions, the live count, the key tile's and the query tiles' half
+  // ranges, the live list, the halves' flags
+  static __host__ __device__ int dkdv_head(int nqt) {
+    return kT * kT * 4 + kStages * 3 * kT * 4 + kT * 4 + 36 + nqt * 22;
+  }
+  static size_t dkdv_smem(int nqt) {
+    return dkdv_head(nqt) + 1024 + (2 + 2 * kStages) * (size_t)kTileBytes;
+  }
+  // dQ: each stage's key positions, the tile's delta, the live count, the
+  // query tile's and the key tiles' half ranges, the live list, the halves'
+  // flags
+  static __host__ __device__ int dq_head(int nkt) {
+    return kStages * kT * 4 + kT * 4 + 36 + nkt * 22;
+  }
+  static size_t dq_smem(int nkt) {
+    return dq_head(nkt) + 1024 + (2 + 2 * kStages) * (size_t)kTileBytes;
   }
 };
 
-// rows [0, n) of a tile from global rows src + r * stride by cp.async; rows
-// past n and chunks past D (dch chunks) are zeros
-template <int DK>
+// the first 1024-byte boundary at or after byte `head` of shared memory
+__device__ __forceinline__ unsigned char* tiles_at(unsigned char* smem, int head) {
+  const unsigned a = smem_u32(smem + head);
+  return smem + head + ((1024 - (a & 1023u)) & 1023u);
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0 (a
+// P that small adds nothing an fp32 gradient of order 1 can hold)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// rows [0, n) of a 64-row tile from global rows src + r * stride, dch
+// 16-byte chunks of each (D / 8), by cp.async over NTHR threads; rows past n
+// and chunks past D are zeros.  A thread's chunk column is fixed and its
+// rows RSTEP apart, so its offsets are computed once a call.
+template <int DK, int NTHR>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int n, size_t stride,
-                                          int dch) {
-  constexpr int CH = Tiles<DK>::kChunks;
-  for (int i = threadIdx.x; i < kT * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = r < n && c < dch;
-    cp_async16(dst + swz<bf16>(r, c, CH), ok ? src + r * stride + c * 8 : src, ok);
+                                          int dch, int tid) {
+  constexpr int CH = DK / 8, RSTEP = NTHR / CH, PER = kT / RSTEP;
+  static_assert(NTHR % CH == 0 && kT % RSTEP == 0, "whole rows a step");
+  const int c = tid % CH, r0 = tid / CH;
+  const bool cok = c < dch;
+  const bf16* s = src + (size_t)r0 * stride + c * 8;
+  const size_t step = (size_t)RSTEP * stride;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int r = r0 + k * RSTEP;
+    const bool ok = cok && r < n;
+    bf16* d = RSTEP % 8 == 0 ? dst + wg::sw128(r0, c, kT) + k * RSTEP * 64
+                             : dst + wg::sw128(r, c, kT);
+    cp_async16(d, ok ? s + k * step : src, ok);
   }
 }
 
-// acc[0..3][.] (32 columns: n8 blocks 4 half .. 4 half + 3 of a 64-row B
-// tile) += A_w (this warp's 16 rows of tile `at`) . B^T over D, for the
-// two pairs (at, bt) at once: x = at . bt^T, y = at2 . bt2^T
-template <int DK>
-__device__ __forceinline__ void scores(const bf16* at, const bf16* bt, const bf16* at2,
-                                       const bf16* bt2, int half, int D, float (&x)[4][4],
-                                       float (&y)[4][4]) {
-  constexpr int CH = Tiles<DK>::kChunks;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// 4-byte values of rows [0, n) (row r at src + r * stride), zeros past n;
+// thread tid < 64 loads row tid
+__device__ __forceinline__ void load_col(void* dst, const void* src, int n, size_t stride,
+                                         int tid) {
+  const bool ok = tid < n;
+  cp_async4(static_cast<uint32_t*>(dst) + tid,
+            ok ? static_cast<const uint32_t*>(src) + tid * stride : src, ok);
+}
+
+// Each 32-row half h of rows [0, n) of pos: lo[h] (the least position;
+// for keys the least present one, INT_MAX if none), hi[h] (the largest),
+// flag[h] (keys: a key is absent; queries: empty(r) holds for a row).  A
+// warp reduces a half, four rows a lane loaded before any is reduced; no
+// atomics and no initialisation, so the loads need no barrier before them.
+template <typename Empty>
+__device__ __forceinline__ void half_ranges(const int* pos, int n, bool keys, int* lo, int* hi,
+                                            unsigned char* flag, Empty empty, int tid,
+                                            int nthr) {
+  constexpr int U = 4;
+  const int lane = tid % 32;
+  for (int base = tid - lane; base < n; base += U * nthr) {
+    int p[U];
+    bool f[U];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+    for (int u = 0; u < U; ++u) {
+      const int r = base + u * nthr + lane;
+      p[u] = r < n ? pos[r] : -1;
+      f[u] = r < n && (keys ? p[u] < 0 : empty(r));
+    }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
-    if (16 * kk >= D) break;
-    uint32_t a[4], a2[4];
-    const int ar = 16 * warp + (lane & 15), ac = 2 * kk + (lane >> 4);
-    ldmatrix_x4(a, at + swz<bf16>(ar, ac, CH));
-    ldmatrix_x4(a2, at2 + swz<bf16>(ar, ac, CH));
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int br = 32 * half + 16 * jj + (lane & 7) + ((lane >> 4) << 3);
-      const int bc = 2 * kk + ((lane >> 3) & 1);
-      uint32_t b[4], b2[4];
-      ldmatrix_x4(b, bt + swz<bf16>(br, bc, CH));
-      ldmatrix_x4(b2, bt2 + swz<bf16>(br, bc, CH));
-      mma_bf16(x[2 * jj], a, b[0], b[1]);
-      mma_bf16(x[2 * jj + 1], a, b[2], b[3]);
-      mma_bf16(y[2 * jj], a2, b2[0], b2[1]);
-      mma_bf16(y[2 * jj + 1], a2, b2[2], b2[3]);
+    for (int u = 0; u < U; ++u) {
+      const int r0 = base + u * nthr;
+      if (r0 >= n) break;
+      const bool in = r0 + lane < n;
+      const int mn = __reduce_min_sync(0xffffffffu, in && (p[u] >= 0 || !keys) ? p[u] : INT_MAX);
+      const int mx = __reduce_max_sync(0xffffffffu, in ? p[u] : INT_MIN);
+      const bool any = __any_sync(0xffffffffu, f[u]);
+      if (lane == 0) lo[r0 / 32] = mn, hi[r0 / 32] = mx, flag[r0 / 32] = any;
     }
   }
 }
 
-// acc (DOUT columns from d0) += F . M, F: 16 x 32 fp32 fragments of the
-// score layout (rows of this warp, 32 columns = rows 32 half .. of tile M),
-// M: a 64-row tile read through ldmatrix.trans; F split into bf16 hi + lo
-template <int DK, int DOUT>
-__device__ __forceinline__ void accumulate(float (&acc)[DOUT / 8][4], const float (&f)[4][4],
-                                           const bf16* m, int half, int d0, int D) {
-  constexpr int CH = Tiles<DK>::kChunks;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float p0 = f[2 * kk + (q >> 1)][2 * (q & 1)];
-      const float p1 = f[2 * kk + (q >> 1)][2 * (q & 1) + 1];
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
-      hi[q] = *reinterpret_cast<const uint32_t*>(&h2);
-      lo[q] = pack_bf16(p0 - __low2float(h2), p1 - __high2float(h2));
-    }
-#pragma unroll
-    for (int dp = 0; dp < DOUT / 16; ++dp) {
-      if (d0 + 16 * dp >= D) break;
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, m + swz<bf16>(32 * half + 16 * kk + (lane & 15),
-                                         (d0 / 8) + 2 * dp + (lane >> 4), CH));
-      mma_bf16(acc[2 * dp], hi, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
-      mma_bf16(acc[2 * dp], lo, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
-    }
-  }
+// tile t's range and flag from its halves (of rows [0, n))
+__device__ __forceinline__ void tile_of(int t, int n, const int* lo, const int* hi,
+                                        const unsigned char* flag, int& tlo, int& thi,
+                                        bool& tflag) {
+  tlo = lo[2 * t], thi = hi[2 * t], tflag = flag[2 * t] != 0;
+  if (t * kT + 32 < n)
+    tlo = min(tlo, lo[2 * t + 1]), thi = max(thi, hi[2 * t + 1]),
+    tflag = tflag || flag[2 * t + 1] != 0;
 }
 
-// rows of this warp's accumulator fragments (g, g + 8 of its 16) to global
-// rows dst + r * stride, columns d0 + ..., times `mul`, rows past n skipped
-template <int DOUT>
-__device__ __forceinline__ void store(const float (&acc)[DOUT / 8][4], bf16* dst, int n,
-                                      size_t stride, int d0, int D, float mul) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = 16 * warp + g + 8 * hh;
-    if (r >= n) continue;
-#pragma unroll
-    for (int jd = 0; jd < DOUT / 8; ++jd) {
-      const int d = d0 + 8 * jd + 2 * (lane & 3);
-      if (d < D)
-        *reinterpret_cast<uint32_t*>(dst + r * stride + d) =
-            pack_bf16(acc[jd][2 * hh] * mul, acc[jd][2 * hh + 1] * mul);
-    }
+// The class of a (query tile, key tile) pair from position ranges: qlo /
+// qhi over the query rows in range, qall: 64 of them; empty: one has no
+// visible key; kmin / kmax over the present keys (kmax < 0: none), kall:
+// 64 keys in range, all present.  Full needs every pair visible (a
+// sufficient condition: all pairs causal and inside the window, or all
+// keys in the prefix), dead needs no pair visible and no empty row.
+__device__ __forceinline__ int classify(int qlo, int qhi, bool qall, bool empty, int kmin,
+                                        int kmax, bool kall, const BwdArgs& a) {
+  if (!tile_live(qlo, qhi, kmin, kmax, empty, a)) return kDead;
+  if (!(qall && kall)) return kPartial;
+  bool full = true;
+  if (a.causal) {
+    full = kmax <= qlo && (a.window <= 0 || kmin > qhi - a.window);
+    if (a.prefix_len > 0) full = full || kmax < a.prefix_len;
   }
+  return full ? kFull : kPartial;
 }
 
-template <int DK, int DOUT>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_mma_kernel(BwdArgs a) {
-  using Tl = Tiles<DK>;
-  constexpr int halves = DK / DOUT;
-  const int kt = blockIdx.x / halves, d0 = (blockIdx.x % halves) * DOUT;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+// Warp 0 lists the live tiles t < n, in order, as t | kFullBit when full
+// (cls(t) gives the class); returns the count to every lane of warp 0
+template <typename Cls>
+__device__ __forceinline__ int live_list(int n, int* list, Cls cls, int lane) {
+  int count = 0;
+  for (int t0 = 0; t0 < n; t0 += 32) {
+    const int t = t0 + lane;
+    const int c = t < n ? cls(t) : kDead;
+    const unsigned live = __ballot_sync(0xffffffffu, c != kDead);
+    if (c != kDead)
+      list[count + __popc(live & ((1u << lane) - 1u))] = t | (c == kFull ? kFullBit : 0);
+    count += __popc(live);
+  }
+  return count;
+}
+
+// A operands (bf16 pairs, high part and remainder) of the KS k16 steps of a
+// 16 KS-column accumulator
+template <int KS>
+__device__ __forceinline__ void a_frags(const float (&d)[8 * KS], uint32_t (&hi)[KS][4],
+                                        uint32_t (&lo)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float x0 = d[8 * kk + 2 * f], x1 = d[8 * kk + 2 * f + 1];
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+      hi[kk][f] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[kk][f] = pack_bf16(x0 - __low2float(h2), x1 - __high2float(h2));
+    }
+}
+
+// acc (64 x DP) += A . B over rows 16 kk0 .. 16 (kk0 + KS) of tile bt
+// (MN-major), A from the fragments: two products of width DP a k16 step
+// (high part, then remainder)
+template <int DP, int KS>
+__device__ __forceinline__ void product(float (&acc)[DP / 2], const uint32_t (&hi)[KS][4],
+                                        const uint32_t (&lo)[KS][4], const bf16* bt, int kk0) {
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t db = wg::desc_mn(bt, kk0 + kk, kT);
+    wg::rs<DP>(acc, hi[kk], db);
+    wg::rs<DP>(acc, lo[kk], db);
+  }
+  wg::commit();
+}
+
+// d (64 x 64) = A . B^T over the DP columns of tiles at and bt (K-major)
+template <int DP>
+__device__ __forceinline__ void scores(float (&d)[32], const bf16* at, const bf16* bt) {
+#pragma unroll
+  for (int kk = 0; kk < Cfg<DP>::kSteps; ++kk)
+    wg::ss_n64(d, wg::desc_k(at, kk, kT), wg::desc_k(bt, kk, kT), kk > 0);
+}
+// the same for B's rows 32 h .. 32 h + 31 (d: 64 x 32)
+template <int DP>
+__device__ __forceinline__ void scores32(float (&d)[16], const bf16* at, const bf16* bt, int h) {
+  const char* b32 = reinterpret_cast<const char*>(bt) + 32 * 128 * h;
+#pragma unroll
+  for (int kk = 0; kk < Cfg<DP>::kSteps; ++kk)
+    wg::ss_n32(d, wg::desc_k(at, kk, kT), wg::desc_k(b32, kk, kT), kk > 0);
+}
+
+// this thread's (row, column) of accumulator element 4 j + e: row 16 warp +
+// g + 8 (e / 2) (g = lane / 4), column 8 j + 2 (lane % 4) + e % 2
+__device__ __forceinline__ int acc_col(int j, int e, int lane) {
+  return 8 * j + 2 * (lane & 3) + (e & 1);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(256, 1) flash_bwd_dkdv_wgmma_kernel(BwdArgs a) {
+  namespace cg = cooperative_groups;
+  constexpr int DK = Cfg<DP>::DK;
+  constexpr bool kQSplit = DP <= 128;  // the warpgroups split a tile's queries
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int Sq = a.Sq, Skv = a.Skv, H = a.H, KV = a.KV, D = a.D, G = H / KV;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2;
+  const int nkt = (Skv + kT - 1) / kT, nqt = (Sq + kT - 1) / kT;
+  const int kt = blockIdx.y % nkt, kvh = blockIdx.y / nkt, b = blockIdx.z;
+  const int g0 = rank * G / S, ng = (rank + 1) * G / S - g0;  // this split's heads
+  const int tid = threadIdx.x, wgi = tid / 128, t = tid % 128, warp = t / 32;
+  const int lane = tid % 32, gq = lane >> 2;
   const int k0 = kt * kT, nk = min(kT, Skv - k0), dch = D / 8;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + Tl::kTile;
-  bf16* qs = vs + Tl::kTile;
-  bf16* gs = qs + Tl::kTile;
-  float* lse_s = reinterpret_cast<float*>(gs + Tl::kTile);
-  float* dlt_s = lse_s + kT;
-  int* qp = reinterpret_cast<int*>(dlt_s + kT);
-  int* kp = qp + kT;
-  int* krange = kp + kT;  // the tile's least and largest present key position
+  unsigned char* smem = smem_raw;
+  float4* xp = reinterpret_cast<float4*>(smem);                  // P^T: 8 x 128 float4
+  int* meta = reinterpret_cast<int*>(smem + kT * kT * 4);         // stage s: qpos, lse, delta
+  int* kp = meta + kStages * 3 * kT;
+  int* nlive = kp + kT;
+  int* khalf = nlive + 4;  // the key tile's halves: lo, lo, hi, hi
+  int* qhl = khalf + 4;    // the query tiles' halves: lo, then hi
+  int* qhh = qhl + 2 * nqt;
+  int* qlist = qhh + 2 * nqt;  // the live query tiles
+  unsigned char* kflag = reinterpret_cast<unsigned char*>(qlist + nqt);  // 4 bytes
+  unsigned char* qflag = kflag + 4;
+  bf16* ks = reinterpret_cast<bf16*>(tiles_at(smem, Cfg<DP>::dkdv_head(nqt)));
+  bf16* vs = ks + kT * DK;
+  bf16* ring = vs + kT * DK;  // stage s: Q at ring + 2 s tile, dO after it
 
   const size_t kv_stride = (size_t)KV * D;
   const size_t koff = (((size_t)b * Skv + k0) * KV + kvh) * D;
-  load_tile<DK>(ks, static_cast<const bf16*>(a.k) + koff, nk, kv_stride, dch);
-  load_tile<DK>(vs, static_cast<const bf16*>(a.v) + koff, nk, kv_stride, dch);
-  cp_async_commit();
-  if (tid == 0) krange[0] = INT_MAX, krange[1] = -1;
-  __syncthreads();
+  load_tile<DK, 256>(ks, static_cast<const bf16*>(a.k) + koff, nk, kv_stride, dch, tid);
+  load_tile<DK, 256>(vs, static_cast<const bf16*>(a.v) + koff, nk, kv_stride, dch, tid);
+  // the key tile's positions and halves; the query tiles' halves, flagged
+  // where a row has no visible key in one of this split's heads
+  const int* kpos = a.kpos + (size_t)b * Skv + k0;
   if (tid < kT) {
-    const int p = tid < nk ? a.kpos[(size_t)b * Skv + k0 + tid] : -1;
-    kp[tid] = p;
-    if (p >= 0) atomicMin(&krange[0], p);
-    atomicMax(&krange[1], p);
+    kp[tid] = tid < nk ? kpos[tid] : -1;
+    half_ranges(kpos, nk, true, khalf, khalf + 2, kflag, [](int) { return false; }, tid, kT);
+  }
+  const float* lrow = a.lse + (size_t)b * Sq * H + kvh * G + g0;
+  half_ranges(a.qpos + (size_t)b * Sq, Sq, false, qhl, qhh, qflag,
+              [&](int r) {
+                bool e = false;
+                for (int g = 0; g < ng; ++g) e = e || lrow[(size_t)r * H + g] < -1e29f;
+                return e;
+              },
+              tid, 256);
+  __syncthreads();
+  if (tid < 32) {  // the live query tiles with their class, in order
+    int kmin, kmax;
+    bool kabsent;
+    tile_of(0, nk, khalf, khalf + 2, kflag, kmin, kmax, kabsent);
+    const bool kall = !kabsent && nk == kT;
+    const int n = live_list(nqt, qlist, [&](int qt) {
+      int qlo, qhi;
+      bool empty;
+      tile_of(qt, Sq, qhl, qhh, qflag, qlo, qhi, empty);
+      return classify(qlo, qhi, (qt + 1) * kT <= Sq, empty, kmin, kmax, kall, a);
+    }, tid);
+    if (tid == 0) *nlive = n;
   }
   __syncthreads();
-  const int kmin = krange[0], kmax = krange[1];
+  const int nl = *nlive;  // entries: (head g < ng, live tile i < nl), head-major
+  auto issue = [&](int g, int i, int st) {
+    const int h = kvh * G + g0 + g, q0 = (qlist[i] & ~kFullBit) * kT, nq = min(kT, Sq - q0);
+    const size_t qoff = (((size_t)b * Sq + q0) * H + h) * D;
+    bf16* qs = ring + 2 * st * kT * DK;
+    load_tile<DK, 256>(qs, static_cast<const bf16*>(a.q) + qoff, nq, (size_t)H * D, dch, tid);
+    load_tile<DK, 256>(qs + kT * DK, static_cast<const bf16*>(a.dout) + qoff, nq,
+                       (size_t)H * D, dch, tid);
+    int* m = meta + st * 3 * kT;
+    if (tid < kT) {
+      const size_t row = ((size_t)b * Sq + q0) * H + h;
+      load_col(m, a.qpos + (size_t)b * Sq + q0, nq, 1, tid);
+      load_col(m + kT, a.lse + row, nq, H, tid);
+      load_col(m + 2 * kT, a.delta + row, nq, H, tid);
+    }
+  };
 
-  float dk[DOUT / 8][4] = {}, dv[DOUT / 8][4] = {};
-  const int nqt = (Sq + kT - 1) / kT;
-  for (int gh = 0; gh < G; ++gh) {
-    const int h = kvh * G + gh;
-    for (int qt = 0; qt < nqt; ++qt) {
-      const int q0 = qt * kT, nq = min(kT, Sq - q0);
-      bool live = false;  // this thread's query row may see the key tile
-      if (tid < kT) {
-        const bool in = tid < nq;
-        const size_t row = ((size_t)b * Sq + q0 + tid) * H + h;
-        const int p = in ? a.qpos[(size_t)b * Sq + q0 + tid] : -1;
-        const float l = in ? a.lse[row] : 0.f;
-        qp[tid] = p;
-        lse_s[tid] = l;
-        dlt_s[tid] = in ? a.delta[row] : 0.f;
-        live = in && tile_live(p, p, kmin, kmax, l < -1e29f, a);
-      }
-      if (!__syncthreads_or(live)) continue;
-      const size_t qoff = (((size_t)b * Sq + q0) * H + h) * D;
-      load_tile<DK>(qs, static_cast<const bf16*>(a.q) + qoff, nq, (size_t)H * D, dch);
-      load_tile<DK>(gs, static_cast<const bf16*>(a.dout) + qoff, nq, (size_t)H * D, dch);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
+  bool more = nl > 0 && ng > 0;
+  if (more) issue(0, 0, 0);
+  cp_async_commit();  // K, V and the first stage
+
+  // this thread's keys (accumulator rows) and their positions
+  int kpr[2];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        // S^T and dP^T: keys 16 warp + (g, g + 8), queries 32 half + ...
-        float st[4][4], dpt[4][4];
-        scores<DK>(ks, qs, vs, gs, half, D, st, dpt);
+  for (int hh = 0; hh < 2; ++hh) kpr[hh] = kp[16 * warp + gq + 8 * hh];
+  const float sl2 = a.scale * kLog2e;
+  // query split (DP <= 128): each warpgroup its dV and dK over its 32
+  // queries of a tile; product split (DP 256): dV in warpgroup 0, dK in 1
+  float dv[DP / 2], dk[kQSplit ? DP / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kQSplit ? DP / 2 : 1); ++i) dk[i] = 0.f;
+
+  for (int g = 0, i = 0, st = 0; more; st ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // the stage has landed; the other stage and xp are free
+    const int ent = qlist[i];
+    int gn = g, in = i + 1;
+    if (in == nl) in = 0, ++gn;
+    more = gn < ng;
+    if (more) issue(gn, in, st ^ 1);
+    cp_async_commit();
+    g = gn, i = in;
+    const int q0 = (ent & ~kFullBit) * kT, nq = min(kT, Sq - q0);
+    const bool full = (ent & kFullBit) != 0;
+    const bf16* qs = ring + 2 * st * kT * DK;
+    const bf16* gs = qs + kT * DK;
+    const int* m = meta + st * 3 * kT;
+    const float* lse_s = reinterpret_cast<const float*>(m + kT);
+    const float* dlt_s = reinterpret_cast<const float*>(m + 2 * kT);
+
+    if constexpr (kQSplit) {
+      // S^T and dP^T over this warpgroup's queries: keys 16 warp + gq
+      // (+8), queries c0 + acc_col(j, e); then P^T and dS^T in place
+      const int c0 = 32 * wgi;
+      float sc[16], dpt[16];
+      wg::fence();
+      scores32<DP>(sc, ks, qs, wgi);
+      scores32<DP>(dpt, vs, gs, wgi);
+      wg::commit();
+      wg::wait<0>();
+      wg::touch(sc);
+      wg::touch(dpt);
+      if (full) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c0 + acc_col(j, 0, lane));
+          const float2 d2 = *reinterpret_cast<const float2*>(dlt_s + c0 + acc_col(j, 0, lane));
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int c = 32 * half + 8 * j + 2 * (lane & 3) + (e & 1);
-            const int kr = 16 * warp + g + 8 * (e >> 1);
-            float p, ds;
-            p_ds(st[j][e] * a.scale, dpt[j][e],
-                 visible(qp[c], kp[kr], a.causal, a.window, a.prefix_len), c < nq && kr < nk,
-                 lse_s[c], dlt_s[c], p, ds);
-            st[j][e] = p;
-            dpt[j][e] = ds;
+            const float p = exp2_ftz(fmaf(sc[4 * j + e], sl2, -(e & 1 ? l2.y : l2.x) * kLog2e));
+            sc[4 * j + e] = p;
+            dpt[4 * j + e] = p * (dpt[4 * j + e] - (e & 1 ? d2.y : d2.x));
           }
         }
-        accumulate<DK, DOUT>(dv, st, gs, half, d0, D);   // dV += P^T dO
-        accumulate<DK, DOUT>(dk, dpt, qs, half, d0, D);  // dK += dS^T Q
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + acc_col(j, e, lane);
+            const bool in = c < nq && 16 * warp + gq + 8 * (e >> 1) < nk;
+            const bool vis = visible(m[c], kpr[e >> 1], a.causal, a.window, a.prefix_len);
+            const float x = (vis ? sc[4 * j + e] * a.scale : kMasked) - lse_s[c];
+            const float p = in ? exp2_ftz(x * kLog2e) : 0.f;
+            sc[4 * j + e] = p;
+            dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt_s[c]);
+          }
       }
-      __syncthreads();  // the tiles are read before the next loads
+      uint32_t ph[2][4], pl[2][4], dh[2][4], dl[2][4];
+      a_frags<2>(sc, ph, pl);
+      a_frags<2>(dpt, dh, dl);
+      product<DP, 2>(dv, ph, pl, gs, 2 * wgi);  // dV += P^T dO
+      product<DP, 2>(dk, dh, dl, qs, 2 * wgi);  // dK += dS^T Q
+      wg::wait<0>();
+    } else {
+      // S^T (warpgroup 0) or dP^T (1): keys 16 warp + gq (+8), queries
+      // acc_col(j, e)
+      float sc[32];
+      wg::fence();
+      scores<DP>(sc, wgi == 0 ? ks : vs, wgi == 0 ? qs : gs);
+      wg::commit();
+      wg::wait<0>();
+      wg::touch(sc);
+      uint32_t hi[4][4], lo[4][4];
+      if (wgi == 0) {
+        // P^T = exp(S^T scale - lse): masked pairs score -1e30, pairs
+        // outside the tiles are 0
+        if (full) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(lse_s + acc_col(j, 0, lane));
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], sl2, -(e & 1 ? l2.y : l2.x) * kLog2e));
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = acc_col(j, e, lane);
+              const bool in = c < nq && 16 * warp + gq + 8 * (e >> 1) < nk;
+              const bool vis = visible(m[c], kpr[e >> 1], a.causal, a.window, a.prefix_len);
+              const float x = (vis ? sc[4 * j + e] * a.scale : kMasked) - lse_s[c];
+              sc[4 * j + e] = in ? exp2_ftz(x * kLog2e) : 0.f;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          xp[j * 128 + t] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+        bar_arrive(1, 256);  // P^T is in xp
+        a_frags<4>(sc, hi, lo);
+        product<DP, 4>(dv, hi, lo, gs, 0);  // dV += P^T dO
+      } else {
+        bar_sync(1, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 = *reinterpret_cast<const float2*>(dlt_s + acc_col(j, 0, lane));
+          const float4 p = xp[j * 128 + t];
+          sc[4 * j + 0] = p.x * (sc[4 * j + 0] - d2.x);
+          sc[4 * j + 1] = p.y * (sc[4 * j + 1] - d2.y);
+          sc[4 * j + 2] = p.z * (sc[4 * j + 2] - d2.x);
+          sc[4 * j + 3] = p.w * (sc[4 * j + 3] - d2.y);
+        }
+        a_frags<4>(sc, hi, lo);
+        product<DP, 4>(dv, hi, lo, qs, 0);  // dK += dS^T Q (in dv's registers)
+      }
+      wg::wait<0>();
     }
   }
   cp_async_wait<0>();
-  store<DOUT>(dk, static_cast<bf16*>(a.dk) + koff, nk, kv_stride, d0, D, a.scale);
-  store<DOUT>(dv, static_cast<bf16*>(a.dv) + koff, nk, kv_stride, d0, D, 1.f);
+  __syncthreads();  // the ring is free
+
+  // Who holds what: with the query split, warpgroup 0 adds warpgroup 1's
+  // partials (fp32 through the ring, each thread its own positions) to its
+  // own, in that order, and holds dV and dK; otherwise warpgroup w holds
+  // dV (w = 0) or dK (w = 1) in dv's registers.
+  if constexpr (kQSplit) {
+    float* xf = reinterpret_cast<float*>(ring);
+    if (wgi == 1)
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) xf[i * 128 + t] = dv[i], xf[(DP / 2 + i) * 128 + t] = dk[i];
+    __syncthreads();
+    if (wgi == 0)
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dv[i] += xf[i * 128 + t], dk[i] += xf[(DP / 2 + i) * 128 + t];
+    __syncthreads();
+  }
+  // a 64 x DP accumulator's columns < D as rows `which` 64 .. of a buffer
+  // of row stride ld (fp32, or bf16 times mul)
+  auto put = [&](const float (&x)[DP / 2], auto* buf, int which, int ld, float mul) {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = acc_col(j, 0, lane);
+      if (col < D)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          auto* dst = buf + (which * kT + 16 * warp + gq + 8 * hh) * ld + col;
+          const float x0 = x[4 * j + 2 * hh] * mul, x1 = x[4 * j + 2 * hh + 1] * mul;
+          if constexpr (std::is_same<std::remove_pointer_t<decltype(dst)>, float>::value)
+            *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+          else
+            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x0, x1);
+        }
+    }
+  };
+  if (S == 1) {  // this block's sums are the gradients: bf16 through the ring
+    const int ld = D + 8;  // staged row stride: 16 bytes more than a row
+    bf16* stage = ring;    // dV rows, then dK rows (dK carries the scale)
+    if constexpr (kQSplit) {
+      if (wgi == 0) put(dv, stage, 0, ld, 1.f), put(dk, stage, 1, ld, a.scale);
+    } else {
+      put(dv, stage, wgi, ld, wgi ? a.scale : 1.f);
+    }
+    __syncthreads();
+    const int cpr = D / 8;  // 16-byte chunks a row
+    for (int u = tid; u < 2 * kT * cpr; u += 256) {
+      const int row = u / cpr, c = u - row * cpr, r = row % kT;
+      if (r < nk)
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(row < kT ? a.dv : a.dk) + koff +
+                                  r * kv_stride + c * 8) =
+            *reinterpret_cast<const uint4*>(stage + row * ld + c * 8);
+    }
+    return;
+  }
+  // partials (fp32, 64 x D each: dV then dK) into the ring's space
+  float* part = reinterpret_cast<float*>(ring);
+  if constexpr (kQSplit) {
+    if (wgi == 0) put(dv, part, 0, D, 1.f), put(dk, part, 1, D, 1.f);
+  } else {
+    put(dv, part, wgi, D, 1.f);
+  }
+  // the S partials added in rank order, each block a share of the rows;
+  // a unit's S loads are issued before any is added
+  cluster.sync();
+  const int units = 2 * kT * D / 4;
+  for (int u = rank * 256 + tid; u < units; u += S * 256) {
+    float4 y[split::kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < split::kMaxSplits; ++r)
+      if (r < S) y[r] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r))[u];
+    float4 x = y[0];
+#pragma unroll
+    for (int r = 1; r < split::kMaxSplits; ++r)
+      if (r < S) x.x += y[r].x, x.y += y[r].y, x.z += y[r].z, x.w += y[r].w;
+    const int i = 4 * u, which = i / (kT * D), row = (i % (kT * D)) / D, col = i % D;
+    if (row >= nk) continue;
+    const float m2 = which ? a.scale : 1.f;
+    bf16* o = static_cast<bf16*>(which ? a.dk : a.dv) + koff + row * kv_stride + col;
+    uint2 w;
+    w.x = pack_bf16(x.x * m2, x.y * m2);
+    w.y = pack_bf16(x.z * m2, x.w * m2);
+    *reinterpret_cast<uint2*>(o) = w;
+  }
+  cluster.sync();  // no block leaves while another reads its partial
 }
 
-template <int DK, int DOUT>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(BwdArgs a) {
-  using Tl = Tiles<DK>;
-  constexpr int halves = DK / DOUT;
-  const int qt = blockIdx.x / halves, d0 = (blockIdx.x % halves) * DOUT;
-  const int h = blockIdx.y, b = blockIdx.z;
+template <int DP>
+__global__ void __launch_bounds__(128, 1) flash_bwd_dq_wgmma_kernel(BwdArgs a) {
+  constexpr int DK = Cfg<DP>::DK;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int Sq = a.Sq, Skv = a.Skv, H = a.H, KV = a.KV, D = a.D;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2;
+  const int kvh = h / (H / KV), nkt = (Skv + kT - 1) / kT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane >> 2;
   const int q0 = qt * kT, nq = min(kT, Sq - q0), dch = D / 8;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gs = qs + Tl::kTile;
-  bf16* ks = gs + Tl::kTile;
-  bf16* vs = ks + Tl::kTile;
-  float* lse_s = reinterpret_cast<float*>(vs + Tl::kTile);
-  float* dlt_s = lse_s + kT;
-  int* qp = reinterpret_cast<int*>(dlt_s + kT);
-  int* kp = qp + kT;
-  int* qrange = kp + kT;  // least and largest query position, any empty row
+  unsigned char* smem = smem_raw;
+  int* kpm = reinterpret_cast<int*>(smem);  // stage s: key positions
+  float* dlt_s = reinterpret_cast<float*>(kpm + kStages * kT);
+  int* nlive = reinterpret_cast<int*>(dlt_s + kT);
+  int* qhalf = nlive + 4;  // the query tile's halves: lo, lo, hi, hi
+  int* khl = qhalf + 4;    // the key tiles' halves: lo, then hi
+  int* khh = khl + 2 * nkt;
+  int* klist = khh + 2 * nkt;  // the live key tiles
+  unsigned char* qflag = reinterpret_cast<unsigned char*>(klist + nkt);  // 4 bytes
+  unsigned char* kflag = qflag + 4;
+  bf16* qs = reinterpret_cast<bf16*>(tiles_at(smem, Cfg<DP>::dq_head(nkt)));
+  bf16* gs = qs + kT * DK;
+  bf16* ring = gs + kT * DK;  // stage s: K at ring + 2 s tile, V after it
 
   const size_t qoff = (((size_t)b * Sq + q0) * H + h) * D;
-  load_tile<DK>(qs, static_cast<const bf16*>(a.q) + qoff, nq, (size_t)H * D, dch);
-  load_tile<DK>(gs, static_cast<const bf16*>(a.dout) + qoff, nq, (size_t)H * D, dch);
-  cp_async_commit();
-  if (tid == 0) qrange[0] = INT_MAX, qrange[1] = INT_MIN, qrange[2] = 0;
-  __syncthreads();
-  if (tid < kT) {
-    const bool in = tid < nq;
-    const size_t row = ((size_t)b * Sq + q0 + tid) * H + h;
-    const int p = in ? a.qpos[(size_t)b * Sq + q0 + tid] : -1;
-    const float l = in ? a.lse[row] : 0.f;
-    qp[tid] = p;
-    lse_s[tid] = l;
-    dlt_s[tid] = in ? a.delta[row] : 0.f;
-    if (in) {
-      atomicMin(&qrange[0], p);
-      atomicMax(&qrange[1], p);
-      if (l < -1e29f) qrange[2] = 1;
+  load_tile<DK, 128>(qs, static_cast<const bf16*>(a.q) + qoff, nq, (size_t)H * D, dch, tid);
+  load_tile<DK, 128>(gs, static_cast<const bf16*>(a.dout) + qoff, nq, (size_t)H * D, dch, tid);
+  // delta = rowsum(dO . O) of the tile's rows in fp32 (two threads a row,
+  // 16 bytes a load), kept for this launch and written for the dK/dV one
+  {
+    const int r = tid >> 1;
+    float sd = 0.f;
+    if (r < nq) {
+      const uint4* orow = reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.out) + qoff +
+                                                         (size_t)r * H * D);
+      const uint4* grow = reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.dout) +
+                                                         qoff + (size_t)r * H * D);
+      for (int c = tid & 1; c < dch; c += 2) {
+        const uint4 ov = orow[c], gv = grow[c];
+        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+        const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) sd = fmaf(to_f(ge[x]), to_f(oe[x]), sd);
+      }
+    }
+    sd += __shfl_xor_sync(0xffffffffu, sd, 1);
+    if ((tid & 1) == 0 && r < kT) {
+      dlt_s[r] = sd;
+      if (r < nq) a.delta[((size_t)b * Sq + q0 + r) * H + h] = sd;
     }
   }
-  __syncthreads();
-  const int qlo = qrange[0], qhi = qrange[1];
-  const bool empty = qrange[2] != 0;
-  float myl[2], myd[2];
-  int myq[2];
+  // this thread's query rows (accumulator rows 16 warp + gq (+8))
+  int qpr[2];
+  float l2r[2], lr[2], dr[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int r = 16 * warp + g + 8 * hh;
-    myl[hh] = lse_s[r], myd[hh] = dlt_s[r], myq[hh] = qp[r];
+    const int r = 16 * warp + gq + 8 * hh;
+    const bool in = r < nq;
+    const size_t row = ((size_t)b * Sq + q0 + r) * H + h;
+    qpr[hh] = in ? a.qpos[(size_t)b * Sq + q0 + r] : -1;
+    lr[hh] = in ? a.lse[row] : 0.f;
+    l2r[hh] = lr[hh] * kLog2e;
   }
-
-  float dq[DOUT / 8][4] = {};
+  // the query tile's halves, flagged where a row has no visible key; the
+  // key tiles' halves, flagged where a key is absent
+  const float* lrow = a.lse + ((size_t)b * Sq + q0) * H + h;
+  if (tid < kT)
+    half_ranges(a.qpos + (size_t)b * Sq + q0, nq, false, qhalf, qhalf + 2, qflag,
+                [&](int r) { return lrow[(size_t)r * H] < -1e29f; }, tid, kT);
+  half_ranges(a.kpos + (size_t)b * Skv, Skv, true, khl, khh, kflag, [](int) { return false; },
+              tid, 128);
+  __syncthreads();
+  if (tid < 32) {  // the live key tiles with their class, in order
+    int qlo, qhi;
+    bool empty;
+    tile_of(0, nq, qhalf, qhalf + 2, qflag, qlo, qhi, empty);
+    const int n = live_list(nkt, klist, [&](int kt) {
+      int kmin, kmax;
+      bool absent;
+      tile_of(kt, Skv, khl, khh, kflag, kmin, kmax, absent);
+      return classify(qlo, qhi, nq == kT, empty, kmin, kmax, !absent && (kt + 1) * kT <= Skv,
+                      a);
+    }, tid);
+    if (tid == 0) *nlive = n;
+  }
+  __syncthreads();
+  const int nl = *nlive;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) dr[hh] = dlt_s[16 * warp + gq + 8 * hh];
   const size_t kv_stride = (size_t)KV * D;
-  const int nkt = (Skv + kT - 1) / kT;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kT, nk = min(kT, Skv - k0);
-    bool live = false;  // this thread's key may be seen by the query tile
-    if (tid < kT) {
-      const int p = tid < nk ? a.kpos[(size_t)b * Skv + k0 + tid] : -1;
-      kp[tid] = p;
-      live = tid < nk && tile_live(qlo, qhi, p >= 0 ? p : INT_MAX, p, empty, a);
-    }
-    if (!__syncthreads_or(live)) continue;
+  auto issue = [&](int i, int st) {
+    const int k0 = (klist[i] & ~kFullBit) * kT, nk = min(kT, Skv - k0);
     const size_t koff = (((size_t)b * Skv + k0) * KV + kvh) * D;
-    load_tile<DK>(ks, static_cast<const bf16*>(a.k) + koff, nk, kv_stride, dch);
-    load_tile<DK>(vs, static_cast<const bf16*>(a.v) + koff, nk, kv_stride, dch);
-    cp_async_commit();
+    bf16* ks = ring + 2 * st * kT * DK;
+    load_tile<DK, 128>(ks, static_cast<const bf16*>(a.k) + koff, nk, kv_stride, dch, tid);
+    load_tile<DK, 128>(ks + kT * DK, static_cast<const bf16*>(a.v) + koff, nk, kv_stride, dch,
+                       tid);
+    if (tid < kT) load_col(kpm + st * kT, a.kpos + (size_t)b * Skv + k0, nk, 1, tid);
+  };
+
+  if (nl > 0) issue(0, 0);
+  cp_async_commit();  // Q, dO and the first stage
+
+  const float sl2 = a.scale * kLog2e;
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  for (int it = 0, st = 0; it < nl; ++it, st ^= 1) {
     cp_async_wait<0>();
     __syncthreads();
+    if (it + 1 < nl) issue(it + 1, st ^ 1);
+    cp_async_commit();
+    const int nk = min(kT, Skv - (klist[it] & ~kFullBit) * kT);
+    const bool full = (klist[it] & kFullBit) != 0;
+    const bf16* ks = ring + 2 * st * kT * DK;
+    const bf16* vs = ks + kT * DK;
+    const int* kp = kpm + st * kT;
+
+    // S and dP: queries 16 warp + gq (+8), keys acc_col(j, e)
+    float s[32], dp[32];
+    wg::fence();
+    scores<DP>(s, qs, ks);
+    scores<DP>(dp, gs, vs);
+    wg::commit();
+    wg::wait<0>();
+    wg::touch(s);
+    wg::touch(dp);
+    // dS = P (dP - delta), P = exp(S scale - lse): masked pairs score
+    // -1e30, pairs outside the tiles are 0
+    if (full) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      // S and dP: queries 16 warp + (g, g + 8), keys 32 half + ...
-      float s[4][4], dp[4][4];
-      scores<DK>(qs, ks, gs, vs, half, D, s, dp);
+      for (int i = 0; i < 32; ++i)
+        dp[i] = exp2_ftz(fmaf(s[i], sl2, -l2r[(i >> 1) & 1])) * (dp[i] - dr[(i >> 1) & 1]);
+    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 32 * half + 8 * j + 2 * (lane & 3) + (e & 1);
-          const int r = 16 * warp + g + 8 * (e >> 1);
-          float p, ds;
-          p_ds(s[j][e] * a.scale, dp[j][e],
-               visible(myq[e >> 1], kp[c], a.causal, a.window, a.prefix_len),
-               r < nq && c < nk, myl[e >> 1], myd[e >> 1], p, ds);
-          dp[j][e] = ds;
-        }
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, c = acc_col(i / 4, i, lane);
+        const bool in = 16 * warp + gq + 8 * hh < nq && c < nk;
+        const bool vis = visible(qpr[hh], kp[c], a.causal, a.window, a.prefix_len);
+        const float p = in ? exp2_ftz(((vis ? s[i] * a.scale : kMasked) - lr[hh]) * kLog2e) : 0.f;
+        dp[i] = p * (dp[i] - dr[hh]);
       }
-      accumulate<DK, DOUT>(dq, dp, ks, half, d0, D);  // dQ += dS K
     }
-    __syncthreads();
+    uint32_t hi[4][4], lo[4][4];
+    a_frags<4>(dp, hi, lo);
+    product<DP, 4>(dq, hi, lo, ks, 0);  // dQ += dS K
+    wg::wait<0>();
   }
   cp_async_wait<0>();
-  store<DOUT>(dq, static_cast<bf16*>(a.dq) + qoff, nq, (size_t)H * D, d0, D, a.scale);
+  __syncthreads();  // the ring is free: dQ (bf16) through it, 16 bytes a store
+
+  const int ld = D + 8;  // staged row stride: 16 bytes more than a row
+  bf16* stage = ring;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = acc_col(j, 0, lane);
+    if (col < D)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(stage + (16 * warp + gq + 8 * hh) * ld + col) =
+            pack_bf16(dq[4 * j + 2 * hh] * a.scale, dq[4 * j + 2 * hh + 1] * a.scale);
+  }
+  __syncthreads();
+  const int cpr = D / 8;
+  bf16* out = static_cast<bf16*>(a.dq) + qoff;
+  for (int u = tid; u < nq * cpr; u += 128) {
+    const int r = u / cpr, c = u - r * cpr;
+    *reinterpret_cast<uint4*>(out + (size_t)r * H * D + c * 8) =
+        *reinterpret_cast<const uint4*>(stage + r * ld + c * 8);
+  }
 }
 
-template <int DK>
-int launch(const BwdArgs& a, cudaStream_t s) {
-  constexpr int DOUT = DK < 128 ? DK : 128, halves = DK / DOUT;
-  const size_t smem = Tiles<DK>::smem();
-  cudaError_t e = allow_smem_once(flash_bwd_dkdv_mma_kernel<DK, DOUT>, smem);
-  if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_mma_kernel<DK, DOUT>
-      <<<dim3((a.Skv + kT - 1) / kT * halves, a.KV, a.B), kThreads, smem, s>>>(a);
+// the dK/dV launch's cluster size S (the query heads' split), its shared
+// memory set up; S < 0: the CUDA error of that set-up, negated
+template <int DP>
+int splits(const BwdArgs& a) {
+  const int nkt = (a.Skv + kT - 1) / kT, nqt = (a.Sq + kT - 1) / kT;
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<DP>;
+  const size_t smem = Cfg<DP>::dkdv_smem(nqt);
+  const cudaError_t e = allow_smem_once(dkdv, smem);
+  if (e != cudaSuccess) return -(int)e;
+  return split::pick_splits(dkdv, nkt * a.KV * a.B, a.H / a.KV, 256, smem);
+}
+
+// go == false: only the split (nothing is launched)
+template <int DP>
+int launch(const BwdArgs& a, cudaStream_t s, bool go) {
+  const int nkt = (a.Skv + kT - 1) / kT, nqt = (a.Sq + kT - 1) / kT;
+  const int S = splits<DP>(a);
+  if (S < 0 || !go) return S;
+  // dQ first: it writes delta, which the dK/dV launch reads
+  auto dq = flash_bwd_dq_wgmma_kernel<DP>;
+  const size_t smem_q = Cfg<DP>::dq_smem(nkt);
+  cudaError_t e = allow_smem_once(dq, smem_q);
+  if (e != cudaSuccess) return -(int)e;
+  dq<<<dim3(nqt, a.H, a.B), 128, smem_q, s>>>(a);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = allow_smem_once(flash_bwd_dq_mma_kernel<DK, DOUT>, smem);
-  if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_mma_kernel<DK, DOUT>
-      <<<dim3((a.Sq + kT - 1) / kT * halves, a.H, a.B), kThreads, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  if (e != cudaSuccess) return -(int)e;
+  e = split::launch_cluster(flash_bwd_dkdv_wgmma_kernel<DP>, a, S, nkt * a.KV, a.B, 256,
+                            Cfg<DP>::dkdv_smem(nqt), s);
+  return e != cudaSuccess ? -(int)e : S;
 }
 
-}  // namespace mma
+// the padded head dim for D (D % 16 == 0, D <= 256); returns the split S,
+// or a CUDA error negated
+int dispatch(const BwdArgs& a, cudaStream_t s, bool go = true) {
+  if (a.D <= 64) return launch<64>(a, s, go);
+  if (a.D <= 80) return launch<80>(a, s, go);
+  if (a.D <= 128) return launch<128>(a, s, go);
+  return launch<256>(a, s, go);
+}
+
+}  // namespace hopper
 
 template <typename T, int DK>
 int launch_all(const BwdArgs& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    if (a.D % 16 == 0) {  // two launches: dQ (with delta), then dK/dV
+      const int S = hopper::dispatch(a, s);
+      return S < 0 ? -S : 0;
+    }
   const size_t rows = (size_t)a.B * a.Sq * a.H;
-  flash_bwd_delta_kernel<T><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
-                              kThreads, 0, s>>>(a);
+  const size_t per_block = kThreads / 32 * (32 / delta_lanes(a.D, sizeof(T)));
+  flash_bwd_delta_kernel<T><<<(unsigned)((rows + per_block - 1) / per_block), kThreads, 0, s>>>(
+      a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    if (a.D % 16 == 0) return mma::launch<DK>(a, s);
   const size_t smem = smem_bytes(a.D);
   e = allow_smem_once(flash_bwd_dkdv_kernel<T, DK>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -832,3 +1292,20 @@ extern "C" int repro_flash_attention_bwd(int dtype, const void* q, const void* k
   if (dtype == kBFloat16) return dispatch<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The backward's design at a shape, without launching: out[0] the body (1:
+// wgmma, bf16 with D % 16 == 0; 0: the CUDA cores), out[1] the dK/dV
+// launch's split S of the query heads, out[2] the ring's stages.  Returns a
+// CUDA error code.
+extern "C" int repro_flash_attention_bwd_design(int dtype, int B, int Sq, int Skv, int H,
+                                                int KV, int D, int* out) {
+  BwdArgs a{};
+  a.B = B, a.Sq = Sq, a.Skv = Skv, a.H = H, a.KV = KV, a.D = D;
+  if (D % 4 != 0 || D > 256 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  const bool tc = dtype == kBFloat16 && D % 16 == 0;
+  const int S = tc ? hopper::dispatch(a, nullptr, false) : 1;
+  if (S < 0) return -S;
+  out[0] = tc, out[1] = S, out[2] = tc ? hopper::kStages : 1;
+  return 0;
+}
+

@@ -255,9 +255,11 @@ def flash_attention_bwd(q, k, v, q_positions, kv_positions, out, lse, g, *,
     """The gradient of flash_attention (ref.flash_attention_bwd_ref, the
     JAX package's ``_flash_bwd``): q, out, g (B, Sq, H, D); k, v (B, Skv,
     KV, D); positions as in flash_attention; lse (B, Sq, H) float32 from
-    the forward.  Returns (dq, dk, dv) in q's dtype.  One entry point,
-    three launches (delta, dK/dV, dQ); the result is the same to the bit
-    from run to run (no float atomics)."""
+    the forward.  Returns (dq, dk, dv) in q's dtype.  One entry point:
+    two launches in bf16 with D % 16 == 0 (dQ, which also computes delta,
+    then dK/dV, on wgmma), three otherwise (delta, dK/dV, dQ on the CUDA
+    cores); the result is the same to the bit from run to run (no float
+    atomics)."""
     if not q.is_cuda:
         return ref.flash_attention_bwd_ref(
             q, k, v, q_positions, kv_positions, out, lse, g, causal=causal,

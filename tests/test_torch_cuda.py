@@ -727,6 +727,28 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype, mask):
     _bwd_against_plain(cuda, dtype, 32, FLASH_CUDA_CASES[case], MASKS[mask])
 
 
+#: the bf16 tensor-core body's paths: a kv head's query heads split over a
+#: cluster (G 2, 4 and 8 on 1-2 kv heads), head dims 64 and 256, lengths
+#: that are no multiple of the 64-row tile, 5 left-pad rows (no visible
+#: key); masks that give whole-tile (unmasked), diagonal and skipped tiles
+BWD_BODY_CASES = {
+    f"g{G}_kv{KV}_d{D}_s{S}": dict(B=2, S=S, H=G * KV, KV=KV, D=D, npad=5)
+    for G, KV in ((2, 1), (4, 2), (8, 1)) for D in (64, 256)
+    for S in (37, 100, 130)}
+BWD_BODY_MASKS = {"causal": dict(causal=True),
+                  "window": dict(causal=True, window=128),
+                  "prefix_lm": dict(causal=True, prefix_len=70),
+                  "bidirectional": dict(causal=False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", list(BWD_BODY_MASKS))
+@pytest.mark.parametrize("case", list(BWD_BODY_CASES))
+def test_flash_attention_bwd_kernel_tensor_core_paths(cuda, case, mask):
+    _bwd_against_plain(cuda, torch.bfloat16, 35, BWD_BODY_CASES[case],
+                       BWD_BODY_MASKS[mask])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("config", list(TRAIN_ATTENTION))

@@ -24,6 +24,20 @@ and held against the JAX package on the same numpy inputs (float32, CPU).
   the others, ROADMAP queue 3) and against the jnp function the SQL engine
   runs and the port's plain version, with such holes and with idle rows.
   Tolerance 2e-5 (sums in another order), as tests/test_torch_paged.py.
+* ``split_heads_dkdv``: the dK/dV launch of
+  ``kernels/csrc/flash_attention_bwd.cu`` -- a kv head's G query heads
+  split over S blocks of a cluster, block r summing the partial dk and dv
+  of heads [r G / S, (r + 1) G / S), the partials added in rank order.
+  Held against ``jax.vjp`` of the JAX package's ``flash_attention`` with
+  left pads (rows with no visible key), prefix-LM, window and kv longer
+  than q, for S 1 to 8 and G up to 8.  Tolerance 2e-5, as
+  tests/test_torch_flash_bwd.py.
+* ``tile_class``: the same kernel's classes of a (query tile, key tile)
+  pair from the tiles' position ranges -- dead (skipped), full (no mask)
+  or partial -- held against ``layers._block_mask`` on random positions
+  with pads, offsets, windows and prefixes: every pair of a full tile is
+  visible, and a dead tile has no visible pair and no row without a
+  visible key.
 """
 import functools
 import math
@@ -39,8 +53,10 @@ from repro.models import layers as JL
 from repro.models import mamba as JMB
 from repro_torch.kernels import ref
 from test_torch_cuda import paged_scenario
+from test_torch_flash_bwd import jax_vjp
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
-from torch_cases import paged_case, quantize_pool, scan_case, t as _t
+from torch_cases import (MASKS, paged_case, prefill_case, quantize_pool,
+                         scan_case, t as _t)
 
 LOG2E = 1.4426950408889634
 SCAN_TOL = 1e-5
@@ -303,3 +319,151 @@ def test_split_paged_decode_fp_ragged_matches_pallas(S):
     pallas = JOPS.decode_attention_paged(*args, head_dim=32, interpret=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(pallas),
                                atol=PAGED_TOL, rtol=PAGED_TOL)
+
+
+# ------------------------------- flash backward -------------------------------
+BWD_TOL = 2e-5
+NEG = -1e30
+
+
+def visible(qp, kp, causal, window, prefix_len):
+    """flash_attention_bwd.cu's visible() over broadcast position tensors."""
+    present = kp >= 0
+    if not causal:
+        return present & (qp == qp)
+    ok = present & (kp <= qp)
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    if prefix_len > 0:
+        ok = ok | (present & (kp < prefix_len))
+    return ok
+
+
+def split_heads_dkdv(q, k, v, qpos, kpos, out, lse, g, S, causal=True,
+                     window=0, prefix_len=0):
+    """The dK/dV launch over S splits of each kv head's G query heads: P =
+    exp(S scale - lse) with masked scores -1e30, dS = P (dP - delta), each
+    split's partial dk = dS^T (q scale) and dv = P^T dO summed over its
+    heads, the S partials added in rank order."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    ok = visible(qpos[:, :, None], kpos[:, None, :], causal, window,
+                 prefix_len)[:, None]                        # (B, 1, Sq, Skv)
+    delta = (g * out).sum(-1)                                # (B, Sq, H)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for rank in range(S):
+        pk, pv = torch.zeros_like(k), torch.zeros_like(v)
+        for gh in range(rank * G // S, (rank + 1) * G // S):
+            hs = [kv * G + gh for kv in range(KV)]           # one head a kv head
+            qh, gh_ = q[:, :, hs], g[:, :, hs]
+            s = torch.einsum("bqkd,bjkd->bkqj", qh, k) * scale
+            s = torch.where(ok, s, torch.full_like(s, NEG))
+            p = torch.exp(s - lse[:, :, hs].permute(0, 2, 1)[..., None])
+            dp = torch.einsum("bqkd,bjkd->bkqj", gh_, v)
+            ds = p * (dp - delta[:, :, hs].permute(0, 2, 1)[..., None])
+            pk = pk + torch.einsum("bkqj,bqkd->bjkd", ds, qh * scale)
+            pv = pv + torch.einsum("bkqj,bqkd->bjkd", p, gh_)
+        dk, dv = dk + pk, dv + pv                            # rank order
+    return dk, dv
+
+
+#: G 8 on one and on two kv heads, G 5 (uneven splits); left pads, and kv
+#: longer than q (an extend-offset prefix of cached keys)
+SPLIT_CASES = {
+    "g8_pads": dict(B=2, S=24, H=8, KV=1, D=16, npad=5),
+    "g8_kv2_prefix": dict(B=1, S=20, H=16, KV=2, D=8, npad=3, prefix=12),
+    "g5_pads": dict(B=1, S=18, H=5, KV=1, D=8, npad=4),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(case, mask):
+    q, k, v, qpos, kpos = prefill_case(60, **SPLIT_CASES[case])
+    g = np.random.default_rng(61).standard_normal(q.shape, np.float32)
+    _, _, _, dk_j, dv_j = jax_vjp(q, k, v, qpos, kpos, g, **MASKS[mask])
+    return (q, k, v, qpos, kpos, g), (dk_j, dv_j)
+
+
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("case,S", [
+    (c, S) for c, sh in SPLIT_CASES.items() for S in (1, 2, 4, 8)
+    if S <= sh["H"] // sh["KV"]])   # at most G splits (split::pick_splits)
+def test_split_heads_dkdv_matches_jax_vjp(case, S, mask):
+    (q, k, v, qpos, kpos, g), (dk_j, dv_j) = _split_case(case, mask)
+    q, k, v, qpos, kpos, g = map(_t, (q, k, v, qpos, kpos, g))
+    out, lse = ref.flash_attention_fwd_ref(q, k, v, qpos, kpos, **MASKS[mask])
+    dk, dv = split_heads_dkdv(q, k, v, qpos, kpos, out, lse, g, S,
+                              **MASKS[mask])
+    np.testing.assert_allclose(dk.numpy(), dk_j, atol=BWD_TOL, rtol=BWD_TOL)
+    np.testing.assert_allclose(dv.numpy(), dv_j, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+def tile_class(qp, kp, qall, kall, empty, causal, window, prefix_len):
+    """flash_attention_bwd.cu's classify(): qp, the positions of a query
+    tile's rows in range; kp, the positions of a key tile's keys in range;
+    qall / kall, whether the tile is whole (and, for keys, all present);
+    empty, whether a row of the query tile has no visible key."""
+    qlo, qhi = int(qp.min()), int(qp.max())
+    present = kp[kp >= 0]
+    kmin = int(present.min()) if len(present) else 2 ** 31 - 1
+    kmax = int(kp.max()) if len(kp) else -1
+    live = kmax >= 0                                  # tile_live()
+    if causal:
+        live = live and kmin <= qhi
+        if window > 0:
+            live = live and kmax > qlo - window
+        if prefix_len > 0:
+            live = live or (kmax >= 0 and kmin < prefix_len)
+    if not (live or empty):
+        return "dead"
+    if not (qall and kall):
+        return "partial"
+    full = True
+    if causal:
+        full = kmax <= qlo and (window <= 0 or kmin > qhi - window)
+        if prefix_len > 0:
+            full = full or kmax < prefix_len
+    return "full" if full else "partial"
+
+
+TILE_MASKS = {**MASKS, "window_prefix": dict(causal=True, window=5,
+                                             prefix_len=6)}
+
+
+@pytest.mark.parametrize("mask", list(TILE_MASKS))
+@pytest.mark.parametrize("seed", range(4))
+def test_tile_classes_are_sound(seed, mask):
+    """Random positions: left pads and absent keys (-1), an offset, shuffled
+    or sorted order, 4-row tiles over ragged lengths."""
+    rng = np.random.default_rng(70 + seed)
+    T, kw = 4, TILE_MASKS[mask]
+    seen = set()
+    for _ in range(6):
+        Sq, Skv = rng.integers(9, 40), rng.integers(9, 48)
+        off = int(rng.integers(0, 12))
+        qpos = np.arange(Sq) + off + Skv - Sq
+        kpos = np.arange(Skv) + off
+        qpos[:rng.integers(0, 6)] = -1
+        kpos[rng.random(Skv) < rng.choice([0.0, 0.15])] = -1
+        if rng.random() < 0.5:
+            rng.shuffle(qpos)
+            rng.shuffle(kpos)
+        ok = np.asarray(JL._block_mask(jnp.asarray(qpos), jnp.asarray(kpos),
+                                       kw["causal"], kw.get("window", 0),
+                                       kw.get("prefix_len", 0)))
+        empty_row = ~ok.any(1)
+        for q0 in range(0, Sq, T):
+            for k0 in range(0, Skv, T):
+                qs, ks = slice(q0, q0 + T), slice(k0, k0 + T)
+                cls = tile_class(qpos[qs], kpos[ks], q0 + T <= Sq,
+                                 k0 + T <= Skv and (kpos[ks] >= 0).all(),
+                                 bool(empty_row[qs].any()), kw["causal"],
+                                 kw.get("window", 0), kw.get("prefix_len", 0))
+                seen.add(cls)
+                if cls == "full":
+                    assert ok[qs, ks].all()
+                if cls == "dead":
+                    assert not ok[qs, ks].any() and not empty_row[qs].any()
+    assert "partial" in seen and len(seen) >= 2  # a skipped or unmasked tile too
