@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only gmm,flash_attention   # phases 1-2 only
     python3 chip_smoke.py --only selective_scan,decode_attention_paged_quant
     python3 chip_smoke.py --only flash_attention_bwd
+    python3 chip_smoke.py --only gmm_bwd,selective_scan_bwd
     python3 chip_smoke.py --only flash_attention_bwd --compare-bwd PARENT_CU
 
 Phases, each reported on its own lines:
@@ -20,7 +21,11 @@ Phases, each reported on its own lines:
    vocabulary, its experts for the grouped matmul, hymba-1.5b's 25 heads x
    64 on 5 kv heads, window 1024 and vocabulary, falcon-mamba-7b's
    vocabulary, and both SSM configs' channels for the selective scan; the
-   flash backward at the training path's shapes, phase 6): its
+   backward kernels at the training path's shapes, phase 6: the flash
+   backward (and kernel 1's training launch) at each trained config with
+   attention, the grouped matmul's backward at qwen3-moe-30b-a3b's, the
+   selective scan's (and kernel 7's training launch with its carries) at
+   falcon-mamba-7b's and hymba-1.5b's): its
    largest error against its plain PyTorch version (tolerance stated), and
    the times of the kernel, the plain version and one PyTorch library call
    computing the same function where there is one (a yardstick only; the
@@ -82,34 +87,43 @@ Phases, each reported on its own lines:
       hymba through the batcher and ``generate``, counted as the ``hybrid``
       path; every answer parsed (both families run the dense layout only:
       the paged layout needs attention and no sliding window);
-6. the training path (the dense, VLM and encoder families; kernel 1 with
-   its lse and the flash backward, ``flash_attention_bwd.cu``, which phase
-   2 checks at each trained config's shapes: olmo-1b's B 8 x 512 tokens of
-   16 heads x 128, causal; paligemma-3b's B 4 x (256 image + 128 text) of
-   8 x 256 on 1 kv head, prefix-LM; hubert-xlarge's B 8 x 512 of 16 x 80,
-   bidirectional), after the hybrid session is freed:
+6. the training path (every family; kernel 1 with its lse and the flash
+   backward, ``flash_attention_bwd.cu``; the grouped matmul and its
+   backward, ``gmm.cu``; kernel 7 with its carries and its backward,
+   ``selective_scan_bwd.cu``; phase 2 checks each at the trained configs'
+   shapes: olmo-1b's B 8 x 512 tokens of 16 heads x 128, causal;
+   paligemma-3b's B 4 x (256 image + 128 text) of 8 x 256 on 1 kv head,
+   prefix-LM; hubert-xlarge's B 8 x 512 of 16 x 80, bidirectional;
+   qwen3-moe-30b-a3b's B 8 x 512 of 32 x 64 on 4 kv heads and its 128
+   experts; falcon-mamba-7b's B 4 x 512 of 8192 channels; hymba-1.5b's B 2
+   x 2048 of 25 x 64 on 5 kv heads, window 1024, and 3200 channels), after
+   the hybrid session is freed:
    a. one train step in float32 at full width and 2 layers of each of the
-      three configs: logits, loss and the gradient of every master leaf
-      through the kernels against the plain autograd function;
+      six configs: logits, loss and the gradient of every master leaf
+      through the kernels against the plain autograd functions;
    b. ``repro_torch.launch.train`` in bfloat16 compute with float32 master
       weights and AdamW state: olmo-1b at full width and depth for 8 steps,
       deterministic (the loss must fall); 4 steps, a checkpoint, a restore
       and 4 more, which must equal the 8 to the bit; hubert-xlarge at full
       width and depth and paligemma-3b at full width and depth for 4 steps
-      each (at the driver's own 20 warm-up steps);
+      each (at the driver's own 20 warm-up steps); then qwen3-moe-30b-a3b
+      (4 of 48 layers), falcon-mamba-7b (30 of 64 layers) and hymba-1.5b
+      (full depth) for 8 steps each, whose loss must fall, and qwen3-moe
+      and hymba 4 steps twice in deterministic mode, equal to the bit;
       step times, tokens/s, model FLOP/s over the bf16 peak and peak
       memory, one warm step of each profiled; the launches counted as the
       ``train`` path;
 7. a JSON line with every kernel's numbers at the dtype its path gives it,
    then the last line ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, so the script exits non-zero and prints no last
-line.  Without a GPU it exits 2 at once.  ``--only`` runs phases 1 and 2
+Each phase prints the script's elapsed time as it starts.  Any failed
+check raises, so the script exits non-zero and prints no last line.  Without a GPU it exits 2 at once.  ``--only`` runs phases 1 and 2
 for the named kernels, prints their JSON line and stops, without the last
 line (for comparing kernel versions on one card in one call).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -161,9 +175,27 @@ HYBRID_ARCH = "hymba-1.5b"
 VLM_ARCH = "paligemma-3b"
 ENC_ARCH = "hubert-xlarge"
 # the training path: global batch and sequence length of each trained config
-# (paligemma: 256 image-patch embeddings + 128 text tokens)
+# (paligemma: 256 image-patch embeddings + 128 text tokens; hymba: 2048
+# tokens, so that its 1024-token window is live)
 TRAIN = {DENSE_ARCH: dict(B=8, S=512), VLM_ARCH: dict(B=4, S=384),
-         ENC_ARCH: dict(B=8, S=512)}
+         ENC_ARCH: dict(B=8, S=512), MOE_ARCH: dict(B=8, S=512),
+         SSM_ARCH: dict(B=4, S=512), HYBRID_ARCH: dict(B=2, S=2048)}
+#: the trained configs with attention (the flash backward's shapes)
+TRAIN_ATTN = tuple(a for a in TRAIN if a != SSM_ARCH)
+#: the depth at which the trainer runs a config in bfloat16 where its full
+#: depth does not fit the card: fp32 masters, two AdamW moments and the
+#: gradients take ~16 bytes a parameter (qwen3-moe-30b-a3b ~0.61 B a layer,
+#: falcon-mamba-7b ~0.11 B) beside the activations.  The largest depths
+#: that fit an 80 GB card (qwen3-moe at 5 layers and falcon-mamba at 32 run
+#: out of it); the trainer phase prints each run's peak memory.  The
+#: others run at full depth.
+TRAIN_DEPTH = {MOE_ARCH: 4, SSM_ARCH: 30}
+T0 = time.time()
+
+
+def stamp(label: str) -> None:
+    """The script's elapsed time at the start of a phase."""
+    print(f"[{time.time() - T0:.0f} s] {label}", flush=True)
 
 
 def path_shapes(cfg) -> dict:
@@ -172,7 +204,8 @@ def path_shapes(cfg) -> dict:
     head dim, window and padded vocabulary where it has attention, its
     experts and widths for the grouped matmul where it has experts, and
     its channels and state size for the selective scan where it has a
-    mixer."""
+    mixer; for a trained config, the backward kernels at its training
+    batch and length (TRAIN)."""
     out = {"constrained_sample": dict(SAMPLE, V=cfg.padded_vocab)}
     if cfg.has_attention:
         heads = dict(H=cfg.padded_heads, KV=cfg.num_kv_heads, D=cfg.head_dim)
@@ -187,11 +220,18 @@ def path_shapes(cfg) -> dict:
                           d_model=cfg.d_model, d_ff=cfg.d_ff)
     if cfg.has_ssm:
         out["selective_scan"] = dict(SCAN, Di=cfg.d_inner, N=cfg.ssm_state)
-    if cfg.name in TRAIN:
+    if cfg.name in TRAIN and cfg.has_attention:
         out["flash_attention_bwd"] = dict(
             TRAIN[cfg.name], H=cfg.padded_heads, KV=cfg.num_kv_heads,
-            D=cfg.head_dim, causal=cfg.causal,
+            D=cfg.head_dim, causal=cfg.causal, window=cfg.sliding_window,
             prefix_len=cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
+    if cfg.name in TRAIN and cfg.has_moe:
+        out["gmm_bwd"] = dict(TRAIN[cfg.name], E=cfg.num_experts,
+                              K=cfg.top_k, d_model=cfg.d_model,
+                              d_ff=cfg.d_ff)
+    if cfg.name in TRAIN and cfg.has_ssm:
+        out["selective_scan_bwd"] = dict(TRAIN[cfg.name], Di=cfg.d_inner,
+                                         N=cfg.ssm_state)
     return out
 
 
@@ -217,15 +257,17 @@ def time_ms(fn, inputs, iters=40, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, args, kernel: str, iters=20, tries=3):
+def device_ms(fn, args, kernel, iters=20, tries=3):
     """The device time of one launch of `kernel` (a substring of its
-    symbol) in fn(*args), from the profiler: without the host's share,
+    symbol, or a tuple of them) in fn(*args), from the profiler: without
+    the host's share,
     which time_ms's events include whenever the wrapper's Python and
     launch take longer than the kernel.  A profiled window that recorded
     no launch of the kernel (the profiler drops a window now and then) is
     taken again; None, printed as "not measured", if all `tries` did."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof_ctx
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
     fn(*args)
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -235,7 +277,8 @@ def device_ms(fn, args, kernel: str, iters=20, tries=3):
                 fn(*args)
             torch.cuda.synchronize()
         total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and kernel in e.key)
+                    if e.device_type == DeviceType.CUDA
+                    and any(k in e.key for k in kernels))
         if total > 0:
             return total / 1e3 / iters
     return None
@@ -276,7 +319,8 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 #: reports them, are printed after the build
 PTXAS_SOURCES = ("gmm.cu", "flash_attention.cu", "decode_attention.cu",
                  "constrained_sample.cu", "decode_attention_paged.cu",
-                 "selective_scan.cu", "flash_attention_bwd.cu")
+                 "selective_scan.cu", "flash_attention_bwd.cu",
+                 "selective_scan_bwd.cu")
 
 
 def ptxas_resources(log: str) -> list:
@@ -752,11 +796,180 @@ def check_scan(ops, ref, dtype, gen, shape):
                 by_shape=shapes)
 
 
-def visible_pairs(S, causal, prefix_len) -> int:
-    """(query, key) pairs a head sees in an unpadded S-token sequence."""
+def worst_error(label, got, want, names, tol):
+    """Each output's largest error against the plain version's, printed
+    beside its largest |value|; the (err, scale) pair with the largest
+    err / scale: each output is held against the tolerance times its own
+    largest |value|."""
+    worst = (0.0, 1.0)
+    for name, a, b in zip(names, got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = max(1e-30, b.float().abs().max().item())
+        print(f"  {label} {name}: max_abs_err {err} (largest |value| "
+              f"{scale:.4g}; tolerance {tol * scale:.4g})", flush=True)
+        if err / scale >= worst[0] / worst[1]:
+            worst = (err, scale)
+    return worst
+
+
+def check_gmm_bwd(ops, ref, dtype, gen, shape):
+    """The grouped matmul's backward (dx through kernel 6 reading each
+    expert's weights transposed in place, dw one owner block a tile) at the
+    MoE training path's two shapes -- qwen3-moe-30b-a3b at B 8 x 512: 4096
+    tokens x top-8 = 32768 choices over 128 experts, each capped at the
+    capacity 320, the dropped ones past the kept; gate/up 2048 -> 768 and
+    down 768 -> 2048 -- against the plain pair.  dx and dw are each held
+    against the tolerance times their own largest |value|; two calls must
+    give the same bits.  The reported numbers are the gate/up call's (2 of
+    the 3 products of a layer); both shapes are printed and kept under
+    "by_shape".  library_ms: the two torch.bmm calls of the JAX block's own
+    formulation over the (E, C, .) capacity buffers (dy times w^T, x^T
+    times dy)."""
+    E, dm, dff = shape["E"], shape["d_model"], shape["d_ff"]
+    tokens = shape["B"] * shape["S"]
+    shapes = {}
+    for orient, (M, N) in (("gate_up", (dm, dff)), ("down", (dff, dm))):
+        x, w, gs, C = gmm_case(gen, shape, tokens, M, N, dtype)
+        dy = torch.randn(x.shape[0], N, generator=gen, device="cuda").to(dtype)
+        args = (x, w, gs, dy)
+        got = ops.gmm_bwd(*args)
+        err, scale = worst_error(f"gmm_bwd {str(dtype)[6:]} {orient}", got,
+                                 ref.gmm_bwd_ref(*args), ("dx", "dw"),
+                                 TOL[dtype])
+        if not all(torch.equal(a, b) for a, b in zip(got, ops.gmm_bwd(*args))):
+            fail(f"gmm_bwd {dtype} {orient}: two calls differ")
+        del got
+        kept, live = int(gs.sum()), int((gs > 0).sum())
+        s = x.element_size()
+        # x and dy of the kept rows and the live experts' weights read; dx
+        # (every row) and dw (every expert) written
+        nbytes = (kept * (M + N) * s + live * M * N * s + x.shape[0] * M * s
+                  + E * M * N * s + E * 4)
+        b_ms, b_by = bound(nbytes, 4 * kept * M * N, dtype)
+        xb = torch.zeros(E, C, M, dtype=dtype, device="cuda")
+        db = torch.zeros(E, C, N, dtype=dtype, device="cuda")
+        starts = torch.cumsum(gs, 0).tolist()
+        for e, (a, b) in enumerate(zip([0] + starts[:-1], starts)):
+            xb[e, :b - a] = x[a:b]
+            db[e, :b - a] = dy[a:b]
+
+        def library(xb, db, w):
+            return (torch.bmm(db, w.transpose(1, 2)),
+                    torch.bmm(xb.transpose(1, 2), db))
+        shapes[orient] = dict(
+            rows=x.shape[0], M=M, N=N, kept=kept, capacity=C,
+            nonempty_experts=live, max_abs_err=err, tolerance_scale=scale,
+            ms=time_ms(ops.gmm_bwd, [args]),
+            device_ms=device_ms(ops.gmm_bwd, args, "gmm"),
+            device_ms_by_launch={
+                k: device_ms(ops.gmm_bwd, args, sym) for k, sym in
+                (("dx", "gmm_kernel<true>"), ("dw", "gmm_dw_kernel"))},
+            plain_ms=time_ms(ref.gmm_bwd_ref, [args], iters=5, warmup=1),
+            library_ms=time_ms(library, [(xb, db, w)]),
+            bound_ms=b_ms, bound_by=b_by)
+        del x, w, dy, xb, db, args
+    for k, r in shapes.items():
+        print(f"  gmm_bwd {str(dtype)[6:]} {k}: rows {r['rows']} ({r['kept']} "
+              f"kept, capacity {r['capacity']}, {r['nonempty_experts']} "
+              f"experts) M {r['M']} N {r['N']}: ms {r['ms']:.4f} (device_ms "
+              f"{fmt_ms(r['device_ms'])}: dx "
+              f"{fmt_ms(r['device_ms_by_launch']['dx'])}, dw "
+              f"{fmt_ms(r['device_ms_by_launch']['dw'])}) plain_ms "
+              f"{r['plain_ms']:.4f} "
+              f"library_ms (two bmm over the capacity buffers) "
+              f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+              f"({r['bound_by']})", flush=True)
+    top = shapes["gate_up"]
+    worst = max(shapes.values(),
+                key=lambda r: r["max_abs_err"] / r["tolerance_scale"])
+    return dict(max_abs_err=worst["max_abs_err"],
+                tolerance_scale=worst["tolerance_scale"],
+                **{k: top[k] for k in ("ms", "device_ms", "plain_ms",
+                                       "library_ms", "bound_ms",
+                                       "bound_by")}, by_shape=shapes)
+
+
+def check_scan_bwd(ops, ref, dtype, gen, shape):
+    """The selective scan's backward at a trained config's batch, length
+    and channels (falcon-mamba-7b: B 4 x 512, Di 8192; hymba-1.5b: B 2 x
+    2048, Di 3200; N 16), from the carries of kernel 7's training launch,
+    which are first held against the plain forward's; then du, d(dt), dA,
+    dB, dC and dD against the plain reverse recurrence from the same
+    carries, each against the tolerance times its own largest |value|; two
+    calls must give the same bits.  u, B, C, du, dB and dC in `dtype`, the
+    rest float32.  No single PyTorch call computes it: library_ms is
+    None."""
+    Bz, S, Di, N, R = shape["B"], shape["S"], shape["Di"], shape["N"], 16
+    dev = "cuda"
+    dt_ = str(dtype)[6:]
+    T = ops._fn("selective_scan_chunks")(Bz, S, Di, N)
+    s = torch.tensor([], dtype=dtype).element_size()
+    # u, dt, dy read and du, d(dt) written; the B/C rows read and dB/dC
+    # written; A, D read and dA, dD written; the carries read.  About 15
+    # float32 operations a (b, t, d, n): the state recomputed (3), the
+    # adjoint and the five gradient terms (12)
+    nbytes = (Bz * S * Di * (2 * s + 12) + 4 * Bz * S * N * s
+              + 2 * (Di * N + Di) * 4 + Bz * T * Di * N * 4)
+    b_ms, b_by = bound(nbytes, 15 * Bz * S * Di * N, torch.float32)
+    sets = []
+    for _ in range(rotations(nbytes)):
+        u = torch.randn(Bz, S, Di, generator=gen, device=dev).to(dtype)
+        dt = torch.nn.functional.softplus(
+            torch.randn(Bz, S, Di, generator=gen, device=dev) - 1.0)
+        A = -torch.exp(torch.log(torch.arange(
+            1, N + 1, device=dev, dtype=torch.float32)).expand(Di, N)
+            + 0.1 * torch.randn(Di, N, generator=gen, device=dev))
+        dbc = torch.randn(Bz, S, R + 2 * N, generator=gen,
+                          device=dev).to(dtype)
+        D = torch.randn(Di, generator=gen, device=dev)
+        dy = torch.randn(Bz, S, Di, generator=gen, device=dev)
+        args = (u, dt, A.contiguous(), dbc[..., R:R + N], dbc[..., R + N:], D)
+        carries = ops._scan_forward(*args, None, None, True)[2]
+        sets.append(args + (carries, dy))
+    fwd_want = ref.selective_scan_fwd_ref(*sets[0][:6], chunks=T)
+    fwd_err, fwd_scale = worst_error(
+        f"selective_scan {dt_} training launch (T {T} chunks)",
+        ops._scan_forward(*sets[0][:6], None, None, True), fwd_want,
+        ("y", "final state", "carries"), TOL[dtype])
+    del fwd_want
+    got = ops.selective_scan_bwd(*sets[0])
+    err, scale = worst_error(
+        f"selective_scan_bwd {dt_} B {Bz} S {S} Di {Di} N {N}", got,
+        ref.selective_scan_bwd_ref(*sets[0]),
+        ("du", "ddt", "dA", "dB", "dC", "dD"), TOL[dtype])
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, ops.selective_scan_bwd(*sets[0]))):
+        fail(f"selective_scan_bwd {dtype}: two calls differ")
+    if fwd_err / fwd_scale > err / scale:
+        err, scale = fwd_err, fwd_scale
+    del got
+    names = ("selective_scan_bwd_kernel", "reduce_bc_kernel",
+             "reduce_rows_kernel")
+    parts = {k: device_ms(ops.selective_scan_bwd, sets[0], k)
+             for k in names}
+    print(f"  selective_scan_bwd {dt_} device_ms by launch: " + ", ".join(
+        f"{k} {fmt_ms(v)}" for k, v in parts.items())
+        + f"; the training forward with its carries: device_ms "
+        f"{fmt_ms(device_ms(ops._scan_forward, sets[0][:6] + (None, None, True), 'selective_scan_kernel'))}",
+        flush=True)
+    return dict(max_abs_err=err, tolerance_scale=scale,
+                ms=time_ms(ops.selective_scan_bwd, sets),
+                device_ms=device_ms(ops.selective_scan_bwd, sets[0], names),
+                device_ms_by_launch=parts,
+                plain_ms=time_ms(ref.selective_scan_bwd_ref, sets, iters=2,
+                                 warmup=1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                chunks=T)
+
+
+def visible_pairs(S, causal, prefix_len, window=0) -> int:
+    """(query, key) pairs a head sees in an unpadded S-token sequence: all
+    of them, or the causal ones (the last `window` keys where a window is
+    set, the first `prefix_len` as well for a prefix-LM)."""
     if not causal:
         return S * S
-    return sum(max(i + 1, prefix_len) for i in range(S))
+    return sum(max(min(i + 1, window) if window else i + 1, prefix_len)
+               for i in range(S))
 
 
 #: other builds of the backward's library timed beside it in check_flash_bwd
@@ -819,7 +1032,8 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
     build runs through the same wrapper: its errors, and its times in turns
     with this build's."""
     B, S, H, KV, D = (shape[k] for k in ("B", "S", "H", "KV", "D"))
-    mask = dict(causal=shape["causal"], prefix_len=shape["prefix_len"])
+    mask = dict(causal=shape["causal"], window=shape["window"],
+                prefix_len=shape["prefix_len"])
     dev = "cuda"
     dt = str(dtype)[6:]
     pos = torch.arange(S, device=dev, dtype=torch.int32).repeat(B, 1)
@@ -827,7 +1041,8 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
     # q, k, v, o, dO and lse read; dq, dk, dv written; the positions
     nbytes = (4 * B * S * H * D + 4 * B * S * KV * D) * s + B * S * H * 4 \
         + 2 * pos.numel() * 4
-    pairs = B * H * visible_pairs(S, mask["causal"], mask["prefix_len"])
+    pairs = B * H * visible_pairs(S, mask["causal"], mask["prefix_len"],
+                                  mask["window"])
     b_ms, b_by = bound(nbytes, 5 * 2 * pairs * D, dtype)
     design = bwd_design(ops, dtype, B, S, H, KV, D)
     print(f"  flash_attention_bwd {dt} design at B {B} S {S} {H}x{D} on {KV} "
@@ -875,8 +1090,9 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
     lse = torch.empty(B, S, H, dtype=torch.float32, device=dev)
 
     def fwd(q, k, v, *_):
-        return ops._flash_forward(q, k, v, pos, pos, mask["causal"], 0,
-                                  mask["prefix_len"], ref.FLASH_KV_BLOCK, lse)
+        return ops._flash_forward(q, k, v, pos, pos, mask["causal"],
+                                  mask["window"], mask["prefix_len"],
+                                  ref.FLASH_KV_BLOCK, lse)
     out_k = fwd(q, k, v)
     out_r, lse_r = sets[0][5], sets[0][6]
     fwd_err = (out_k.float() - out_r.float()).abs().max().item()
@@ -887,8 +1103,10 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
     fwd_b, fwd_by = bound(fwd_bytes, 2 * 2 * pairs * D, dtype)
     ok = ref.attention_mask(pos, pos, **mask)[:, None]
     # the least-masked SDPA arguments that compute the same function here
+    # (none with a window or a prefix)
     least = {} if not mask["causal"] else \
-        dict(is_causal=True) if not mask["prefix_len"] else None
+        dict(is_causal=True) if not (mask["prefix_len"] or mask["window"]) \
+        else None
     lib_args = [tuple(x.transpose(1, 2) for x in st[:3]) for st in sets]
 
     def sdpa(q, k, v, masked=True):
@@ -975,7 +1193,11 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
 BOTH = (DENSE_ARCH, MOE_ARCH)
 ALL = BOTH + (SSM_ARCH, HYBRID_ARCH)
 #: a kernel's symbols in a profile, where not "<name>_kernel"
-SYMBOL = {"flash_attention_bwd": "flash_bwd_"}
+SYMBOL = {"flash_attention_bwd": ("flash_bwd_",),
+          "gmm": ("gmm_kernel<false>",),
+          "gmm_bwd": ("gmm_kernel<true>", "gmm_dw_kernel"),
+          "selective_scan_bwd": ("selective_scan_bwd_kernel",
+                                 "reduce_bc_kernel", "reduce_rows_kernel")}
 KERNELS = [
     ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash,
      torch.bfloat16, "flash_attention.cu", "dense", BOTH + (HYBRID_ARCH,)),
@@ -1001,7 +1223,14 @@ KERNELS = [
      torch.bfloat16, "selective_scan.cu", "ssm", (SSM_ARCH, HYBRID_ARCH)),
     # no Pallas twin: the JAX package's jnp custom_vjp backward
     ("flash_attention_bwd", "src/repro/models/layers.py:210", check_flash_bwd,
-     torch.bfloat16, "flash_attention_bwd.cu", "train", tuple(TRAIN)),
+     torch.bfloat16, "flash_attention_bwd.cu", "train", TRAIN_ATTN),
+    # no Pallas twins: JAX differentiates the capacity-buffer einsums and
+    # the chunked lax.scan / associative_scan
+    ("gmm_bwd", "src/repro/models/moe.py:90", check_gmm_bwd, torch.bfloat16,
+     "gmm.cu", "train", (MOE_ARCH,)),
+    ("selective_scan_bwd", "src/repro/models/mamba.py:45", check_scan_bwd,
+     torch.bfloat16, "selective_scan_bwd.cu", "train",
+     (SSM_ARCH, HYBRID_ARCH)),
 ]
 
 
@@ -1246,37 +1475,42 @@ def profile(run_query) -> None:
     """Where the time of one batcher query (or train step) goes: device busy
     time (the sum of the device-side events -- kernels and copies, one
     stream) against wall time, by category, and the kernels that take the
-    most."""
+    most.  The device events are summed by name straight from the trace's
+    raw events: the profiler's own averaging (key_averages) takes minutes
+    over the ~10^5-10^6 events of a query."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     with prof_ctx(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         wall = run_query()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    by_name = {}       # kernel or copy name -> [device us, launches]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            row = by_name.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e3
+            row[1] += 1
+    busy = sum(us for us, _ in by_name.values()) / 1e6
     print(f"profile: wall_s {wall:.3f} device_busy_s {busy:.3f} "
-          f"idle_share {1 - busy / wall:.3f} ({len(rows)} device event kinds; "
-          f"profiler on)", flush=True)
+          f"idle_share {1 - busy / wall:.3f} ({len(by_name)} device event "
+          f"kinds; profiler on)", flush=True)
     cats = {}
-    for e in rows:
-        k = e.key
-        cat = next((n[0] for n in KERNELS if SYMBOL.get(n[0], n[0] + "_kernel")
-                    in k), None)
+    for k, (us, count) in by_name.items():
+        cat = next((n[0] for n in KERNELS if any(
+            sym in k for sym in SYMBOL.get(n[0], (n[0] + "_kernel",)))),
+                   None)
         if cat is None:
             cat = ("memcpy/memset" if k.startswith("Mem") else
                    "gemm" if any(t in k for t in ("nvjet", "gemm", "cutlass",
                                                   "xmma")) else
                    "other kernels")
         ms, n = cats.get(cat, (0.0, 0))
-        cats[cat] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        cats[cat] = (ms + us / 1e3, n + count)
     print("  by category (ms, launches): " + ", ".join(
         f"{c} {t:.2f} ({n})" for c, (t, n) in
         sorted(cats.items(), key=lambda x: -x[1][0])), flush=True)
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:10]:
-        print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d} x "
-              f"{e.key[:90]}", flush=True)
+    for k, (us, count) in sorted(by_name.items(),
+                                 key=lambda x: -x[1][0])[:10]:
+        print(f"  {us / 1e3:10.2f} ms {count:6d} x {k[:90]}", flush=True)
 
 
 # ------------------------------- phase 6: training ------------------------------
@@ -1284,9 +1518,12 @@ def check_train_full_width(C, MDL, ref, arch, num_layers):
     """One train step's float32 logits, loss and gradients of every master
     leaf at `arch`'s full width and `num_layers` layers, at its training
     batch and length, through the kernels (kernel 1 with its lse and the
-    backward) against the plain autograd function
-    (ref.flash_attention_grad_ref), from the same weights and batch."""
+    flash backward; the grouped matmul and gmm_bwd; kernel 7 with its
+    carries and selective_scan_bwd) against the plain autograd functions
+    (ref.flash_attention_grad_ref, ref.gmm_grad_ref,
+    ref.selective_scan_grad_ref), from the same weights and batch."""
     from repro_torch.launch import steps as ST
+    from repro_torch.models.moe import pick_num_groups
     from repro_torch.training import optim as OPT
     from repro_torch.training.data import DataConfig, synthetic_batch
     cfg = C.get_config(arch).replace(compute_dtype="float32",
@@ -1298,12 +1535,20 @@ def check_train_full_width(C, MDL, ref, arch, num_layers):
     shp = TRAIN[arch]
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in synthetic_batch(
         cfg, DataConfig(batch=shp["B"], seq_len=shp["S"]), 0).items()}
+    plain = {}
+    if cfg.has_attention:
+        plain["attn_fn"] = ref.flash_attention_grad_ref
+    if cfg.has_moe:
+        plain["gmm_fn"] = ref.gmm_grad_ref
+    if cfg.has_ssm:
+        plain["scan_fn"] = ref.selective_scan_grad_ref
+    groups = pick_num_groups(shp["B"] * shp["S"], 1) if cfg.has_moe else 1
     runs = []
-    for attn_fn in (None, ref.flash_attention_grad_ref):
+    for fns in ({}, plain):
         for p in leaves:
             p.requires_grad_(True)
         logits, _ = MDL.forward(cfg, params, batch, mode="train",
-                                attn_fn=attn_fn)
+                                num_groups=groups, **fns)
         loss = MDL.lm_loss(cfg, logits, batch["labels"], batch["mask"])
         grads = torch.autograd.grad(loss, leaves)
         runs.append((logits.detach(), loss.detach(), grads))
@@ -1317,14 +1562,15 @@ def check_train_full_width(C, MDL, ref, arch, num_layers):
     tol = 1e-3
     print(f"train step float32 ({arch}, full width, {num_layers} of "
           f"{C.get_config(arch).num_layers} layers, B {shp['B']} S "
-          f"{shp['S']}): kernels vs plain attention: logits max_abs_err "
+          f"{shp['S']}): kernels vs the plain pairs ({', '.join(plain)}): "
+          f"logits max_abs_err "
           f"{lerr} (tolerance {tol}; logit std {lp.std().item()}), loss "
           f"{sk.item()} vs {sp.item()}, gradients' largest error relative "
           f"to the leaf's largest |gradient| {gerr} over {len(gk)} leaves "
           f"(tolerance {tol})", flush=True)
     if not (lerr < tol and gerr < tol):
         fail(f"{arch} float32 train step: kernels disagree with the plain "
-             "attention")
+             "pairs")
 
 
 def train_run(TR, arch, steps, *extra):
@@ -1337,17 +1583,20 @@ def train_run(TR, arch, steps, *extra):
 
 
 def model_flops(cfg, tokens, S) -> float:
-    """6 N per token for the weights (N without the embedding, which is a
-    gather, but with the tied or separate LM head), plus the attention's
-    score and value products: 6 x 2 L H D x the visible keys per token
-    (forward 2 products of 2 flops, backward twice that)."""
-    n = cfg.param_count()
+    """6 N per token for the weights (N the parameters a token uses: the
+    MoE family's top-k experts of a layer, not all of them; without the
+    embedding, which is a gather, but with the tied or separate LM head),
+    plus the attention's score and value products: 6 x 2 L H D x the
+    visible keys per token (forward 2 products of 2 flops, backward twice
+    that).  The selective scan's own arithmetic (~20 flops a (token, d,
+    n) forward and backward, under 1 % of a mixer layer's) is left out."""
+    n = cfg.active_param_count()
     if cfg.family != "encoder":
         n -= cfg.vocab_size * cfg.d_model          # the embedding gather
         if cfg.tie_embeddings:
             n += cfg.vocab_size * cfg.d_model      # ... used as the LM head
     P = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
-    keys = visible_pairs(S, cfg.causal, P) / S
+    keys = visible_pairs(S, cfg.causal, P, cfg.sliding_window) / S
     return tokens * (6 * n + 12 * cfg.num_layers * cfg.num_heads
                      * cfg.head_dim * keys)
 
@@ -1387,7 +1636,7 @@ def compare_bwd_steps(ops):
     own = ops._fns["flash_attention_bwd"]
     builds = {"this": own, **BWD_VARIANTS}
     try:
-        for arch in TRAIN:
+        for arch in (DENSE_ARCH, VLM_ARCH, ENC_ARCH):
             h = train_run(TR, arch, 1)
             step = warm_step(ST, h["cfg"], arch, h["state"], 1)
             times = {label: [] for label in builds}
@@ -1500,6 +1749,93 @@ def train_path(C, smi):
     return out
 
 
+@contextlib.contextmanager
+def cut_depth(C, arch):
+    """The registry returns `arch` at its TRAIN_DEPTH depth while the
+    trainer reads it (the driver has no depth flag: it builds the named
+    config)."""
+    get = C.get_config
+    depth = TRAIN_DEPTH.get(arch)
+    if depth:
+        C.get_config = lambda name: (get(name).replace(num_layers=depth)
+                                     if name == arch else get(name))
+    try:
+        yield
+    finally:
+        C.get_config = get
+
+
+def state_digest(state) -> list:
+    """Per-leaf digests of a train state's bits, computed on the card (two
+    states of the cut MoE config do not fit it at once): each float32
+    leaf's bit patterns as int32, summed plainly and with a pseudo-random
+    weight a position, in int64 over 2^24-element slices; and the step."""
+    from repro_torch.training import optim as OPT
+    out = []
+    for leaf in OPT.leaves(state["params"]) + OPT.leaves(state["opt"]):
+        bits = leaf.detach().reshape(-1).view(torch.int32)
+        d0 = d1 = 0
+        for i in range(0, bits.numel(), 1 << 24):
+            c = bits[i:i + (1 << 24)].long()
+            w = torch.arange(i, i + c.numel(), device=c.device) \
+                * 2654435761 % 2147483647
+            d0 += int(c.sum())
+            d1 += int((c * w).sum())
+        out.append((d0, d1))
+    return out + [state["step"]]
+
+
+def train_new_families(C, smi):
+    """The MoE, ssm and hybrid families through repro_torch.launch.train in
+    bfloat16 compute over float32 master weights and AdamW state, at full
+    width and each at its TRAIN_DEPTH (qwen3-moe-30b-a3b 4 of 48 layers,
+    falcon-mamba-7b 30 of 64, hymba-1.5b full depth with its 1024-token
+    window live at 2048 tokens), at the driver's own schedule: 8 steps in
+    the default mode (the loss must fall; step time, tokens/s, model FLOP/s
+    over the bf16 peak, peak memory), one more step profiled; then, for
+    qwen3-moe and hymba, the same 4 steps twice in --deterministic mode,
+    whose states must be equal to the bit (compared by per-leaf digests):
+    no atomics in the grouped matmul's or the scan's backward."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    out = {}
+    for arch in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH):
+        full_depth = C.get_config(arch).num_layers
+        with cut_depth(C, arch):
+            torch.cuda.reset_peak_memory_stats()
+            h = train_run(TR, arch, 8)
+            peak = torch.cuda.max_memory_allocated()
+            cfg = h["cfg"]
+            depth = f"{cfg.num_layers} of {full_depth} layers"
+            out[arch] = report_train(f"{arch} (full width, {depth})", h, cfg,
+                                     TRAIN[arch], smi)
+            print(f"  peak device memory {peak / 2**30:.2f} GiB", flush=True)
+            if not h["losses"][-1] < h["losses"][0]:
+                fail(f"{arch}: the loss did not fall: {h['losses']}")
+            print(f"profile of one warm {arch} train step:", flush=True)
+            profile(warm_step(ST, cfg, arch, h["state"], 8))
+            del h
+            gc.collect()
+            torch.cuda.empty_cache()
+            if arch == SSM_ARCH:
+                continue
+            runs = []
+            for _ in range(2):
+                r = train_run(TR, arch, 4, "--deterministic")
+                runs.append((r["losses"], state_digest(r["state"])))
+                del r
+                gc.collect()
+                torch.cuda.empty_cache()
+            same = runs[0] == runs[1]
+            print(f"deterministic repeat ({arch}, 4 steps twice): "
+                  f"{'equal to the bit' if same else 'DIFFERENT'} (losses "
+                  f"{runs[0][0]} vs {runs[1][0]}; {len(runs[0][1]) - 1} "
+                  f"leaves' digests)", flush=True)
+            if not same:
+                fail(f"{arch}: two deterministic runs differ")
+    return out
+
+
 # ------------------------------------ main -------------------------------------
 def main(argv=None) -> int:
     import argparse
@@ -1545,6 +1881,7 @@ def main(argv=None) -> int:
           "cudnn.allow_tf32 = False", flush=True)
     gen = torch.Generator("cuda").manual_seed(SEED)
     shapes = {a: path_shapes(C.get_config(a)) for a in ALL + tuple(TRAIN)}
+    stamp("phase 2: the kernels")
     report = {}
     for kname, replaces, check, path_dtype, src, path, archs in KERNELS:
         if only and kname not in only.split(","):
@@ -1581,8 +1918,9 @@ def main(argv=None) -> int:
                     k: r[k] for k in ("max_abs_err", "ms", "device_ms",
                                       "plain_ms", "library_ms", "bound_ms",
                                       "bound_by", "splits", "warps",
-                                      "int8_pages", "forward",
-                                      "device_ms_by_launch") if k in r}
+                                      "int8_pages", "forward", "chunks",
+                                      "device_ms_by_launch", "by_shape")
+                    if k in r}
 
     if args.compare_bwd and "flash_attention_bwd" in report:
         compare_bwd_steps(ops)
@@ -1590,6 +1928,7 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": list(report.values())}), flush=True)
         return 0
 
+    stamp("phase 3: the full-width forwards")
     check_forward_full_width(C, MDL, init_params, ref, DENSE_ARCH, SEED + 1)
     torch.cuda.empty_cache()
     check_paged_forward_full_width(C, init_params, ref, DENSE_ARCH)
@@ -1606,15 +1945,18 @@ def main(argv=None) -> int:
     check_forward_full_width(C, MDL, init_params, ref, HYBRID_ARCH, SEED + 5)
     torch.cuda.empty_cache()
 
+    stamp("the SQL paths")
     cfg, params, _ = build_engine_weights(C, init_params, DENSE_ARCH)
 
     def count(path, runs, needed):
         """Drive one main path with every launch count set to 0 just
         before it; read the counts just after."""
         ops.reset_launches()
+        t = time.time()
         out = runs()
         launches = {k: w.launches for k, w in ops.WRAPPERS.items()}
-        print(f"launches during the {path} path: {launches}", flush=True)
+        print(f"launches during the {path} path ({time.time() - t:.1f} s): "
+              f"{launches}", flush=True)
         for k in needed:
             if launches[k] <= 0:
                 fail(f"{k}: no launch on the {path} path")
@@ -1636,6 +1978,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     # the paged path, fp pages and int8 pages: radix matches, COW forks
+    stamp("the paged path")
     paged = {q: sql_session(cfg, params, f"{smi}, kv_quant {q}",
                             kv_layout="paged", page_size=PAGED["ps"],
                             kv_quant=q) for q in ("none", "int8")}
@@ -1675,6 +2018,7 @@ def main(argv=None) -> int:
     del dense, paged, params
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("the moe path")
     cfg, params, nbytes = build_engine_weights(C, init_params, MOE_ARCH)
     moe = sql_session(cfg, params, f"{smi}, {MOE_ARCH}")
     moe_paged = sql_session(cfg, params, f"{smi}, {MOE_ARCH}, kv_quant none",
@@ -1702,6 +2046,7 @@ def main(argv=None) -> int:
     del moe, moe_paged, params
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("the ssm path")
     cfg, params, nbytes = build_engine_weights(C, init_params, SSM_ARCH)
     ssm = sql_session(cfg, params, f"{smi}, {SSM_ARCH}")
     count("ssm", lambda: {
@@ -1717,6 +2062,7 @@ def main(argv=None) -> int:
     del ssm, params
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("the hybrid path")
     cfg, params, nbytes = build_engine_weights(C, init_params, HYBRID_ARCH)
     hybrid = sql_session(cfg, params, f"{smi}, {HYBRID_ARCH}")
     count("hybrid", lambda: {
@@ -1730,11 +2076,15 @@ def main(argv=None) -> int:
 
     # the training path: float32 train steps at reduced depth (kernels vs
     # plain), then the trainer in bfloat16
+    stamp("phase 6: training")
     for arch in TRAIN:
         check_train_full_width(C, MDL, ref, arch, 2)
         torch.cuda.empty_cache()
-    count("train", lambda: train_path(C, smi),
-          ("flash_attention", "flash_attention_bwd"))
+    stamp("the trainer in bfloat16")
+    count("train", lambda: (train_path(C, smi), train_new_families(C, smi)),
+          ("flash_attention", "flash_attention_bwd", "gmm", "gmm_bwd",
+           "selective_scan", "selective_scan_bwd"))
+    stamp("done")
 
     for r in report.values():
         r["launches"] = r["launches_by_path"][r["path"]]

@@ -55,6 +55,25 @@
 //   torch op would add its dispatch to 144 gmm calls per decode tick of a
 //   48-layer model.)
 //
+// The backward (repro_gmm_bwd; plain version kernels/ref.py gmm_bwd_ref).
+// No Pallas twin: the JAX package differentiates its capacity-buffer einsums
+// (repro/models/moe.py:90-92).  For the output gradient dy (T, N):
+// - dx = dy . w[e]^T row by row: the same kernel with TRANS_W, which reads
+//   w[e] as (N, M) in place -- a weight tile is staged as kBN rows of kBK
+//   contiguous contraction values and enters the tensor cores by ldmatrix
+//   without .trans -- so no transposed copy of the weights is made (1.2 GB
+//   of bf16 a MoE layer at qwen3-moe-30b-a3b).  Rows past sum(gs) get 0.
+// - dw[e] = x_e^T . dy_e over expert e's ragged rows: gmm_dw_kernel.  Each
+//   (expert, 64-row M tile, 64-column N tile) of dw has one owner block,
+//   which walks the group's rows in order through the same cp.async ring
+//   (x and dy tiles of kBK rows; x enters as the A operand by ldmatrix
+//   .trans).  No float atomics, so two calls give the same bits; an empty
+//   expert writes zeros.  Group starts come from the same in-block scan of
+//   gs as the forward's (no host sync).  Bound at qwen3-moe-30b-a3b's
+//   training shapes (T*K = 32768 rows, C = 320): the ~403 MB of dw written
+//   plus x and dy read, ~0.18 ms at 3.35 TB/s, against ~103 GFLOP (~0.10 ms
+//   of bf16 tensor-core time).  float32 runs both on the CUDA cores.
+//
 // Rounding: bf16 x and w enter the tensor cores as they are (their products
 // are exact in fp32), the sums are fp32, and each output is rounded to
 // bf16 once.  float32 keeps full fp32 products on the CUDA cores (TF32
@@ -144,6 +163,9 @@ constexpr int kXElems = kBM * kBK;  // 8 KB
 constexpr int kWElems = kBK * kBN;
 constexpr size_t kSmem = sizeof(__nv_bfloat16) * kStages * (kXElems + kWElems);
 
+// TRANS_W: w[e] is (N, M) -- the forward's (E, M, N) weights read as
+// their transpose, for dx -- instead of (M, N).  M is the contraction.
+template <bool TRANS_W>
 __global__ void __launch_bounds__(kThreads, 3)
 gmm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
            const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int Trows,
@@ -186,11 +208,20 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
         cp_async16(xd + swz<bf16>(r, c, kXChunks),
                    ok ? xe + (size_t)r * M + k0 + 8 * c : x, ok);
       }
-      for (int i = tid; i < kBK * kWChunks; i += kThreads) {
-        const int r = i / kWChunks, c = i % kWChunks;
-        const bool ok = k0 + r < M && n0 + 8 * c < N;
-        cp_async16(wd + swz<bf16>(r, c, kWChunks),
-                   ok ? we + (size_t)(k0 + r) * N + n0 + 8 * c : w, ok);
+      if constexpr (TRANS_W) {  // kBN rows (output columns) of kBK values
+        for (int i = tid; i < kBN * kXChunks; i += kThreads) {
+          const int r = i / kXChunks, c = i % kXChunks;
+          const bool ok = n0 + r < N && k0 + 8 * c < M;
+          cp_async16(wd + swz<bf16>(r, c, kXChunks),
+                     ok ? we + (size_t)(n0 + r) * M + k0 + 8 * c : w, ok);
+        }
+      } else {
+        for (int i = tid; i < kBK * kWChunks; i += kThreads) {
+          const int r = i / kWChunks, c = i % kWChunks;
+          const bool ok = k0 + r < M && n0 + 8 * c < N;
+          cp_async16(wd + swz<bf16>(r, c, kWChunks),
+                     ok ? we + (size_t)(k0 + r) * N + n0 + 8 * c : w, ok);
+        }
       }
     };
 
@@ -213,8 +244,12 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict_
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         uint32_t b[4];  // w rows 16 kk.., the warp's columns 16 warp..
-        ldmatrix_x4_trans(b, ws + swz<bf16>(16 * kk + (lane & 15), 2 * warp + (lane >> 4),
-                                            kWChunks));
+        if constexpr (TRANS_W)
+          ldmatrix_x4(b, ws + swz<bf16>(16 * warp + (lane & 7) + 8 * (lane >> 4),
+                                        2 * kk + ((lane >> 3) & 1), kXChunks));
+        else
+          ldmatrix_x4_trans(b, ws + swz<bf16>(16 * kk + (lane & 15),
+                                              2 * warp + (lane >> 4), kWChunks));
 #pragma unroll
         for (int sl = 0; sl < 4; ++sl) {
           if (sl < nslices) {
@@ -255,6 +290,7 @@ constexpr int kFmaBM = 16;    // rows per tile
 constexpr int kFmaBN = 128;   // output columns per block
 constexpr int kFmaBK = 32;    // contraction chunk: 128 bytes of x a row
 
+template <bool TRANS_W>
 __global__ void __launch_bounds__(kFmaThreads)
 gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
            const int* __restrict__ gs, float* __restrict__ out, int Trows, int M,
@@ -290,10 +326,21 @@ gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const bool ok = r < rows && k0 + c < M;
       cp_async16(&xs[s][r][c], ok ? x + (size_t)(row0 + r) * M + k0 + c : x, ok);
     }
-    for (int i = tid; i < kFmaBK * kFmaBN / 4; i += kFmaThreads) {
-      const int r = i / (kFmaBN / 4), c = (i % (kFmaBN / 4)) * 4;
-      const bool ok = k0 + r < M && n0 + c < N;
-      cp_async16(&ws[s][r][c], ok ? we + (size_t)(k0 + r) * N + n0 + c : we, ok);
+    if constexpr (TRANS_W) {  // w[e] (N, M): 4 contraction values a load, stored transposed
+      for (int i = tid; i < kFmaBN * kFmaBK / 4; i += kFmaThreads) {
+        const int n = i / (kFmaBK / 4), k = (i % (kFmaBK / 4)) * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (n0 + n < N && k0 + k < M)
+          v = *reinterpret_cast<const float4*>(we + (size_t)(n0 + n) * M + k0 + k);
+        ws[s][k][n] = v.x, ws[s][k + 1][n] = v.y, ws[s][k + 2][n] = v.z,
+        ws[s][k + 3][n] = v.w;
+      }
+    } else {
+      for (int i = tid; i < kFmaBK * kFmaBN / 4; i += kFmaThreads) {
+        const int r = i / (kFmaBN / 4), c = (i % (kFmaBN / 4)) * 4;
+        const bool ok = k0 + r < M && n0 + c < N;
+        cp_async16(&ws[s][r][c], ok ? we + (size_t)(k0 + r) * N + n0 + c : we, ok);
+      }
     }
   };
 
@@ -334,11 +381,194 @@ gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ------------------------ dw: one owner block a tile --------------------------
+// dw[e][m0.., n0..] (kBM x kBN) = sum over the rows r of group e, in order,
+// of x[r][m0..]^T dy[r][n0..]; grid E * ceil(M / kBM) * ceil(N / kBN), the
+// N tiles of an (expert, M tile) next to each other.  x (T, M), dy (T, N),
+// dw (E, M, N).  The contraction (the group's rows) streams through the
+// forward's ring, kBK rows of x and of dy a stage.
+__global__ void __launch_bounds__(kThreads, 3)
+gmm_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+              const int* __restrict__ gs, __nv_bfloat16* __restrict__ dw, int M, int N,
+              int E) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xring = reinterpret_cast<bf16*>(smem_raw);  // kStages x kBK rows x kBM
+  bf16* dring = xring + kStages * kXElems;           // kStages x kBK rows x kBN
+  __shared__ int tile_off[kMaxE + 1];
+  __shared__ int row_off[kMaxE + 1];
+  __shared__ int warp_tot[2][kThreads / 32];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  scan_tiles<kBM, kThreads>(gs, E, tile_off, row_off, warp_tot);
+
+  const int nM = (M + kBM - 1) / kBM, nN = (N + kBN - 1) / kBN;
+  const int e = blockIdx.x / (nM * nN);
+  const int mt = blockIdx.x / nN % nM, nt = blockIdx.x % nN;
+  const int m0 = mt * kBM, n0 = nt * kBN;
+  const int start = row_off[e], rows = row_off[e + 1] - start;
+  const int nk = (rows + kBK - 1) / kBK;
+
+  // rows [kt kBK, kt kBK + kBK) of the group into slot s (past it: zeros)
+  auto load_stage = [&](int s, int kt) {
+    const int r0 = kt * kBK;
+    bf16* xd = xring + s * kXElems;
+    bf16* dd = dring + s * kWElems;
+    for (int i = tid; i < kBK * kXChunks; i += kThreads) {
+      const int r = i / kXChunks, c = i % kXChunks;
+      const bool live = r0 + r < rows;
+      const size_t row = (size_t)(start + r0 + r);
+      const bool okx = live && m0 + 8 * c < M, okd = live && n0 + 8 * c < N;
+      cp_async16(xd + swz<bf16>(r, c, kXChunks), okx ? x + row * M + m0 + 8 * c : x, okx);
+      cp_async16(dd + swz<bf16>(r, c, kWChunks), okd ? dy + row * N + n0 + 8 * c : dy, okd);
+    }
+  };
+
+  // acc[m slice][n8 tile][4]: the warp's 16 columns for the 64 rows of M
+  float acc[4][2][4] = {};
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int pf = kt + kStages - 1;
+    if (pf < nk) load_stage(pf % kStages, pf);
+    cp_async_commit();
+    const bf16* xs = xring + (kt % kStages) * kXElems;
+    const bf16* ds = dring + (kt % kStages) * kWElems;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t b[4];  // dy rows 16 kk.., the warp's columns
+      ldmatrix_x4_trans(b, ds + swz<bf16>(16 * kk + (lane & 15), 2 * warp + (lane >> 4),
+                                          kWChunks));
+#pragma unroll
+      for (int sl = 0; sl < 4; ++sl) {
+        uint32_t a[4];  // A[m][k] = x[k][m]: the stored rows are the contraction
+        ldmatrix_x4_trans(a, xs + swz<bf16>(16 * kk + (lane & 7) + 8 * (lane >> 4),
+                                            2 * sl + ((lane >> 3) & 1), kXChunks));
+        mma_bf16(acc[sl][0], a, b[0], b[1]);
+        mma_bf16(acc[sl][1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* de = dw + (size_t)e * M * N;
+#pragma unroll
+  for (int sl = 0; sl < 4; ++sl) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = n0 + 16 * warp + 8 * j + 2 * (lane & 3);
+      if (c >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 16 * sl + (lane >> 2) + 8 * h;
+        if (m < M)
+          *reinterpret_cast<uint32_t*>(de + (size_t)m * N + c) =
+              pack_bf16(acc[sl][j][2 * h], acc[sl][j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// float32 dw on the CUDA cores: a 64 x 64 tile a block of 256 threads, 4 x 4
+// outputs a thread, the group's rows 16 at a time through a 2-stage ring.
+constexpr int kDwThreads = 256;
+constexpr int kDwRows = 16;
+
+__global__ void __launch_bounds__(kDwThreads)
+gmm_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+              const int* __restrict__ gs, float* __restrict__ dw, int M, int N, int E) {
+  __shared__ __align__(16) float xs[2][kDwRows][kBM];
+  __shared__ __align__(16) float ds[2][kDwRows][kBN];
+  __shared__ int tile_off[kMaxE + 1];
+  __shared__ int row_off[kMaxE + 1];
+  __shared__ int warp_tot[2][kDwThreads / 32];
+  const int tid = threadIdx.x;
+  scan_tiles<kBM, kDwThreads>(gs, E, tile_off, row_off, warp_tot);
+  const int nM = (M + kBM - 1) / kBM, nN = (N + kBN - 1) / kBN;
+  const int e = blockIdx.x / (nM * nN);
+  const int m0 = (blockIdx.x / nN % nM) * kBM, n0 = (blockIdx.x % nN) * kBN;
+  const int start = row_off[e], rows = row_off[e + 1] - start;
+  const int ty = tid / 16, tx = tid % 16;  // m 4 ty.., n 4 tx..
+
+  auto load_stage = [&](int s, int r0) {  // one 16-byte chunk of x and of dy a thread
+    const int r = tid / 16, c = (tid % 16) * 4;
+    const bool live = r0 + r < rows;
+    const size_t row = (size_t)(start + r0 + r);
+    const bool okx = live && m0 + c < M, okd = live && n0 + c < N;
+    cp_async16(&xs[s][r][c], okx ? x + row * M + m0 + c : x, okx);
+    cp_async16(&ds[s][r][c], okd ? dy + row * N + n0 + c : dy, okd);
+  };
+  float acc[4][4] = {};
+  const int nk = (rows + kDwRows - 1) / kDwRows;
+  if (nk > 0) load_stage(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * kDwRows);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int s = kt & 1;
+#pragma unroll
+    for (int k = 0; k < kDwRows; ++k) {
+      const float4 xv = *reinterpret_cast<const float4*>(&xs[s][k][4 * ty]);
+      const float4 dv = *reinterpret_cast<const float4*>(&ds[s][k][4 * tx]);
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w}, da[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], da[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  float* de = dw + (size_t)e * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + 4 * ty + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + 4 * tx + j;
+      if (c < N) de[(size_t)m * N + c] = acc[i][j];
+    }
+  }
+}
+
+int launch_dw_bf16(const void* x, const void* dy, const void* gs, void* dw, int M, int N,
+                   int E, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  auto kernel = static_cast<void (*)(const bf16*, const bf16*, const int*, bf16*, int, int,
+                                     int)>(gmm_dw_kernel);
+  cudaError_t err = allow_smem_once(kernel, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long grid = (long)E * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  kernel<<<(unsigned)grid, kThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<const int*>(gs),
+      static_cast<bf16*>(dw), M, N, E);
+  return (int)cudaGetLastError();
+}
+
+int launch_dw_f32(const void* x, const void* dy, const void* gs, void* dw, int M, int N,
+                  int E, cudaStream_t stream) {
+  auto kernel = static_cast<void (*)(const float*, const float*, const int*, float*, int,
+                                     int, int)>(gmm_dw_kernel);
+  const long grid = (long)E * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  kernel<<<(unsigned)grid, kDwThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy),
+      static_cast<const int*>(gs), static_cast<float*>(dw), M, N, E);
+  return (int)cudaGetLastError();
+}
+
+template <bool TRANS_W>
 int launch_bf16(const void* x, const void* w, const void* gs, void* out, int Trows,
                 int M, int N, int E, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   auto kernel = static_cast<void (*)(const bf16*, const bf16*, const int*, bf16*, int,
-                                     int, int, int)>(gmm_kernel);
+                                     int, int, int)>(gmm_kernel<TRANS_W>);
   // the persistent grid: as many blocks as fit on the card at once,
   // computed on the first call per device
   static int resident[16] = {};
@@ -369,10 +599,11 @@ int launch_bf16(const void* x, const void* w, const void* gs, void* out, int Tro
   return (int)cudaGetLastError();
 }
 
+template <bool TRANS_W>
 int launch_f32(const void* x, const void* w, const void* gs, void* out, int Trows, int M,
                int N, int E, cudaStream_t stream) {
   auto kernel = static_cast<void (*)(const float*, const float*, const int*, float*, int,
-                                     int, int, int)>(gmm_kernel);
+                                     int, int, int)>(gmm_kernel<TRANS_W>);
   const dim3 grid((Trows + kFmaBM - 1) / kFmaBM + E + 1, (N + kFmaBN - 1) / kFmaBN);
   kernel<<<grid, kFmaThreads, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
@@ -392,9 +623,32 @@ extern "C" int repro_gmm(int dtype, const void* x, const void* w, const void* gs
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return launch_f32(x, w, gs, out, Trows, M, N, E, s);
+      return launch_f32<false>(x, w, gs, out, Trows, M, N, E, s);
     case kBFloat16:
-      return launch_bf16(x, w, gs, out, Trows, M, N, E, s);
+      return launch_bf16<false>(x, w, gs, out, Trows, M, N, E, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward of repro_gmm for dy (T, N): dx (T, M) = dy . w[e]^T row by
+// row (rows past sum(gs) 0), then dw (E, M, N) = x_e^T . dy_e (0 for an
+// empty expert).  Two launches; shapes and alignment as repro_gmm, dy and
+// dx of x's dtype, dw of w's.  Returns the CUDA error code of the first
+// launch that failed (0 on success).
+extern "C" int repro_gmm_bwd(int dtype, const void* x, const void* w, const void* gs,
+                             const void* dy, void* dx, void* dw, int Trows, int M, int N,
+                             int E, void* stream) {
+  if (E < 1 || E > kMaxE) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (dtype) {
+    case kFloat32:
+      err = launch_f32<true>(dy, w, gs, dx, Trows, N, M, E, s);
+      return err ? err : launch_dw_f32(x, dy, gs, dw, M, N, E, s);
+    case kBFloat16:
+      err = launch_bf16<true>(dy, w, gs, dx, Trows, N, M, E, s);
+      return err ? err : launch_dw_bf16(x, dy, gs, dw, M, N, E, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

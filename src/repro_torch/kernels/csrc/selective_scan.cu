@@ -68,6 +68,14 @@
 //   word in the same thread.
 // - Unchanged: u/B/C in float32 or bfloat16; N in {4, 8, 16, 32}; B and C
 //   as strided slices of one projection (ldbc); ragged S and Di.
+// - The training launch (carries non-null) also writes the state entering
+//   each time chunk, carries (Bz, T, Di, N) float32: h0 (or zeros) for
+//   chunk 0, then the combine's H_{k-1}, which the chunk already holds in
+//   shared memory -- what the backward (selective_scan_bwd.cu) recomputes
+//   each chunk's states from.  The caller fixes the chunk count T
+//   (repro_selective_scan_chunks gives the one a serving launch would
+//   pick), and a one-step training scan runs the chunked kernel.  Serving
+//   launches pass null and write nothing more.
 
 #include <math.h>
 
@@ -98,6 +106,7 @@ struct ScanArgs {
   const float* h0;    // (Bz, Di, N) or null; may be h_out
   float* y;           // (Bz, S, Di)
   float* h_out;       // (Bz, Di, N)
+  float* carries;     // (Bz, T, Di, N): the state entering each chunk, or null
   int S, Di, ldbc;
 };
 
@@ -215,6 +224,9 @@ selective_scan_kernel(ScanArgs a, int L) {
   if (k == 0) {
 #pragma unroll
     for (int n = 0; n < N; ++n) h[n] = (live && a.h0 != nullptr) ? a.h0[hidx + n] : 0.f;
+    if (a.carries != nullptr && live)
+#pragma unroll
+      for (int n = 0; n < N; ++n) a.carries[(((size_t)b * nch) * a.Di + d) * N + n] = h[n];
     scan_steps<T, N, true>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
   } else if (k < nch - 1) {
 #pragma unroll
@@ -252,6 +264,10 @@ selective_scan_kernel(ScanArgs a, int L) {
   if (k == 0) return;
 #pragma unroll
   for (int n = 0; n < N; ++n) h[n] = carry[((k - 1) * N + n) * 32 + lane];
+  if (a.carries != nullptr && live)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      a.carries[(((size_t)b * nch + k) * a.Di + d) * N + n] = h[n];
   scan_steps<T, N, true>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
   if (k == nch - 1 && live)
 #pragma unroll
@@ -319,17 +335,18 @@ int pick_chunks(int groups, int S, int cap) {
 }
 
 template <typename T, int N>
-int launch(const ScanArgs& a, int Bz, cudaStream_t stream) {
+int launch(const ScanArgs& a, int Bz, int chunks, cudaStream_t stream) {
   // the decode kernel's float4 state and A loads need 16-byte alignment;
   // an unaligned step runs as a one-chunk scan
   const bool aligned = ((uintptr_t)a.A | (uintptr_t)a.h0 | (uintptr_t)a.h_out) % 16 == 0;
-  if (a.S == 1 && aligned) {
+  if (a.S == 1 && aligned && a.carries == nullptr) {
     const dim3 grid((a.Di + kDecodeThreads - 1) / kDecodeThreads, Bz);
     selective_scan_kernel_decode<T, N><<<grid, kDecodeThreads, 0, stream>>>(a);
     return (int)cudaGetLastError();
   }
   const int groups = (a.Di + 31) / 32;
-  const int nch = pick_chunks(groups * Bz, a.S, kChunksFor<N>);
+  const int nch = chunks > 0 ? chunks : pick_chunks(groups * Bz, a.S, kChunksFor<N>);
+  if (nch > kChunksFor<N>) return (int)cudaErrorInvalidValue;
   const int L = (a.S + nch - 1) / nch;
   const size_t smem =
       sizeof(float) * ((size_t)(nch - 1) * (N + 1) * 32 + (size_t)nch * kSlab * 2 * N);
@@ -341,16 +358,16 @@ int launch(const ScanArgs& a, int Bz, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch_n(int N, const ScanArgs& a, int Bz, cudaStream_t s) {
+int dispatch_n(int N, const ScanArgs& a, int Bz, int chunks, cudaStream_t s) {
   switch (N) {
     case 4:
-      return launch<T, 4>(a, Bz, s);
+      return launch<T, 4>(a, Bz, chunks, s);
     case 8:
-      return launch<T, 8>(a, Bz, s);
+      return launch<T, 8>(a, Bz, chunks, s);
     case 16:
-      return launch<T, 16>(a, Bz, s);
+      return launch<T, 16>(a, Bz, chunks, s);
     case 32:
-      return launch<T, 32>(a, Bz, s);
+      return launch<T, 32>(a, Bz, chunks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -362,25 +379,48 @@ int dispatch_n(int N, const ScanArgs& a, int Bz, cudaStream_t s) {
 // contiguous; A (Di, N) and D (Di,) float32; B, C (Bz, S, N) of u's dtype,
 // row t of batch b at (b * S + t) * ldbc (slices of one projection); h0
 // (Bz, Di, N) float32 or NULL (zeros); y (Bz, S, Di) float32; h_out (Bz, Di,
-// N) float32, may be h0.  N in {4, 8, 16, 32}.  Returns the CUDA error
-// code of the launch (0 on success).
+// N) float32, may be h0.  N in {4, 8, 16, 32}.  carries: NULL (serving), or
+// (Bz, chunks, Di, N) float32 for the state entering each of `chunks` time
+// chunks (the training launch; chunks from repro_selective_scan_chunks, or
+// any count up to the kernel's cap).  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int repro_selective_scan(int dtype, const void* u, const void* dt,
                                     const void* A, const void* B,
                                     const void* C, const void* D,
                                     const void* h0, void* y, void* h_out,
-                                    int Bz, int S, int Di, int N, int ldbc,
-                                    void* stream) {
+                                    void* carries, int Bz, int S, int Di, int N,
+                                    int ldbc, int chunks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Bz <= 0 || S <= 0 || Di <= 0) return (int)cudaErrorInvalidValue;
+  if (Bz <= 0 || S <= 0 || Di <= 0 || (carries != nullptr && chunks <= 0))
+    return (int)cudaErrorInvalidValue;
   const ScanArgs a{u, static_cast<const float*>(dt), static_cast<const float*>(A), B, C,
                    static_cast<const float*>(D), static_cast<const float*>(h0),
-                   static_cast<float*>(y), static_cast<float*>(h_out), S, Di, ldbc};
+                   static_cast<float*>(y), static_cast<float*>(h_out),
+                   static_cast<float*>(carries), S, Di, ldbc};
+  if (carries == nullptr) chunks = 0;
   switch (dtype) {
     case kFloat32:
-      return dispatch_n<float>(N, a, Bz, s);
+      return dispatch_n<float>(N, a, Bz, chunks, s);
     case kBFloat16:
-      return dispatch_n<__nv_bfloat16>(N, a, Bz, s);
+      return dispatch_n<__nv_bfloat16>(N, a, Bz, chunks, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The time chunks a prefill launch of this shape runs (the training
+// launch's carries count), or 0 for an unsupported N.
+extern "C" int repro_selective_scan_chunks(int Bz, int S, int Di, int N) {
+  if (Bz <= 0 || S <= 0 || Di <= 0) return 0;
+  const int groups = (Di + 31) / 32 * Bz;
+  switch (N) {
+    case 4:
+    case 8:
+    case 16:
+      return pick_chunks(groups, S, kChunksFor<16>);
+    case 32:
+      return pick_chunks(groups, S, kChunksFor<32>);
+    default:
+      return 0;
   }
 }

@@ -61,9 +61,21 @@ KERNELS = {
     "constrained_sample": ("constrained_sample.cu", "repro_constrained_sample",
                            [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
     "gmm": ("gmm.cu", "repro_gmm", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "gmm_bwd": ("gmm.cu", "repro_gmm_bwd",
+                [_I] + [_P] * 6 + [_I] * 4 + [_P]),
     "selective_scan": ("selective_scan.cu", "repro_selective_scan",
-                       [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _P]),
+                       [_I] + [_P] * 10 + [_I] * 6 + [_P]),
+    "selective_scan_bwd": ("selective_scan_bwd.cu", "repro_selective_scan_bwd",
+                           [_I] + [_P] * 15 + [_I] * 6 + [_P]),
+}
+#: the C queries beside the kernels: name → (source, symbol, argument
+#: types, result type)
+QUERIES = {
+    "selective_scan_chunks": ("selective_scan.cu",
+                              "repro_selective_scan_chunks", [_I] * 4, _I),
+    "selective_scan_bwd_workspace": (
+        "selective_scan_bwd.cu", "repro_selective_scan_bwd_workspace",
+        [_I] * 5, ctypes.c_longlong),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: a layer's int8 page tensors, in the order the kernels take them
@@ -127,6 +139,10 @@ def build(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
             fn = getattr(libs[src], sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for src, sym, argtypes, restype in QUERIES.values():
+            fn = getattr(libs[src], sym)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _libs.update(libs)
         return _libs
 
@@ -141,10 +157,11 @@ _fns: Dict[str, object] = {}
 
 
 def _fn(name: str):
-    """The kernel's C entry point, built and resolved at its first call."""
+    """The kernel's (or query's) C entry point, built and resolved at its
+    first call."""
     fn = _fns.get(name)
     if fn is None:
-        src, sym, _ = KERNELS[name]
+        src, sym = (KERNELS.get(name) or QUERIES[name])[:2]
         fn = _fns[name] = getattr(build()[src], sym)
     return fn
 
@@ -302,14 +319,19 @@ _FlashAttention = ref.differentiable_attention(_flash_forward_lse,
                                                flash_attention_bwd)
 
 
+def _differentiated(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _forward_only(name: str, *tensors) -> None:
     """Refuse a differentiated call of a wrapper whose kernel has no
-    backward: its result would carry no gradient (ROADMAP queue 1)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    backward: its result would carry no gradient.  These kernels are
+    reached only by the serving path."""
+    if _differentiated(*tensors):
         raise NotImplementedError(
             f"{name}: no backward kernel; it is reached only by the serving "
-            "path (training these paths is ROADMAP queue 1)")
+            "path")
 
 
 # ------------------------------ decode attention ------------------------------
@@ -509,26 +531,44 @@ def gmm(x, w, group_sizes):
     """The MoE expert products: x (T, M) rows sorted by expert, w (E, M, N),
     group_sizes (E,) int32 with sum <= T (read on the device: no host
     sync).  Rows [start_e, start_e + gs_e) of x times w[e], accumulated in
-    fp32; rows past the sum are 0.  Returns (T, N) in x.dtype."""
-    _forward_only("gmm", x, w)
+    fp32; rows past the sum are 0.  Returns (T, N) in x.dtype.
+
+    With grad enabled and x or w requiring it (the training path), the call
+    is differentiable by gmm_bwd (on the CPU, the plain pair:
+    ref.gmm_grad_ref)."""
+    if _differentiated(x, w):
+        if not x.is_cuda:
+            return ref.gmm_grad_ref(x, w, group_sizes)
+        return _Gmm.apply(x, w, group_sizes)
     if not x.is_cuda:
         return ref.gmm_ref(x, w, group_sizes)
+    return _gmm_forward(x, w, group_sizes)
+
+
+def _check_gmm(name, x, w, group_sizes):
     T, M = x.shape
     _require(w.dim() == 3 and w.shape[1] == M,
-             "gmm: w must be (E, M, N) with M = x.shape[1]")
+             f"{name}: w must be (E, M, N) with M = x.shape[1]")
     E, _, N = w.shape
     for t in (x, w):
         _require(t.is_cuda and t.is_contiguous() and t.data_ptr() % 16 == 0,
-                 "gmm: x and w must be contiguous, 16-byte aligned CUDA "
+                 f"{name}: x and w must be contiguous, 16-byte aligned CUDA "
                  "tensors")
     _require(x.dtype in _DTYPES and w.dtype == x.dtype,
-             f"gmm: x and w must share one of {list(_DTYPES)}")
+             f"{name}: x and w must share one of {list(_DTYPES)}")
     _require(group_sizes.is_cuda and group_sizes.dtype == torch.int32
              and group_sizes.is_contiguous()
              and tuple(group_sizes.shape) == (E,),
-             "gmm: group_sizes must be a contiguous (E,) int32 CUDA tensor")
+             f"{name}: group_sizes must be a contiguous (E,) int32 CUDA "
+             "tensor")
     _require(M % 8 == 0 and N % 8 == 0 and 1 <= E <= 1024,
-             "gmm: M and N must be multiples of 8, E in [1, 1024]")
+             f"{name}: M and N must be multiples of 8, E in [1, 1024]")
+    return T, M, N, E
+
+
+def _gmm_forward(x, w, group_sizes):
+    """Launch kernel 6."""
+    T, M, N, E = _check_gmm("gmm", x, w, group_sizes)
     out = torch.empty(T, N, dtype=x.dtype, device=x.device)
     err = _fn("gmm")(_DTYPES[x.dtype], _ptr(x), _ptr(w), _ptr(group_sizes),
                      _ptr(out), T, M, N, E, _stream())
@@ -538,6 +578,35 @@ def gmm(x, w, group_sizes):
 
 
 gmm.launches = 0
+
+
+def gmm_bwd(x, w, group_sizes, dy):
+    """The gradient of gmm (ref.gmm_bwd_ref) for dy (T, N) of x's dtype:
+    dx (T, M), rows past sum(group_sizes) 0, and dw (E, M, N), dw[e] =
+    x_e^T dy_e over expert e's rows (0 for an empty expert).  Two launches
+    (dx: kernel 6 reading w[e] transposed in place; dw: one owner block a
+    tile, no float atomics: the same bits from call to call)."""
+    if not x.is_cuda:
+        return ref.gmm_bwd_ref(x, w, group_sizes, dy)
+    T, M, N, E = _check_gmm("gmm_bwd", x, w, group_sizes)
+    dy = dy.contiguous()
+    _require(dy.is_cuda and dy.dtype == x.dtype and dy.shape == (T, N)
+             and dy.data_ptr() % 16 == 0,
+             "gmm_bwd: dy must be a (T, N) CUDA tensor of x's dtype")
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    err = _fn("gmm_bwd")(_DTYPES[x.dtype], _ptr(x), _ptr(w),
+                         _ptr(group_sizes), _ptr(dy), _ptr(dx), _ptr(dw), T,
+                         M, N, E, _stream())
+    _check("gmm_bwd", err)
+    gmm_bwd.launches += 1
+    return dx, dw
+
+
+gmm_bwd.launches = 0
+
+#: kernel 6 differentiated by gmm_bwd
+_Gmm = ref.differentiable_gmm(_gmm_forward, gmm_bwd)
 
 # ------------------------------- selective scan -------------------------------
 def selective_scan(u, dt, A, B, C, D, h0=None, h_out=None):
@@ -552,53 +621,137 @@ def selective_scan(u, dt, A, B, C, D, h0=None, h_out=None):
 
     The SQL path calls it once per mixer layer and decode tick, so its
     checks are written for host time: each condition is tested in place and
-    its message formatted only when it fails."""
-    _forward_only("selective_scan", u, dt, A, B, C, D, h0)
+    its message formatted only when it fails.
+
+    With grad enabled and u, dt, A, B, C or D requiring it (the training
+    path), the call is differentiable: the forward also writes the state
+    entering each of its time chunks, and the backward is
+    selective_scan_bwd (on the CPU, the plain pair:
+    ref.selective_scan_grad_ref).  Then h0 must not require grad and h_out
+    must be None; the final state carries no gradient."""
+    if _differentiated(u, dt, A, B, C, D):
+        if not u.is_cuda:
+            return ref.selective_scan_grad_ref(u, dt, A, B, C, D, h0, h_out)
+        if h_out is not None or (h0 is not None and h0.requires_grad):
+            raise ValueError("selective_scan: a differentiated scan takes no "
+                             "h_out and no h0 that requires grad")
+        return _Scan.apply(u, dt, A, B, C, D, h0)
     if not u.is_cuda:
         return ref.selective_scan_ref(u, dt, A, B, C, D, h0, h_out)
+    return _scan_forward(u, dt, A, B, C, D, h0, h_out, False)[:2]
+
+
+def _check_scan(name, u, dt, A, B, C, D, h0=None, h_out=None):
+    """The scan's input checks; returns the B/C row stride."""
     Bz, S, Di = u.shape
     N = A.shape[-1]
     dtype, f32 = u.dtype, torch.float32
     if not (dtype in _DTYPES and B.dtype is dtype and C.dtype is dtype):
-        raise ValueError("selective_scan: u, B and C must share one of "
+        raise ValueError(f"{name}: u, B and C must share one of "
                          f"{list(_DTYPES)}")
     if not (dt.dtype is f32 and dt.is_cuda and dt.shape == u.shape
             and u.is_contiguous() and dt.is_contiguous()):
-        raise ValueError("selective_scan: u and dt must be contiguous (Bz, "
-                         "S, Di) CUDA tensors, dt float32")
-    for name, x, shape in (("A", A, (Di, N)), ("D", D, (Di,)),
+        raise ValueError(f"{name}: u and dt must be contiguous (Bz, S, Di) "
+                         "CUDA tensors, dt float32")
+    for what, x, shape in (("A", A, (Di, N)), ("D", D, (Di,)),
                            ("h0", h0, (Bz, Di, N)),
                            ("h_out", h_out, (Bz, Di, N))):
         if x is not None and not (
                 x.dtype is f32 and x.is_cuda and x.is_contiguous()
                 and x.shape == shape):
-            raise ValueError(f"selective_scan: {name} must be a contiguous "
+            raise ValueError(f"{name}: {what} must be a contiguous "
                              f"float32 CUDA tensor of shape {shape}")
     ld = B.stride(0) // S             # row t of batch b at (b * S + t) * ld
     for x in (B, C):
         st = x.stride()
         if not (x.is_cuda and x.shape == (Bz, S, N) and st[0] == S * ld
                 and st[2] == 1 and (S == 1 or st[1] == ld)):
-            raise ValueError("selective_scan: B and C must be (Bz, S, N) CUDA "
+            raise ValueError(f"{name}: B and C must be (Bz, S, N) CUDA "
                              "tensors with unit stride along N and one row "
                              "stride")
     if N not in (4, 8, 16, 32):
-        raise ValueError(f"selective_scan: state size {N} unsupported (4, 8, "
-                         "16 or 32)")
-    y = torch.empty(Bz, S, Di, dtype=f32, device=u.device)
+        raise ValueError(f"{name}: state size {N} unsupported (4, 8, 16 or "
+                         "32)")
+    return ld
+
+
+def _scan_forward(u, dt, A, B, C, D, h0, h_out, with_carries: bool):
+    """Launch kernel 7; `with_carries` (the training launch) also writes
+    the state entering each time chunk.  Returns (y, the final state,
+    carries (Bz, T, Di, N) float32 or None)."""
+    ld = _check_scan("selective_scan", u, dt, A, B, C, D, h0, h_out)
+    Bz, S, Di = u.shape
+    N = A.shape[-1]
+    y = torch.empty(Bz, S, Di, dtype=torch.float32, device=u.device)
     if h_out is None:
-        h_out = torch.empty(Bz, Di, N, dtype=f32, device=u.device)
+        h_out = torch.empty(Bz, Di, N, dtype=torch.float32, device=u.device)
+    chunks, carries = 0, None
+    if with_carries:
+        chunks = _fn("selective_scan_chunks")(Bz, S, Di, N)
+        carries = torch.empty(Bz, chunks, Di, N, dtype=torch.float32,
+                              device=u.device)
     err = _fn("selective_scan")(
-        _DTYPES[dtype], u.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        _DTYPES[u.dtype], u.data_ptr(), dt.data_ptr(), A.data_ptr(),
         B.data_ptr(), C.data_ptr(), D.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_out.data_ptr(), Bz, S, Di, N, ld, _stream())
+        h_out.data_ptr(), None if carries is None else carries.data_ptr(), Bz, S,
+        Di, N, ld, chunks, _stream())
     _check("selective_scan", err)
     selective_scan.launches += 1
-    return y, h_out
+    return y, h_out, carries
 
 
 selective_scan.launches = 0
+
+
+def selective_scan_bwd(u, dt, A, B, C, D, carries, dy):
+    """The gradient of the selective scan's y (ref.selective_scan_bwd_ref)
+    for dy (Bz, S, Di) float32, from the training forward's carries (Bz,
+    T, Di, N) float32: (du, ddt, dA, dB, dC, dD) in the dtypes of u, dt, A,
+    B, C, D, dB and dC contiguous.  Four launches (the reverse scan, then
+    fixed-order sums of its per-block partials; no atomics: the same bits
+    from call to call)."""
+    if not u.is_cuda:
+        return ref.selective_scan_bwd_ref(u, dt, A, B, C, D, carries, dy)
+    ld = _check_scan("selective_scan_bwd", u, dt, A, B, C, D)
+    Bz, S, Di = u.shape
+    N = A.shape[-1]
+    dy = dy.contiguous()
+    _require(dy.is_cuda and dy.dtype == torch.float32 and dy.shape == u.shape,
+             "selective_scan_bwd: dy must be a (Bz, S, Di) float32 CUDA "
+             "tensor")
+    _require(carries.is_cuda and carries.dtype == torch.float32
+             and carries.is_contiguous() and carries.dim() == 4
+             and carries.shape[0] == Bz and carries.shape[2:] == (Di, N)
+             and carries.shape[1] >= 1,
+             "selective_scan_bwd: carries must be a contiguous (Bz, T, Di, "
+             "N) float32 CUDA tensor")
+    Tf = carries.shape[1]
+    ws = torch.empty(_fn("selective_scan_bwd_workspace")(Bz, S, Di, N, Tf),
+                     dtype=torch.uint8, device=u.device)
+    du = torch.empty_like(u)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dB = torch.empty(Bz, S, N, dtype=B.dtype, device=u.device)
+    dC = torch.empty(Bz, S, N, dtype=C.dtype, device=u.device)
+    dD = torch.empty_like(D)
+    err = _fn("selective_scan_bwd")(
+        _DTYPES[u.dtype], u.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        B.data_ptr(), C.data_ptr(), D.data_ptr(), carries.data_ptr(),
+        dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), dD.data_ptr(), ws.data_ptr(), Bz, S,
+        Di, N, ld, Tf, _stream())
+    _check("selective_scan_bwd", err)
+    selective_scan_bwd.launches += 1
+    return du, ddt, dA, dB, dC, dD
+
+
+selective_scan_bwd.launches = 0
+
+#: kernel 7's training launch (with its carries), differentiated by
+#: selective_scan_bwd
+_Scan = ref.differentiable_scan(
+    lambda *a: _scan_forward(*a, None, True), selective_scan_bwd)
 
 #: every kernel wrapper of the SQL and training paths, by kernel name
 WRAPPERS = {"flash_attention": flash_attention,
@@ -609,7 +762,9 @@ WRAPPERS = {"flash_attention": flash_attention,
             "decode_attention_paged_quant": decode_attention_paged_quant,
             "constrained_sample": constrained_sample,
             "gmm": gmm,
-            "selective_scan": selective_scan}
+            "gmm_bwd": gmm_bwd,
+            "selective_scan": selective_scan,
+            "selective_scan_bwd": selective_scan_bwd}
 
 
 def reset_launches() -> None:

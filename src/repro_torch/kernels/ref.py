@@ -236,6 +236,169 @@ def gmm_ref(x, w, group_sizes):
     return out
 
 
+def gmm_bwd_ref(x, w, group_sizes, dy):
+    """The gradient of gmm_ref for the output gradient dy (T, N): dx (T, M)
+    with rows [start_e, start_e + gs_e) = dy rows times w[e]^T and rows
+    past the sum 0; dw (E, M, N) with dw[e] = x_e^T dy_e over expert e's
+    rows, 0 for an empty expert.  Sums in fp32, rounded to x's and w's
+    dtypes."""
+    dx = torch.zeros_like(x)
+    dw = torch.zeros_like(w)
+    ends = torch.cumsum(group_sizes.long(), 0).tolist()
+    start = 0
+    for e, end in enumerate(ends):
+        if end > start:
+            d = dy[start:end].float()
+            dx[start:end] = (d @ w[e].float().t()).to(x.dtype)
+            dw[e] = (x[start:end].float().t() @ d).to(w.dtype)
+        start = end
+    return dx, dw
+
+
+def differentiable_gmm(fwd, bwd):
+    """An autograd.Function over the grouped matmul `fwd` (x, w,
+    group_sizes -> out) with `bwd` (x, w, group_sizes, dy -> dx, dw) as
+    its backward: the plain pair here, the kernels' pair in ops.  Applied
+    as (x, w, group_sizes)."""
+
+    class _Gmm(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, group_sizes):
+            ctx.save_for_backward(x, w, group_sizes)
+            return fwd(x, w, group_sizes)
+
+        @staticmethod
+        def backward(ctx, dy):
+            dx, dw = bwd(*ctx.saved_tensors, dy.contiguous())
+            return dx, dw, None
+
+    return _Gmm
+
+
+_GmmRef = differentiable_gmm(gmm_ref, gmm_bwd_ref)
+
+
+def gmm_grad_ref(x, w, group_sizes):
+    """gmm_ref, differentiable by gmm_bwd_ref: the plain version of the
+    training path's grouped matmul."""
+    return _GmmRef.apply(x, w, group_sizes)
+
+
+def scan_chunks(S: int, chunks: int):
+    """The [t0, t1) steps of each of `chunks` time chunks of an S-step scan:
+    chunk k covers [k L, (k + 1) L) clipped to S, L = ceil(S / chunks) (the
+    selective-scan kernel's partition; a trailing chunk may be empty)."""
+    L = -(-S // chunks)
+    return [(min(S, k * L), min(S, (k + 1) * L)) for k in range(chunks)]
+
+
+def selective_scan_fwd_ref(u, dt, A, B, C, D, h0=None, chunks=1):
+    """selective_scan_ref's y and final state, and the state entering each
+    of `chunks` time chunks (scan_chunks), (Bz, chunks, Di, N) float32:
+    what the training forward keeps for the backward (carries[:, 0] is h0,
+    or zeros)."""
+    Bz, S, Di = u.shape
+    h = (torch.zeros(Bz, Di, A.shape[1], device=u.device) if h0 is None
+         else h0.float())
+    ys, carries = [], []
+    for t0, t1 in scan_chunks(S, chunks):
+        carries.append(h)
+        if t1 > t0:
+            y, h = selective_scan_ref(u[:, t0:t1], dt[:, t0:t1], A,
+                                      B[:, t0:t1], C[:, t0:t1], D, h)
+            ys.append(y)
+    return torch.cat(ys, dim=1), h, torch.stack(carries, dim=1).contiguous()
+
+
+def selective_scan_bwd_ref(u, dt, A, B, C, D, carries, dy):
+    """The gradient of the selective scan's y for dy (Bz, S, Di) float32,
+    as the explicit reverse recurrence: the states are recomputed forward
+    from each chunk's carry (selective_scan_fwd_ref), then from the last
+    step back, with a_t = exp(dt_t A) and the state adjoint
+    g_t = dy_t C_t + a_{t+1} g_{t+1}:
+      dC_t = sum_d dy_t h_t,  dB_t = sum_d g_t dt_t u_t,
+      du_t = dt_t (g_t . B_t) + D dy_t,
+      d(dt)_t = u_t (g_t . B_t) + sum_n g_t h_{t-1} a_t A,
+      dA = sum_{b,t} g_t h_{t-1} a_t dt_t,  dD = sum_{b,t} dy_t u_t.
+    The final state carries no gradient (training discards it).  Returns
+    (du, ddt, dA, dB, dC, dD) in the dtypes of u, dt, A, B, C, D."""
+    Bz, S, Di = u.shape
+    uf, dtf, Af = u.float(), dt.float(), A.float()
+    Bf, Cf, dyf = B.float(), C.float(), dy.float()
+    hprev = []                                  # h_{t-1} for each step t
+    for k, (t0, t1) in enumerate(scan_chunks(S, carries.shape[1])):
+        h = carries[:, k].float()
+        for t in range(t0, t1):
+            hprev.append(h)
+            h = torch.exp(dtf[:, t, :, None] * Af) * h \
+                + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+    du = torch.empty_like(uf)
+    ddt = torch.empty_like(dtf)
+    dB = torch.empty_like(Bf)
+    dC = torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    G = torch.zeros_like(hprev[0]) if S else None   # a_{t+1} g_{t+1}
+    for t in reversed(range(S)):
+        a = torch.exp(dtf[:, t, :, None] * Af)                   # (Bz, Di, N)
+        dtu = dtf[:, t] * uf[:, t]                               # (Bz, Di)
+        h = a * hprev[t] + dtu[..., None] * Bf[:, t, None, :]
+        g = dyf[:, t, :, None] * Cf[:, t, None, :] + G
+        dC[:, t] = torch.einsum("bdn,bd->bn", h, dyf[:, t])
+        dB[:, t] = torch.einsum("bdn,bd->bn", g, dtu)
+        gb = torch.einsum("bdn,bn->bd", g, Bf[:, t])
+        gha = g * hprev[t] * a
+        du[:, t] = dtf[:, t] * gb + D.float() * dyf[:, t]
+        ddt[:, t] = uf[:, t] * gb + torch.einsum("bdn,dn->bd", gha, Af)
+        dA += torch.einsum("bdn,bd->dn", gha, dtf[:, t])
+        G = a * g
+    dD = (dyf * uf).sum((0, 1))
+    return (du.to(u.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype), dD.to(D.dtype))
+
+
+def differentiable_scan(fwd, bwd):
+    """An autograd.Function over the selective scan's training forward
+    `fwd` (u, dt, A, B, C, D, h0 -> y, final state, carries) with `bwd`
+    (u, dt, A, B, C, D, carries, dy -> du, ddt, dA, dB, dC, dD) as its
+    backward: the plain pair here, the kernels' pair in ops.  Applied as
+    (u, dt, A, B, C, D, h0); returns (y, final state).  Neither h0 nor the
+    final state carries a gradient: training scans from zeros and discards
+    the final state (``repro/models/mamba.py``'s train mode)."""
+
+    class _Scan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, u, dt, A, B, C, D, h0):
+            y, h, carries = fwd(u, dt, A, B, C, D, h0)
+            ctx.save_for_backward(u, dt, A, B, C, D, carries)
+            ctx.mark_non_differentiable(h)
+            return y, h
+
+        @staticmethod
+        def backward(ctx, dy, _dh):
+            return (*bwd(*ctx.saved_tensors, dy.contiguous()), None)
+
+    return _Scan
+
+
+#: the time chunks of the plain training forward (any count gives the same
+#: gradient; more than one exercises the carries)
+SCAN_REF_CHUNKS = 4
+
+_ScanRef = differentiable_scan(
+    lambda *a: selective_scan_fwd_ref(*a, chunks=SCAN_REF_CHUNKS),
+    selective_scan_bwd_ref)
+
+
+def selective_scan_grad_ref(u, dt, A, B, C, D, h0=None, h_out=None):
+    """selective_scan_ref, differentiable by selective_scan_bwd_ref: the
+    plain version of the training path's scan.  `h0` must not require
+    grad; `h_out` must be None (no in-place state under autograd)."""
+    if h_out is not None or (h0 is not None and h0.requires_grad):
+        raise ValueError("selective_scan: a differentiated scan takes no "
+                         "h_out and no h0 that requires grad")
+    return _ScanRef.apply(u, dt, A, B, C, D, h0)
+
+
 def selective_scan_ref(u, dt, A, B, C, D, h0=None, h_out=None):
     """The Mamba-1 selective scan, one step at a time in float32:
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) B_t,  y_t = h_t . C_t

@@ -11,9 +11,12 @@ kernel 1 with its lse, differentiated by the flash backward kernel),
 AdamW in place.  The prefill and decode step builders belong to the serving
 engine (``serving/engine.py``).
 
-The dense, VLM and encoder families train.  The MoE, ssm and hybrid
-families reach the grouped matmul and the selective scan, whose kernels
-have no backward yet: ``require_trainable`` refuses them.
+Every family trains.  The MoE family's expert products go through the
+grouped matmul and its backward kernel (``kernels.ops.gmm``/``gmm_bwd``),
+routed in ``pick_num_groups`` capacity groups of each micro-batch's tokens
+as the JAX step picks them with no mesh; the ssm and hybrid families' mixers
+through the selective scan and its backward kernel
+(``kernels.ops.selective_scan``/``selective_scan_bwd``).
 """
 from __future__ import annotations
 
@@ -23,21 +26,10 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as MDL
+from repro_torch.models import moe as MOE
 from repro_torch.models import params as PRM
-from repro_torch.models.config import DENSE, ENCODER, VLM, ModelConfig, ShapeSpec
+from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.training import optim as OPT
-
-#: the families whose every op on the train path has a backward
-TRAINABLE_FAMILIES = (DENSE, VLM, ENCODER)
-
-
-def require_trainable(cfg: ModelConfig) -> None:
-    if cfg.family not in TRAINABLE_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not train yet: its "
-            "grouped matmul (MoE) or selective scan (ssm, hybrid) has no "
-            "backward kernel (ROADMAP queue 1: MoE training, ssm and hybrid "
-            "training)")
 
 
 def train_state_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -70,14 +62,16 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, num_micro: int = 1,
     (the loss likewise).  The state is updated in place and returned;
     metrics ``{"loss", "grad_norm", "lr"}`` are float32 scalars on the
     device (`device`, or the params' when None)."""
-    require_trainable(cfg)
     opt_cfg = opt_cfg or OPT.AdamWConfig()
     if shape.global_batch % num_micro:
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"into {num_micro} micro-batches")
+    micro_tokens = (shape.global_batch // num_micro) * shape.seq_len
+    num_groups = MOE.pick_num_groups(micro_tokens, 1) if cfg.has_moe else 1
 
     def loss_fn(params, mb):
-        logits, _ = MDL.forward(cfg, params, mb, mode="train")
+        logits, _ = MDL.forward(cfg, params, mb, mode="train",
+                                num_groups=num_groups)
         return MDL.lm_loss(cfg, logits, mb["labels"], mb["mask"])
 
     def train_step(state, batch):
@@ -122,13 +116,16 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, num_micro: int = 1,
 
 def _like_tree(tree, flat: list):
     """`flat` (in OPT.leaves order) laid out as `tree`."""
-    it = iter(flat)
+    return _laid_out(tree, iter(flat))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(tree)
+
+def _laid_out(tree, it):
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle that would keep `flat` (a step's fp32
+    # gradients) alive until the garbage collector's next pass
+    if isinstance(tree, dict):
+        return {k: _laid_out(tree[k], it) for k in sorted(tree)}
+    return next(it)
 
 
 def state_equal(a, b) -> Tuple[bool, str]:

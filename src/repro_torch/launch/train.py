@@ -6,8 +6,7 @@
         --device cpu --steps 20 --batch 4 --seq-len 32
 
 It runs on CUDA unless ``--device cpu`` is given (without a GPU it raises).
-The dense, VLM and encoder families train; MoE, ssm and hybrid are refused
-(``launch/steps.py::require_trainable``).
+Every family trains (``launch/steps.py``).
 
 Fault tolerance, as in the JAX driver:
   * checkpoint/restart: async sharded checkpoints every --ckpt-every steps
@@ -77,7 +76,6 @@ def train(argv=None) -> Dict[str, Any]:
     device = resolve_device(args.device)
     cfg = C.get_smoke_config(args.arch) if args.smoke else \
         C.get_config(args.arch)
-    ST.require_trainable(cfg)
     shape = ShapeSpec("cli", seq_len=args.seq_len, global_batch=args.batch,
                       kind="train")
     opt_cfg = OPT.AdamWConfig(lr=args.lr, warmup_steps=20,

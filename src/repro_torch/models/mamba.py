@@ -12,7 +12,10 @@ formula.
 The carried state is written IN PLACE: given an ``SSMState`` of cache
 views, ``mamba_mixer`` overwrites its ``conv`` and ``h`` with the new state
 (the scan writes ``h`` where it read it), as the port's forward does for
-K/V.  Callers that must keep a state unchanged pass a copy.
+K/V.  Callers that must keep a state unchanged pass a copy.  Train mode
+(no state) starts from zeros, as the JAX train forward does, and writes no
+state: the scan is then differentiated (its backward kernel on the card),
+which an in-place state write under autograd would defeat.
 """
 from __future__ import annotations
 
@@ -27,13 +30,6 @@ from repro_torch.kernels import ops as KOPS
 class SSMState(NamedTuple):
     conv: torch.Tensor   # (B, conv-1, d_inner) fp32: last inputs of the conv
     h: torch.Tensor      # (B, d_inner, state) fp32: SSM hidden state
-
-
-def init_ssm_state(batch: int, d_inner: int, state: int, conv: int,
-                   device="cpu") -> SSMState:
-    return SSMState(
-        conv=torch.zeros((batch, conv - 1, d_inner), device=device),
-        h=torch.zeros((batch, d_inner, state), device=device))
 
 
 def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
@@ -60,13 +56,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def mamba_mixer(x: torch.Tensor, params: dict, *, ssm_state_dim: int,
                 dt_rank: int, conv_dim: int,
                 state: Optional[SSMState] = None, scan_fn=None
-                ) -> Tuple[torch.Tensor, SSMState]:
+                ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """The mamba-1 mixer.  x (B, S, M) in the compute dtype (S = 1 for a
     decode step).  params: in_x/in_z (M, Di), conv_w (K, Di), conv_b (Di),
     x_proj (Di, R+2N), dt_proj (R, Di) in the compute dtype; dt_bias (Di),
-    A_log (Di, N), D (Di) fp32.  `state` None starts from zeros (train);
-    otherwise its tensors are read and overwritten in place.  Returns
-    (out (B, S, M), the new state)."""
+    A_log (Di, N), D (Di) fp32.  `state` None is train mode: zeros in, no
+    state out (the scan's final state is dropped).  Otherwise the state's
+    tensors are read and overwritten in place.  Returns (out (B, S, M), the
+    new state, or None in train mode)."""
     Bz = x.shape[0]
     Di = params["A_log"].shape[0]
     N, R, K = ssm_state_dim, dt_rank, conv_dim
@@ -74,18 +71,20 @@ def mamba_mixer(x: torch.Tensor, params: dict, *, ssm_state_dim: int,
 
     x_in = x @ params["in_x"]                                 # (B, S, Di)
     z = x @ params["in_z"]
-    if state is None:
-        state = init_ssm_state(Bz, Di, N, K, device=x.device)
+    prev = x_in.new_zeros(Bz, K - 1, Di) if state is None else state.conv
     conv_out, new_conv = _causal_conv(x_in, params["conv_w"],
-                                      params["conv_b"], state.conv)
+                                      params["conv_b"], prev)
     u = F.silu(conv_out.float()).to(x.dtype)
 
     dbc = u @ params["x_proj"]                                # (B, S, R+2N)
     dt = softplus((dbc[..., :R] @ params["dt_proj"]).float()
                   + params["dt_bias"])                        # (B, S, Di)
     A = -torch.exp(params["A_log"])                           # (Di, N)
-    y, _ = scan_fn(u, dt, A, dbc[..., R:R + N], dbc[..., R + N:],
-                   params["D"], state.h, h_out=state.h)
-    state.conv.copy_(new_conv)
+    Bm, Cm = dbc[..., R:R + N], dbc[..., R + N:]
+    if state is None:
+        y, _ = scan_fn(u, dt, A, Bm, Cm, params["D"])
+    else:
+        y, _ = scan_fn(u, dt, A, Bm, Cm, params["D"], state.h, h_out=state.h)
+        state.conv.copy_(new_conv)
     out = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
     return out, state

@@ -328,7 +328,9 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     token, left pads included, as the JAX model does.
 
     The MoE family routes all B·S rows of a call, in `num_groups` capacity
-    groups (the JAX default 1: what the serving engine runs)."""
+    groups (the JAX default 1: what the serving engine runs; the train step
+    passes ``moe.pick_num_groups`` of its micro-batch's tokens).  In train
+    mode the ssm and hybrid mixers scan from zeros and keep no state."""
     require_ported(cfg)
     attn_fn = attn_fn or KOPS.flash_attention
     decode_attn_fn = decode_attn_fn or KOPS.decode_attention

@@ -18,9 +18,17 @@ choice costs nothing.  Each output row is one input row times its expert's
 weights, so the order of rows inside a group changes nothing.  Nothing here
 reads a device value on the host.
 
+The training path differentiates the block (``launch/steps.py``): the
+grouped matmul by its backward kernel, and the dispatch without atomics:
+each token's rows are its K copies put in expert order by ``index_copy_``
+(whose backward is a gather), so a token's input gradient is its K rows
+gathered back through the inverse permutation and summed over K in a fixed
+order, as JAX's transpose of ``jnp.repeat`` does.
+
 The JAX block's ``dispatch_cs``/``combine_cs`` hooks (GSPMD sharding
 constraints for expert parallelism) have no meaning on one card and are not
-ported (ROADMAP, distribution).
+ported (ROADMAP, distribution).  ``pick_num_groups`` is a copy of the JAX
+package's (``tests/test_torch_isolation.py`` holds it equal).
 """
 from __future__ import annotations
 
@@ -32,6 +40,19 @@ from repro_torch.kernels import ops as KOPS
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def pick_num_groups(num_tokens: int, data_shards: int, target_group: int = 4096) -> int:
+    """Choose a group count that (a) divides the token count, (b) is a
+    multiple of the data-axis size when possible, (c) keeps groups ≈4k."""
+    g = max(1, num_tokens // target_group)
+    if g >= data_shards:
+        g = (g // data_shards) * data_shards
+    elif num_tokens % data_shards == 0 and num_tokens >= 4 * data_shards:
+        g = data_shards          # decode-sized batches: one group per shard
+    while num_tokens % g:
+        g -= 1
+    return max(1, g)
 
 
 def capacity(tokens_per_group: int, num_experts: int, top_k: int,
@@ -75,10 +96,16 @@ def moe_block(x, params, *, num_experts: int, top_k: int,
     # an expert keeps the first min(count, C) choices of each group
     group_sizes = oh.sum(2).clamp_(max=C).sum(0).to(torch.int32)  # (E,)
 
-    # kept choices sorted by expert, dropped ones (key E) after them
+    # kept choices sorted by expert, dropped ones (key E) after them: row i
+    # of xs is the token of choice order[i], put in place by index_copy_
+    # (xs[inv[j]] = choice j's token), whose backward gathers each choice's
+    # row back and sums a token's K rows, where indexing's would accumulate
     key = torch.where(keep, idx.reshape(T * K), E)
     order = torch.argsort(key, stable=True)
-    xs = x.to(compute_dtype)[order // K]                        # (T*K, M)
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * K, device=x.device))
+    rows = x.to(compute_dtype)[:, None].expand(T, K, M).reshape(T * K, M)
+    xs = torch.empty_like(rows).index_copy_(0, inv, rows)       # (T*K, M)
     wg, wu, wd = (params[k].to(compute_dtype)
                   for k in ("w_gate", "w_up", "w_down"))
     h = F.silu(gmm_fn(xs, wg, group_sizes)) * gmm_fn(xs, wu, group_sizes)

@@ -8,6 +8,9 @@ machine without the JAX package:
 
 Tolerances: float32 1e-5 (the kernel sums in another order than the plain
 einsum); bfloat16 2e-2 (inputs and outputs rounded to 8 mantissa bits).
+The backward kernels of the grouped matmul and the selective scan: each
+gradient within 1e-5 (gmm) or 1e-4 (scan, float32 outputs) times its
+largest |value|, 2e-2 for bfloat16 outputs; two calls equal to the bit.
 Sampling is exact.  The int8 page variants dequantize exactly as their
 plain versions do, so they keep the same tolerances.  Rows with no visible
 key (left-pad rows, idle paged slots) are compared too: the MoE family
@@ -525,6 +528,68 @@ def test_gmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ops.gmm(x, w[0], g)
 
 
+# ------------------------- grouped matmul: the backward -------------------------
+#: group sizes of the backward's cases: empty, one row, both sides of the
+#: 16-row slice and of the 64-row tile, and a training group at the
+#: capacity 320 of qwen3-moe-30b-a3b at B 8 x 512
+GMM_BWD_SIZES = [0, 1, 17, 64, 65, 320]
+
+
+def _gmm_bwd_case(cuda, dtype, E, M, N, seed):
+    """Group sizes cycling through GMM_BWD_SIZES over E experts, 13 rows
+    past their sum (dropped choices), x, w and dy."""
+    gs = [GMM_BWD_SIZES[(e + seed) % len(GMM_BWD_SIZES)] for e in range(E)]
+    x, w, g = _gmm_inputs(cuda, dtype, sum(gs) + 13, M, N, gs, seed)
+    dy = torch.randn(x.shape[0], N, generator=torch.Generator().manual_seed(
+        seed)).to(cuda, dtype)
+    return x, w, g, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,N", [(8, 96, 200), (8, 256, 64),
+                                   (128, 128, 72)])
+def test_gmm_bwd_kernel_matches_plain(cuda, E, M, N, dtype):
+    """dx and dw against the plain pair, each within the tolerance times
+    its largest |value| (fp32 sums of up to 320 products in another order;
+    bf16 outputs rounded once); rows past the sum 0 in dx, empty experts 0
+    in dw; two calls equal to the bit."""
+    x, w, g, dy = _gmm_bwd_case(cuda, dtype, E, M, N, E + M)
+    n = ops.gmm_bwd.launches
+    got = ops.gmm_bwd(x, w, g, dy)
+    assert ops.gmm_bwd.launches == n + 1
+    want = ref.gmm_bwd_ref(x, w, g, dy)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for name, a, b in zip(("dx", "dw"), got, want):
+        scale = max(1e-30, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, tol * scale)
+    kept = int(g.sum())
+    assert not got[0][kept:].any()
+    assert not got[1][g == 0].any()
+    again = ops.gmm_bwd(x, w, g, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_training_path_matches_plain(cuda, dtype):
+    """The differentiable ops.gmm (kernel 6, then gmm_bwd) against the
+    plain autograd function at qwen3-moe-30b-a3b's gate/up width."""
+    x, w, g, dy = _gmm_bwd_case(cuda, dtype, 16, 2048, 768, 3)
+    leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    n = ops.gmm.launches, ops.gmm_bwd.launches
+    out = ops.gmm(*leaves, g)
+    got = torch.autograd.grad(out, leaves, dy)
+    assert (ops.gmm.launches, ops.gmm_bwd.launches) == (n[0] + 1, n[1] + 1)
+    plain = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    want = torch.autograd.grad(ref.gmm_grad_ref(*plain, g), plain, dy)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
 # ------------------------------- selective scan -------------------------------
 def _scan_inputs(cuda, dtype, Bz, S, Di, N, seed, R=16):
     """scan_case on the card: u, B and C in `dtype`, B and C slices of one
@@ -659,17 +724,108 @@ def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                            C[..., :12], D)
 
 
+# ------------------------ selective scan: the backward --------------------------
+def _assert_scan_grads_close(got, want, dtype):
+    """Each gradient within the tolerance times its largest |value|: 1e-4
+    for the float32 outputs (d(dt), dA, dD; and all of them in float32),
+    2e-2 for du, dB and dC in bfloat16 (rounded once to 8 bits)."""
+    for name, a, b in zip(("du", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-4
+        scale = max(1e-30, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, tol * scale)
+
+
+#: (Bz, S, Di, N): falcon-mamba-7b's channels at its training batch and
+#: longer, hymba-1.5b's at its training length, one step, ragged lengths,
+#: every state size
+SCAN_BWD_CASES = [(1, 1, 3200, 16), (4, 37, 8192, 16), (4, 512, 8192, 16),
+                  (2, 2048, 3200, 16), (1, 2048, 8192, 16), (2, 300, 3200, 4),
+                  (1, 129, 3200, 8), (3, 1000, 3200, 32), (4, 255, 100, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bz,S,Di,N", SCAN_BWD_CASES)
+def test_selective_scan_bwd_kernel_matches_plain(cuda, Bz, S, Di, N, dtype):
+    """The backward kernel against its plain version from the same carries
+    (the plain forward's, at the chunk count the kernel's forward picks and
+    at 3 chunks), twice equal to the bit; then the carries of the training
+    forward against the plain forward's."""
+    u, dt, A, B, C, D, _ = _scan_inputs(cuda, dtype, Bz, S, Di, N, S + N)
+    dy = torch.randn(Bz, S, Di, generator=torch.Generator().manual_seed(S)
+                     ).to(cuda)
+    T = ops._fn("selective_scan_chunks")(Bz, S, Di, N)
+    for chunks in sorted({T, min(3, S)}):
+        _, _, carries = ref.selective_scan_fwd_ref(u, dt, A, B, C, D,
+                                                   chunks=chunks)
+        n = ops.selective_scan_bwd.launches
+        got = ops.selective_scan_bwd(u, dt, A, B, C, D, carries, dy)
+        assert ops.selective_scan_bwd.launches == n + 1
+        want = ref.selective_scan_bwd_ref(u, dt, A, B, C, D, carries, dy)
+        _assert_scan_grads_close(got, want, dtype)
+        again = ops.selective_scan_bwd(u, dt, A, B, C, D, carries, dy)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    y, h, carries = ops._scan_forward(u, dt, A, B, C, D, None, None, True)
+    assert carries.shape == (Bz, T, Di, N)
+    want = ref.selective_scan_fwd_ref(u, dt, A, B, C, D, chunks=T)
+    _assert_scan_close((y, h, carries), want)
+    again = ops._scan_forward(u, dt, A, B, C, D, None, None, True)
+    assert all(torch.equal(a, b) for a, b in zip((y, h, carries), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_training_path_matches_plain(cuda, dtype):
+    """The differentiable ops.selective_scan (kernel 7 with its carries,
+    then the backward kernel) against the plain autograd function, at
+    hymba-1.5b's channels over 300 steps from a given h0."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda, dtype, 2, 300, 3200, 16, 5)
+    dbc = B._base
+    dy = torch.randn(2, 300, 3200, generator=torch.Generator().manual_seed(
+        6)).to(cuda)
+
+    def leaves():
+        d = dbc.clone().requires_grad_(True)
+        return ([x.clone().requires_grad_(True) for x in (u, dt, A)]
+                + [d[..., 16:32], d[..., 32:], D.clone().requires_grad_(True)],
+                d)
+    (lu, ldt, lA, lB, lC, lD), d1 = leaves()
+    n = ops.selective_scan.launches, ops.selective_scan_bwd.launches
+    y, _ = ops.selective_scan(lu, ldt, lA, lB, lC, lD, h0)
+    got = torch.autograd.grad(y, [lu, ldt, lA, d1, lD], dy)
+    assert (ops.selective_scan.launches,
+            ops.selective_scan_bwd.launches) == (n[0] + 1, n[1] + 1)
+    (pu, pdt, pA, pB, pC, pD), d2 = leaves()
+    r, _ = ref.selective_scan_grad_ref(pu, pdt, pA, pB, pC, pD, h0)
+    want = torch.autograd.grad(r, [pu, pdt, pA, d2, pD], dy)
+    _assert_scan_close((y,), (r,))
+    for a, b in zip(got, want):
+        tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-4
+        assert (a.float() - b.float()).abs().max().item() <= \
+            tol * b.float().abs().max().item()
+    with pytest.raises(ValueError, match="h_out"):
+        ops.selective_scan(lu, ldt, lA, lB, lC, lD, h0, h_out=h0.clone())
+
+
 # ---------------------- flash attention: the training path ---------------------
 #: the backward's shapes on the training path (chip_smoke.py phase 2):
 #: olmo-1b (B 8, S 512, 16 x 128, causal), paligemma-3b (B 4, 256 image
 #: tokens + 128 text, 8 x 256 on 1 kv head, prefix-LM), hubert-xlarge (B 8,
-#: S 512, 16 x 80, bidirectional)
+#: S 512, 16 x 80, bidirectional), qwen3-moe-30b-a3b (B 8, S 512, 32 x 64
+#: on 4 kv heads, causal), hymba-1.5b (B 2, S 2048, 25 x 64 on 5 kv heads,
+#: causal, window 1024)
 TRAIN_ATTENTION = {
     "olmo-1b": (dict(B=8, S=512, H=16, KV=16, D=128), dict(causal=True)),
     "paligemma-3b": (dict(B=4, S=384, H=8, KV=1, D=256),
                      dict(causal=True, prefix_len=256)),
     "hubert-xlarge": (dict(B=8, S=512, H=16, KV=16, D=80),
                       dict(causal=False)),
+    "qwen3-moe-30b-a3b": (dict(B=8, S=512, H=32, KV=4, D=64),
+                          dict(causal=True)),
+    "hymba-1.5b": (dict(B=2, S=2048, H=25, KV=5, D=64),
+                   dict(causal=True, window=1024)),
 }
 
 

@@ -5,7 +5,8 @@
   has jax loaded by tests/conftest.py);
 * no file under src/repro_torch imports jax or a ``repro.`` module;
 * every verbatim copy equals its original with only ``repro.`` changed to
-  ``repro_torch.`` in its import lines;
+  ``repro_torch.`` in its import lines, and the copied functions
+  (``models/moe.py::pick_num_groups``) equal theirs;
 * the entry points refuse to run on the CPU unless asked.
 """
 import os
@@ -70,6 +71,20 @@ def test_no_jax_or_repro_imports_in_source():
 def test_verbatim_copy_in_sync(rel):
     original = (SRC / "repro" / rel).read_text()
     assert (PORT / rel).read_text() == IMPORT.sub(r"\1repro_torch.", original)
+
+
+#: (module, function) copied verbatim into the port's module of that name
+COPIED_FUNCTIONS = [("models/moe.py", "pick_num_groups")]
+
+
+@pytest.mark.parametrize("rel,fn", COPIED_FUNCTIONS)
+def test_copied_function_in_sync(rel, fn):
+    def source(path):
+        text = path.read_text()
+        start = text.index(f"\ndef {fn}(") + 1
+        end = text.find("\n\n\n", start)
+        return text[start:end if end >= 0 else None]
+    assert source(PORT / rel) == source(SRC / "repro" / rel)
 
 
 def test_entry_points_refuse_cpu_unless_asked(monkeypatch):

@@ -3,10 +3,13 @@ weights and seeded batches, in float32 on the CPU (mirrors
 tests/test_training.py and tests/test_models.py's train-step smoke test):
 
 * train-mode logits and ``lm_loss``, and the gradient of every master leaf,
-  for olmo-1b (dense), paligemma-3b (VLM, with ``prefix_embeds``) and
-  hubert-xlarge (encoder, with ``embeds``);
+  for olmo-1b (dense), paligemma-3b (VLM, with ``prefix_embeds``),
+  hubert-xlarge (encoder, with ``embeds``), qwen3-moe-30b-a3b (MoE: the
+  grouped matmul's plain backward pair), falcon-mamba-7b (ssm) and
+  hymba-1.5b (hybrid: the selective scan's plain backward pair);
 * one ``make_train_step`` step, then 5 with micro-batch accumulation, from
-  the JAX initial state (``train_state_from_jax``);
+  the JAX initial state (``train_state_from_jax``), and one MoE step whose
+  micro-batch splits into two capacity groups (``pick_num_groups``);
 * the VLM's prefill and decode with ``prefix_embeds``, and its
   grammar-constrained ``generate`` on both KV layouts (texts and stats
   equal);
@@ -14,8 +17,8 @@ tests/test_training.py and tests/test_models.py's train-step smoke test):
   packages in both directions (a checkpoint of one, stepped by the other,
   equals the first's own continued run);
 * resume equal to the bit, and the driver's failure and resume;
-* the refusals: MoE, ssm and hybrid training, and a forward-only kernel
-  wrapper reached with inputs that require grad.
+* the refusal of a forward-only kernel wrapper reached with inputs that
+  require grad.
 
 Tolerances (float32, sums in another order than XLA's): logits and loss
 1e-5 absolute and relative; gradients 1e-5 relative to each leaf's largest
@@ -58,6 +61,9 @@ from torch_cases import (engine_pair, gen_stats, grammar_pair,
                          one_torch_thread)  # noqa: F401
 
 ARCHS = ["olmo-1b", "paligemma-3b", "hubert-xlarge"]
+#: the families whose training goes through the grouped matmul (MoE) or the
+#: selective scan (ssm, hybrid)
+MOE_SSM = ["qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b"]
 B, S = 4, 16          # paligemma's smoke config: 8 image tokens + 8 text
 LR = 1e-3
 OPT_KW = dict(lr=LR, warmup_steps=2, total_steps=10)
@@ -158,7 +164,7 @@ def assert_metrics_close(mine, theirs):
 
 # -------------------------- forward, loss, gradients --------------------------
 def test_param_specs_and_count_match_jax():
-    for arch in ARCHS + ["yi-6b"]:
+    for arch in ARCHS + MOE_SSM + ["yi-6b"]:
         jcfg, tcfg = cfgs(arch)
         js = JMDL.param_specs(jcfg)
         ts = param_specs(tcfg)
@@ -167,13 +173,13 @@ def test_param_specs_and_count_match_jax():
         tflat = {n: (tuple(s[0]), str(s[1]).replace("torch.", ""))
                  for n, s in CKPT._flatten(ts)}
         assert jflat == tflat, arch
-        st = port_state(arch) if arch in ARCHS else None
+        st = port_state(arch) if arch in ARCHS + MOE_SSM else None
         if st is not None:
             assert MDL.param_count_actual(st["params"]) == \
                 JMDL.param_count_actual(jax_state(arch)["params"])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_SSM)
 def test_train_forward_loss_and_grads_match_jax(arch):
     jcfg, tcfg = cfgs(arch)
     params_j = jax_state(arch)["params"]
@@ -210,7 +216,7 @@ def test_train_forward_loss_and_grads_match_jax(arch):
                                    rtol=0, err_msg=name_g)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_SSM)
 def test_train_steps_match_jax(arch):
     """One step (num_micro 1), then 5 more with 2 micro-batches."""
     state, m1 = port_run(arch, port_state(arch), 1)
@@ -222,6 +228,50 @@ def test_train_steps_match_jax(arch):
     assert_metrics_close(m5, j5)
     assert_states_close(state, js)
     assert state["step"] == 6
+
+
+def test_train_step_frees_its_gradients(monkeypatch):
+    """A step's fp32 gradients are freed when it returns, without waiting
+    for the garbage collector (a reference cycle that kept them alive
+    until its next pass made the cut MoE config run out of the card)."""
+    import gc
+    import weakref
+    refs = []
+    update = OPT.adamw_update
+
+    def spy(cfg, params, grads, opt, step):
+        refs.extend(weakref.ref(g) for g in OPT.leaves(grads))
+        return update(cfg, params, grads, opt, step)
+    monkeypatch.setattr(OPT, "adamw_update", spy)
+    state = port_state("qwen3-moe-30b-a3b")
+    fn = port_step("qwen3-moe-30b-a3b", 1)
+    gc.disable()
+    try:
+        state, _ = fn(state, batch_np("qwen3-moe-30b-a3b", 0))
+        assert refs and not any(r() is not None for r in refs)
+    finally:
+        gc.enable()
+
+
+def test_moe_train_step_in_two_groups_matches_jax():
+    """qwen3-moe at B 16 x 512 = 8192 tokens a micro-batch: the JAX step
+    and the port's route it in pick_num_groups = 2 capacity groups."""
+    arch, b, s = "qwen3-moe-30b-a3b", 16, 512
+    jcfg, tcfg = cfgs(arch)
+    from repro_torch.models.moe import pick_num_groups
+    assert pick_num_groups(b * s, 1) == 2
+    batch = synthetic_batch(tcfg, DataConfig(batch=b, seq_len=s), 0)
+    jfn, _ = JST.make_train_step(jcfg, None, JShape("t", s, b, "train"),
+                                 donate=False,
+                                 opt_cfg=JOPT.AdamWConfig(**OPT_KW))
+    js, jm = jfn(jax_state(arch), {k: jnp.asarray(v)
+                                   for k, v in batch.items()})
+    fn = ST.make_train_step(tcfg, ShapeSpec("t", s, b, "train"),
+                            opt_cfg=OPT.AdamWConfig(**OPT_KW))
+    state, m = fn(port_state(arch), batch)
+    assert_metrics_close([{k: float(v) for k, v in m.items()}],
+                         [{k: float(v) for k, v in jm.items()}])
+    assert_states_close(state, jax.tree.map(np.asarray, js))
 
 
 def test_vlm_prefill_and_decode_with_prefix_embeds_match_jax():
@@ -310,7 +360,7 @@ def test_checkpoint_leaf_names_are_jax_keystr(tmp_path):
     assert "['params']['embed']" not in names[0]        # the encoder's
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "paligemma-3b"] + MOE_SSM)
 def test_checkpoint_from_jax_restores_and_steps_in_the_port(arch, tmp_path):
     js, _ = jax_run(arch, jax_state(arch), 2)
     JCKPT.save(str(tmp_path), 2, js)
@@ -323,7 +373,7 @@ def test_checkpoint_from_jax_restores_and_steps_in_the_port(arch, tmp_path):
     assert_states_close(state, js)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "hubert-xlarge"] + MOE_SSM)
 def test_checkpoint_from_the_port_restores_and_steps_in_jax(arch, tmp_path):
     state, _ = port_run(arch, port_state(arch), 2)
     CKPT.save(str(tmp_path), 2, state)
@@ -408,24 +458,8 @@ def test_driver_deterministic_restores_settings(monkeypatch, workspace):
 
 
 # ----------------------------------- refusals ----------------------------------
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "falcon-mamba-7b",
-                                  "hymba-1.5b"])
-def test_moe_ssm_hybrid_training_is_refused(arch):
-    cfg = TC.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ST.make_train_step(cfg, ShapeSpec("t", 16, 2, "train"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TR.main(["--device", "cpu", "--smoke", "--arch", arch, "--steps",
-                 "1"])
-
-
 def test_forward_only_wrappers_refuse_differentiation():
     g = torch.Generator().manual_seed(0)
-    x = torch.randn(6, 8, generator=g, requires_grad=True)
-    w = torch.randn(2, 8, 8, generator=g)
-    gs = torch.tensor([3, 3], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="gmm: no backward kernel"):
-        ops.gmm(x, w, gs)
     q = torch.randn(2, 4, 16, generator=g, requires_grad=True)
     kc = torch.randn(2, 8, 2, 16, generator=g)
     spos = torch.arange(8, dtype=torch.int32).repeat(2, 1)
@@ -435,11 +469,6 @@ def test_forward_only_wrappers_refuse_differentiation():
     logits = torch.randn(2, 10, generator=g, requires_grad=True)
     with pytest.raises(NotImplementedError, match="constrained_sample"):
         ops.constrained_sample(logits, torch.ones(2, 10, dtype=torch.int8))
-    u = torch.randn(1, 4, 8, generator=g, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="selective_scan"):
-        ops.selective_scan(u, torch.rand(1, 4, 8), -torch.ones(8, 4),
-                           torch.randn(1, 4, 4), torch.randn(1, 4, 4),
-                           torch.ones(8))
     # without grad the same calls run (the serving path)
     with torch.no_grad():
-        assert ops.gmm(x, w, gs).shape == (6, 8)
+        assert ops.decode_attention(q, kc, kc, spos, qpos).shape == (2, 4, 16)
