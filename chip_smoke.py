@@ -6,7 +6,8 @@
     python3 chip_smoke.py --only selective_scan,decode_attention_paged_quant
     python3 chip_smoke.py --only flash_attention_bwd
     python3 chip_smoke.py --only gmm_bwd,selective_scan_bwd
-    python3 chip_smoke.py --only flash_attention_bwd --compare-bwd PARENT_CU
+    python3 chip_smoke.py --only gmm,gmm_bwd,selective_scan,selective_scan_bwd \
+        --compare-bwd build/parent/src/repro_torch/kernels/csrc
 
 Phases, each reported on its own lines:
 
@@ -39,10 +40,14 @@ Phases, each reported on its own lines:
    flash backward its design (body, split of the query heads, ring stages;
    P and dS always keep their low half), its device time per launch, the
    training forward's bound and SDPA forward, and SDPA's backward with a
-   bool mask and with the least-masked arguments (``--compare-bwd`` also
-   times the parent's backward, built for that call, in turns with this
-   one, alone and in warm train steps of the three training
-   configurations, with one profiled step of each);
+   bool mask and with the least-masked arguments; for the scan's backward
+   its device time per launch, the training forward's with its carries,
+   and the floor of its exponentials on the special-function units
+   (``--compare-bwd`` also builds the parent's training-path sources for
+   that call and times them in turns with this build through the same
+   wrappers: the three backwards at their training shapes, kernels 6 and
+   7 at their serving shapes, and warm train steps of the configs whose
+   backward was checked, with one profiled step of each);
 3. the olmo-1b configuration at full width (16 layers, d_model 2048, vocab
    50304, random weights from a seeded generator; dense family):
    a. float32 logits of a prefill and decode steps through the kernels
@@ -130,12 +135,19 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
-import torch
+
+# the caching allocator maps memory into segments that grow instead of
+# cutting fixed ones: falcon-mamba-7b's train step at its cut depth peaks
+# at ~70 GiB of the 80 GB card, and a large block must not fail for want
+# of a contiguous hole after the phases before it
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -705,6 +717,16 @@ def check_gmm(ops, ref, dtype, gen, shape):
                 plain_ms=time_ms(ref.gmm_ref, [args]),
                 library_ms=time_ms(torch.bmm, [(buf, w)]),
                 bound_ms=b_ms, bound_by=b_by)
+            if "gmm" in PARENT and dtype == torch.bfloat16:
+                turns = in_turns(ops, lambda: (
+                    time_ms(ops.gmm, [args]),
+                    device_ms(ops.gmm, args, "gmm_kernel")))
+                shapes[f"{phase}_{orient}"]["in_turns"] = turns
+                print(f"  gmm {str(dtype)[6:]} {phase}_{orient} in turns, ms "
+                      "(device_ms): " + "; ".join(
+                          f"{label} " + ", ".join(
+                              f"{m:.4f} ({fmt_ms(d)})" for m, d in ts)
+                          for label, ts in turns.items()), flush=True)
             del x, w, buf
     for k, r in shapes.items():
         print(f"  gmm {str(dtype)[6:]} {k}: rows {r['rows']} ({r['kept']} "
@@ -777,6 +799,16 @@ def check_scan(ops, ref, dtype, gen, shape):
             host_ms=host_ms(kernel, sets[0]),
             plain_ms=time_ms(ref.selective_scan_ref, sets), library_ms=None,
             bound_ms=b_ms, bound_by=b_by)
+        if "selective_scan" in PARENT and dtype == torch.bfloat16:
+            turns = in_turns(ops, lambda: (
+                time_ms(kernel, sets),
+                device_ms(kernel, sets[0], "selective_scan_kernel")))
+            shapes[phase]["in_turns"] = turns
+            print(f"  selective_scan {str(dtype)[6:]} {phase} in turns, ms "
+                  "(device_ms): " + "; ".join(
+                      f"{label} " + ", ".join(
+                          f"{m:.4f} ({fmt_ms(d)})" for m, d in ts)
+                      for label, ts in turns.items()), flush=True)
     for k, r in shapes.items():
         print(f"  selective_scan {str(dtype)[6:]} {k}: Bz {r['Bz']} S "
               f"{r['S']} Di {r['Di']} N {r['N']}: max_abs_err "
@@ -812,10 +844,16 @@ def worst_error(label, got, want, names, tol):
     return worst
 
 
+#: the grouped matmul's backward launches by their symbols in a profile
+#: (the bf16 bodies on wgmma, the f32 bodies on the CUDA cores)
+GMM_BWD_LAUNCHES = {"dx": ("gmm_bwd_wgmma_kernel<false>", "gmm_kernel<true>"),
+                    "dw": ("gmm_bwd_wgmma_kernel<true>", "gmm_dw_kernel")}
+
+
 def check_gmm_bwd(ops, ref, dtype, gen, shape):
-    """The grouped matmul's backward (dx through kernel 6 reading each
-    expert's weights transposed in place, dw one owner block a tile) at the
-    MoE training path's two shapes -- qwen3-moe-30b-a3b at B 8 x 512: 4096
+    """The grouped matmul's backward (bf16: dx and dw on wgmma in 128 x 256
+    tiles, reading w and x in place; f32 on the CUDA cores) at the MoE
+    training path's two shapes -- qwen3-moe-30b-a3b at B 8 x 512: 4096
     tokens x top-8 = 32768 choices over 128 experts, each capped at the
     capacity 320, the dropped ones past the kept; gate/up 2048 -> 768 and
     down 768 -> 2048 -- against the plain pair.  dx and dw are each held
@@ -860,13 +898,30 @@ def check_gmm_bwd(ops, ref, dtype, gen, shape):
             rows=x.shape[0], M=M, N=N, kept=kept, capacity=C,
             nonempty_experts=live, max_abs_err=err, tolerance_scale=scale,
             ms=time_ms(ops.gmm_bwd, [args]),
-            device_ms=device_ms(ops.gmm_bwd, args, "gmm"),
+            device_ms=device_ms(ops.gmm_bwd, args, SYMBOL["gmm_bwd"]),
             device_ms_by_launch={
-                k: device_ms(ops.gmm_bwd, args, sym) for k, sym in
-                (("dx", "gmm_kernel<true>"), ("dw", "gmm_dw_kernel"))},
+                k: device_ms(ops.gmm_bwd, args, sym)
+                for k, sym in GMM_BWD_LAUNCHES.items()},
             plain_ms=time_ms(ref.gmm_bwd_ref, [args], iters=5, warmup=1),
             library_ms=time_ms(library, [(xb, db, w)]),
             bound_ms=b_ms, bound_by=b_by)
+        if "gmm_bwd" in PARENT and dtype == torch.bfloat16:
+            with build_fns(ops, "parent"):
+                worst_error(f"gmm_bwd parent {str(dtype)[6:]} {orient}",
+                            ops.gmm_bwd(*args), ref.gmm_bwd_ref(*args),
+                            ("dx", "dw"), TOL[dtype])
+            turns = in_turns(ops, lambda: (
+                time_ms(ops.gmm_bwd, [args]),
+                device_ms(ops.gmm_bwd, args, SYMBOL["gmm_bwd"]),
+                {k: device_ms(ops.gmm_bwd, args, sym)
+                 for k, sym in GMM_BWD_LAUNCHES.items()}))
+            shapes[orient]["in_turns"] = turns
+            print(f"  gmm_bwd {str(dtype)[6:]} {orient} in turns, ms "
+                  "(device_ms: dx, dw): " + "; ".join(
+                      f"{label} " + ", ".join(
+                          f"{m:.4f} ({fmt_ms(d)}: {fmt_ms(p['dx'])}, "
+                          f"{fmt_ms(p['dw'])})" for m, d, p in ts)
+                      for label, ts in turns.items()), flush=True)
         del x, w, dy, xb, db, args
     for k, r in shapes.items():
         print(f"  gmm_bwd {str(dtype)[6:]} {k}: rows {r['rows']} ({r['kept']} "
@@ -889,28 +944,59 @@ def check_gmm_bwd(ops, ref, dtype, gen, shape):
                                        "bound_by")}, by_shape=shapes)
 
 
+#: the selective scan's backward launches (this build's) by their symbols
+SCAN_BWD_LAUNCHES = ("scan_bwd_sweep", "scan_bwd_combine", "scan_bwd_reverse",
+                     "scan_bwd_reduce")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (``nvidia-smi clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def sfu_floor_ms(ex2_count: float) -> float:
+    """The least time of `ex2_count` exponentials on the special-function
+    units: 16 a clock an SM at the largest SM clock.  A floor beside the
+    bound, not folded into it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ex2_count / (16 * sms * sm_clock_hz()) * 1e3
+
+
 def check_scan_bwd(ops, ref, dtype, gen, shape):
     """The selective scan's backward at a trained config's batch, length
     and channels (falcon-mamba-7b: B 4 x 512, Di 8192; hymba-1.5b: B 2 x
-    2048, Di 3200; N 16), from the carries of kernel 7's training launch,
-    which are first held against the plain forward's; then du, d(dt), dA,
-    dB, dC and dD against the plain reverse recurrence from the same
-    carries, each against the tolerance times its own largest |value|; two
-    calls must give the same bits.  u, B, C, du, dB and dC in `dtype`, the
-    rest float32.  No single PyTorch call computes it: library_ms is
-    None."""
+    2048, Di 3200; N 16), from the carries of kernel 7's training launch
+    (the state entering each of the backward's ~32-step chunks), which are
+    first held against the plain forward's; then du, d(dt), dA, dB, dC and
+    dD against the plain reverse recurrence from the same carries, each
+    against the tolerance times its own largest |value|; two calls must
+    give the same bits.  u, B, C, du, dB and dC in `dtype`, the rest
+    float32.  Printed beside the bound: the floor of its exponentials on
+    the special-function units (two a (b, t, d, n): the sweep's and the
+    reverse's recompute).  With --compare-bwd, the parent's pair (its
+    training forward at its own chunk count, then its backward) and this
+    one in turns: each backward's device time, the forward's with its
+    carries, and the pair's sum.  No single PyTorch call computes it:
+    library_ms is None."""
     Bz, S, Di, N, R = shape["B"], shape["S"], shape["Di"], shape["N"], 16
     dev = "cuda"
     dt_ = str(dtype)[6:]
-    T = ops._fn("selective_scan_chunks")(Bz, S, Di, N)
+    T = ops._fn("selective_scan_train_chunks")(Bz, S, Di, N)
     s = torch.tensor([], dtype=dtype).element_size()
     # u, dt, dy read and du, d(dt) written; the B/C rows read and dB/dC
-    # written; A, D read and dA, dD written; the carries read.  About 15
-    # float32 operations a (b, t, d, n): the state recomputed (3), the
-    # adjoint and the five gradient terms (12)
+    # written; A, D read and dA, dD written; one entering state a (b, d,
+    # n) read: the function's own bytes, whatever chunks a design keeps
+    # carries for (its count of them would move the yardstick with the
+    # design).  About 15 float32 operations a (b, t, d, n): the state
+    # recomputed (3), the adjoint and the five gradient terms (12)
     nbytes = (Bz * S * Di * (2 * s + 12) + 4 * Bz * S * N * s
-              + 2 * (Di * N + Di) * 4 + Bz * T * Di * N * 4)
+              + 2 * (Di * N + Di) * 4 + Bz * Di * N * 4)
     b_ms, b_by = bound(nbytes, 15 * Bz * S * Di * N, torch.float32)
+    sfu_ms = sfu_floor_ms(2 * Bz * S * Di * N)
     sets = []
     for _ in range(rotations(nbytes)):
         u = torch.randn(Bz, S, Di, generator=gen, device=dev).to(dtype)
@@ -928,7 +1014,7 @@ def check_scan_bwd(ops, ref, dtype, gen, shape):
         sets.append(args + (carries, dy))
     fwd_want = ref.selective_scan_fwd_ref(*sets[0][:6], chunks=T)
     fwd_err, fwd_scale = worst_error(
-        f"selective_scan {dt_} training launch (T {T} chunks)",
+        f"selective_scan {dt_} training launch (carries of {T} chunks)",
         ops._scan_forward(*sets[0][:6], None, None, True), fwd_want,
         ("y", "final state", "carries"), TOL[dtype])
     del fwd_want
@@ -943,23 +1029,59 @@ def check_scan_bwd(ops, ref, dtype, gen, shape):
     if fwd_err / fwd_scale > err / scale:
         err, scale = fwd_err, fwd_scale
     del got
-    names = ("selective_scan_bwd_kernel", "reduce_bc_kernel",
-             "reduce_rows_kernel")
+    names = symbols("selective_scan_bwd")
     parts = {k: device_ms(ops.selective_scan_bwd, sets[0], k)
-             for k in names}
+             for k in SCAN_BWD_LAUNCHES}
+    fwd_args = sets[0][:6] + (None, None, True)
+    fwd_dev = device_ms(ops._scan_forward, fwd_args, "selective_scan_kernel")
+    bwd_dev = device_ms(ops.selective_scan_bwd, sets[0], names)
     print(f"  selective_scan_bwd {dt_} device_ms by launch: " + ", ".join(
         f"{k} {fmt_ms(v)}" for k, v in parts.items())
         + f"; the training forward with its carries: device_ms "
-        f"{fmt_ms(device_ms(ops._scan_forward, sets[0][:6] + (None, None, True), 'selective_scan_kernel'))}",
-        flush=True)
-    return dict(max_abs_err=err, tolerance_scale=scale,
-                ms=time_ms(ops.selective_scan_bwd, sets),
-                device_ms=device_ms(ops.selective_scan_bwd, sets[0], names),
-                device_ms_by_launch=parts,
-                plain_ms=time_ms(ref.selective_scan_bwd_ref, sets, iters=2,
-                                 warmup=1),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                chunks=T)
+        f"{fmt_ms(fwd_dev)}; the pair "
+        f"{fmt_ms(None if None in (fwd_dev, bwd_dev) else fwd_dev + bwd_dev)}"
+        f"; bound_ms {b_ms:.5f} ({b_by}), SFU floor (2 ex2 a (b, t, d, n), "
+        f"16 a clock an SM at {sm_clock_hz() / 1e6:.0f} MHz) {sfu_ms:.5f} "
+        f"ms", flush=True)
+    r = dict(max_abs_err=err, tolerance_scale=scale,
+             ms=time_ms(ops.selective_scan_bwd, sets),
+             device_ms=bwd_dev, device_ms_by_launch=parts,
+             forward_device_ms=fwd_dev,
+             plain_ms=time_ms(ref.selective_scan_bwd_ref, sets, iters=2,
+                              warmup=1),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+             sfu_floor_ms=sfu_ms, chunks=T)
+    if "selective_scan_bwd" in PARENT and dtype == torch.bfloat16:
+        # each build's pair on the same inputs: its training forward (its
+        # own carries), then its backward from them
+        def measure():
+            fwd = ops._scan_forward(*fwd_args)
+            pair = sets[0][:6] + (fwd[2], sets[0][7])
+            del fwd
+            b_ev = time_ms(ops.selective_scan_bwd, [pair])
+            b_dev = device_ms(ops.selective_scan_bwd, pair, names)
+            f_dev = device_ms(ops._scan_forward, fwd_args,
+                              "selective_scan_kernel")
+            return b_ev, b_dev, f_dev
+        with build_fns(ops, "parent"):
+            fwd = ops._scan_forward(*fwd_args)
+            pair = sets[0][:6] + (fwd[2], sets[0][7])
+            worst_error(f"selective_scan_bwd parent {dt_}",
+                        ops.selective_scan_bwd(*pair),
+                        ref.selective_scan_bwd_ref(*pair),
+                        ("du", "ddt", "dA", "dB", "dC", "dD"), TOL[dtype])
+            del fwd, pair
+        turns = in_turns(ops, measure)
+        r["in_turns"] = turns
+        print(f"  selective_scan_bwd {dt_} in turns, ms (device_ms; the "
+              "training forward's device_ms; the pair): " + "; ".join(
+                  f"{label} " + ", ".join(
+                      f"{m:.4f} ({fmt_ms(b)}; {fmt_ms(f)}; "
+                      f"{fmt_ms(None if None in (b, f) else b + f)})"
+                      for m, b, f in ts)
+                  for label, ts in turns.items()), flush=True)
+    del sets
+    return r
 
 
 def visible_pairs(S, causal, prefix_len, window=0) -> int:
@@ -972,9 +1094,16 @@ def visible_pairs(S, causal, prefix_len, window=0) -> int:
                for i in range(S))
 
 
-#: other builds of the backward's library timed beside it in check_flash_bwd
-#: (``--compare-bwd``): label -> its C entry point
-BWD_VARIANTS = {}
+#: the parent's build of the training path's kernels (``--compare-bwd``):
+#: ops' entry-point name -> the parent's C function, swapped into ops._fns
+#: by `build_fns` so that the same wrappers drive either build
+PARENT = {}
+#: a kernel's symbols in the parent's build where its source holds it alone
+#: (KERNELS): every __global__ function there, read from the parent's source
+PARENT_SYMBOLS = {}
+#: the sources --compare-bwd builds from the parent's csrc directory
+PARENT_SOURCES = ("flash_attention_bwd.cu", "gmm.cu", "selective_scan.cu",
+                  "selective_scan_bwd.cu")
 
 
 def bwd_design(ops, dtype, B, S, H, KV, D) -> dict:
@@ -992,26 +1121,73 @@ def bwd_design(ops, dtype, B, S, H, KV, D) -> dict:
                 stages=out[2])
 
 
-def build_parent_bwd(ops, parent_src: str) -> None:
-    """Build, for this call only, the parent's backward (`parent_src`, its
-    .cu beside its own common.cuh) with ops.build's flags into
-    build/chip_smoke_variants/, and put it in BWD_VARIANTS."""
+def build_parent_bwd(ops, parent: str, alias: dict) -> None:
+    """Build, for this call only, the parent's training-path sources
+    (PARENT_SOURCES from `parent`, its csrc directory, or a .cu file in it:
+    each beside its own common.cuh) with ops.build's flags into
+    build/chip_smoke_variants/, one nvcc process each, all started
+    together; put in PARENT every entry point its libraries export, under
+    its own symbol or the one `alias` (entry point -> symbol) names (an
+    entry point the parent lacks stays this build's), and in
+    PARENT_SYMBOLS its kernels' names."""
+    csrc = parent if os.path.isdir(parent) else os.path.dirname(parent)
     out = os.path.join(ROOT, "build", "chip_smoke_variants")
     os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, "parent_bwd.so")
-    proc = subprocess.run(
-        [ops._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib, parent_src],
-        capture_output=True, text=True)
-    if proc.returncode:
-        fail(f"flash_attention_bwd parent: nvcc failed\n{proc.stdout}"
-             f"{proc.stderr}")
-    fn = ctypes.CDLL(lib).repro_flash_attention_bwd
-    fn.argtypes = ops.KERNELS["flash_attention_bwd"][2]
-    fn.restype = ctypes.c_int
-    BWD_VARIANTS["parent"] = fn
-    print(f"flash_attention_bwd: the parent's source built for this call "
-          f"({parent_src})", flush=True)
+    procs = {}
+    for src in PARENT_SOURCES:
+        lib = os.path.join(out, "parent_" + src.replace(".cu", ".so"))
+        procs[src] = (lib, subprocess.Popen(
+            [ops._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib,
+             os.path.join(csrc, src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for src, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"{src} parent: nvcc failed\n{log}")
+        libs[src] = ctypes.CDLL(lib)
+        alone = [k[0] for k in KERNELS if k[4] == src]
+        if len(alone) == 1:
+            with open(os.path.join(csrc, src)) as f:
+                PARENT_SYMBOLS[alone[0]] = tuple(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                    r"\s*(?://[^\n]*)?\s*)?(\w+)", f.read()))
+    for name, (src, sym, argtypes, *res) in {**ops.KERNELS,
+                                             **ops.QUERIES}.items():
+        sym = alias.get(name, sym)
+        if src not in libs or not hasattr(libs[src], sym):
+            continue
+        fn = getattr(libs[src], sym)
+        fn.argtypes = argtypes
+        fn.restype = res[0] if res else ctypes.c_int
+        PARENT[name] = fn
+    print(f"--compare-bwd: the parent's {', '.join(PARENT_SOURCES)} built "
+          f"for this call ({csrc}): {sorted(PARENT)}; aliases {alias}; "
+          f"kernels {PARENT_SYMBOLS}", flush=True)
+
+
+@contextlib.contextmanager
+def build_fns(ops, label: str):
+    """ops' wrappers call the parent's build (label "parent") or this one
+    ("this") inside the block."""
+    own = {name: ops._fn(name) for name in PARENT}
+    if label == "parent":
+        ops._fns.update(PARENT)
+    try:
+        yield
+    finally:
+        ops._fns.update(own)
+
+
+def in_turns(ops, measure) -> dict:
+    """measure() under this build and the parent's in turns (this, parent,
+    this, parent): label -> [its results]."""
+    out = {"this": [], "parent": []}
+    for label in ("this", "parent", "this", "parent"):
+        with build_fns(ops, label):
+            out[label].append(measure())
+    return out
 
 
 def check_flash_bwd(ops, ref, dtype, gen, shape):
@@ -1160,21 +1336,12 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
              bound_ms=b_ms, bound_by=b_by,
              forward=dict(max_abs_err=fwd_err, lse_max_abs_err=lse_err,
                           device_ms=fwd_dev))
-    if dtype == torch.bfloat16 and BWD_VARIANTS:
-        own = ops._fns["flash_attention_bwd"]
-        try:
-            for label, fn in BWD_VARIANTS.items():
-                ops._fns["flash_attention_bwd"] = fn
-                errors(f"{label}: ", kernel(*sets[0]))
-            times = {label: [] for label in ("this", *BWD_VARIANTS)}
-            for _ in range(2):      # this, variants, this, variants
-                for label in times:
-                    ops._fns["flash_attention_bwd"] = \
-                        own if label == "this" else BWD_VARIANTS[label]
-                    times[label].append((time_ms(kernel, sets), device_ms(
-                        kernel, sets[0], "flash_bwd_")))
-        finally:
-            ops._fns["flash_attention_bwd"] = own
+    if "flash_attention_bwd" in PARENT and dtype == torch.bfloat16:
+        with build_fns(ops, "parent"):
+            errors("parent: ", kernel(*sets[0]))
+        times = in_turns(ops, lambda: (time_ms(kernel, sets), device_ms(
+            kernel, sets[0], "flash_bwd_")))
+        r["in_turns"] = times
         print(f"  flash_attention_bwd {dt} in turns, ms (device_ms): "
               + "; ".join(f"{label} " + ", ".join(
                   f"{m:.4f} ({fmt_ms(d)})" for m, d in ts)
@@ -1194,10 +1361,19 @@ BOTH = (DENSE_ARCH, MOE_ARCH)
 ALL = BOTH + (SSM_ARCH, HYBRID_ARCH)
 #: a kernel's symbols in a profile, where not "<name>_kernel"
 SYMBOL = {"flash_attention_bwd": ("flash_bwd_",),
-          "gmm": ("gmm_kernel<false>",),
-          "gmm_bwd": ("gmm_kernel<true>", "gmm_dw_kernel"),
-          "selective_scan_bwd": ("selective_scan_bwd_kernel",
-                                 "reduce_bc_kernel", "reduce_rows_kernel")}
+          # kernel 6: bf16, f32
+          "gmm": ("gmm_kernel(", "gmm_kernel<false>"),
+          # bf16 dx and dw, f32 dx and dw
+          "gmm_bwd": ("gmm_bwd_wgmma_kernel", "gmm_kernel<true>",
+                      "gmm_dw_kernel"),
+          "selective_scan_bwd": ("scan_bwd_",)}
+
+
+def symbols(kname: str) -> tuple:
+    """A kernel's symbols in a profile, in this build and (--compare-bwd)
+    in the parent's."""
+    return (SYMBOL.get(kname, (kname + "_kernel",))
+            + PARENT_SYMBOLS.get(kname, ()))
 KERNELS = [
     ("flash_attention", "src/repro/kernels/flash_attention.py:89", check_flash,
      torch.bfloat16, "flash_attention.cu", "dense", BOTH + (HYBRID_ARCH,)),
@@ -1496,8 +1672,7 @@ def profile(run_query) -> None:
     cats = {}
     for k, (us, count) in by_name.items():
         cat = next((n[0] for n in KERNELS if any(
-            sym in k for sym in SYMBOL.get(n[0], (n[0] + "_kernel",)))),
-                   None)
+            sym in k for sym in symbols(n[0]))), None)
         if cat is None:
             cat = ("memcpy/memset" if k.startswith("Mem") else
                    "gemm" if any(t in k for t in ("nvjet", "gemm", "cutlass",
@@ -1625,40 +1800,47 @@ def warm_step(ST, cfg, arch, state, step):
     return one_step
 
 
-def compare_bwd_steps(ops):
+def compare_bwd_steps(C, ops, report):
     """With --compare-bwd: warm bfloat16 train steps of each training
-    configuration at full width and depth, with this build's backward and
-    the other builds' in turns (this, others, others reversed, this; a
-    warm-up step after each switch, then 3 timed steps), and one profiled
-    step with each: what the backward's change does to the step."""
+    configuration whose backward kernel phase 2 checked (the flash
+    backward: olmo-1b, paligemma-3b, hubert-xlarge at full width and depth;
+    the grouped matmul's: qwen3-moe-30b-a3b; the scan's: falcon-mamba-7b
+    and hymba-1.5b; each at its TRAIN_DEPTH), with this build's kernels and
+    the parent's in turns (this, parent, parent, this; a warm-up step after
+    each switch, then 3 timed steps), and profiled steps in the same turns
+    (of two profiles the first read slower on steps of many launches, so
+    each build leads one pair): what the backwards' change does to the
+    step."""
     from repro_torch.launch import steps as ST
     from repro_torch.launch import train as TR
-    own = ops._fns["flash_attention_bwd"]
-    builds = {"this": own, **BWD_VARIANTS}
-    try:
-        for arch in (DENSE_ARCH, VLM_ARCH, ENC_ARCH):
+    archs = [a for k, group in (
+        ("flash_attention_bwd", (DENSE_ARCH, VLM_ARCH, ENC_ARCH)),
+        ("gmm_bwd", (MOE_ARCH,)),
+        ("selective_scan_bwd", (SSM_ARCH, HYBRID_ARCH))) if k in report
+        for a in group]
+    for arch in archs:
+        with cut_depth(C, arch):
             h = train_run(TR, arch, 1)
             step = warm_step(ST, h["cfg"], arch, h["state"], 1)
-            times = {label: [] for label in builds}
-            for label in [*builds, *reversed(builds)]:
-                ops._fns["flash_attention_bwd"] = builds[label]
-                step()
-                times[label] += [step() for _ in range(3)]
-            print(f"train step {arch} bfloat16 (full width and depth) with "
-                  f"each backward in turns, s: " + "; ".join(
+            times = {"this": [], "parent": []}
+            for label in ("this", "parent", "parent", "this"):
+                with build_fns(ops, label):
+                    step()
+                    times[label] += [step() for _ in range(3)]
+            depth = f"{h['cfg'].num_layers} layers"
+            print(f"train step {arch} bfloat16 (full width, {depth}) with "
+                  f"each build in turns, s: " + "; ".join(
                       f"{label} median {np.median(ts):.4f} ("
                       + ", ".join(f"{t:.4f}" for t in ts) + ")"
                       for label, ts in times.items()), flush=True)
-            for label in builds:
-                ops._fns["flash_attention_bwd"] = builds[label]
-                print(f"profile of one warm {arch} train step, {label} "
-                      f"backward:", flush=True)
-                profile(step)
+            for label in ("this", "parent", "parent", "this"):
+                with build_fns(ops, label):
+                    print(f"profile of one warm {arch} train step, {label} "
+                          f"build:", flush=True)
+                    profile(step)
             del h, step
             gc.collect()
             torch.cuda.empty_cache()
-    finally:
-        ops._fns["flash_attention_bwd"] = own
 
 
 def report_train(label, hist, cfg, shp, smi):
@@ -1843,10 +2025,21 @@ def main(argv=None) -> int:
     ap.add_argument("--only", metavar="KERNEL[,KERNEL]",
                     help="run phases 1-2 for these kernels only and print "
                     "their JSON line (no SQL paths, no last 'ok' line)")
-    ap.add_argument("--compare-bwd", metavar="PARENT_CU",
-                    help="also build the given flash_attention_bwd.cu (the "
-                    "parent's, beside its common.cuh) and time it in turns "
-                    "with this build at the training shapes")
+    ap.add_argument("--compare-bwd", metavar="PARENT_CSRC",
+                    help="also build the parent's training-path sources "
+                    "from its kernels/csrc directory (or a .cu file in it): "
+                    + ", ".join(PARENT_SOURCES) + ", each beside its "
+                    "common.cuh; time them in turns with this build at the "
+                    "training shapes (and kernels 6 and 7 at their serving "
+                    "shapes), and in warm train steps of the configs whose "
+                    "backward kernels were checked")
+    ap.add_argument("--parent-alias", metavar="ENTRY=SYMBOL[,...]",
+                    default="",
+                    help="with --compare-bwd: the parent's C function for an "
+                    "ops entry point it exports under another name (e.g. "
+                    "selective_scan_train_chunks=repro_selective_scan_chunks "
+                    "for a parent whose training forward wrote carries at "
+                    "its serving chunk count)")
     args = ap.parse_args(argv)
     only = args.only
     if not torch.cuda.is_available():
@@ -1873,7 +2066,8 @@ def main(argv=None) -> int:
             print(f"ptxas {src} {line}", flush=True)
 
     if args.compare_bwd:
-        build_parent_bwd(ops, os.path.abspath(args.compare_bwd))
+        build_parent_bwd(ops, os.path.abspath(args.compare_bwd), dict(
+            kv.split("=", 1) for kv in args.parent_alias.split(",") if kv))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1898,11 +2092,15 @@ def main(argv=None) -> int:
                     f" (device_ms {fmt_ms(r['device_ms'])})"
                 if "splits" in r:
                     dev += f" splits {r['splits']} warps {r['warps']}"
+                # a reckoning from the shape, printed beside the bound:
+                # not a measurement, so not in the kernels line
+                sfu = r.pop("sfu_floor_ms", None)
+                sfu = "" if sfu is None else f" (SFU floor {sfu:.5f})"
                 print(f"kernel {kname} {str(dtype)[6:]} at {arch}'s shapes: "
                       f"max_abs_err {r['max_abs_err']} (tolerance {tol}) ms "
                       f"{r['ms']:.4f}{dev} plain_ms {r['plain_ms']:.4f} "
                       f"library_ms {lib} bound_ms {r['bound_ms']:.5f} "
-                      f"({r['bound_by']})", flush=True)
+                      f"({r['bound_by']}){sfu}", flush=True)
                 if not ok:
                     fail(f"{kname} {dtype} at {arch}'s shapes: kernel "
                          f"disagrees with its plain version")
@@ -1919,11 +2117,12 @@ def main(argv=None) -> int:
                                       "plain_ms", "library_ms", "bound_ms",
                                       "bound_by", "splits", "warps",
                                       "int8_pages", "forward", "chunks",
-                                      "device_ms_by_launch", "by_shape")
+                                      "device_ms_by_launch", "by_shape",
+                                      "forward_device_ms", "in_turns")
                     if k in r}
 
-    if args.compare_bwd and "flash_attention_bwd" in report:
-        compare_bwd_steps(ops)
+    if args.compare_bwd:
+        compare_bwd_steps(C, ops, report)
     if only:
         print(json.dumps({"kernels": list(report.values())}), flush=True)
         return 0

@@ -68,15 +68,19 @@
 //   word in the same thread.
 // - Unchanged: u/B/C in float32 or bfloat16; N in {4, 8, 16, 32}; B and C
 //   as strided slices of one projection (ldbc); ragged S and Di.
-// - The training launch (carries non-null) also writes the state entering
-//   each time chunk, carries (Bz, T, Di, N) float32: h0 (or zeros) for
-//   chunk 0, then the combine's H_{k-1}, which the chunk already holds in
-//   shared memory -- what the backward (selective_scan_bwd.cu) recomputes
-//   each chunk's states from.  The caller fixes the chunk count T
-//   (repro_selective_scan_chunks gives the one a serving launch would
-//   pick), and a one-step training scan runs the chunked kernel.  Serving
-//   launches pass null and write nothing more.
+// - The training launch (carries non-null) runs the serving launch's
+//   chunks and also writes the state entering each of J carry chunks of
+//   Lc = ceil(S / J) steps, carries (Bz, J, Di, N) float32: h0 (or zeros)
+//   first, then the state before every Lc-th step, written by whichever
+//   pass runs that step from the right state (chunk 0's pass 1, the others'
+//   pass 2), and the final state for a carry chunk past S.  The backward
+//   (selective_scan_bwd.cu) runs its own chunks from them.  The caller
+//   picks J (repro_selective_scan_train_chunks: chunks of ~kCarryLen steps,
+//   so that the backward has many short chains), independently of the
+//   forward's own chunks; a one-step training scan runs the chunked kernel.
+//   Serving launches pass null and write nothing more.
 
+#include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -95,6 +99,7 @@ template <int N>
 constexpr int kChunksFor = N >= 32 ? kMaxChunks / 2 : kMaxChunks;
 constexpr int kMinChunkLen = 8;      // steps per chunk, at least
 constexpr int kWarpsPerSm = 8;       // what the chunk count aims for
+constexpr int kCarryLen = 64;        // steps a carry chunk of a training launch
 
 struct ScanArgs {
   const void* u;      // (Bz, S, Di) T
@@ -106,8 +111,9 @@ struct ScanArgs {
   const float* h0;    // (Bz, Di, N) or null; may be h_out
   float* y;           // (Bz, S, Di)
   float* h_out;       // (Bz, Di, N)
-  float* carries;     // (Bz, T, Di, N): the state entering each chunk, or null
+  float* carries;     // (Bz, J, Di, N): the state entering each carry chunk, or null
   int S, Di, ldbc;
+  int J, Lc;          // carry chunks and their steps (training launch)
 };
 
 // 2^x in one special-function instruction (flushing a subnormal result to
@@ -150,14 +156,38 @@ __device__ __forceinline__ void load_slab(const ScanArgs& a, size_t row0, int d,
   }
 }
 
+// the N states at p (16-byte aligned), as float4s
+template <int N>
+__device__ __forceinline__ void write_state(float* p, const float (&h)[N]) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q)
+    reinterpret_cast<float4*>(p)[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2],
+                                                  h[4 * q + 3]);
+}
+
+// The final state h_out of channel d of row b and, in a training launch,
+// the carries of the carry chunks that start at or past S (their entering
+// state is the final state).  h_out may be unaligned: one float a store.
+template <int N, bool CARRIES>
+__device__ __forceinline__ void write_final(const ScanArgs& a, int b, int d, const float (&h)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) a.h_out[((size_t)b * a.Di + d) * N + n] = h[n];
+  if constexpr (CARRIES)
+    for (int c = (a.S + a.Lc - 1) / a.Lc; c < a.J; ++c)
+      write_state<N>(a.carries + (((size_t)b * a.J + c) * a.Di + d) * N, h);
+}
+
 // Steps [t0, t1) of channel d of row b from the state h, slab by slab: the
-// next slab's loads are issued before this slab's steps run.  Y: write y_t;
-// otherwise add dt_t to dsum (pass 1 of a chunk k >= 1).
-template <typename T, int N, bool Y>
+// next slab's loads are issued before this slab's steps run.  Y: write y_t
+// (and, with CARRIES -- a training launch -- the carry before every Lc-th
+// step); otherwise add dt_t to dsum (pass 1 of a chunk k >= 1).
+template <typename T, int N, bool Y, bool CARRIES>
 __device__ __forceinline__ void scan_steps(const ScanArgs& a, int b, int d, bool live,
                                            int t0, int t1, const float (&a2)[N], float Dd,
                                            float (&h)[N], float& dsum, float* slab, int lane) {
   const size_t row0 = (size_t)b * a.S;
+  // the next step whose entering state is a carry
+  int next_carry = CARRIES ? (t0 + a.Lc - 1) / a.Lc * a.Lc : INT_MAX;
   Slab<N> cur, nxt;
   if (t0 < t1) load_slab<T, N>(a, row0, d, live, t0, t1, lane, nxt);
   for (int t = t0; t < t1; t += kSlab) {
@@ -171,6 +201,14 @@ __device__ __forceinline__ void scan_steps(const ScanArgs& a, int b, int d, bool
 #pragma unroll
     for (int r = 0; r < kSlab; ++r) {
       if (r < n_steps) {
+        if constexpr (Y && CARRIES) {
+          if (t + r == next_carry) {
+            if (live)
+              write_state<N>(a.carries + (((size_t)b * a.J + next_carry / a.Lc) * a.Di + d) * N,
+                             h);
+            next_carry += a.Lc;
+          }
+        }
         const float dtv = cur.dt[r], dtu = dtv * cur.u[r];
         const float4* row = reinterpret_cast<const float4*>(slab + r * 2 * N);
         float y0 = 0.f, y1 = 0.f;
@@ -197,7 +235,8 @@ __device__ __forceinline__ void scan_steps(const ScanArgs& a, int b, int d, bool
 }
 
 // Prefill: grid (ceil(Di / 32), Bz), blockDim 32 * T (T chunks of L steps).
-template <typename T, int N>
+// CARRIES: the training launch (a.carries non-null).
+template <typename T, int N, bool CARRIES>
 __global__ void __launch_bounds__(32 * kChunksFor<N>)
 selective_scan_kernel(ScanArgs a, int L) {
   const int nch = blockDim.x / 32;
@@ -224,19 +263,14 @@ selective_scan_kernel(ScanArgs a, int L) {
   if (k == 0) {
 #pragma unroll
     for (int n = 0; n < N; ++n) h[n] = (live && a.h0 != nullptr) ? a.h0[hidx + n] : 0.f;
-    if (a.carries != nullptr && live)
-#pragma unroll
-      for (int n = 0; n < N; ++n) a.carries[(((size_t)b * nch) * a.Di + d) * N + n] = h[n];
-    scan_steps<T, N, true>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
+    scan_steps<T, N, true, CARRIES>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
   } else if (k < nch - 1) {
 #pragma unroll
     for (int n = 0; n < N; ++n) h[n] = 0.f;
-    scan_steps<T, N, false>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
+    scan_steps<T, N, false, CARRIES>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
   }
   if (nch == 1) {  // one chunk: the whole scan was pass 1
-    if (live)
-#pragma unroll
-      for (int n = 0; n < N; ++n) a.h_out[hidx + n] = h[n];
+    if (live) write_final<N, CARRIES>(a, b, d, h);
     return;
   }
   if (k < nch - 1) {
@@ -264,14 +298,8 @@ selective_scan_kernel(ScanArgs a, int L) {
   if (k == 0) return;
 #pragma unroll
   for (int n = 0; n < N; ++n) h[n] = carry[((k - 1) * N + n) * 32 + lane];
-  if (a.carries != nullptr && live)
-#pragma unroll
-    for (int n = 0; n < N; ++n)
-      a.carries[(((size_t)b * nch + k) * a.Di + d) * N + n] = h[n];
-  scan_steps<T, N, true>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
-  if (k == nch - 1 && live)
-#pragma unroll
-    for (int n = 0; n < N; ++n) a.h_out[hidx + n] = h[n];
+  scan_steps<T, N, true, CARRIES>(a, b, d, live, t0, t1, a2, Dd, h, dsum, slab, lane);
+  if (k == nch - 1 && live) write_final<N, CARRIES>(a, b, d, h);
 }
 
 // Decode: one step (S = 1) from the carried state; grid (ceil(Di / 128), Bz).
@@ -335,7 +363,7 @@ int pick_chunks(int groups, int S, int cap) {
 }
 
 template <typename T, int N>
-int launch(const ScanArgs& a, int Bz, int chunks, cudaStream_t stream) {
+int launch(const ScanArgs& a, int Bz, cudaStream_t stream) {
   // the decode kernel's float4 state and A loads need 16-byte alignment;
   // an unaligned step runs as a one-chunk scan
   const bool aligned = ((uintptr_t)a.A | (uintptr_t)a.h0 | (uintptr_t)a.h_out) % 16 == 0;
@@ -345,12 +373,12 @@ int launch(const ScanArgs& a, int Bz, int chunks, cudaStream_t stream) {
     return (int)cudaGetLastError();
   }
   const int groups = (a.Di + 31) / 32;
-  const int nch = chunks > 0 ? chunks : pick_chunks(groups * Bz, a.S, kChunksFor<N>);
-  if (nch > kChunksFor<N>) return (int)cudaErrorInvalidValue;
+  const int nch = pick_chunks(groups * Bz, a.S, kChunksFor<N>);
   const int L = (a.S + nch - 1) / nch;
   const size_t smem =
       sizeof(float) * ((size_t)(nch - 1) * (N + 1) * 32 + (size_t)nch * kSlab * 2 * N);
-  auto kernel = selective_scan_kernel<T, N>;
+  auto kernel = a.carries != nullptr ? selective_scan_kernel<T, N, true>
+                                      : selective_scan_kernel<T, N, false>;
   cudaError_t e = allow_smem_once(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(groups, Bz), 32 * nch, smem, stream>>>(a, L);
@@ -358,16 +386,16 @@ int launch(const ScanArgs& a, int Bz, int chunks, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch_n(int N, const ScanArgs& a, int Bz, int chunks, cudaStream_t s) {
+int dispatch_n(int N, const ScanArgs& a, int Bz, cudaStream_t s) {
   switch (N) {
     case 4:
-      return launch<T, 4>(a, Bz, chunks, s);
+      return launch<T, 4>(a, Bz, s);
     case 8:
-      return launch<T, 8>(a, Bz, chunks, s);
+      return launch<T, 8>(a, Bz, s);
     case 16:
-      return launch<T, 16>(a, Bz, chunks, s);
+      return launch<T, 16>(a, Bz, s);
     case 32:
-      return launch<T, 32>(a, Bz, chunks, s);
+      return launch<T, 32>(a, Bz, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -380,10 +408,12 @@ int dispatch_n(int N, const ScanArgs& a, int Bz, int chunks, cudaStream_t s) {
 // row t of batch b at (b * S + t) * ldbc (slices of one projection); h0
 // (Bz, Di, N) float32 or NULL (zeros); y (Bz, S, Di) float32; h_out (Bz, Di,
 // N) float32, may be h0.  N in {4, 8, 16, 32}.  carries: NULL (serving), or
-// (Bz, chunks, Di, N) float32 for the state entering each of `chunks` time
-// chunks (the training launch; chunks from repro_selective_scan_chunks, or
-// any count up to the kernel's cap).  Returns the CUDA error code of the
-// launch (0 on success).
+// (Bz, chunks, Di, N) float32 for the state entering each of `chunks` carry
+// chunks of ceil(S / chunks) steps (the training launch; chunks from
+// repro_selective_scan_train_chunks, or any count from 1; the backward
+// takes chunks of at most repro_selective_scan_bwd_max_chunk steps).  The
+// launch's own time chunks are the serving pick either way.  Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int repro_selective_scan(int dtype, const void* u, const void* dt,
                                     const void* A, const void* B,
                                     const void* C, const void* D,
@@ -393,23 +423,24 @@ extern "C" int repro_selective_scan(int dtype, const void* u, const void* dt,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Bz <= 0 || S <= 0 || Di <= 0 || (carries != nullptr && chunks <= 0))
     return (int)cudaErrorInvalidValue;
+  if (carries == nullptr) chunks = 1;
   const ScanArgs a{u, static_cast<const float*>(dt), static_cast<const float*>(A), B, C,
                    static_cast<const float*>(D), static_cast<const float*>(h0),
                    static_cast<float*>(y), static_cast<float*>(h_out),
-                   static_cast<float*>(carries), S, Di, ldbc};
-  if (carries == nullptr) chunks = 0;
+                   static_cast<float*>(carries), S, Di, ldbc, chunks,
+                   (S + chunks - 1) / chunks};
   switch (dtype) {
     case kFloat32:
-      return dispatch_n<float>(N, a, Bz, chunks, s);
+      return dispatch_n<float>(N, a, Bz, s);
     case kBFloat16:
-      return dispatch_n<__nv_bfloat16>(N, a, Bz, chunks, s);
+      return dispatch_n<__nv_bfloat16>(N, a, Bz, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The time chunks a prefill launch of this shape runs (the training
-// launch's carries count), or 0 for an unsupported N.
+// The time chunks a prefill launch of this shape runs, or 0 for an
+// unsupported N.
 extern "C" int repro_selective_scan_chunks(int Bz, int S, int Di, int N) {
   if (Bz <= 0 || S <= 0 || Di <= 0) return 0;
   const int groups = (Di + 31) / 32 * Bz;
@@ -423,4 +454,12 @@ extern "C" int repro_selective_scan_chunks(int Bz, int S, int Di, int N) {
     default:
       return 0;
   }
+}
+
+// The carry chunks of a training launch of this shape (the backward's
+// chunks): ~kCarryLen steps each, ceil(S / kCarryLen) of them; 0 for an
+// unsupported shape.
+extern "C" int repro_selective_scan_train_chunks(int Bz, int S, int Di, int N) {
+  if (Bz <= 0 || S <= 0 || Di <= 0 || (N != 4 && N != 8 && N != 16 && N != 32)) return 0;
+  return (S + kCarryLen - 1) / kCarryLen;
 }

@@ -73,9 +73,15 @@ KERNELS = {
 QUERIES = {
     "selective_scan_chunks": ("selective_scan.cu",
                               "repro_selective_scan_chunks", [_I] * 4, _I),
+    "selective_scan_train_chunks": ("selective_scan.cu",
+                                    "repro_selective_scan_train_chunks",
+                                    [_I] * 4, _I),
     "selective_scan_bwd_workspace": (
         "selective_scan_bwd.cu", "repro_selective_scan_bwd_workspace",
         [_I] * 5, ctypes.c_longlong),
+    "selective_scan_bwd_max_chunk": (
+        "selective_scan_bwd.cu", "repro_selective_scan_bwd_max_chunk", [_I],
+        _I),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: a layer's int8 page tensors, in the order the kernels take them
@@ -583,9 +589,10 @@ gmm.launches = 0
 def gmm_bwd(x, w, group_sizes, dy):
     """The gradient of gmm (ref.gmm_bwd_ref) for dy (T, N) of x's dtype:
     dx (T, M), rows past sum(group_sizes) 0, and dw (E, M, N), dw[e] =
-    x_e^T dy_e over expert e's rows (0 for an empty expert).  Two launches
-    (dx: kernel 6 reading w[e] transposed in place; dw: one owner block a
-    tile, no float atomics: the same bits from call to call)."""
+    x_e^T dy_e over expert e's rows (0 for an empty expert).  Two launches,
+    both reading w and x in place (no transposed copies) with no float
+    atomics -- the same bits from call to call: in bf16 each on wgmma, one
+    owner block a 128 x 256 tile (float32: on the CUDA cores)."""
     if not x.is_cuda:
         return ref.gmm_bwd_ref(x, w, group_sizes, dy)
     T, M, N, E = _check_gmm("gmm_bwd", x, w, group_sizes)
@@ -677,8 +684,9 @@ def _check_scan(name, u, dt, A, B, C, D, h0=None, h_out=None):
 
 def _scan_forward(u, dt, A, B, C, D, h0, h_out, with_carries: bool):
     """Launch kernel 7; `with_carries` (the training launch) also writes
-    the state entering each time chunk.  Returns (y, the final state,
-    carries (Bz, T, Di, N) float32 or None)."""
+    the state entering each of the backward's time chunks (~64 steps:
+    repro_selective_scan_train_chunks).  Returns (y, the final state,
+    carries (Bz, J, Di, N) float32 or None)."""
     ld = _check_scan("selective_scan", u, dt, A, B, C, D, h0, h_out)
     Bz, S, Di = u.shape
     N = A.shape[-1]
@@ -687,7 +695,7 @@ def _scan_forward(u, dt, A, B, C, D, h0, h_out, with_carries: bool):
         h_out = torch.empty(Bz, Di, N, dtype=torch.float32, device=u.device)
     chunks, carries = 0, None
     if with_carries:
-        chunks = _fn("selective_scan_chunks")(Bz, S, Di, N)
+        chunks = _fn("selective_scan_train_chunks")(Bz, S, Di, N)
         carries = torch.empty(Bz, chunks, Di, N, dtype=torch.float32,
                               device=u.device)
     err = _fn("selective_scan")(
@@ -707,10 +715,14 @@ selective_scan.launches = 0
 def selective_scan_bwd(u, dt, A, B, C, D, carries, dy):
     """The gradient of the selective scan's y (ref.selective_scan_bwd_ref)
     for dy (Bz, S, Di) float32, from the training forward's carries (Bz,
-    T, Di, N) float32: (du, ddt, dA, dB, dC, dD) in the dtypes of u, dt, A,
-    B, C, D, dB and dC contiguous.  Four launches (the reverse scan, then
-    fixed-order sums of its per-block partials; no atomics: the same bits
-    from call to call)."""
+    J, Di, N) float32 (the state entering each of J chunks of ceil(S / J)
+    steps; on the card at most repro_selective_scan_bwd_max_chunk(N) steps,
+    whose B/C rows the kernels stage in shared memory):
+    (du, ddt, dA, dB, dC, dD) in the dtypes of u, dt, A, B, C, D,
+    dB and dC contiguous.  Four launches (each chunk's forward sweep, the
+    adjoints' combine across chunks, each chunk's reverse steps, then
+    fixed-order sums of the partials; no atomics: the same bits from call
+    to call)."""
     if not u.is_cuda:
         return ref.selective_scan_bwd_ref(u, dt, A, B, C, D, carries, dy)
     ld = _check_scan("selective_scan_bwd", u, dt, A, B, C, D)
@@ -727,6 +739,13 @@ def selective_scan_bwd(u, dt, A, B, C, D, carries, dy):
              "selective_scan_bwd: carries must be a contiguous (Bz, T, Di, "
              "N) float32 CUDA tensor")
     Tf = carries.shape[1]
+    most = _fn("selective_scan_bwd_max_chunk")(N)
+    _require(-(-S // Tf) <= most,
+             f"selective_scan_bwd: carries of {Tf} chunks make chunks of "
+             f"{-(-S // Tf)} steps; the kernels stage a chunk's B/C rows in "
+             f"shared memory and take at most {most} steps at N {N}: write "
+             f"the carries at {-(-S // max(most, 1))} chunks or more "
+             "(selective_scan_train_chunks)")
     ws = torch.empty(_fn("selective_scan_bwd_workspace")(Bz, S, Di, N, Tf),
                      dtype=torch.uint8, device=u.device)
     du = torch.empty_like(u)

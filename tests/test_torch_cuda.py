@@ -530,15 +530,19 @@ def test_gmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 # ------------------------- grouped matmul: the backward -------------------------
 #: group sizes of the backward's cases: empty, one row, both sides of the
-#: 16-row slice and of the 64-row tile, and a training group at the
-#: capacity 320 of qwen3-moe-30b-a3b at B 8 x 512
-GMM_BWD_SIZES = [0, 1, 17, 64, 65, 320]
+#: wgmma body's 64-row halves and 128-row tiles, and a training group at
+#: the capacity 320 of qwen3-moe-30b-a3b at B 8 x 512 ("training": 64 or
+#: more rows per expert on average); and groups of kernel 6's serving sizes
+#: ("small": fewer than 64 rows per expert on average)
+GMM_BWD_SIZES = {"training": [0, 1, 63, 64, 65, 127, 128, 129, 320],
+                 "small": [0, 1, 2, 17, 63, 64, 65]}
 
 
-def _gmm_bwd_case(cuda, dtype, E, M, N, seed):
-    """Group sizes cycling through GMM_BWD_SIZES over E experts, 13 rows
-    past their sum (dropped choices), x, w and dy."""
-    gs = [GMM_BWD_SIZES[(e + seed) % len(GMM_BWD_SIZES)] for e in range(E)]
+def _gmm_bwd_case(cuda, dtype, E, M, N, seed, sizes="training"):
+    """Group sizes cycling through GMM_BWD_SIZES[sizes] over E experts, 13
+    rows past their sum (dropped choices), x, w and dy."""
+    cycle = GMM_BWD_SIZES[sizes]
+    gs = [cycle[(e + seed) % len(cycle)] for e in range(E)]
     x, w, g = _gmm_inputs(cuda, dtype, sum(gs) + 13, M, N, gs, seed)
     dy = torch.randn(x.shape[0], N, generator=torch.Generator().manual_seed(
         seed)).to(cuda, dtype)
@@ -547,14 +551,18 @@ def _gmm_bwd_case(cuda, dtype, E, M, N, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("E,M,N", [(8, 96, 200), (8, 256, 64),
-                                   (128, 128, 72)])
-def test_gmm_bwd_kernel_matches_plain(cuda, E, M, N, dtype):
+@pytest.mark.parametrize("E,M,N,sizes", [
+    (8, 96, 200, "training"), (8, 256, 64, "training"),
+    (128, 128, 72, "training"), (9, 512, 264, "training"),
+    (8, 96, 200, "small"), (64, 136, 520, "small")])
+def test_gmm_bwd_kernel_matches_plain(cuda, E, M, N, sizes, dtype):
     """dx and dw against the plain pair, each within the tolerance times
     its largest |value| (fp32 sums of up to 320 products in another order;
     bf16 outputs rounded once); rows past the sum 0 in dx, empty experts 0
-    in dw; two calls equal to the bit."""
-    x, w, g, dy = _gmm_bwd_case(cuda, dtype, E, M, N, E + M)
+    in dw; two calls equal to the bit.  M and N on both sides of the wgmma
+    body's 128-row and 256-column tiles; T / E on both sides of 64."""
+    x, w, g, dy = _gmm_bwd_case(cuda, dtype, E, M, N, E + M, sizes)
+    assert (x.shape[0] >= 64 * E) == (sizes == "training")
     n = ops.gmm_bwd.launches
     got = ops.gmm_bwd(x, w, g, dy)
     assert ops.gmm_bwd.launches == n + 1
@@ -569,6 +577,25 @@ def test_gmm_bwd_kernel_matches_plain(cuda, E, M, N, dtype):
     assert not got[1][g == 0].any()
     again = ops.gmm_bwd(x, w, g, dy)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_bwd_kernel_no_rows(cuda, dtype):
+    """With no rows (T = 0) dx is empty and dw zeros, counted as a launch,
+    whatever dw held before."""
+    E, M, N = 8, 96, 200
+    x = torch.empty(0, M, dtype=dtype, device=cuda)
+    w = torch.randn(E, M, N, generator=torch.Generator().manual_seed(0)
+                    ).to(cuda, dtype)
+    g = torch.zeros(E, dtype=torch.int32, device=cuda)
+    dy = torch.empty(0, N, dtype=dtype, device=cuda)
+    torch.full((E, M, N), 7.0, dtype=dtype, device=cuda)  # a dirty cache
+    n = ops.gmm_bwd.launches
+    dx, dw = ops.gmm_bwd(x, w, g, dy)
+    assert ops.gmm_bwd.launches == n + 1
+    assert dx.shape == (0, M) and dw.shape == (E, M, N)
+    assert not dw.any()
 
 
 @pytest.mark.cuda
@@ -750,14 +777,17 @@ SCAN_BWD_CASES = [(1, 1, 3200, 16), (4, 37, 8192, 16), (4, 512, 8192, 16),
 @pytest.mark.parametrize("Bz,S,Di,N", SCAN_BWD_CASES)
 def test_selective_scan_bwd_kernel_matches_plain(cuda, Bz, S, Di, N, dtype):
     """The backward kernel against its plain version from the same carries
-    (the plain forward's, at the chunk count the kernel's forward picks and
-    at 3 chunks), twice equal to the bit; then the carries of the training
-    forward against the plain forward's."""
+    (the plain forward's, at the chunk count of the training launch --
+    chunks of ~64 steps, S not always a multiple of them -- at 3 chunks,
+    and at 12, which leaves S = 37 two empty trailing chunks), twice equal
+    to the bit; then the carries of the training forward against the plain
+    forward's."""
     u, dt, A, B, C, D, _ = _scan_inputs(cuda, dtype, Bz, S, Di, N, S + N)
     dy = torch.randn(Bz, S, Di, generator=torch.Generator().manual_seed(S)
                      ).to(cuda)
-    T = ops._fn("selective_scan_chunks")(Bz, S, Di, N)
-    for chunks in sorted({T, min(3, S)}):
+    T = ops._fn("selective_scan_train_chunks")(Bz, S, Di, N)
+    assert T == -(-S // 64)
+    for chunks in sorted({T, min(3, S), min(12, S)}):
         _, _, carries = ref.selective_scan_fwd_ref(u, dt, A, B, C, D,
                                                    chunks=chunks)
         n = ops.selective_scan_bwd.launches
@@ -773,6 +803,49 @@ def test_selective_scan_bwd_kernel_matches_plain(cuda, Bz, S, Di, N, dtype):
     _assert_scan_close((y, h, carries), want)
     again = ops._scan_forward(u, dt, A, B, C, D, None, None, True)
     assert all(torch.equal(a, b) for a, b in zip((y, h, carries), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+def test_selective_scan_bwd_chunk_limit(cuda, N):
+    """Chunks of the carries up to repro_selective_scan_bwd_max_chunk(N)
+    steps run and match the plain backward; one step more is refused up
+    front with a ValueError that names the limit, before any launch."""
+    most = ops._fn("selective_scan_bwd_max_chunk")(N)
+    per_sub = 4 * 4 * 2 * N    # a 4-step sub-chunk's B/C rows, float32
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert most == (optin // per_sub - 8) * 4
+    dtype = torch.bfloat16
+    S = 2 * most + 1
+    u, dt, A, B, C, D, _ = _scan_inputs(cuda, dtype, 1, S, 64, N, N)
+    dy = torch.randn(1, S, 64, generator=torch.Generator().manual_seed(N)
+                     ).to(cuda)
+    _, _, carries = ref.selective_scan_fwd_ref(u, dt, A, B, C, D, chunks=3)
+    got = ops.selective_scan_bwd(u, dt, A, B, C, D, carries, dy)
+    _assert_scan_grads_close(
+        got, ref.selective_scan_bwd_ref(u, dt, A, B, C, D, carries, dy),
+        dtype)
+    _, _, carries = ref.selective_scan_fwd_ref(u, dt, A, B, C, D, chunks=2)
+    n = ops.selective_scan_bwd.launches
+    with pytest.raises(ValueError, match=f"at most {most} steps"):
+        ops.selective_scan_bwd(u, dt, A, B, C, D, carries, dy)
+    assert ops.selective_scan_bwd.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bz,S,Di,N", [(1, 256, 8192, 16), (8, 1, 8192, 16),
+                                       (1, 256, 3200, 16), (8, 1, 3200, 16),
+                                       (3, 300, 100, 32), (2, 7, 64, 4)])
+def test_selective_scan_serving_chunk_pick_unchanged(cuda, Bz, S, Di, N):
+    """The serving launch's time chunks (repro_selective_scan_chunks) are
+    the smallest power of two that gives the card ~8 warps an SM, with
+    chunks of at least 8 steps, at most 16 (8 at N = 32): the training
+    launch's carry chunks are a count of their own."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups, cap, T = -(-Di // 32) * Bz, 8 if N == 32 else 16, 1
+    while T < cap and groups * T < 8 * sms and -(-S // (2 * T)) >= 8:
+        T *= 2
+    assert ops._fn("selective_scan_chunks")(Bz, S, Di, N) == T
 
 
 @pytest.mark.cuda

@@ -38,6 +38,32 @@ and held against the JAX package on the same numpy inputs (float32, CPU).
   with pads, offsets, windows and prefixes: every pair of a full tile is
   visible, and a dead tile has no visible pair and no row without a
   visible key.
+* ``gmm_bwd_tiles``: the grouped matmul's backward on wgmma in
+  ``kernels/csrc/gmm.cu`` -- dx in 128-row tiles of one group (a group
+  over 128 rows takes more tiles) by 256 columns of M, the contraction
+  over N in 64-deep stages; dw one owner tile of 128 rows of M by 256
+  columns of N per expert, the group's rows in order in 64-row stages
+  (zeros past the group), an empty expert one stage of zeros; fp32 sums,
+  each output rounded once.  Held against ``jax.vjp`` of the JAX block's
+  capacity-buffer einsums (``repro/models/moe.py:90-92``): an empty
+  expert, a group over the capacity (its dropped rows past the kept ones),
+  groups of 1, 127, 128 and 129 rows, M and N past a whole tile.
+  Tolerance 1e-5 of each gradient's largest |value| (fp32 sums in another
+  order), as tests/test_torch_moe_scan_bwd.py.
+* ``chunked_scan_bwd``: the selective scan's backward in
+  ``kernels/csrc/selective_scan_bwd.cu`` -- J chunks of ceil(S / J) steps
+  from the carries of kernel 7's training launch (``chunked_scan`` with J:
+  the state before every chunk's first step, written by whichever pass of
+  the forward's own T chunks runs that step from the right state); a
+  forward sweep of each chunk keeping P = prod a_t, gamma = sum_t P_t dy_t
+  C_t and the state entering each 4-step sub-chunk; the adjoints combined
+  in reverse chunk order (Gamma_{j-1} = gamma_j + P_j Gamma_j); each
+  chunk's sub-chunks in reverse, their states and decays recomputed from
+  the checkpoint and reused by the reverse steps; dA and dD summed over
+  (row, chunk) partials in order.  Held against ``jax.vjp`` of
+  ``repro.models.mamba.selective_scan`` (the JAX train step's scan) at
+  several chunk counts, lengths that are not a multiple of the chunk, and
+  N 4 and 16.  Tolerance 1e-5 of each gradient's largest |value|.
 """
 import functools
 import math
@@ -46,6 +72,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import jax
 
 from repro.kernels import ops as JOPS
 from repro.kernels.selective_scan import selective_scan_pallas
@@ -59,24 +87,32 @@ from torch_cases import (MASKS, paged_case, prefill_case, quantize_pool,
                          scan_case, t as _t)
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 SCAN_TOL = 1e-5
 PAGED_TOL = 2e-5
 TILE = 32
 
 
 # ------------------------------- selective scan -------------------------------
-def chunked_scan(u, dt, A, B, C, D, h0, T):
-    """selective_scan.cu's prefill over T chunks of ceil(S / T) steps."""
+def chunked_scan(u, dt, A, B, C, D, h0, T, J=None):
+    """selective_scan.cu's prefill over T chunks of ceil(S / T) steps; with
+    J, its training launch, which also returns the carries (Bz, J, Di, N):
+    the state entering each of J chunks of ceil(S / J) steps, taken by the
+    passes that write y (the final state for a chunk past S)."""
     Bz, S, Di = u.shape
     L = -(-S // T)
     a2 = A * LOG2E
     bounds = [(min(S, k * L), min(S, k * L + L)) for k in range(T)]
     y = torch.zeros(Bz, S, Di)
     scratch = torch.zeros(Bz, S, Di)
+    Lc = -(-S // J) if J else 0
+    entering = {}                   # carry chunk -> the state entering it
 
     def steps(h, t0, t1, out):
         dsum = torch.zeros(Bz, Di)
         for t in range(t0, t1):
+            if J and out is y and t % Lc == 0:
+                entering[t // Lc] = h
             h = (torch.exp2(dt[:, t, :, None] * a2) * h
                  + (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :])
             out[:, t] = (h * C[:, t, None, :]).sum(-1) + D * u[:, t]
@@ -92,7 +128,10 @@ def chunked_scan(u, dt, A, B, C, D, h0, T):
     final = h_first
     for k in range(1, T):                                           # pass 2
         final, _ = steps(H[k - 1], *bounds[k], y)
-    return y, final
+    if not J:
+        return y, final
+    return y, final, torch.stack([entering.get(j, final) for j in range(J)],
+                                 dim=1)
 
 
 @pytest.mark.parametrize("T", [1, 2, 4, 8])
@@ -120,6 +159,104 @@ def test_chunked_scan_from_a_state_matches_jax_oracle(S, T):
                                rtol=SCAN_TOL)
     np.testing.assert_allclose(h.numpy(), np.asarray(wh), atol=SCAN_TOL,
                                rtol=SCAN_TOL)
+
+
+def chunked_scan_bwd(u, dt, A, B, C, D, carries, dy, sub=4):
+    """selective_scan_bwd.cu's four launches over the J chunks of the
+    carries: the sweep, the combine, the reverse and the ordered sums."""
+    Bz, S, Di = u.shape
+    J = carries.shape[1]
+    Lc = -(-S // J)
+    a2 = A * LOG2E
+    dtu = dt * u
+    bounds = [(min(S, j * Lc), min(S, j * Lc + Lc)) for j in range(J)]
+
+    def decay(t):
+        return torch.exp2(dt[:, t, :, None] * a2)
+
+    def step(h, a, t):
+        return a * h + dtu[:, t, :, None] * B[:, t, None, :]
+
+    gam, P, ck = [], [], []                                 # 1. sweep
+    for j, (t0, t1) in enumerate(bounds):
+        h, p = carries[:, j], torch.ones_like(carries[:, j])
+        g = torch.zeros_like(h)
+        ck.append({})
+        for t in range(t0, t1):
+            if (t - t0) % sub == 0:
+                ck[j][(t - t0) // sub] = h
+            a = decay(t)
+            h = step(h, a, t)
+            p = p * a
+            g = g + p * (dy[:, t, :, None] * C[:, t, None, :])
+        gam.append(g)
+        P.append(p)
+    Gam, G = [None] * J, torch.zeros_like(carries[:, 0])   # 2. combine
+    for j in reversed(range(J)):
+        Gam[j] = G
+        G = gam[j] + P[j] * G
+    du, ddt = torch.zeros_like(u), torch.zeros_like(dt)     # 3. reverse
+    dB, dC = torch.zeros_like(B), torch.zeros_like(C)
+    part_a = torch.zeros(Bz, J, *A.shape)
+    part_d = torch.zeros(Bz, J, Di)
+    for j, (t0, t1) in enumerate(bounds):
+        G = Gam[j]
+        for s in reversed(range(-(-(t1 - t0) // sub))):
+            ts = t0 + s * sub
+            hs, av = [ck[j][s]], []
+            for t in range(ts, min(t1, ts + sub)):          # recompute
+                av.append(decay(t))
+                hs.append(step(hs[-1], av[-1], t))
+            for r in reversed(range(len(av))):              # reverse steps
+                t = ts + r
+                g = dy[:, t, :, None] * C[:, t, None, :] + G
+                dB[:, t] = (g * dtu[:, t, :, None]).sum(1)
+                dC[:, t] = (dy[:, t, :, None] * hs[r + 1]).sum(1)
+                s1 = (g * B[:, t, None, :]).sum(-1)
+                gha = g * hs[r] * av[r]
+                du[:, t] = dt[:, t] * s1 + D * dy[:, t]
+                ddt[:, t] = u[:, t] * s1 + (gha * a2).sum(-1) * LN2
+                part_a[:, j] += gha * dt[:, t, :, None]
+                part_d[:, j] += dy[:, t] * u[:, t]
+                G = av[r] * g
+    dA, dD = torch.zeros_like(A), torch.zeros_like(D)       # 4. sums
+    for b in range(Bz):
+        for j in range(J):
+            dA, dD = dA + part_a[b, j], dD + part_d[b, j]
+    return du, ddt, dA, dB, dC, dD
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_bwd_case(S, N):
+    u, dt, A, B, C, D, _ = scan_case(70 + S + N, 2, S, 6, N, h0=False)
+    dy = np.random.default_rng(71 + S).standard_normal((2, S, 6)).astype(
+        np.float32)
+    h0 = jnp.zeros((2, 6, N), jnp.float32)
+
+    def jscan(u, dt, A, B, C, D):
+        return JMB.selective_scan(u, dt, A, B, C, D, h0, chunk=16)[0]
+    _, vjp = jax.vjp(jscan, *map(jnp.asarray, (u, dt, A, B, C, D)))
+    return (u, dt, A, B, C, D, dy), tuple(map(np.asarray,
+                                              vjp(jnp.asarray(dy))))
+
+
+@pytest.mark.parametrize("J", [1, 3, 5, 16])
+@pytest.mark.parametrize("S,N", [(37, 4), (37, 16), (64, 16)])
+def test_chunked_scan_bwd_matches_jax_vjp(S, N, J):
+    """The backward from the training forward's carries at J chunks (the
+    forward itself over 4 chunks of its own); S = 37 is no multiple of
+    the chunk, and at J = 16 it leaves the last chunks empty."""
+    (u, dt, A, B, C, D, dy), want = _scan_bwd_case(S, N)
+    args = tuple(map(_t, (u, dt, A, B, C, D)))
+    y, h, carries = chunked_scan(*args, None, 4, J)
+    _, _, plain = ref.selective_scan_fwd_ref(*args, chunks=J)
+    np.testing.assert_allclose(carries.numpy(), plain.numpy(),
+                               atol=SCAN_TOL, rtol=SCAN_TOL)
+    got = chunked_scan_bwd(*args, carries, _t(dy))
+    for name, g, w in zip(("du", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        scale = max(float(np.abs(w).max()), 1e-6)
+        np.testing.assert_allclose(g.numpy(), w, atol=SCAN_TOL * scale,
+                                   rtol=0, err_msg=name)
 
 
 # ------------------------------ int8 paged decode -----------------------------
@@ -467,3 +604,86 @@ def test_tile_classes_are_sound(seed, mask):
                 if cls == "dead":
                     assert not ok[qs, ks].any() and not empty_row[qs].any()
     assert "partial" in seen and len(seen) >= 2  # a skipped or unmasked tile too
+
+
+# ---------------------------- grouped matmul backward ----------------------------
+GMM_TOL = 1e-5
+
+
+def gmm_bwd_tiles(x, w, gs, dy, rows=128, cols=256, depth=64):
+    """gmm.cu's wgmma bodies: dx in `rows`-row tiles of one group by `cols`
+    columns of M, contracted over N `depth` at a time; dw one owner tile of
+    `rows` rows of M by `cols` columns of N per expert, the group's rows in
+    order `depth` at a time (zeros past the group; an empty expert one
+    stage of zeros).  fp32 sums, each output rounded once to its dtype."""
+    T, M = x.shape
+    E, _, N = w.shape
+    dx = torch.zeros_like(x)
+    dw = torch.empty_like(w)
+    starts = [0] + torch.cumsum(gs, 0).tolist()
+    for e in range(E):
+        r0, n = starts[e], starts[e + 1] - starts[e]
+        for t0 in range(0, n, rows):                        # dx
+            t1 = min(n, t0 + rows)
+            for c0 in range(0, M, cols):
+                acc = torch.zeros(t1 - t0, min(cols, M - c0))
+                for k0 in range(0, N, depth):
+                    acc += (dy[r0 + t0:r0 + t1, k0:k0 + depth].float()
+                            @ w[e, c0:c0 + cols, k0:k0 + depth].float().t())
+                dx[r0 + t0:r0 + t1, c0:c0 + cols] = acc.to(x.dtype)
+        for m0 in range(0, M, rows):                        # dw
+            for c0 in range(0, N, cols):
+                acc = torch.zeros(min(rows, M - m0), min(cols, N - c0))
+                for k0 in range(0, max(n, 1), depth):
+                    xs = torch.zeros(depth, acc.shape[0])
+                    ds = torch.zeros(depth, acc.shape[1])
+                    k1 = min(n, k0 + depth)
+                    xs[:k1 - k0] = x[r0 + k0:r0 + k1, m0:m0 + rows].float()
+                    ds[:k1 - k0] = dy[r0 + k0:r0 + k1, c0:c0 + cols].float()
+                    acc += xs.t() @ ds
+                dw[e, m0:m0 + rows, c0:c0 + cols] = acc.to(w.dtype)
+    return dx, dw
+
+
+#: the choices routed to each expert and the capacity: an empty expert,
+#: one over the capacity (its dropped choices past the kept rows), groups
+#: on both sides of the 128-row tile; M and N past a whole tile
+GMM_BWD_CASES = {
+    "tiles": dict(M=136, N=264, C=130, counts=[1, 127, 0, 128, 129, 150]),
+    "small": dict(M=24, N=40, C=8, counts=[0, 0, 1, 11, 3]),
+}
+
+
+@pytest.mark.parametrize("case", list(GMM_BWD_CASES))
+def test_gmm_bwd_tiles_match_jax_vjp(case):
+    """The port's rows: each expert's kept choices (at most C) in order,
+    the dropped ones after all of them; the JAX block's (E, C, .) capacity
+    buffers hold the kept ones, and their einsum's vjp gives dw and each
+    kept row's dx (a dropped row gets none)."""
+    c = GMM_BWD_CASES[case]
+    M, N, C, counts = c["M"], c["N"], c["C"], c["counts"]
+    E = len(counts)
+    gs = [min(n, C) for n in counts]
+    kept, T = sum(gs), sum(counts)
+    rng = np.random.default_rng(80 + M)
+    x = rng.standard_normal((T, M)).astype(np.float32)
+    w = (rng.standard_normal((E, M, N)) / M ** 0.5).astype(np.float32)
+    dy = rng.standard_normal((T, N)).astype(np.float32)
+    xb = np.zeros((E, C, M), np.float32)
+    db = np.zeros((E, C, N), np.float32)
+    for e, (a, g) in enumerate(zip(np.cumsum([0] + gs[:-1]), gs)):
+        xb[e, :g], db[e, :g] = x[a:a + g], dy[a:a + g]
+    _, vjp = jax.vjp(lambda a, b: jnp.einsum("ecm,emn->ecn", a, b),
+                     jnp.asarray(xb), jnp.asarray(w))
+    jdxb, jdw = map(np.asarray, vjp(jnp.asarray(db)))
+    jdx = np.zeros_like(x)
+    for e, (a, g) in enumerate(zip(np.cumsum([0] + gs[:-1]), gs)):
+        jdx[a:a + g] = jdxb[e, :g]
+    dx, dw = gmm_bwd_tiles(_t(x), _t(w), torch.tensor(gs), _t(dy))
+    for name, g, want in (("dx", dx, jdx), ("dw", dw, jdw)):
+        scale = max(float(np.abs(want).max()), 1e-6)
+        np.testing.assert_allclose(g.numpy(), want, atol=GMM_TOL * scale,
+                                   rtol=0, err_msg=name)
+    assert not dx[kept:].any()
+    assert not dw[torch.tensor(gs) == 0].any()
+
