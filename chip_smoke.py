@@ -65,6 +65,15 @@ Phases, each reported on its own lines:
       queries must hit the radix tree and the ``n_samples`` queries must
       fork copy-on-write pages.  One warm query of each layout, and one
       of the int8 pages, is profiled;
+   c. the HTTP front door (``repro_torch.frontdoor``) on localhost over
+      the IPDB with ``PATH 'torch:olmo-1b'`` (``'config': 'full'``) at the
+      dense path's settings, chunks of 8 rows: 2 tenants x 3 concurrent
+      sessions of 8 rows and one session of 32 rows cancelled by ``DELETE
+      /query/<id>`` after its first chunk; every stream ends with its
+      ExecStats trailer, every value parses, the cancelled session
+      dispatches at most the flush in flight; launches counted as the
+      ``frontdoor`` path (the engine runs on the inference service's
+      worker thread);
 4. the qwen3-moe-30b-a3b configuration (MoE family: 128 experts, top-8,
    d_ff 768, 32 heads x 64 on 4 kv heads, vocab 151936, random weights):
    a. at full width and 4 of its 48 layers in float32, the logits of a
@@ -112,12 +121,21 @@ Phases, each reported on its own lines:
       and 4 more, which must equal the 8 to the bit; hubert-xlarge at full
       width and depth and paligemma-3b at full width and depth for 4 steps
       each (at the driver's own 20 warm-up steps); then qwen3-moe-30b-a3b
-      (4 of 48 layers), falcon-mamba-7b (30 of 64 layers) and hymba-1.5b
+      (5 of 48 layers), falcon-mamba-7b (32 of 64 layers) and hymba-1.5b
       (full depth) for 8 steps each, whose loss must fall, and qwen3-moe
       and hymba 4 steps twice in deterministic mode, equal to the bit;
       step times, tokens/s, model FLOP/s over the bf16 peak and peak
       memory, one warm step of each profiled; the launches counted as the
-      ``train`` path;
+      ``train`` path, and checked against those of the steps run (each
+      layer's forward kernels twice a step: ``launch.train`` remats every
+      layer, ``remat_policy`` "nothing");
+   c. remat: olmo-1b, qwen3-moe-30b-a3b and hymba-1.5b (their training
+      batches, lengths and depths) 2 deterministic steps each with remat
+      off, "nothing" and "dots" from one state, equal to the bit, each
+      run's peak memory printed; then olmo-1b at full width and depth at
+      its published 2048-token context, B 16, 4 steps through
+      ``launch.train`` (the loss must fall; peak memory printed); launches counted as the
+      ``remat`` path;
 7. a JSON line with every kernel's numbers at the dtype its path gives it,
    then the last line ``{"ok": true, "device": {...}}``.
 
@@ -128,6 +146,7 @@ line (for comparing kernel versions on one card in one call).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -138,6 +157,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -197,11 +217,30 @@ TRAIN_ATTN = tuple(a for a in TRAIN if a != SSM_ARCH)
 #: the depth at which the trainer runs a config in bfloat16 where its full
 #: depth does not fit the card: fp32 masters, two AdamW moments and the
 #: gradients take ~16 bytes a parameter (qwen3-moe-30b-a3b ~0.61 B a layer,
-#: falcon-mamba-7b ~0.11 B) beside the activations.  The largest depths
-#: that fit an 80 GB card (qwen3-moe at 5 layers and falcon-mamba at 32 run
-#: out of it); the trainer phase prints each run's peak memory.  The
+#: falcon-mamba-7b ~0.11 B) and AdamW's temporaries (a stacked leaf's
+#: size, 4.25-4.5 GiB) cap the depth on one card; with the trainer's
+#: remat the activations add one layer input a layer.  The largest depths
+#: measured to fit an 80 GB card (benchmarks/remat_memory_torch.py:
+#: qwen3-moe 5 layers at 70.07 GiB, 6 run out; falcon-mamba 32 at 74.22
+#: GiB, 34 run out); the trainer phase prints each run's peak memory.  The
 #: others run at full depth.
-TRAIN_DEPTH = {MOE_ARCH: 4, SSM_ARCH: 30}
+TRAIN_DEPTH = {MOE_ARCH: 5, SSM_ARCH: 32}
+#: the configs whose train step runs with each remat setting from one state
+#: (at their TRAIN shapes and depths), and the settings
+REMAT_CHECK = (DENSE_ARCH, MOE_ARCH, HYBRID_ARCH)
+REMAT_POLICIES = (("off", dict(remat=False)), ("nothing", {}),
+                  ("dots", dict(remat_policy="dots")))
+#: olmo-1b at its published context through launch.train (remat "nothing")
+LONG = dict(B=16, S=2048, steps=4)
+#: the front door's sessions: tenants x sessions of `rows` rows each, one
+#: more session of `long` rows cancelled mid-stream, `chunk` rows a chunk
+#: (a chunk fills the batcher's 8 slots: the sessions' dispatches run one
+#: after another on the one engine)
+FRONTDOOR = dict(tenants=("acme", "zeta"), sessions=3, rows=8, long=32,
+                 chunk=8)
+#: (arch, layers) → train steps run inside the "train" count (train_run and
+#: warm_step tally them; expected_train_launches reads them)
+STEPS_RUN = collections.Counter()
 T0 = time.time()
 
 
@@ -1752,9 +1791,11 @@ def train_run(TR, arch, steps, *extra):
     """repro_torch.launch.train at `arch`'s training batch and length, with
     the driver's own schedule (peak 3e-3 after 20 warm-up steps)."""
     shp = TRAIN[arch]
-    return TR.train(["--arch", arch, "--steps", str(steps), "--batch",
-                     str(shp["B"]), "--seq-len", str(shp["S"]),
-                     "--log-every", "1", *extra])
+    h = TR.train(["--arch", arch, "--steps", str(steps), "--batch",
+                  str(shp["B"]), "--seq-len", str(shp["S"]),
+                  "--log-every", "1", *extra])
+    STEPS_RUN[(arch, h["cfg"].num_layers)] += len(h["losses"])
+    return h
 
 
 def model_flops(cfg, tokens, S) -> float:
@@ -1796,6 +1837,7 @@ def warm_step(ST, cfg, arch, state, step):
         t0 = time.time()
         step_fn(state, batch)
         torch.cuda.synchronize()
+        STEPS_RUN[(arch, cfg.num_layers)] += 1
         return time.time() - t0
     return one_step
 
@@ -1970,8 +2012,8 @@ def state_digest(state) -> list:
 def train_new_families(C, smi):
     """The MoE, ssm and hybrid families through repro_torch.launch.train in
     bfloat16 compute over float32 master weights and AdamW state, at full
-    width and each at its TRAIN_DEPTH (qwen3-moe-30b-a3b 4 of 48 layers,
-    falcon-mamba-7b 30 of 64, hymba-1.5b full depth with its 1024-token
+    width and each at its TRAIN_DEPTH (qwen3-moe-30b-a3b 5 of 48 layers,
+    falcon-mamba-7b 32 of 64, hymba-1.5b full depth with its 1024-token
     window live at 2048 tokens), at the driver's own schedule: 8 steps in
     the default mode (the loss must fall; step time, tokens/s, model FLOP/s
     over the bf16 peak, peak memory), one more step profiled; then, for
@@ -2016,6 +2058,233 @@ def train_new_families(C, smi):
             if not same:
                 fail(f"{arch}: two deterministic runs differ")
     return out
+
+
+def expected_train_launches(C) -> dict:
+    """The launches of the training kernels that the steps tallied in
+    STEPS_RUN make: each layer's forward kernels twice a step (the forward
+    and, under the trainer's default remat, its recompute in the
+    backward), its backward kernels once (kernel 1 and 1-bwd a layer with
+    attention, kernel 6 and 6-bwd three times a MoE layer, kernel 7 and
+    7-bwd a mixer layer)."""
+    out = collections.Counter()
+    for (arch, layers), steps in STEPS_RUN.items():
+        cfg = C.get_config(arch)
+        n = steps * layers
+        for kname, has, per_layer in (
+                ("flash_attention", cfg.has_attention, 1),
+                ("gmm", cfg.has_moe, 3),
+                ("selective_scan", cfg.has_ssm, 1)):
+            if has:
+                out[kname] += 2 * per_layer * n
+                out[kname + "_bwd"] += per_layer * n
+    return dict(out)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` (and cuBLAS's fixed
+    workspace) for the block, restored after, as ``launch.train
+    --deterministic`` does: the embedding's gradient then sums without
+    atomics, so two runs of the same step give the same bits."""
+    was = torch.are_deterministic_algorithms_enabled()
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+def remat_policies(C, smi):
+    """The train step with remat off, "nothing" and "dots"
+    (``launch.steps.make_train_step``), each from the same state (seeded
+    initialisation) for 2 deterministic steps at the config's training
+    batch and length and TRAIN_DEPTH: olmo-1b (full depth), qwen3-moe-30b-a3b
+    (the recompute routes kernel 6's rows again) and hymba-1.5b (kernels
+    1 with its window and 7 recomputed).  Losses, gradient norms and the
+    final states (per-leaf digests of their bits) must be equal to the
+    bit; each run's peak memory and step times are printed."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training import optim as OPT
+    from repro_torch.training.data import DataConfig, synthetic_batch
+    for arch in REMAT_CHECK:
+        with cut_depth(C, arch):
+            cfg = C.get_config(arch)
+        shp = TRAIN[arch]
+        depth = f"{cfg.num_layers} of {C.get_config(arch).num_layers} layers"
+        runs = {}
+        for name, kw in REMAT_POLICIES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = ST.init_train_state(
+                cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
+            step = ST.make_train_step(
+                cfg, ShapeSpec("remat", shp["S"], shp["B"], "train"),
+                opt_cfg=OPT.AdamWConfig(lr=3e-3, warmup_steps=20,
+                                        total_steps=100), **kw)
+            losses, norms, times = [], [], []
+            with deterministic():
+                for s in range(2):
+                    batch = synthetic_batch(cfg, DataConfig(
+                        batch=shp["B"], seq_len=shp["S"]), s)
+                    torch.cuda.synchronize()
+                    t = time.time()
+                    state, m = step(state, batch)
+                    losses.append(m["loss"].item())
+                    norms.append(m["grad_norm"].item())
+                    times.append(time.time() - t)
+            peak = torch.cuda.max_memory_allocated()
+            runs[name] = (losses, norms, state_digest(state))
+            print(f"remat {name} ({arch}, full width, {depth}, B "
+                  f"{shp['B']} S {shp['S']}, deterministic): losses "
+                  f"{losses}, grad norms {norms}, step s "
+                  f"{[round(x, 4) for x in times]}, peak device memory "
+                  f"{peak / 2**30:.2f} GiB [{smi}]", flush=True)
+            del state, step
+        same = all(runs[n] == runs["off"] for n, _ in REMAT_POLICIES)
+        print(f"remat off / nothing / dots ({arch}): "
+              f"{'equal to the bit' if same else 'DIFFERENT'} (losses, "
+              f"grad norms, {len(runs['off'][2]) - 1} leaves' digests)",
+              flush=True)
+        if not same:
+            fail(f"{arch}: the remat policies' steps differ")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def long_context(C, smi):
+    """olmo-1b at full width and depth at its published 2048-token context,
+    B 16 (32768 tokens a step), 4 steps through launch.train with its
+    default remat ("nothing"): the loss must fall; the peak memory is
+    printed (without remat the step needs more than the card)."""
+    from repro_torch.launch import train as TR
+    torch.cuda.reset_peak_memory_stats()
+    h = TR.train(["--arch", DENSE_ARCH, "--steps", str(LONG["steps"]),
+                  "--batch", str(LONG["B"]), "--seq-len", str(LONG["S"]),
+                  "--log-every", "1"])
+    peak = torch.cuda.max_memory_allocated()
+    report_train(f"{DENSE_ARCH} (full width and depth, B {LONG['B']} x "
+                 f"{LONG['S']}, remat nothing)", h, h["cfg"], LONG, smi)
+    print(f"  peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    if not h["losses"][-1] < h["losses"][0]:
+        fail(f"{DENSE_ARCH} B {LONG['B']} x {LONG['S']}: the loss did not "
+             f"fall: {h['losses']}")
+    del h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontdoor_path(smi):
+    """The HTTP front door (``repro_torch.frontdoor``) on localhost over
+    repro_torch's IPDB with ``PATH 'torch:olmo-1b'`` at its published
+    config (``'config': 'full'``, random weights) and the dense SQL path's
+    settings (max_len 512, 8 slots, 64 new tokens, its prompt): 2 tenants
+    x 3 concurrent sessions of FRONTDOOR["rows"] rows each through
+    FrontDoorClient, and one more session over FRONTDOOR["long"] rows
+    cancelled by DELETE /query/<id> after its first chunk.  Every stream
+    must end with its ExecStats trailer, each session return its table's
+    rows, every value parse under the grammar (a string of at most
+    max_str characters), and the cancelled session dispatch at most one
+    batch after the DELETE (the flush in flight).  The engine runs on the
+    inference service's worker thread."""
+    import repro_torch.core.database as D
+    from repro_torch.frontdoor import FrontDoor, FrontDoorClient
+    from repro_torch.relational.table import Table
+    kinds = ("bolt", "nut", "gear", "washer")
+    db = D.IPDB()
+    tables = {}
+    for tenant in FRONTDOOR["tenants"]:
+        for i in range(FRONTDOOR["sessions"]):
+            name = f"S_{tenant}_{i}"
+            db.register_table(name, Table.from_rows(
+                [{"name": f"{tenant} {i} item {j:02d}", "kind": kinds[j % 4]}
+                 for j in range(FRONTDOOR["rows"])]))
+            tables[(tenant, i)] = name
+    db.register_table("Long", Table.from_rows(
+        [{"name": f"long item {j:02d}", "kind": kinds[j % 4]}
+         for j in range(FRONTDOOR["long"])]))
+    db.sql("CREATE LLM MODEL m PATH 'torch:olmo-1b' ON PROMPT OPTIONS { "
+           "'config': 'full', 'batch_size': 1, 'num_slots': 8, "
+           "'max_tokens': 64, 'max_str': 8 }")
+    db.set_option("chunk_size", FRONTDOOR["chunk"])
+    prompt = ("the most likely colour {color VARCHAR} of the {{kind}} named "
+              "{{name}}")
+
+    def sql(table):
+        return f"SELECT name, LLM m (PROMPT '{prompt}') AS color FROM {table}"
+    results, errors = {}, []
+    with db, FrontDoor(db, host="127.0.0.1", max_sessions=8,
+                       max_queued=8) as fd:
+        svc = db.inference_service
+        cli = FrontDoorClient(fd.host, fd.port, timeout=600)
+
+        def run(key, tenant, table):
+            t = time.time()
+            try:
+                frames = list(cli.query(sql(table), tenant=tenant).frames())
+                results[key] = (frames, time.time() - t)
+            except Exception as e:       # reported below, after the joins
+                errors.append(f"{key}: {type(e).__name__}: {e}")
+        t0 = time.time()
+        victim = cli.query(sql("Long"), tenant=FRONTDOOR["tenants"][1])
+        threads = [threading.Thread(target=run, args=(key, key[0], table))
+                   for key, table in tables.items()]
+        for th in threads:
+            th.start()
+        frames = victim.frames()
+        cancelled = [next(frames)]
+        at_delete = svc.session_stats(victim.session_id).dispatch_batches
+        fired = cli.cancel(victim.session_id)
+        cancelled += list(frames)
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.time() - t0
+        pending = svc.session_pending(victim.session_id)
+        server = cli.server_stats()
+    if errors or len(results) != len(tables):
+        fail(f"front door: sessions failed: {errors}")
+    prefill = decode = 0
+    for key, (frames, lat) in sorted(results.items()):
+        trailer = frames[-1]
+        colors = [r["color"] for f in frames if f["type"] == "chunk"
+                  for r in f["rows"]]
+        if not (trailer["type"] == "trailer" and trailer["status"] == "ok"
+                and trailer["rows"] == FRONTDOOR["rows"] == len(colors)
+                and all(isinstance(c, str) and len(c) <= 8 for c in colors)):
+            fail(f"front door session {key}: {trailer}, values {colors}")
+        prefill += trailer["stats"]["prefill_tokens"]
+        decode += trailer["stats"]["decode_tokens"]
+        print(f"frontdoor session {key[0]}/{key[1]}: {len(colors)} rows "
+              f"parsed in {lat:.3f} s, dispatch_batches "
+              f"{trailer['stats']['dispatch_batches']}, prefill_tokens "
+              f"{trailer['stats']['prefill_tokens']}, decode_tokens "
+              f"{trailer['stats']['decode_tokens']}; answers "
+              f"{colors[:3]}", flush=True)
+    trailer = cancelled[-1]
+    rows = sum(len(f["rows"]) for f in cancelled if f["type"] == "chunk")
+    print(f"frontdoor cancelled session: DELETE {'fired' if fired else 'MISSED'}"
+          f" after its first chunk, {rows} of {FRONTDOOR['long']} rows, "
+          f"status {trailer.get('status')}, dispatch_batches "
+          f"{trailer.get('stats', {}).get('dispatch_batches')} against "
+          f"{at_delete} done at the DELETE, {pending} requests left queued",
+          flush=True)
+    if not (fired and trailer.get("status") == "cancelled"
+            and rows < FRONTDOOR["long"] and pending == 0
+            and trailer["stats"]["dispatch_batches"] <= at_delete + 1):
+        fail("front door: the cancelled session did not stop within one "
+             "flush")
+    lats = sorted(lat for _, lat in results.values())
+    print(f"frontdoor: {len(results)} sessions of {FRONTDOOR['rows']} rows "
+          f"over {len(FRONTDOOR['tenants'])} tenants + 1 cancelled, wall_s "
+          f"{wall:.3f}, prefill_tokens {prefill}, decode_tokens {decode}, "
+          f"session latencies s {[round(x, 3) for x in lats]}; server "
+          f"{server} [{smi}]", flush=True)
 
 
 # ------------------------------------ main -------------------------------------
@@ -2213,6 +2482,12 @@ def main(argv=None) -> int:
     print(f"peak device memory during the profiled query: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    # the front door over PATH 'torch:olmo-1b': concurrent HTTP sessions
+    # and a cancel, the engine on the inference service's worker thread
+    stamp("the front door")
+    count("frontdoor", lambda: frontdoor_path(smi),
+          ("flash_attention", "decode_attention", "constrained_sample"))
+
     # the MoE family at full width and depth: free the olmo sessions first
     del dense, paged, params
     gc.collect()
@@ -2280,9 +2555,22 @@ def main(argv=None) -> int:
         check_train_full_width(C, MDL, ref, arch, 2)
         torch.cuda.empty_cache()
     stamp("the trainer in bfloat16")
+    train_kernels = ("flash_attention", "flash_attention_bwd", "gmm",
+                     "gmm_bwd", "selective_scan", "selective_scan_bwd")
+    STEPS_RUN.clear()
     count("train", lambda: (train_path(C, smi), train_new_families(C, smi)),
-          ("flash_attention", "flash_attention_bwd", "gmm", "gmm_bwd",
-           "selective_scan", "selective_scan_bwd"))
+          train_kernels)
+    want = expected_train_launches(C)
+    got = {k: report[k]["launches_by_path"]["train"] for k in want}
+    print(f"train launches {got}, expected from the steps run "
+          f"{dict(sorted(STEPS_RUN.items()))} under remat: {want}",
+          flush=True)
+    if got != want:
+        fail("train: the kernels' launches are not those of the steps run "
+             "under remat")
+    stamp("remat: off / nothing / dots, and olmo-1b at 2048 tokens")
+    count("remat", lambda: (remat_policies(C, smi), long_context(C, smi)),
+          train_kernels)
     stamp("done")
 
     for r in report.values():

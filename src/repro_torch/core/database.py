@@ -9,8 +9,11 @@ Executor resolution by model PATH scheme:
     oracle:<name>   → OracleExecutor using a registered oracle fn
     torch:<arch>    → TorchExecutor on an in-process InferenceEngine on the
                       database's device (smoke-size config of the named
-                      architecture); ``jax:<arch>`` belongs to the JAX
-                      package and raises here
+                      architecture, as the JAX package's ``jax:<arch>``;
+                      OPTIONS { 'config': 'full' } serves its published
+                      config, random weights from seed 0);
+                      ``jax:<arch>`` belongs to the JAX package and raises
+                      here
     *.onnx / tabular:<name> → TabularExecutor via a registered predict fn
     custom:<name>   → a registered executor factory (tests/benchmarks)
 """
@@ -257,13 +260,20 @@ class IPDB:
                 "kv_quant", self.options.get("kv_quant", "none")))
             if layout == "dense":
                 pmode, quant = "radix", "none"
+            size = str(entry.options.get("config", "smoke"))
+            if size not in ("smoke", "full"):
+                raise ValueError(f"config {size!r}: 'smoke' or 'full'")
             # every option that shapes the engine is part of the cache
             # key — two models must never silently share a mismatched one
+            # (the smoke key is the JAX package's)
             key = (arch, layout, page_size, pool, max_len, pmode, quant)
+            if size == "full":
+                key += (size,)
             if key not in self._torch_engines:
                 import repro_torch.configs as C
                 from repro_torch.serving.engine import InferenceEngine
-                cfg = C.get_smoke_config(arch).replace(vocab_size=259)
+                cfg = C.get_config(arch) if size == "full" else \
+                    C.get_smoke_config(arch).replace(vocab_size=259)
                 self._torch_engines[key] = InferenceEngine(
                     cfg, max_len=max_len,
                     kv_layout=layout, page_size=page_size,

@@ -53,15 +53,19 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
 
 
 def make_train_step(cfg: ModelConfig, shape: ShapeSpec, num_micro: int = 1,
-                    opt_cfg: OPT.AdamWConfig = None,
-                    device=None) -> Callable:
+                    opt_cfg: OPT.AdamWConfig = None, device=None, *,
+                    remat: bool = True,
+                    remat_policy: str = "nothing") -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.  batch: the data
     pipeline's dict (numpy arrays or tensors) of shape.global_batch rows;
     with num_micro > 1 it is cut into that many micro-batches along the
     batch axis, whose fp32 gradients are summed and divided by num_micro
     (the loss likewise).  The state is updated in place and returned;
     metrics ``{"loss", "grad_norm", "lr"}`` are float32 scalars on the
-    device (`device`, or the params' when None)."""
+    device (`device`, or the params' when None).  `remat` and
+    `remat_policy` go to every forward, the micro-batches' included
+    (``models.model.forward``; JAX's names and defaults): the gradients
+    are the same to the bit, the memory held until the backward is not."""
     opt_cfg = opt_cfg or OPT.AdamWConfig()
     if shape.global_batch % num_micro:
         raise ValueError(f"global batch {shape.global_batch} does not split "
@@ -71,7 +75,8 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, num_micro: int = 1,
 
     def loss_fn(params, mb):
         logits, _ = MDL.forward(cfg, params, mb, mode="train",
-                                num_groups=num_groups)
+                                num_groups=num_groups, remat=remat,
+                                remat_policy=remat_policy)
         return MDL.lm_loss(cfg, logits, mb["labels"], mb["mask"])
 
     def train_step(state, batch):

@@ -6,7 +6,8 @@
         --device cpu --steps 20 --batch 4 --seq-len 32
 
 It runs on CUDA unless ``--device cpu`` is given (without a GPU it raises).
-Every family trains (``launch/steps.py``).
+Every family trains (``launch/steps.py``), each layer rematerialised in the
+backward (``make_train_step``'s defaults, as the JAX driver takes them).
 
 Fault tolerance, as in the JAX driver:
   * checkpoint/restart: async sharded checkpoints every --ckpt-every steps

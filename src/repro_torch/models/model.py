@@ -20,7 +20,9 @@ Three modes, as in the JAX package:
             master weights (``params.param_specs``) the forward casts them
             to the compute dtype inside the autograd graph, as the JAX
             forward's ``.astype(cd)`` does, so their gradients are fp32
-            (``launch/steps.py``)
+            (``launch/steps.py``).  By default each layer is rematerialised
+            in the backward (``remat``, ``remat_policy``: JAX's
+            ``jax.checkpoint`` of the scanned layer body)
   prefill — full-sequence forward that fills a decode cache (optionally
             extending a cached prefix: ``extend_offset``)
   decode  — single-token step against the KV cache
@@ -45,10 +47,13 @@ Hopper kernel wrappers in ``kernels/ops.py`` by default (``attn_fn``,
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
@@ -297,12 +302,56 @@ def _leaf_cast(cfg: ModelConfig, params: dict):
     return lambda name, t: t.to(_dtype(cfg, name))
 
 
+#: the products that ``remat_policy="dots"`` keeps: a matrix product with
+#: no batch dimension (``x @ w`` of a (B, S, M) activation and a 2-D weight
+#: reaches the dispatcher as ``mm``; a product with a bias as ``addmm``)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(_ctx, op, *_args, **_kwargs):
+    """The ``dots`` policy, ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``: keep the output of each product
+    with no batch dimension that autograd records (the q/k/v/o and MLP
+    projections, the router, the mixer's in/x/dt/out projections) and
+    recompute all else: the kernels' forwards, batched products, norms and
+    elementwise work.  The products inside an autograd Function (the
+    plain versions of the kernels on the CPU) run with grad off and are
+    recomputed, as the kernels they stand for are."""
+    if op in _DOT_OPS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_fn(policy: str):
+    """fn, *tensors → fn(*tensors) under the non-reentrant checkpoint of
+    `policy` ("nothing": keep only the inputs; "dots": also the products
+    of ``_save_dots``).  Non-reentrant: the train step takes
+    ``torch.autograd.grad``, which the reentrant form does not support."""
+    if policy == "nothing":
+        return functools.partial(checkpoint, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(checkpoint, use_reentrant=False,
+                                 context_fn=functools.partial(
+                                     create_selective_checkpoint_contexts,
+                                     _save_dots))
+    raise ValueError(f"remat_policy {policy!r}: 'nothing' or 'dots'")
+
+
+def _layer(cfg: ModelConfig, names, cast, block_args, x, *leaves):
+    """One layer from its master (or serving) leaves in `names` order: the
+    cast to the serving dtypes, then the block.  The unit that remat
+    recomputes, so the layer's bf16 weights live only while it runs."""
+    lp = {k: cast(k, v) for k, v in zip(names, leaves)}
+    return _block(cfg, x, lp, *block_args)
+
+
 def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             mode: str = "train", cache: Optional[Dict[str, Any]] = None, *,
             attn_fn=None, decode_attn_fn=None, prefix_attn_fn=None,
             paged_decode_attn_fn=None, gmm_fn=None, scan_fn=None,
             num_groups: int = 1, last_only: bool = False,
-            extend_offset: int = 0
+            extend_offset: int = 0, remat: bool = True,
+            remat_policy: str = "nothing"
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the stack.  batch: tokens (B, S) int | embeds (B, S, M) (the
     encoder's frame embeddings), positions (B, S) int32; the VLM may add
@@ -330,8 +379,18 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     The MoE family routes all B·S rows of a call, in `num_groups` capacity
     groups (the JAX default 1: what the serving engine runs; the train step
     passes ``moe.pick_num_groups`` of its micro-batch's tokens).  In train
-    mode the ssm and hybrid mixers scan from zeros and keep no state."""
+    mode the ssm and hybrid mixers scan from zeros and keep no state.
+
+    `remat` (train mode only; JAX's names and defaults) runs each layer
+    under ``torch.utils.checkpoint``: the backward recomputes the layer's
+    forward, kernels included, from what `remat_policy` kept -- "nothing":
+    the layer's input and views of its master leaves; "dots": also the
+    outputs of its products with no batch dimension.  Any other policy
+    name raises ValueError.  The gradients are those of the forward
+    without remat, to the bit: the recompute runs the same operations on
+    the same inputs."""
     require_ported(cfg)
+    remat_layer = _remat_fn(remat_policy)
     attn_fn = attn_fn or KOPS.flash_attention
     decode_attn_fn = decode_attn_fn or KOPS.decode_attention
     cd = DTYPES[cfg.compute_dtype]
@@ -377,8 +436,10 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     # one unbind a leaf: its backward stacks the layers' gradients once,
     # where indexing each layer would add L zero-padded full-size ones
     stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+    names = list(stacked)
+    if not (remat and mode == "train"):
+        remat_layer = None
     for i in range(cfg.num_layers):
-        lp = {k: cast(k, v[i]) for k, v in stacked.items()}
         ck = cv = state = None
         if cache is not None and cfg.has_attention:
             ck, cv = cache["k"][i], cache["v"][i]
@@ -389,9 +450,14 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                 "kq": cache["kq"][i], "vq": cache["vq"][i],
                 "kscale": cache["kscale"][i], "vscale": cache["vscale"][i],
                 "flags": cache["quant_flags"]}
-        x = _block(cfg, x, lp, positions, mode, ck, cv, slot_pos, write_slot,
-                   attn_fn, decode_attn_fn, extend_offset, paged, num_groups,
-                   gmm_fn, state, scan_fn)
+        layer = functools.partial(
+            _layer, cfg, names, cast,
+            (positions, mode, ck, cv, slot_pos, write_slot, attn_fn,
+             decode_attn_fn, extend_offset, paged, num_groups, gmm_fn, state,
+             scan_fn))
+        leaves = [stacked[k][i] for k in names]
+        x = layer(x, *leaves) if remat_layer is None else \
+            remat_layer(layer, x, *leaves)
 
     fn_params = {k: v for k, v in params.items() if k.startswith("final_norm")}
     x = L.apply_norm(cfg.norm_type, x, _norm_p(fn_params, "final_norm"))

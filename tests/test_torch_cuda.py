@@ -1029,3 +1029,118 @@ def test_forward_only_wrappers_refuse_differentiation(cuda):
                              decode_case(6, 2, 4, 4, 16, 32))
     with pytest.raises(NotImplementedError, match="no backward kernel"):
         ops.decode_attention(q.requires_grad_(True), kc, vc, spos, qpos)
+
+
+# ------------------------------ remat on the card -------------------------------
+def _state_digest(state):
+    """Per-leaf digests of a train state's bits, on the card: each leaf's
+    bit patterns as int32, summed plainly and with a weight a position."""
+    from repro_torch.training import optim as OPT
+    out = []
+    for leaf in OPT.leaves(state["params"]) + OPT.leaves(state["opt"]):
+        bits = leaf.detach().reshape(-1).view(torch.int32).long()
+        w = torch.arange(bits.numel(), device=bits.device) \
+            * 2654435761 % 2147483647
+        out.append((int(bits.sum()), int((bits * w).sum())))
+    return out + [state["step"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,B,S", [("olmo-1b", 2, 512),
+                                      ("qwen3-moe-30b-a3b", 4, 512),
+                                      ("hymba-1.5b", 1, 2048)])
+def test_remat_step_equal_to_the_bit_at_full_width(cuda, arch, B, S,
+                                                   monkeypatch):
+    """One bfloat16 train step at 2 layers of the published config (hymba:
+    2048 tokens, its 1024-token window live), deterministic, with remat
+    off, "nothing" and "dots": the same loss, gradient norm and state to
+    the bit (the recompute launches kernels 1, 6 and 7 again and must
+    give the same tensors)."""
+    import repro_torch.configs as C
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training import optim as OPT
+    from repro_torch.training.data import DataConfig, synthetic_batch
+    cfg = C.get_config(arch).replace(num_layers=2)
+    batch = synthetic_batch(cfg, DataConfig(batch=B, seq_len=S), 0)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        for policy, kw in (("off", dict(remat=False)), ("nothing", {}),
+                           ("dots", dict(remat_policy="dots"))):
+            state = ST.init_train_state(
+                cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+            step = ST.make_train_step(
+                cfg, ShapeSpec("t", S, B, "train"),
+                opt_cfg=OPT.AdamWConfig(lr=3e-3, warmup_steps=2,
+                                        total_steps=10), **kw)
+            n = ops.flash_attention.launches + ops.gmm.launches \
+                + ops.selective_scan.launches
+            state, m = step(state, batch)
+            runs[policy] = (m["loss"].item(), m["grad_norm"].item(),
+                            _state_digest(state),
+                            ops.flash_attention.launches + ops.gmm.launches
+                            + ops.selective_scan.launches - n)
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for policy in ("nothing", "dots"):
+        assert runs[policy][:3] == runs["off"][:3], policy
+        # the recompute launches each layer's forward kernels once more
+        assert runs[policy][3] == 2 * runs["off"][3] > 0, policy
+
+
+@pytest.mark.cuda
+def test_frontdoor_torch_model_three_concurrent_sessions(cuda, monkeypatch):
+    """The front door over PATH 'torch:olmo-1b' (its published config,
+    random weights) on the card: three concurrent sessions stream their
+    rows, each closed by an ok trailer, every value a string of the
+    grammar; the kernels are loaded at first use from the inference
+    service's worker thread (the libraries were dropped first)."""
+    import threading
+
+    from repro_torch.core.database import IPDB
+    from repro_torch.frontdoor import FrontDoor, FrontDoorClient
+    from repro_torch.relational.table import Table
+    build_threads = []
+    real_build = ops.build
+
+    def build(*a, **k):
+        build_threads.append(threading.current_thread().name)
+        return real_build(*a, **k)
+    monkeypatch.setattr(ops, "build", build)
+    monkeypatch.setattr(ops, "_fns", {})
+    ops.reset_launches()
+    db = IPDB()
+    for i in range(3):
+        db.register_table(f"T{i}", Table.from_rows(
+            [{"name": f"t{i} item {j}"} for j in range(4)]))
+    db.sql("CREATE LLM MODEL m PATH 'torch:olmo-1b' ON PROMPT OPTIONS { "
+           "'config': 'full', 'batch_size': 1, 'num_slots': 4, "
+           "'max_tokens': 48, 'max_str': 6 }")
+    results = [None] * 3
+    with db, FrontDoor(db, max_sessions=3) as fd:
+        def one(i):
+            results[i] = list(FrontDoorClient(fd.host, fd.port).query(
+                f"SELECT name, LLM m (PROMPT 'the {{color VARCHAR}} of "
+                f"{{{{name}}}}') AS color FROM T{i}",
+                tenant=f"tenant{i % 2}").frames())
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    for frames in results:
+        trailer = frames[-1]
+        assert trailer["type"] == "trailer" and trailer["status"] == "ok"
+        assert trailer["rows"] == 4 and trailer["stats"]["decode_tokens"] > 0
+        colors = [r["color"] for f in frames if f["type"] == "chunk"
+                  for r in f["rows"]]
+        assert len(colors) == 4
+        assert all(isinstance(c, str) and len(c) <= 6 for c in colors)
+    assert build_threads and "MainThread" not in build_threads
+    for k in ("flash_attention", "decode_attention", "constrained_sample"):
+        assert ops.WRAPPERS[k].launches > 0, k

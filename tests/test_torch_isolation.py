@@ -7,8 +7,10 @@
 * every verbatim copy equals its original with only ``repro.`` changed to
   ``repro_torch.`` in its import lines, and the copied functions
   (``models/moe.py::pick_num_groups``) equal theirs;
-* the entry points refuse to run on the CPU unless asked.
+* the entry points refuse to run on the CPU unless asked: the engine, the
+  database, the trainer, the serving drivers and the example twins.
 """
+import importlib.util
 import os
 import pathlib
 import re
@@ -20,6 +22,7 @@ import torch
 
 import repro_torch.configs as TC
 from repro_torch.core.database import IPDB
+from repro_torch.launch import serve as SERVE
 from repro_torch.launch import train as TR
 from repro_torch.serving.engine import InferenceEngine
 
@@ -34,6 +37,8 @@ COPIES = (["relational/" + m + ".py" for m in (
         "optimizer", "rewrite", "cascade")]
     + ["serving/tokenizer.py", "serving/grammar.py", "serving/radix.py",
        "models/config.py", "training/data.py"]
+    + ["frontdoor/" + m + ".py" for m in (
+        "__init__", "session", "fairness", "server", "client")]
     + sorted("configs/" + p.name for p in (SRC / "repro" / "configs").glob(
         "*.py") if p.name not in ("__init__.py", "common.py")))
 
@@ -102,3 +107,38 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         TR.train(smoke + ["--device", "cuda"])
     assert TR.train(smoke + ["--device", "cpu"])["state"]["step"] == 1
+    with pytest.raises(RuntimeError, match="no GPU"):
+        SERVE.main(["--requests", "1"])
+    assert SERVE.main(["--requests", "1", "--device", "cpu"]) == 0
+
+
+def _script_main(rel):
+    path = SRC.parent / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+@pytest.mark.parametrize("entry,argv", [
+    ("repro_torch.launch.serve", ["--requests", "1"]),
+    ("launch/serve_torch.py", []),
+    ("launch/serve_torch.py", ["--frontdoor", "--sessions", "1"]),
+    ("examples/quickstart_torch.py", []),
+    ("examples/serve_e2e_torch.py", ["--n", "1"]),
+    ("examples/semantic_join_torch.py", []),
+    ("examples/train_small_torch.py", ["--steps", "1"]),
+], ids=["launch.serve", "serve_torch", "serve_torch-frontdoor", "quickstart",
+        "serve_e2e", "semantic_join", "train_small"])
+def test_drivers_and_examples_refuse_cpu_unless_asked(entry, argv,
+                                                      monkeypatch, tmp_path):
+    """The serving drivers and the example twins run on CUDA by default:
+    without a GPU they raise before any work (``--device cpu`` runs them:
+    tests/test_torch_frontdoor.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = SERVE.main if entry == "repro_torch.launch.serve" else \
+        _script_main(entry)
+    if entry.endswith("train_small_torch.py"):
+        argv = argv + ["--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no GPU"):
+        main(argv)
