@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only gmm_bwd,selective_scan_bwd
     python3 chip_smoke.py --only gmm,gmm_bwd,selective_scan,selective_scan_bwd \
         --compare-bwd build/parent/src/repro_torch/kernels/csrc
+    python3 chip_smoke.py --only dist      # the build and phase 7 only
 
 Phases, each reported on its own lines:
 
@@ -136,13 +137,29 @@ Phases, each reported on its own lines:
       its published 2048-token context, B 16, 4 steps through
       ``launch.train`` (the loss must fall; peak memory printed); launches counted as the
       ``remat`` path;
-7. a JSON line with every kernel's numbers at the dtype its path gives it,
+7. the distribution layer (``launch/dist.py``, ``launch/mesh.py``,
+   ``launch.steps.make_train_step(mesh=)``): olmo-1b, qwen3-moe-30b-a3b and falcon-mamba-7b at full width and 2
+   layers, bfloat16 over float32 masters, on a 1 x 1 mesh (NCCL, a world
+   of one in this process), each step equal to the bit to the one-device
+   step; with 2 or more cards, spawned NCCL ranks (one a card) run the
+   same configs on (data 2, model 1) and (1, 2), and on 4 cards on (2, 2),
+   against the one-device step (bf16 tolerances, DIST_TOL), then
+   falcon-mamba-7b at full depth (64 layers) and qwen3-moe-30b-a3b at
+   the largest depth measured to fit (DIST_DEEP) for 4 steps each, whose
+   losses must fall, and one more step of each profiled on rank 0; per
+   rank the step times, peak memory and collective bytes a step.  The
+   mesh steps' launches are counted, the one-device references' are not:
+   the 1 x 1 mesh's as the ``dist`` path, rank 0's of the spawned ranks as
+   the ``dist_ranks`` path.  With one card the phase reports ``"ranks":
+   1`` and there is no ``dist_ranks`` path;
+8. a JSON line with every kernel's numbers at the dtype its path gives it,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints the script's elapsed time as it starts.  Any failed
 check raises, so the script exits non-zero and prints no last line.  Without a GPU it exits 2 at once.  ``--only`` runs phases 1 and 2
 for the named kernels, prints their JSON line and stops, without the last
-line (for comparing kernel versions on one card in one call).
+line (for comparing kernel versions on one card in one call); ``--only
+dist`` runs the build and phase 7.
 """
 from __future__ import annotations
 
@@ -153,6 +170,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -1700,7 +1718,10 @@ def profile(run_query) -> None:
         wall = run_query()
     by_name = {}       # kernel or copy name -> [device us, launches]
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+        # "nccl:..." is the range NCCL's work is annotated with on the
+        # device, beside its ncclDevKernel: counted once, as the kernel
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 \
+                and not e.name().startswith("nccl:"):
             row = by_name.setdefault(e.name(), [0.0, 0])
             row[0] += e.duration_ns() / 1e3
             row[1] += 1
@@ -1716,6 +1737,7 @@ def profile(run_query) -> None:
             cat = ("memcpy/memset" if k.startswith("Mem") else
                    "gemm" if any(t in k for t in ("nvjet", "gemm", "cutlass",
                                                   "xmma")) else
+                   "collectives (nccl)" if k.startswith("nccl") else
                    "other kernels")
         ms, n = cats.get(cat, (0.0, 0))
         cats[cat] = (ms + us / 1e3, n + count)
@@ -2180,6 +2202,432 @@ def long_context(C, smi):
     torch.cuda.empty_cache()
 
 
+# ------------------------------ phase 7: distribution --------------------------
+#: the dist path: olmo-1b, qwen3-moe-30b-a3b and falcon-mamba-7b at full width
+#: and DIST_LAYERS layers, each at its TRAIN batch, in bfloat16 compute over
+#: float32 masters; on a 1 x 1 mesh in this process (NCCL, a world of one),
+#: and with 2 or more cards on the meshes of DIST_MESHES in spawned ranks
+DIST_ARCHS = (DENSE_ARCH, MOE_ARCH, SSM_ARCH)
+DIST_LAYERS = 2
+DIST_MESHES = {2: ({"data": 2, "model": 1}, {"data": 1, "model": 2}),
+               4: ({"data": 2, "model": 2},)}
+#: the deep runs on 4 cards, mesh (2, 2): falcon-mamba-7b at full depth
+#: (~16 B x 7.3e9 parameters = ~117 GB of state and gradients: more than
+#: one card, ~29 GB a card on 4) and qwen3-moe-30b-a3b at the largest depth
+#: measured to fit 4 (~0.61e9 parameters a layer, ~2.9 GiB a layer a card
+#: with the stacked gradients' second copy; on H100 80GB HBM3 cards at
+#: 700 W 20 layers peaked at 63.20 GiB and 25 ran out in AdamW, whose
+#: temporaries are a stacked leaf's size)
+DIST_DEEP = {SSM_ARCH: 64, MOE_ARCH: 24}
+DIST_DEEP_STEPS = 4
+DIST_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=100)
+#: bfloat16 parity of a sharded step with the one-device step from the same
+#: state.  The two sum in other orders and round partial products to bf16
+#: before the sums over the data axes or `model`, and a token whose top-k
+#: routing is a near-tie may pick another expert, so elementwise they
+#: differ by bf16's noise.  Held: loss (measured within 1.3e-5 to 2.1e-4 on
+#: H100 80GB HBM3 at 700 W) and gradient norm relative to the one-device
+#: step's; each moment leaf (the first step's m is 0.1 g) and each
+#: parameter leaf's step (AdamW's first moves an element by lr x sign(g) +
+#: decay) by its error against the same step in float32 compute, |x - x32|
+#: / |x32 - x0| over the leaf's elements (x0 the state before the step; 0
+#: for the moments), which may be at most `ratio` times the one-device
+#: bf16 step's own plus `floor` (`param_floor` for a parameter leaf):
+#: sharding may not make bf16 less accurate.  An element's first step is
+#: +-lr whatever |g|, so a leaf's step error is 2 sqrt(the share of its
+#: elements that step the other way): tensor parallelism rounds partial
+#: sums to bf16 before the sum over `model`, which turns the sign of
+#: gradients that are near 0 for their noise (~1 % of ssm.D's elements at
+#: the smoke config's 256 in a CPU rehearsal, 0.21), where the one-device
+#: bf16 step may turn none of a leaf's; `param_floor` 0.3 lets 2.25 % turn
+#: and fails a step whose signs are unrelated (~1.4), missing (1.0) or
+#: reversed (2.0), as a wrong shard or a wrong gradient gives.
+#: A parameter whose step is ill-conditioned (sqrt(v / (1 - b2)), its
+#: |g|, under 100 eps in either reference: the direction turns on the
+#: last bits of a gradient near 0) is left out of that leaf's error and
+#: held to one step's bound, `ill_lr` lr, from the one-device step.  A NaN
+#: counts as an infinite error.
+DIST_TOL = dict(loss=1e-3, grad_norm=2e-2, ill_lr=2.1, ratio=2.0,
+                floor=1e-3, param_floor=0.3)
+
+
+def counted(run, into: dict):
+    """`run()` with every kernel launch count set to 0 just before it; the
+    counts just after are added to `into`.  The dist path's mesh steps run
+    in such windows, and the one-device reference steps beside them
+    outside, so `into` holds the path's own launches."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = run()
+    for k, w in ops.WRAPPERS.items():
+        into[k] = into.get(k, 0) + w.launches
+    return out
+
+
+def dist_cfg(C, arch, layers):
+    return C.get_config(arch).replace(num_layers=layers)
+
+
+def dist_batch(cfg, arch, step=0):
+    from repro_torch.training.data import DataConfig, synthetic_batch
+    shp = TRAIN[arch]
+    return synthetic_batch(cfg, DataConfig(batch=shp["B"], seq_len=shp["S"]),
+                           step)
+
+
+def dist_shape(arch):
+    from repro_torch.models.config import ShapeSpec
+    shp = TRAIN[arch]
+    return ShapeSpec("dist", shp["S"], shp["B"], "train")
+
+
+def dist_two_steps(cfg, arch, step, state):
+    """Two deterministic steps on batches 0 and 1: (state, metrics, the
+    second step's seconds)."""
+    with deterministic():
+        for s in range(2):
+            torch.cuda.synchronize()
+            t = time.time()
+            state, met = step(state, dist_batch(cfg, arch, s))
+            torch.cuda.synchronize()
+    return state, met, time.time() - t
+
+
+def dist_one_by_one(C, smi):
+    """World size 1: NCCL over a FileStore in this process, a 1 x 1 mesh;
+    for each of DIST_ARCHS two mesh steps and two one-device steps from the
+    same seeded state, deterministic, must be equal to the bit (state and
+    metrics), and the mesh moves no collective byte.  The second step of
+    each is timed.  Returns the results by arch and the kernel launches of
+    the mesh steps alone."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.launch import dist as D
+    from repro_torch.launch import steps as ST
+    from repro_torch.training import optim as OPT
+    work = os.path.join(ROOT, "build", "chip_smoke_dist")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    D.init_world(0, 1, os.path.join(work, "store"))
+    out, launches = {}, {}
+    try:
+        mesh = D.Mesh({"data": 1, "model": 1})
+        for arch in DIST_ARCHS:
+            cfg = dist_cfg(C, arch, DIST_LAYERS)
+            runs = []
+            for m in (None, mesh):
+                gc.collect()
+                torch.cuda.empty_cache()
+                gen = torch.Generator("cuda").manual_seed(SEED)
+                state = ST.init_train_state(cfg, gen, "cuda", mesh=m)
+                step = ST.make_train_step(cfg, dist_shape(arch),
+                                          opt_cfg=OPT.AdamWConfig(**DIST_OPT),
+                                          mesh=m)
+                def two_steps():
+                    return dist_two_steps(cfg, arch, step, state)
+                state, met, step_s = two_steps() if m is None else \
+                    counted(two_steps, launches)
+                runs.append((state_digest(state),
+                             {k: v.item() for k, v in met.items()}, step_s))
+                del state, step, two_steps
+            same = runs[0][:2] == runs[1][:2]
+            out[arch] = dict(equal=same, loss=runs[1][1]["loss"],
+                             step_s=runs[1][2],
+                             collective_bytes=sum(mesh.bytes.values()))
+            print(f"dist 1 x 1 mesh ({arch}, full width, {DIST_LAYERS} "
+                  f"layers, bf16 over fp32 masters, deterministic, 2 "
+                  f"steps): "
+                  f"{'equal to the bit' if same else 'DIFFERENT'} to the "
+                  f"one-device step (metrics {runs[1][1]} vs {runs[0][1]}; "
+                  f"{len(runs[0][0]) - 1} leaves' digests; the second step "
+                  f"s {runs[1][2]:.4f} vs {runs[0][2]:.4f}) [{smi}]",
+                  flush=True)
+            if not same or sum(mesh.bytes.values()):
+                fail(f"dist: the 1 x 1 mesh step of {arch} differs from "
+                     "the one-device step")
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def _sq(x) -> float:
+    """The sum of squares of `x`, a NaN counted as infinite."""
+    inf = float("inf")
+    return torch.nan_to_num(x.float(), nan=inf, posinf=inf,
+                            neginf=-inf).square().sum().item()
+
+
+def dist_compare(mesh, local, ref, ref32, before, spec_tree):
+    """This rank's shards of a sharded state after one step (`local`)
+    against the same shards of the one-device state (`ref`) and of the
+    one-device float32 compute state (`ref32`) after it, `before` this
+    rank's shards of the parameters before it: per leaf the sums of squares
+    over the shard of local - ref32, ref - ref32 and ref32 - before (the
+    moments: ref32), the parameters' ill-conditioned elements left out;
+    and their largest difference from `ref` in units of lr
+    (``dist_errors`` adds the ranks')."""
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optim as OPT
+    opt = OPT.AdamWConfig(**DIST_OPT)
+    specs = dict(CKPT._flatten(spec_tree))
+    mine, truth = dict(CKPT._flatten(local)), dict(CKPT._flatten(ref32))
+    refs = dict(CKPT._flatten(ref))
+    out = {"ill_lr": 0.0, "leaves": {}}
+    for name, want in refs.items():
+        if name == "['step']":
+            continue
+        want = mesh.local(want, specs[name]).float()
+        got = mine[name].float()
+        t = mesh.local(truth[name], specs[name]).float()
+        if name.startswith("['params']"):
+            v = name.replace("['params']", "['opt']['v']")
+            ill = torch.zeros_like(t, dtype=torch.bool)
+            for tree in (refs, truth):
+                g = (mesh.local(tree[v], specs[v]).float()
+                     / (1 - opt.b2)).sqrt()
+                ill |= g < 100 * opt.eps
+            if ill.any():
+                worst = torch.nan_to_num((got - want)[ill].abs(),
+                                         nan=float("inf")).max().item()
+                out["ill_lr"] = max(out["ill_lr"], worst / DIST_OPT["lr"])
+            well = ~ill
+            out["leaves"][name] = (_sq((got - t)[well]),
+                                   _sq((want - t)[well]),
+                                   _sq((t - before[name].float())[well]))
+        else:
+            out["leaves"][name] = (_sq(got - t), _sq(want - t), _sq(t))
+    return out
+
+
+def dist_errors(each) -> dict:
+    """The ranks' ``dist_compare`` results as DIST_TOL's errors: the
+    largest ill-conditioned parameter difference, and the leaf whose error
+    against float32 (2-norms over the whole leaf: a leaf held by several
+    ranks counts in each, in all sums alike) comes nearest its bound, with
+    the one-device step's error beside it.  A NaN or an infinite error is
+    over its bound."""
+    err = {"ill_lr": max(e["ill_lr"] for e in each), "worst": None,
+           "over_bound": 0.0}
+    for name in each[0]["leaves"]:
+        d_mesh, d_one, r = (sum(e["leaves"][name][i] for e in each)
+                            for i in range(3))
+        e_mesh = (d_mesh / max(r, 1e-300)) ** 0.5
+        e_one = (d_one / max(r, 1e-300)) ** 0.5
+        bound = DIST_TOL["ratio"] * e_one + DIST_TOL[
+            "param_floor" if name.startswith("['params']") else "floor"]
+        over = e_mesh / bound if math.isfinite(e_mesh / bound) \
+            else float("inf")
+        if err["worst"] is None or over > err["over_bound"]:
+            err.update(worst=name, sharded=e_mesh, one_device=e_one,
+                       over_bound=over)
+    return err
+
+
+def dist_ranks(rank, world, meshes, deep):
+    """One spawned rank of the dist phase (NCCL, card `rank`): for each mesh
+    of `meshes` and each of DIST_ARCHS at DIST_LAYERS layers, one sharded
+    step against the one-device step from the same seeded state (each rank
+    holds both, and compares its shards); then each of `deep` {arch:
+    depth} on the last mesh, DIST_DEEP_STEPS steps on one batch and one
+    more, profiled on rank 0.  Returns
+    this rank's numbers: errors, metrics, step seconds, peak memory, the
+    collective bytes of a step, and the kernel launches of its sharded
+    steps alone (the one-device references run outside the counted
+    windows)."""
+    import repro_torch.configs as C
+    from repro_torch.launch import dist as D
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.moe import pick_num_groups
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optim as OPT
+    opt = OPT.AdamWConfig(**DIST_OPT)
+    out = {"device": torch.cuda.get_device_name(), "parity": [], "deep": [],
+           "launches": {}}
+    mesh = None
+    for shape in meshes:
+        mesh = D.Mesh(shape)
+        ds = MS.axis_size(mesh, MS.data_axes(mesh))
+        for arch in DIST_ARCHS:
+            cfg = dist_cfg(C, arch, DIST_LAYERS)
+            shp = TRAIN[arch]
+            spec_tree = ST.train_state_pspecs(cfg, mesh)
+            specs = dict(CKPT._flatten(spec_tree))
+            gen = torch.Generator("cuda").manual_seed(SEED)
+            full = ST.init_train_state(cfg, gen, "cuda")
+            local = ST.shard_train_state(cfg, full, mesh)
+            b = dist_batch(cfg, arch)
+            step = ST.make_train_step(cfg, dist_shape(arch), opt_cfg=opt,
+                                      mesh=mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mesh.bytes.clear()
+            torch.cuda.synchronize()
+            t = time.time()
+            local, m = counted(lambda: step(local, b), out["launches"])
+            torch.cuda.synchronize()
+            step_s = time.time() - t
+            peak = torch.cuda.max_memory_allocated()
+            moved = dict(mesh.bytes)
+            groups = pick_num_groups(shp["B"] * shp["S"], ds) \
+                if cfg.has_moe else None
+            ref = ST.make_train_step(cfg, dist_shape(arch), opt_cfg=opt,
+                                     num_groups=groups)
+            full, mr = ref(full, b)
+            cfg32 = cfg.replace(compute_dtype="float32")
+            full32 = ST.init_train_state(
+                cfg32, torch.Generator("cuda").manual_seed(SEED),
+                "cuda")
+            before = {f"['params']{n}": mesh.local(x, specs[f"['params']{n}"])
+                      .clone() for n, x in CKPT._flatten(full32["params"])}
+            full32, _ = ST.make_train_step(
+                cfg32, dist_shape(arch), opt_cfg=opt,
+                num_groups=groups)(full32, b)
+            err = dist_compare(mesh, local, full, full32, before, spec_tree)
+            out["parity"].append(dict(
+                mesh=shape, arch=arch, layers=DIST_LAYERS,
+                metrics={k: v.item() for k, v in m.items()},
+                reference={k: v.item() for k, v in mr.items()}, errors=err,
+                step_s=step_s, peak_bytes=peak, collective_bytes=moved))
+            if rank == 0:
+                brief = {k: v for k, v in out["parity"][-1].items()
+                         if k != "errors"}
+                print(f"  dist rank 0: {brief}", flush=True)
+            del full, full32, local, step, ref, before
+            gc.collect()
+            torch.cuda.empty_cache()
+    for arch, depth in deep.items():
+        cfg = dist_cfg(C, arch, depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        state = ST.init_train_state(
+            cfg, torch.Generator("cuda").manual_seed(SEED), mesh=mesh)
+        init_s = time.time() - t
+        step = ST.make_train_step(cfg, dist_shape(arch), opt_cfg=opt,
+                                  mesh=mesh)
+        b = dist_batch(cfg, arch)
+        losses, times = [], []
+        for _ in range(DIST_DEEP_STEPS):
+            mesh.bytes.clear()
+            torch.cuda.synchronize()
+            t = time.time()
+            state, m = counted(lambda: step(state, b), out["launches"])
+            torch.cuda.synchronize()
+            times.append(time.time() - t)
+            losses.append(m["loss"].item())
+        moved = dict(mesh.bytes)
+
+        def one_more():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            step(state, b)
+            torch.cuda.synchronize()
+            return time.time() - t0
+        if rank == 0:
+            print(f"profile of one more {arch} step ({depth} layers) on rank "
+                  f"0 of {mesh.shape}:", flush=True)
+            counted(lambda: profile(one_more), out["launches"])
+        else:
+            counted(one_more, out["launches"])
+        out["deep"].append(dict(
+            mesh=mesh.shape, arch=arch, layers=depth, losses=losses,
+            step_s=times, init_s=init_s,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            state_bytes=sum(x.numel() * x.element_size() for x in
+                            OPT.leaves(state["params"])
+                            + OPT.leaves(state["opt"])),
+            collective_bytes=moved))
+        if rank == 0:
+            print(f"  dist rank 0: {out['deep'][-1]}", flush=True)
+        del state, step
+    return out
+
+
+def dist_path(C, smi):
+    """Phase 7, the distribution layer (``launch/dist.py``,
+    ``launch/mesh.py``, ``make_train_step(mesh=)``): the 1 x 1 mesh in
+    this process, then with 2 or more cards the ranks of DIST_MESHES
+    (spawned, one a card) against the one-device step, and on 4 cards the
+    deep runs of DIST_DEEP, whose losses must fall.  Prints a ``dist`` JSON
+    line; with one card it says ``"ranks": 1``.  Its "launches" are the
+    kernel launches of the mesh steps alone: "dist" those of the 1 x 1
+    mesh in this process, "dist_ranks" rank 0's in the spawned ranks
+    (every mesh of every world size; with one card there are none)."""
+    from repro_torch.launch import dist as D
+    one, launches = dist_one_by_one(C, smi)
+    # the spawned rank 0 shares card 0 with this process
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"one_by_one": one, "launches": {"dist": launches}}
+    cards = torch.cuda.device_count()
+    summary["ranks"] = max(k for k in (1,) + tuple(DIST_MESHES)
+                           if k <= cards)
+    for world, meshes in DIST_MESHES.items():
+        if world > cards:
+            continue
+        deep = DIST_DEEP if world == 4 else {}
+        stamp(f"dist: {world} ranks, meshes {list(meshes)}"
+              + (f", then {deep} layers" if deep else ""))
+        ranks = D.run_ranks(dist_ranks, world, meshes, deep,
+                            timeout_s=1500,
+                            workdir=os.path.join(ROOT, "build"))
+        for i, p in enumerate(ranks[0]["parity"]):
+            each = [res["parity"][i] for res in ranks]
+            err = dist_errors([e["errors"] for e in each])
+            print(f"dist mesh {p['mesh']} {p['arch']} ({p['layers']} layers, "
+                  f"{world} ranks): metrics {p['metrics']} vs one device "
+                  f"{p['reference']}; errors {err} "
+                  f"(tolerances {DIST_TOL}); step s by rank "
+                  f"{[round(e['step_s'], 3) for e in each]}, peak GiB by rank "
+                  f"{[round(e['peak_bytes'] / 2**30, 2) for e in each]}, "
+                  f"collective bytes a step (rank 0) {p['collective_bytes']} "
+                  f"[{smi}]", flush=True)
+            for k in ("loss", "grad_norm"):
+                if not abs(p["metrics"][k] - p["reference"][k]) <= \
+                        DIST_TOL[k] * abs(p["reference"][k]):
+                    fail(f"dist {p['mesh']} {p['arch']}: {k} differs from "
+                         "the one-device step")
+            if not (err["ill_lr"] <= DIST_TOL["ill_lr"]
+                    and err["over_bound"] <= 1.0):
+                fail(f"dist {p['mesh']} {p['arch']}: errors {err}")
+        for i, d in enumerate(ranks[0]["deep"]):
+            each = [res["deep"][i] for res in ranks]
+            print(f"dist mesh {d['mesh']} {d['arch']} ({d['layers']} layers, "
+                  f"B {TRAIN[d['arch']]['B']} x {TRAIN[d['arch']]['S']}, "
+                  f"{world} ranks): losses {d['losses']}, step s by rank "
+                  f"{[[round(x, 4) for x in e['step_s']] for e in each]}, "
+                  f"init s {[round(e['init_s'], 1) for e in each]}, state GiB "
+                  f"by rank {[round(e['state_bytes'] / 2**30, 2) for e in each]}"
+                  f", peak GiB by rank "
+                  f"{[round(e['peak_bytes'] / 2**30, 2) for e in each]}, "
+                  f"collective bytes a step (rank 0) {d['collective_bytes']} "
+                  f"[{smi}]", flush=True)
+            if not (np.isfinite(d["losses"]).all()
+                    and d["losses"][-1] < d["losses"][0]):
+                fail(f"dist {d['arch']} at {d['layers']} layers: the loss "
+                     f"did not fall: {d['losses']}")
+        summary[f"ranks_{world}"] = ranks
+        into = summary["launches"].setdefault("dist_ranks", {})
+        for k, n in ranks[0]["launches"].items():
+            into[k] = into.get(k, 0) + n
+        print(f"dist: rank 0's launches in the {world}-rank mesh steps: "
+              f"{ranks[0]['launches']}", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "dist_phase.json"), "w") as f:
+        json.dump(summary, f)
+    print("dist " + json.dumps({k: v for k, v in summary.items()
+                                if not k.startswith("ranks_")}), flush=True)
+    if summary["ranks"] == 1:
+        print("dist: one card, so no multi-rank run (multi-GPU not "
+              "measured in this run)", flush=True)
+    return summary
+
+
 def frontdoor_path(smi):
     """The HTTP front door (``repro_torch.frontdoor``) on localhost over
     repro_torch's IPDB with ``PATH 'torch:olmo-1b'`` at its published
@@ -2323,6 +2771,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    smi = smi.splitlines()[0]      # the label of every number: card 0
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}",
           flush=True)
@@ -2392,6 +2841,9 @@ def main(argv=None) -> int:
 
     if args.compare_bwd:
         compare_bwd_steps(C, ops, report)
+    if only and "dist" in only.split(","):
+        for path, launches in dist_path(C, smi)["launches"].items():
+            print(f"launches during the {path} path: {launches}", flush=True)
     if only:
         print(json.dumps({"kernels": list(report.values())}), flush=True)
         return 0
@@ -2416,20 +2868,23 @@ def main(argv=None) -> int:
     stamp("the SQL paths")
     cfg, params, _ = build_engine_weights(C, init_params, DENSE_ARCH)
 
+    def record(path, launches, needed, took=""):
+        print(f"launches during the {path} path{took}: {launches}",
+              flush=True)
+        for k in needed:
+            if launches[k] <= 0:
+                fail(f"{k}: no launch on the {path} path")
+        for k, n in launches.items():
+            report[k]["launches_by_path"][path] = n
+
     def count(path, runs, needed):
         """Drive one main path with every launch count set to 0 just
         before it; read the counts just after."""
         ops.reset_launches()
         t = time.time()
         out = runs()
-        launches = {k: w.launches for k, w in ops.WRAPPERS.items()}
-        print(f"launches during the {path} path ({time.time() - t:.1f} s): "
-              f"{launches}", flush=True)
-        for k in needed:
-            if launches[k] <= 0:
-                fail(f"{k}: no launch on the {path} path")
-        for k, n in launches.items():
-            report[k]["launches_by_path"][path] = n
+        record(path, {k: w.launches for k, w in ops.WRAPPERS.items()},
+               needed, f" ({time.time() - t:.1f} s)")
         return out
 
     # the dense path: the batcher, generate, and n_samples as 3 jobs a row
@@ -2571,6 +3026,9 @@ def main(argv=None) -> int:
     stamp("remat: off / nothing / dots, and olmo-1b at 2048 tokens")
     count("remat", lambda: (remat_policies(C, smi), long_context(C, smi)),
           train_kernels)
+    stamp("phase 7: distribution")
+    for path, launches in dist_path(C, smi)["launches"].items():
+        record(path, launches, train_kernels)
     stamp("done")
 
     for r in report.values():

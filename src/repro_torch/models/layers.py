@@ -136,6 +136,9 @@ def swiglu_mlp(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-def gelu_mlp(x, w_in, b_in, w_out, b_out):
+def gelu_mlp(x, w_in, b_in, w_out, b_out=None):
+    """b_out None: the down product alone (a partial sum where d_ff is
+    sharded, whose bias is added after the sum)."""
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    y = F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out
+    return y if b_out is None else y + b_out

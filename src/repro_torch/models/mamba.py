@@ -55,7 +55,8 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def mamba_mixer(x: torch.Tensor, params: dict, *, ssm_state_dim: int,
                 dt_rank: int, conv_dim: int,
-                state: Optional[SSMState] = None, scan_fn=None
+                state: Optional[SSMState] = None, scan_fn=None,
+                to_model=None, from_model=None
                 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """The mamba-1 mixer.  x (B, S, M) in the compute dtype (S = 1 for a
     decode step).  params: in_x/in_z (M, Di), conv_w (K, Di), conv_b (Di),
@@ -63,12 +64,21 @@ def mamba_mixer(x: torch.Tensor, params: dict, *, ssm_state_dim: int,
     A_log (Di, N), D (Di) fp32.  `state` None is train mode: zeros in, no
     state out (the scan's final state is dropped).  Otherwise the state's
     tensors are read and overwritten in place.  Returns (out (B, S, M), the
-    new state, or None in train mode)."""
+    new state, or None in train mode).
+
+    With d_inner sharded over `model` (the train step on a mesh), `params`
+    hold the rank's channels and `to_model` / `from_model` are the
+    collectives of ``launch/dist.py`` over `model`: x enters by
+    ``to_model``, x_proj's output (dt, B and C of every channel) is a
+    partial sum made whole by ``from_model`` and then read per channel
+    (``to_model``), and out_proj's partial sums leave by ``from_model``."""
     Bz = x.shape[0]
     Di = params["A_log"].shape[0]
     N, R, K = ssm_state_dim, dt_rank, conv_dim
     scan_fn = scan_fn or KOPS.selective_scan
 
+    if to_model is not None:
+        x = to_model(x)
     x_in = x @ params["in_x"]                                 # (B, S, Di)
     z = x @ params["in_z"]
     prev = x_in.new_zeros(Bz, K - 1, Di) if state is None else state.conv
@@ -77,6 +87,8 @@ def mamba_mixer(x: torch.Tensor, params: dict, *, ssm_state_dim: int,
     u = F.silu(conv_out.float()).to(x.dtype)
 
     dbc = u @ params["x_proj"]                                # (B, S, R+2N)
+    if to_model is not None:
+        dbc = to_model(from_model(dbc))
     dt = softplus((dbc[..., :R] @ params["dt_proj"]).float()
                   + params["dt_bias"])                        # (B, S, Di)
     A = -torch.exp(params["A_log"])                           # (Di, N)
@@ -87,4 +99,4 @@ def mamba_mixer(x: torch.Tensor, params: dict, *, ssm_state_dim: int,
         y, _ = scan_fn(u, dt, A, Bm, Cm, params["D"], state.h, h_out=state.h)
         state.conv.copy_(new_conv)
     out = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
-    return out, state
+    return (out if from_model is None else from_model(out)), state

@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -172,7 +172,7 @@ def _norm_p(lp: Dict[str, torch.Tensor], prefix: str) -> Optional[dict]:
 
 def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
                write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0,
-               paged=None):
+               paged=None, hooks=None):
     """x (B, S, M) → (B, S, M).  ck/cv: this layer's (B, lc, KV, hd) cache
     views, written in place (prefill, decode); slot_pos (B, lc) — in decode
     already holding this step's positions; write_slot (B,) decode write
@@ -180,18 +180,34 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
     hd) pools; paged holds the block tables, the write indices
     (``forward``'s ``writes``), the prefix table and length of a paged
     prefill, the layer's int8 pages (`quant`) and the two attention
-    functions."""
+    functions.  hooks (``Hooks``; train mode on a mesh): with heads over
+    `model` the rank's wq/wo hold its query heads, it takes the kv heads
+    they read from the replicated wk/wv, and its output is summed over
+    `model`."""
     B, S, m = x.shape
-    h, kv, hd = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
+    hooks = hooks or NO_HOOKS
+    h, hd = lp["attn.wq"].shape[1], cfg.head_dim
+    wk, wv = lp["attn.wk"], lp["attn.wv"]
+    bk, bv = lp.get("attn.bk"), lp.get("attn.bv")
+    tp = hooks.shard is not None and hooks.shard.heads_tp
+    if tp:
+        x = hooks.shard.to_model(x)
+        wk, wv = hooks.shard.kv_heads(wk, h), hooks.shard.kv_heads(wv, h)
+        if cfg.qkv_bias:
+            bk, bv = hooks.shard.kv_heads(bk, h), hooks.shard.kv_heads(bv, h)
+    kv = wk.shape[1]
     q = (x @ lp["attn.wq"].reshape(m, h * hd)).view(B, S, h, hd)
-    k = (x @ lp["attn.wk"].reshape(m, kv * hd)).view(B, S, kv, hd)
-    v = (x @ lp["attn.wv"].reshape(m, kv * hd)).view(B, S, kv, hd)
+    k = (x @ wk.reshape(m, kv * hd)).view(B, S, kv, hd)
+    v = (x @ wv.reshape(m, kv * hd)).view(B, S, kv, hd)
     if cfg.qkv_bias:
         q = q + lp["attn.bq"]
-        k = k + lp["attn.bk"]
-        v = v + lp["attn.bv"]
+        k = k + bk
+        v = v + bv
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    if mode != "decode":
+        k = hooks.kv_cs(k)
+        v = hooks.kv_cs(v)
     prefix_len = cfg.num_prefix_tokens if cfg.family == VLM else 0
 
     if paged is not None:
@@ -246,32 +262,71 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
             else:
                 ck[:, :S] = k.to(ck.dtype)
                 cv[:, :S] = v.to(cv.dtype)
-    return o.reshape(B, S, h * hd) @ lp["attn.wo"].reshape(h * hd, m)
+    o = o.reshape(B, S, h * hd) @ lp["attn.wo"].reshape(h * hd, m)
+    return hooks.shard.from_model(o) if tp else o
 
 
-def _mixer(cfg: ModelConfig, x, lp, state, scan_fn):
+def _mixer(cfg: ModelConfig, x, lp, state, scan_fn, shard=None):
     """The layer's Mamba mixer; `state` (an ``SSMState`` of this layer's
-    cache views, None in train mode) is updated in place."""
+    cache views, None in train mode) is updated in place.  With `shard`
+    (train mode, a model axis wider than 1) the rank's leaves hold its
+    d_inner channels, whose partial sums go over `model`."""
+    tp = shard is not None and shard.tp
     out, _ = MAMBA.mamba_mixer(
         x, {k[4:]: v for k, v in lp.items() if k.startswith("ssm.")},
         ssm_state_dim=cfg.ssm_state, dt_rank=cfg.dt_rank_eff,
-        conv_dim=cfg.ssm_conv, state=state, scan_fn=scan_fn)
+        conv_dim=cfg.ssm_conv, state=state, scan_fn=scan_fn,
+        to_model=shard.to_model if tp else None,
+        from_model=shard.from_model if tp else None)
     return out
+
+
+def _mlp(cfg: ModelConfig, x, lp, shard=None):
+    """The dense MLP; with `shard` (a model axis wider than 1) on the rank's
+    d_ff slice, its down products summed over `model`."""
+    if shard is None or not shard.tp:
+        if cfg.mlp_act == "silu":
+            return L.swiglu_mlp(x, lp["mlp.w_gate"], lp["mlp.w_up"],
+                                lp["mlp.w_down"])
+        return L.gelu_mlp(x, lp["mlp.w_in"], lp["mlp.b_in"], lp["mlp.w_out"],
+                          lp["mlp.b_out"])
+    x = shard.to_model(x)
+    if cfg.mlp_act == "silu":
+        return shard.from_model(L.swiglu_mlp(
+            x, lp["mlp.w_gate"], lp["mlp.w_up"], lp["mlp.w_down"]))
+    h = L.gelu_mlp(x, lp["mlp.w_in"], lp["mlp.b_in"], lp["mlp.w_out"])
+    return shard.from_model(h) + lp["mlp.b_out"]
+
+
+class Hooks(NamedTuple):
+    """The distribution layer's hooks of a forward (``launch/mesh.py``):
+    JAX's names, the identity by default.  ``shard`` (a
+    ``mesh.TrainShards``, or None on one device) gathers the FSDP leaves and
+    supplies the tensor-parallel collectives."""
+    dispatch_cs: Callable = MOE.Identity
+    combine_cs: Callable = MOE.Identity
+    kv_cs: Callable = MOE.Identity
+    residual_cs: Callable = MOE.Identity
+    shard: Any = None
+
+
+NO_HOOKS = Hooks()
 
 
 def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
            write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0,
            paged=None, num_groups: int = 1, gmm_fn=None, state=None,
-           scan_fn=None):
+           scan_fn=None, hooks=NO_HOOKS):
     """One residual block (the module docstring's table by family)."""
     if cfg.family == SSM:
         xin = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_ssm"))
-        return x + _mixer(cfg, xin, lp, state, scan_fn)
+        return x + _mixer(cfg, xin, lp, state, scan_fn, hooks.shard)
     xin = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_attn"))
     a = _attention(cfg, xin, lp, positions, mode, ck, cv, slot_pos,
-                   write_slot, attn_fn, decode_attn_fn, extend_offset, paged)
+                   write_slot, attn_fn, decode_attn_fn, extend_offset, paged,
+                   hooks)
     if cfg.family == HYBRID:
-        x = x + 0.5 * (a + _mixer(cfg, xin, lp, state, scan_fn))
+        x = x + 0.5 * (a + _mixer(cfg, xin, lp, state, scan_fn, hooks.shard))
     else:
         x = x + a
     xin2 = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_mlp"))
@@ -284,13 +339,12 @@ def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
                           capacity_factor=cfg.capacity_factor,
                           num_groups=num_groups,
                           compute_dtype=DTYPES[cfg.compute_dtype],
-                          gmm_fn=gmm_fn)
+                          gmm_fn=gmm_fn, dispatch_cs=hooks.dispatch_cs,
+                          combine_cs=hooks.combine_cs,
+                          first_expert=0 if hooks.shard is None
+                          else hooks.shard.expert_lo)
         return x + y.reshape(B, S, m)
-    if cfg.mlp_act == "silu":
-        return x + L.swiglu_mlp(xin2, lp["mlp.w_gate"], lp["mlp.w_up"],
-                                lp["mlp.w_down"])
-    return x + L.gelu_mlp(xin2, lp["mlp.w_in"], lp["mlp.b_in"],
-                          lp["mlp.w_out"], lp["mlp.b_out"])
+    return x + _mlp(cfg, xin2, lp, hooks.shard)
 
 
 # ============================== full forward ==================================
@@ -339,10 +393,11 @@ def _remat_fn(policy: str):
 
 def _layer(cfg: ModelConfig, names, cast, block_args, x, *leaves):
     """One layer from its master (or serving) leaves in `names` order: the
-    cast to the serving dtypes, then the block.  The unit that remat
-    recomputes, so the layer's bf16 weights live only while it runs."""
+    cast to the serving dtypes (on a mesh with the FSDP all-gather), then
+    the block.  The unit that remat recomputes, so the layer's bf16 weights
+    live only while it runs."""
     lp = {k: cast(k, v) for k, v in zip(names, leaves)}
-    return _block(cfg, x, lp, *block_args)
+    return block_args[-1].residual_cs(_block(cfg, x, lp, *block_args))
 
 
 def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
@@ -351,7 +406,9 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             paged_decode_attn_fn=None, gmm_fn=None, scan_fn=None,
             num_groups: int = 1, last_only: bool = False,
             extend_offset: int = 0, remat: bool = True,
-            remat_policy: str = "nothing"
+            remat_policy: str = "nothing", dispatch_cs=MOE.Identity,
+            combine_cs=MOE.Identity, logits_cs=MOE.Identity,
+            residual_cs=MOE.Identity, kv_cs=MOE.Identity, shard=None
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the stack.  batch: tokens (B, S) int | embeds (B, S, M) (the
     encoder's frame embeddings), positions (B, S) int32; the VLM may add
@@ -388,18 +445,35 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     outputs of its products with no batch dimension.  Any other policy
     name raises ValueError.  The gradients are those of the forward
     without remat, to the bit: the recompute runs the same operations on
-    the same inputs."""
+    the same inputs.
+
+    The distribution layer's hooks are JAX's (``dispatch_cs``,
+    ``combine_cs``: the MoE block's; ``logits_cs``; ``residual_cs`` after
+    the embedding and each layer; ``kv_cs`` on a non-decode K/V), the
+    identity by default, plus `shard` (``launch.mesh.TrainShards``, train
+    mode): `params` are then the rank's shards of the master tree, each
+    cast and all-gathered over the data axes where it is used (a stacked
+    leaf one layer at a time, inside the layer that remat recomputes), and
+    the attention, MLP, mixer, MoE block, embedding and logits run on the
+    rank's heads, d_ff, d_inner, experts and vocabulary with the
+    collectives over `model` of ``launch/dist.py``; the logits are the
+    rank's vocab columns (``lm_loss`` takes the same `shard`).  Without a
+    mesh the one-device path is unchanged, to the bit."""
     require_ported(cfg)
     remat_layer = _remat_fn(remat_policy)
     attn_fn = attn_fn or KOPS.flash_attention
     decode_attn_fn = decode_attn_fn or KOPS.decode_attention
     cd = DTYPES[cfg.compute_dtype]
-    cast = _leaf_cast(cfg, params)
+    cast = _leaf_cast(cfg, params) if shard is None else shard.leaf
+    tp = shard is not None and shard.tp
+    hooks = Hooks(dispatch_cs, combine_cs, kv_cs, residual_cs, shard)
     positions = batch["positions"]
     if "embeds" in batch:                       # encoder / stub frontend
         x = batch["embeds"].to(cd)
     else:
-        x = cast("embed", params["embed"])[batch["tokens"]]
+        x = _vocab_rows(shard, cast("embed", params["embed"]),
+                        batch["tokens"]) if tp else \
+            cast("embed", params["embed"])[batch["tokens"]]
         if cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
         if cfg.family == VLM and "prefix_embeds" in batch:
@@ -411,6 +485,7 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                              device=positions.device).expand(pe.shape[0], P),
                 positions + P], dim=1)
     B, S = positions.shape
+    x = residual_cs(x)
 
     slot_pos = write_slot = row_idx = paged = None
     idx = 0
@@ -454,7 +529,7 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             _layer, cfg, names, cast,
             (positions, mode, ck, cv, slot_pos, write_slot, attn_fn,
              decode_attn_fn, extend_offset, paged, num_groups, gmm_fn, state,
-             scan_fn))
+             scan_fn, hooks))
         leaves = [stacked[k][i] for k in names]
         x = layer(x, *leaves) if remat_layer is None else \
             remat_layer(layer, x, *leaves)
@@ -465,7 +540,7 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
         x = x[:, -1:]
     head = cast("embed", params["embed"]).t() if cfg.tie_embeddings else \
         cast("lm_head", params["lm_head"])
-    logits = x @ head
+    logits = logits_cs((shard.to_model(x) if tp else x) @ head)
 
     if mode == "train" or cache is None:
         return logits, None
@@ -490,12 +565,39 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     return logits, new_cache
 
 
+def _vocab_rows(shard, emb: torch.Tensor, tokens: torch.Tensor
+                ) -> torch.Tensor:
+    """The embedding lookup of a vocab-sharded table: each rank takes the
+    rows of the tokens in its slice (zeros for the others), summed over
+    `model`."""
+    local = tokens - shard.vocab_lo
+    mine = (local >= 0) & (local < emb.shape[0])
+    rows = emb[torch.where(mine, local, 0)] * mine[..., None].to(emb.dtype)
+    return shard.from_model(rows)
+
+
 def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
+            mask: torch.Tensor, shard=None) -> torch.Tensor:
     """Cross-entropy over the (padded) vocab in fp32, averaged over the
-    mask's positions (``repro/models/model.py::lm_loss``)."""
+    mask's positions (``repro/models/model.py::lm_loss``).
+
+    With `shard` (``launch.mesh.TrainShards``) the rows are this data
+    rank's and the logits its vocab columns: the log-sum-exp is vocab
+    parallel (the max, the sum of exponentials and the true logit each
+    reduced over `model`) and the mean divides by the mask's count over
+    every data rank, so the data ranks' losses sum to the global mean."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    true = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if shard is not None and shard.tp:
+        gmax = shard.model_max(lf.amax(dim=-1))
+        lse = torch.log(shard.from_model(
+            torch.exp(lf - gmax[..., None]).sum(-1))) + gmax
+        local = labels.long() - shard.vocab_lo
+        mine = (local >= 0) & (local < lf.shape[-1])
+        true = shard.from_model(torch.where(mine, torch.gather(
+            lf, -1, torch.where(mine, local, 0)[..., None])[..., 0], 0.0))
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        true = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = (lse - true) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if shard is None else shard.data_sum(mask.sum())
+    return nll.sum() / torch.clamp(count, min=1.0)

@@ -25,10 +25,24 @@ each token's rows are its K copies put in expert order by ``index_copy_``
 gathered back through the inverse permutation and summed over K in a fixed
 order, as JAX's transpose of ``jnp.repeat`` does.
 
-The JAX block's ``dispatch_cs``/``combine_cs`` hooks (GSPMD sharding
-constraints for expert parallelism) have no meaning on one card and are not
-ported (ROADMAP, distribution).  ``pick_num_groups`` is a copy of the JAX
-package's (``tests/test_torch_isolation.py`` holds it equal).
+Expert and tensor parallelism come from the distribution layer
+(``launch/mesh.py::moe_constraint_fns``) through JAX's two hooks, with
+explicit collectives in place of GSPMD's sharding constraints:
+``dispatch_cs`` takes the token rows entering the expert products (its
+backward sums their gradient over `model`), ``combine_cs`` the
+choice-ordered expert outputs before the K-weighted sum (summed over
+`model`, so the sum over K keeps the one-device order).  Every model rank
+routes the same tokens (a data rank's tokens are replicated over `model`).
+  EP (num_experts % 16 == 0): the rank's weights hold its E/m experts
+      from ``first_expert`` on; it dispatches only their kept choices
+      (``group_sizes`` covers its own experts; the other rows are skipped)
+      and its outputs are zero elsewhere.
+  TP (mixtral): the rank's weights hold every expert's d_ff slice; the
+      down products are partial sums.
+Capacity groups never span data ranks: the train step routes a data
+rank's tokens in its share of ``pick_num_groups(tokens, data shards)``.
+``pick_num_groups`` is a copy of the JAX package's
+(``tests/test_torch_isolation.py`` holds it equal).
 """
 from __future__ import annotations
 
@@ -36,6 +50,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as KOPS
+
+
+def Identity(x):
+    """The hooks' default: no collective."""
+    return x
 
 
 def _round_up(x: int, m: int) -> int:
@@ -75,9 +94,13 @@ def _route(x, router, top_k):
 
 def moe_block(x, params, *, num_experts: int, top_k: int,
               capacity_factor: float, num_groups: int = 1,
-              compute_dtype=torch.bfloat16, gmm_fn=None):
-    """x (T, M) token-major; params: router (M, E), w_gate/w_up (E, M, F),
-    w_down (E, F, M).  Returns (T, M) in x.dtype."""
+              compute_dtype=torch.bfloat16, gmm_fn=None,
+              dispatch_cs=Identity, combine_cs=Identity,
+              first_expert: int = 0):
+    """x (T, M) token-major; params: router (M, E), w_gate/w_up (E', M, F'),
+    w_down (E', F', M): all E experts, or (expert parallelism) the E'
+    experts from `first_expert` on, each of full or (tensor parallelism)
+    sliced width F'.  Returns (T, M) in x.dtype."""
     gmm_fn = gmm_fn or KOPS.gmm
     T, M = x.shape
     E, K, G = num_experts, top_k, num_groups
@@ -101,16 +124,23 @@ def moe_block(x, params, *, num_experts: int, top_k: int,
     # (xs[inv[j]] = choice j's token), whose backward gathers each choice's
     # row back and sums a token's K rows, where indexing's would accumulate
     key = torch.where(keep, idx.reshape(T * K), E)
+    El = params["w_gate"].shape[0]
+    if El != E:
+        # expert parallelism: this rank's experts first, all else after
+        key = key - first_expert
+        key = torch.where((key >= 0) & (key < El), key, El)
+        group_sizes = group_sizes[first_expert:first_expert + El]
     order = torch.argsort(key, stable=True)
     inv = torch.empty_like(order).scatter_(
         0, order, torch.arange(T * K, device=x.device))
-    rows = x.to(compute_dtype)[:, None].expand(T, K, M).reshape(T * K, M)
+    rows = dispatch_cs(x).to(compute_dtype)[:, None].expand(
+        T, K, M).reshape(T * K, M)
     xs = torch.empty_like(rows).index_copy_(0, inv, rows)       # (T*K, M)
     wg, wu, wd = (params[k].to(compute_dtype)
                   for k in ("w_gate", "w_up", "w_down"))
     h = F.silu(gmm_fn(xs, wg, group_sizes)) * gmm_fn(xs, wu, group_sizes)
     ys = gmm_fn(h, wd, group_sizes)                             # 0 past kept
-    y = torch.empty_like(ys).index_copy_(0, order, ys)          # choice order
+    y = combine_cs(torch.empty_like(ys).index_copy_(0, order, ys))  # choice order
 
     w = (gates.reshape(T * K) * keep).reshape(T, K)             # drop overflow
     denom = torch.clamp(w.sum(-1, keepdim=True), min=1e-9)

@@ -163,7 +163,7 @@ def params_from_jax(cfg: ModelConfig, tree, device) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device, *,
-                master: bool = False) -> dict:
+                master: bool = False, local=None) -> dict:
     """Random weights by the JAX initializer's rules (``model.py``
     ``init_params``): ``ssm.A_log`` is log(1..N) in every channel and
     ``ssm.D`` ones; other 1-D leaves are ones (scales) or zeros (biases); every
@@ -175,20 +175,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, *,
     leaf would need tens of GB of it).  `master` draws the training tree's
     master weights (param dtype, ``param_specs``) instead of the serving
     tree; the draws are the same, so the serving tree equals the masters
-    cast to their serving dtypes."""
+    cast to their serving dtypes.
+
+    `local` (name, tensor of one layer's or a top-level leaf's full shape)
+    -> the part of it to keep (a rank's shard: ``launch.steps.
+    init_train_state(mesh=)``): every caller draws the same full weights,
+    one layer at a time, and keeps that part of each."""
     leaf_dtype = _master_dtype if master else _dtype
+    keep = local or (lambda _name, t: t)
 
     def draw(name, shape, stacked):
-        full = ((cfg.num_layers,) if stacked else ()) + shape
         dt = leaf_dtype(cfg, name)
+        kept = tuple(keep(name, torch.empty(shape, device="meta")).shape)
+        full = ((cfg.num_layers,) if stacked else ()) + kept
         if name == "ssm.A_log":
-            return torch.log(torch.arange(1, shape[-1] + 1, dtype=dt,
-                                          device=device)).expand(full).clone()
-        if name == "ssm.D":
-            return torch.ones(full, dtype=dt, device=device)
-        if len(shape) == 1:
-            return (torch.ones if name.endswith("scale") else torch.zeros)(
-                full, dtype=dt, device=device)
+            return keep(name, torch.log(torch.arange(
+                1, shape[-1] + 1, dtype=dt, device=device)).expand(
+                    shape)).expand(full).clone()
+        if name == "ssm.D" or len(shape) == 1:
+            fill = 1.0 if name == "ssm.D" or name.endswith("scale") else 0.0
+            return torch.full(full, fill, dtype=dt, device=device)
         if name == "attn.wo":
             fan_in = shape[0] * shape[1]
         elif name.startswith("attn.w"):
@@ -198,8 +204,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, *,
         std = 1.0 / math.sqrt(max(1, fan_in))
         out = torch.empty(full, dtype=dt, device=device)
         for part in (out if stacked else out[None]):
-            part.copy_(torch.randn(shape, generator=generator,
-                                   device=device).mul_(std))
+            part.copy_(keep(name, torch.randn(shape, generator=generator,
+                                              device=device).mul_(std)))
         return out
 
     out = {"layers": {k: draw(k, s, True)

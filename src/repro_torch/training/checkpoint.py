@@ -16,8 +16,14 @@ Layout: <dir>/step_<N>/
 * ``save_async`` snapshots the state to host numpy first, then writes on a
   background thread while training goes on.
 * ``restore`` reassembles each leaf from any k and puts it on the device it
-  is asked for: the one-device analogue of the JAX package's elastic
-  restore (meshes wait for the distributed slice).
+  is asked for, or (``shardings``: ``launch.steps.train_state_shardings``
+  of the current mesh) places this rank's shard of it there: the JAX
+  package's elastic restore, so a state saved on one mesh continues on
+  another (2 x 2 -> one device -> 4 x 1).
+* ``save`` of a sharded state (``shardings`` of the mesh it lies on)
+  gathers each leaf over the mesh, one at a time, and rank 0 writes the
+  full logical leaves in the same format; every rank returns after the
+  write.  Either package restores the result.
 * Retention: keep_last N.
 * bfloat16 leaves are written as float32 (exact), which both packages
   restore into a bfloat16 leaf.  A manifest written by the JAX package may
@@ -65,9 +71,23 @@ def _to_numpy(x) -> np.ndarray:
 
 
 def save(ckpt_dir: str, step: int, state, *, num_shards: int = 1,
-         keep_last: int = 3) -> Path:
+         keep_last: int = 3, shardings=None) -> Path:
     """Synchronous sharded save of a tree of tensors, numpy arrays and ints.
-    Returns the checkpoint path."""
+    Returns the checkpoint path.  With `shardings` (a tree like `state` of
+    ``mesh.NamedSharding``, None for the step) `state` holds this rank's
+    shards: every rank calls save, rank 0 writes the gathered leaves."""
+    if shardings is not None:
+        import torch.distributed as dist
+        full = _unflatten_like(state, {
+            name: v if sh is None else sh.gather(v).cpu()
+            for (name, v), (_, sh) in zip(_flatten(state),
+                                          _flatten(shardings))})
+        path = Path(ckpt_dir) / f"step_{step:08d}"
+        if dist.get_rank() == 0:
+            path = save(ckpt_dir, step, full, num_shards=num_shards,
+                        keep_last=keep_last)
+        dist.barrier()
+        return path
     root = Path(ckpt_dir)
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
@@ -145,11 +165,15 @@ def _read_leaf(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.dtype(dtype)))
 
 
-def restore(ckpt_dir: str, step: int, like, *, device="cpu"):
+def restore(ckpt_dir: str, step: int, like, *, device="cpu",
+            shardings=None):
     """Restore into the structure of `like`: a tree whose leaves are
     tensors, ``(shape, dtype)`` specs, or ints or the type ``int`` (the
     step, which comes back as an int).  Each tensor leaf is checked against
-    its shape, cast to its dtype and put on `device`."""
+    its shape, cast to its dtype and put on `device`; or, with `shardings`
+    (a tree like `like` of ``mesh.NamedSharding``, None for the step), this
+    rank's shard of it is put on its mesh's device."""
+    placing = {} if shardings is None else dict(_flatten(shardings))
     path = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
     k = manifest["num_shards"]
@@ -176,5 +200,7 @@ def restore(ckpt_dir: str, step: int, like, *, device="cpu"):
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"shape mismatch for {name}: "
                              f"{tuple(x.shape)} vs {tuple(shape)}")
-        values[name] = x.to(device=device, dtype=dtype)
+        x = x.to(dtype=dtype)
+        sh = placing.get(name)
+        values[name] = x.to(device) if sh is None else sh.place(x)
     return _unflatten_like(like, values)

@@ -6,6 +6,11 @@ arithmetic is the JAX package's, in float32 scalars and elementwise ops;
 unlike the JAX version, which returns new trees, ``adamw_update`` writes the
 parameters and moments IN PLACE, one leaf at a time, so the update needs
 no second copy of the train state on the device.
+
+On a mesh (the train step's ``mesh``) every tree holds the rank's shards,
+laid out alike (``launch.steps.train_state_pspecs``): the update is
+elementwise on them, and the clipping norm is the global one, summing each
+distinct element once (``global_norm``'s `specs`).
 """
 from __future__ import annotations
 
@@ -65,22 +70,42 @@ def init_opt_state(params) -> Dict[str, dict]:
     return {"m": map_tree(zeros, params), "v": map_tree(zeros, params)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))
-                                   for x in leaves(tree)]).sum())
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares.
+
+    On a mesh (`specs`: the leaves' specs, laid out as `tree`; `mesh`: a
+    ``launch.dist.Mesh``) the tree holds this rank's shards: the leaves'
+    sums of squares are added up by the set of axes (wider than 1) that
+    they are sharded on, and each such partial sum over those axes' ranks,
+    so a leaf replicated over an axis counts once, not once a rank.  With
+    no such axis it is the one-device sum, to the bit."""
+    squares = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if mesh is None:
+        return torch.sqrt(torch.stack(squares).sum())
+    by_axes: Dict[tuple, list] = {}
+    for sq, spec in zip(squares, leaves(specs)):
+        named = {a for e in spec for a in mesh.axes(e)}
+        axes = tuple(a for a in mesh.axis_names
+                     if a in named and mesh.shape[a] > 1)
+        by_axes.setdefault(axes, []).append(sq)
+    partial = [mesh.all_reduce_(torch.stack(v).sum(), axes)
+               for axes, v in by_axes.items()]
+    return torch.sqrt(torch.stack(partial).sum())
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, opt: Dict[str, dict],
-                 step: int) -> Tuple[dict, Dict[str, dict], Dict[str, torch.Tensor]]:
+                 step: int, *, specs=None, mesh=None
+                 ) -> Tuple[dict, Dict[str, dict], Dict[str, torch.Tensor]]:
     """One AdamW step at `step` (0-based): clip the gradients to global norm
     cfg.clip_norm, update the fp32 moments, bias-correct them, and apply
     the step with decoupled weight decay on every leaf.  params, opt["m"]
     and opt["v"] are written in place and returned, with the stats
-    ``{"grad_norm", "lr"}`` (float32 scalars on the params' device)."""
+    ``{"grad_norm", "lr"}`` (float32 scalars on the params' device).  On a
+    mesh the trees are the rank's shards and `specs` the params' specs
+    (``global_norm``)."""
     dev = leaves(params)[0].device
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(cfg, step).to(dev)
     t = _f32(step) + 1.0

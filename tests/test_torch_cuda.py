@@ -1144,3 +1144,124 @@ def test_frontdoor_torch_model_three_concurrent_sessions(cuda, monkeypatch):
     assert build_threads and "MainThread" not in build_threads
     for k in ("flash_attention", "decode_attention", "constrained_sample"):
         assert ops.WRAPPERS[k].launches > 0, k
+
+
+# --------------------- the mesh's rank-local kernel shapes ----------------------
+#: kernel 1 with its backward at the shapes one rank of a 16-wide model axis
+#: gives it (query heads / 16 with the kv heads they read): olmo-1b 1 on 1,
+#: qwen3-moe-30b-a3b 2 on 1 (inside one GQA group), yi-6b 2 on 1 (head dim
+#: 128); 2 rows of 512 tokens
+RANK_LOCAL_ATTENTION = {
+    "olmo-1b": dict(B=2, S=512, H=1, KV=1, D=128),
+    "qwen3-moe-30b-a3b": dict(B=2, S=512, H=2, KV=1, D=64),
+    "yi-6b": dict(B=2, S=512, H=2, KV=1, D=128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(RANK_LOCAL_ATTENTION))
+def test_flash_attention_training_path_rank_local(cuda, config):
+    """The differentiable ops.flash_attention in bf16 at a rank's heads
+    against the plain autograd function."""
+    q, k, v, qpos, kpos, g = _bwd_inputs(cuda, torch.bfloat16, 35,
+                                         **RANK_LOCAL_ATTENTION[config])
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    out = ops.flash_attention(*leaves, qpos, kpos, causal=True)
+    got = torch.autograd.grad(out, leaves, g)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == (n[0] + 1, n[1] + 1)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    r = ref.flash_attention_grad_ref(*plain, qpos, kpos, causal=True)
+    want = torch.autograd.grad(r, plain, g)
+    torch.testing.assert_close(out.detach().float(), r.detach().float(),
+                               atol=2e-2, rtol=2e-2)
+    _assert_grads_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Di", [512, 200, 4096])
+def test_selective_scan_training_path_rank_local(cuda, Di):
+    """The differentiable ops.selective_scan in bf16 at a rank's d_inner
+    channels: falcon-mamba-7b's 8192 over 16 (512) and over 2 (4096),
+    hymba-1.5b's 3200 over 16 (200)."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda, torch.bfloat16, 2, 300, Di,
+                                         16, 7)
+    dbc = B._base
+    dy = torch.randn(2, 300, Di, generator=torch.Generator().manual_seed(
+        8)).to(cuda)
+
+    def leaves():
+        d = dbc.clone().requires_grad_(True)
+        return ([x.clone().requires_grad_(True) for x in (u, dt, A)]
+                + [d[..., 16:32], d[..., 32:], D.clone().requires_grad_(True)],
+                d)
+    (lu, ldt, lA, lB, lC, lD), d1 = leaves()
+    y, _ = ops.selective_scan(lu, ldt, lA, lB, lC, lD)
+    got = torch.autograd.grad(y, [lu, ldt, lA, d1, lD], dy)
+    (pu, pdt, pA, pB, pC, pD), d2 = leaves()
+    r, _ = ref.selective_scan_grad_ref(pu, pdt, pA, pB, pC, pD)
+    want = torch.autograd.grad(r, [pu, pdt, pA, d2, pD], dy)
+    _assert_scan_close((y,), (r,))
+    for a, b in zip(got, want):
+        tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-4
+        assert (a.float() - b.float()).abs().max().item() <= \
+            tol * b.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M,N", [(8, 2048, 768), (64, 2048, 768),
+                                   (8, 6144, 1024)])
+def test_gmm_training_path_rank_local(cuda, E, M, N):
+    """The differentiable ops.gmm in bf16 at a rank's experts: qwen3-moe's
+    128 experts over 16 (8) and over 2 (64), and mixtral-8x22b's 8
+    experts at d_ff 16384 over 16 (1024)."""
+    x, w, g, dy = _gmm_bwd_case(cuda, torch.bfloat16, E, M, N, 9)
+    leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    got = torch.autograd.grad(ops.gmm(*leaves, g), leaves, dy)
+    plain = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    want = torch.autograd.grad(ref.gmm_grad_ref(*plain, g), plain, dy)
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= \
+            2e-2 * b.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_one_by_one_nccl_mesh_step_equal_to_the_bit(cuda, tmp_path,
+                                                    monkeypatch):
+    """A world of one with NCCL, a 1 x 1 mesh: one bf16 train step of
+    qwen3-moe-30b-a3b at full width and 2 layers equals the one-device
+    step to the bit (deterministic) and moves no collective byte."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as C
+    from repro_torch.launch import dist as D
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training import optim as OPT
+    from repro_torch.training.data import DataConfig, synthetic_batch
+    cfg = C.get_config("qwen3-moe-30b-a3b").replace(num_layers=2)
+    batch = synthetic_batch(cfg, DataConfig(batch=2, seq_len=512), 0)
+    D.init_world(0, 1, str(tmp_path / "store"))
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs = []
+    try:
+        mesh = D.Mesh({"data": 1, "model": 1})
+        for m in (None, mesh):
+            state = ST.init_train_state(
+                cfg, torch.Generator("cuda").manual_seed(0), "cuda", mesh=m)
+            step = ST.make_train_step(
+                cfg, ShapeSpec("t", 512, 2, "train"), mesh=m,
+                opt_cfg=OPT.AdamWConfig(lr=1e-3, warmup_steps=0))
+            state, met = step(state, batch)
+            runs.append(({k: v.item() for k, v in met.items()},
+                         _state_digest(state)))
+            del state, step
+            torch.cuda.empty_cache()
+        assert sum(mesh.bytes.values()) == 0
+    finally:
+        torch.use_deterministic_algorithms(was)
+        dist.destroy_process_group()
+    assert runs[0] == runs[1]

@@ -5,10 +5,16 @@
   has jax loaded by tests/conftest.py);
 * no file under src/repro_torch imports jax or a ``repro.`` module;
 * every verbatim copy equals its original with only ``repro.`` changed to
-  ``repro_torch.`` in its import lines, and the copied functions
-  (``models/moe.py::pick_num_groups``) equal theirs;
+  ``repro_torch.`` in its import lines (``configs/__init__.py`` included),
+  and the copied functions (``models/moe.py::pick_num_groups``,
+  ``launch/mesh.py::data_axes`` and ``axis_size``,
+  ``launch/dryrun.py::model_flops``) equal theirs;
 * the entry points refuse to run on the CPU unless asked: the engine, the
-  database, the trainer, the serving drivers and the example twins.
+  database, the trainer, the serving drivers, the example twins, and the
+  distribution layer (``launch.dist``'s process group, mesh and rank
+  launcher, and with them ``init_train_state(mesh=)`` and
+  ``make_train_step(mesh=)``), which runs with gloo when asked for
+  ``device_type="cpu"``.
 """
 import importlib.util
 import os
@@ -23,8 +29,10 @@ import torch
 import repro_torch.configs as TC
 from repro_torch.core.database import IPDB
 from repro_torch.launch import serve as SERVE
+from repro_torch.launch import steps as ST
 from repro_torch.launch import train as TR
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.training import optim as OPT
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -40,7 +48,7 @@ COPIES = (["relational/" + m + ".py" for m in (
     + ["frontdoor/" + m + ".py" for m in (
         "__init__", "session", "fairness", "server", "client")]
     + sorted("configs/" + p.name for p in (SRC / "repro" / "configs").glob(
-        "*.py") if p.name not in ("__init__.py", "common.py")))
+        "*.py") if p.name != "common.py"))
 
 
 def _modules():
@@ -79,7 +87,10 @@ def test_verbatim_copy_in_sync(rel):
 
 
 #: (module, function) copied verbatim into the port's module of that name
-COPIED_FUNCTIONS = [("models/moe.py", "pick_num_groups")]
+COPIED_FUNCTIONS = [("models/moe.py", "pick_num_groups"),
+                    ("launch/mesh.py", "data_axes"),
+                    ("launch/mesh.py", "axis_size"),
+                    ("launch/dryrun.py", "model_flops")]
 
 
 @pytest.mark.parametrize("rel,fn", COPIED_FUNCTIONS)
@@ -142,3 +153,26 @@ def test_drivers_and_examples_refuse_cpu_unless_asked(entry, argv,
         argv = argv + ["--ckpt-dir", str(tmp_path)]
     with pytest.raises(RuntimeError, match="no GPU"):
         main(argv)
+
+
+def test_distribution_refuses_cpu_unless_asked(monkeypatch, tmp_path):
+    """The process group, the mesh and the rank launcher default to CUDA
+    with NCCL and raise without a GPU; with ``device_type="cpu"`` they run
+    with gloo, and a sharded state and step built on such a mesh live on
+    the CPU."""
+    import torch_dist_cases as DC
+    from repro_torch.launch import dist as D
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        D.init_world(0, 1, str(tmp_path / "store"))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        D.Mesh({"data": 1, "model": 1})
+    with pytest.raises(RuntimeError, match="no GPU"):
+        D.run_ranks(DC.cpu_entry_ranks, 1, None)
+    cfg = DC.cfg_of("dense_heads")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ST.init_train_state(cfg, torch.Generator().manual_seed(0))
+    state = ST.init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert {x.device.type for x in OPT.leaves(state["params"])} == {"cpu"}
+    assert D.run_ranks(DC.cpu_entry_ranks, 1, "cpu", device_type="cpu",
+                       timeout_s=60) == [("cpu", 1)]
