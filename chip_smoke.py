@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only gmm,gmm_bwd,selective_scan,selective_scan_bwd \
         --compare-bwd build/parent/src/repro_torch/kernels/csrc
     python3 chip_smoke.py --only dist      # the build and phase 7 only
+    python3 chip_smoke.py --only serve     # the build and phase 8 only
 
 Phases, each reported on its own lines:
 
@@ -152,14 +153,32 @@ Phases, each reported on its own lines:
    the 1 x 1 mesh's as the ``dist`` path, rank 0's of the spawned ranks as
    the ``dist_ranks`` path.  With one card the phase reports ``"ranks":
    1`` and there is no ``dist_ranks`` path;
-8. a JSON line with every kernel's numbers at the dtype its path gives it,
+8. the serving half of distribution (``launch.steps.make_prefill_step`` /
+   ``make_decode_step``, ``launch.mesh.ServeShards``): olmo-1b,
+   qwen3-moe-30b-a3b, falcon-mamba-7b and mixtral-8x22b at full width and
+   2 layers in bf16, the one-device steps in bf16 and float32 (the
+   references), then on a 1 x 1 mesh (NCCL, this process) every prefill
+   variant (default, seq_parallel, banded) and decode mode (hd, lc with
+   per_row_write, kv, resident) equal to the bit to the one-device
+   builders; spawned ranks on (data 2, model 1), (1, 2) and, on 4 cards,
+   (2, 2) (NCCL, one a card; with one card two ranks share it over gloo
+   on (1, 2)) against the one-device step (SERVE_TOL); on 4 cards
+   mixtral-8x22b at full width on (2, 2): the banded B 4 x 8192 prefill at
+   the deepest depth that fits, 32 decode steps in each of hd, lc and
+   resident, per rank the prefill time, decode ms a token, tokens/s, peak
+   and state GiB, collective bytes and the idle share of one profiled
+   step, then the sequence-parallel prefill.  Kernels (a) and (b) are
+   checked in phase 2 at a (2, 2) rank's share of that decode.  The 1 x 1
+   mesh's launches are the ``serve`` path, rank 0's of the spawned ranks
+   ``serve_ranks``;
+9. a JSON line with every kernel's numbers at the dtype its path gives it,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints the script's elapsed time as it starts.  Any failed
 check raises, so the script exits non-zero and prints no last line.  Without a GPU it exits 2 at once.  ``--only`` runs phases 1 and 2
 for the named kernels, prints their JSON line and stops, without the last
 line (for comparing kernel versions on one card in one call); ``--only
-dist`` runs the build and phase 7.
+dist`` runs the build and phase 7, ``--only serve`` the build and phase 8.
 """
 from __future__ import annotations
 
@@ -218,6 +237,9 @@ GMM = dict(calls={"decode": 8, "prefill": 256})
 # the cache's state, and a decode tick over 8 slots (one step from the
 # carried state, written in place)
 SCAN = dict(calls={"decode": (8, 1), "prefill": (1, 256)})
+#: the serving path's decode on a rank of (2, 2) (kernels (a) and (b)): the
+#: deep run's 4 rows over data 2, over mixtral's 4096-slot window
+SERVE_DEC_RANK = dict(B=2, L=4096)
 DENSE_ARCH = "olmo-1b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
@@ -284,6 +306,15 @@ def path_shapes(cfg) -> dict:
             "decode_attention_paged": dict(PAGED, **heads),
             "decode_attention_paged_quant": dict(PAGED, **heads),
             "flash_attention_prefix": dict(PRE_PAGED, **heads)})
+    if cfg.has_attention and cfg.name in SERVE_KERNEL_ARCHS:
+        # a rank's share of the deep serving run's decode on (2, 2): its
+        # rows, its half of the slots (lc) or of head_dim (hd)
+        heads = dict(H=cfg.padded_heads, KV=cfg.num_kv_heads)
+        out["decode_attention_lse"] = dict(
+            SERVE_DEC_RANK, L=SERVE_DEC_RANK["L"] // 2, D=cfg.head_dim,
+            **heads)
+        out["decode_attention_hd_scores"] = out["decode_attention_hd_out"] \
+            = dict(SERVE_DEC_RANK, D=cfg.head_dim // 2, **heads)
     if cfg.has_moe:
         out["gmm"] = dict(GMM, E=cfg.num_experts, K=cfg.top_k,
                           d_model=cfg.d_model, d_ff=cfg.d_ff)
@@ -455,6 +486,101 @@ def check_decode(ops, ref, dtype, gen, shape):
                 plain_ms=time_ms(ref.decode_attention_ref, sets),
                 library_ms=time_ms(library, lib_sets),
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def _rank_decode_inputs(gen, dtype, shape, nbytes_of):
+    """Rotating input sets of a rank's decode attention at `shape` (B, L,
+    H, KV, D: a rank's rows, slots and head_dim columns): rows filled to
+    L/2..L, the last row empty; and the positions."""
+    B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
+    dev = "cuda"
+    fills = torch.randint(L // 2, L + 1, (B,), generator=gen, device=dev)
+    spos = torch.arange(L, device=dev, dtype=torch.int32).repeat(B, 1)
+    spos[spos >= fills[:, None]] = -1
+    spos[-1] = -1
+    qpos = (fills - 1).to(torch.int32)
+    valid = (spos >= 0).sum().item()
+    nbytes = nbytes_of(valid)
+    sets = []
+    for _ in range(rotations(nbytes)):
+        q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
+        kc = torch.randn(B, L, KV, D, generator=gen, device=dev).to(dtype)
+        vc = torch.randn(B, L, KV, D, generator=gen, device=dev).to(dtype)
+        sets.append((q, kc, vc, spos, qpos))
+    return sets, valid, nbytes
+
+
+def check_decode_lse(ops, ref, dtype, gen, shape):
+    """Kernel (a): kernel 2 with each head's lse, over a rank's slot range
+    of a cache split over its length (the lc decode mode)."""
+    B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
+    s = torch.tensor([], dtype=dtype).element_size()
+    sets, valid, nbytes = _rank_decode_inputs(
+        gen, dtype, shape, lambda valid: 2 * B * H * D * s + B * H * 4
+        + 2 * valid * KV * D * s + B * L * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, 4 * valid * H * D, dtype)
+    out, lse = ops.decode_attention_lse(*sets[0])
+    r, rl = ref.decode_attention_lse_ref(*sets[0])
+    err = max((out.float() - r.float()).abs().max().item(),
+              (lse[:-1] - rl[:-1]).abs().max().item())
+    if not torch.isneginf(lse[-1]).all():
+        fail("decode_attention_lse: a row with no valid slot has a finite "
+             "lse")
+    # no PyTorch call returns a masked GQA decode's output with its lse
+    return dict(max_abs_err=err,
+                ms=time_ms(ops.decode_attention_lse, sets),
+                device_ms=device_ms(ops.decode_attention_lse, sets[0],
+                                    "decode_attention_kernel"),
+                plain_ms=time_ms(ref.decode_attention_lse_ref, sets),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_decode_hd_scores(ops, ref, dtype, gen, shape):
+    """Kernel (b), launch 1: the partial scores of a rank's head_dim
+    columns, every slot."""
+    B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
+    s = torch.tensor([], dtype=dtype).element_size()
+    sets, _, nbytes = _rank_decode_inputs(
+        gen, dtype, shape, lambda valid: B * H * D * s + B * L * KV * D * s
+        + B * H * L * 4)
+    scale = 1.0 / math.sqrt(2 * D)
+    b_ms, b_by = bound(nbytes, 2 * B * L * H * D, dtype)
+    args = [(q, kc, scale) for q, kc, _, _, _ in sets]
+    got = ops.decode_attention_hd_scores(*args[0])
+    err = (got - ref.decode_attention_hd_scores_ref(*args[0])).abs().max()
+    G = H // KV
+    lib = [((q.reshape(B, KV, G, D) * scale), kc.permute(0, 2, 3, 1))
+           for q, kc, _, _, _ in sets]
+    return dict(max_abs_err=err.item(),
+                ms=time_ms(ops.decode_attention_hd_scores, args),
+                device_ms=device_ms(ops.decode_attention_hd_scores, args[0],
+                                    "decode_hd_scores_kernel"),
+                plain_ms=time_ms(ref.decode_attention_hd_scores_ref, args),
+                library_ms=time_ms(torch.matmul, lib),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_decode_hd_out(ops, ref, dtype, gen, shape):
+    """Kernel (b), launch 2: the masked softmax of the summed scores and
+    P.V over a rank's head_dim columns."""
+    B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
+    s = torch.tensor([], dtype=dtype).element_size()
+    sets, valid, nbytes = _rank_decode_inputs(
+        gen, dtype, shape, lambda valid: B * H * L * 4 + valid * KV * D * s
+        + B * L * 4 + B * 4 + B * H * D * s)
+    b_ms, b_by = bound(nbytes, 2 * valid * H * D, dtype)
+    args = [(torch.randn(B, H, L, generator=gen, device="cuda") * 3, vc,
+             spos, qpos) for _, _, vc, spos, qpos in sets]
+    got = ops.decode_attention_hd_out(*args[0])
+    err = (got.float() - ref.decode_attention_hd_out_ref(*args[0]).float()
+           ).abs().max()
+    # softmax then a product: no single PyTorch call
+    return dict(max_abs_err=err.item(),
+                ms=time_ms(ops.decode_attention_hd_out, args),
+                device_ms=device_ms(ops.decode_attention_hd_out, args[0],
+                                    "decode_hd_out_kernel"),
+                plain_ms=time_ms(ref.decode_attention_hd_out_ref, args),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_flash(ops, ref, dtype, gen, shape):
@@ -1416,6 +1542,8 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
 # those of the porting path, "launches_by_path" those of each path.
 BOTH = (DENSE_ARCH, MOE_ARCH)
 ALL = BOTH + (SSM_ARCH, HYBRID_ARCH)
+#: the serving configs with attention whose decode runs kernels (a) and (b)
+SERVE_KERNEL_ARCHS = ("mixtral-8x22b", DENSE_ARCH, MOE_ARCH)
 #: a kernel's symbols in a profile, where not "<name>_kernel"
 SYMBOL = {"flash_attention_bwd": ("flash_bwd_",),
           # kernel 6: bf16, f32
@@ -1464,6 +1592,18 @@ KERNELS = [
     ("selective_scan_bwd", "src/repro/models/mamba.py:45", check_scan_bwd,
      torch.bfloat16, "selective_scan_bwd.cu", "train",
      (SSM_ARCH, HYBRID_ARCH)),
+    # the serving path's variants of kernel 2 on a mesh: (a) over a rank's
+    # slot range with each head's lse (lc), (b) over a rank's head_dim
+    # columns in two launches (hd)
+    ("decode_attention_lse", "src/repro/kernels/decode_attention.py:65",
+     check_decode_lse, torch.bfloat16, "decode_attention.cu", "serve_ranks",
+     SERVE_KERNEL_ARCHS),
+    ("decode_attention_hd_scores", "src/repro/kernels/decode_attention.py:65",
+     check_decode_hd_scores, torch.bfloat16, "decode_attention.cu",
+     "serve_ranks", SERVE_KERNEL_ARCHS),
+    ("decode_attention_hd_out", "src/repro/kernels/decode_attention.py:65",
+     check_decode_hd_out, torch.bfloat16, "decode_attention.cu",
+     "serve_ranks", SERVE_KERNEL_ARCHS),
 ]
 
 
@@ -2628,6 +2768,761 @@ def dist_path(C, smi):
     return summary
 
 
+# ------------------------------ phase 8: serving --------------------------------
+#: the serving path (``make_prefill_step`` / ``make_decode_step``): olmo-1b,
+#: qwen3-moe-30b-a3b, falcon-mamba-7b and mixtral-8x22b at full width and
+#: SERVE_LAYERS layers in bfloat16: B rows of S prompt tokens into an
+#: L-slot cache (its length splits over `model`), then `steps` decode steps
+MIXTRAL_ARCH = "mixtral-8x22b"
+SERVE_ARCHS = (DENSE_ARCH, MOE_ARCH, SSM_ARCH, MIXTRAL_ARCH)
+SERVE_LAYERS = 2
+SERVE = dict(B=4, S=512, L=1024, steps=3)
+#: the mesh variants: prefill (banded: the sliding-window config) and
+#: decode modes
+SERVE_PREFILL = {"default": {}, "seq_parallel": dict(seq_parallel=True),
+                 "banded": dict(banded=True)}
+SERVE_DECODE = {"hd": {}, "lc_per_row": dict(cache_shard_mode="lc",
+                                             per_row_write=True),
+                "kv": dict(cache_shard_mode="kv"),
+                "resident": dict(resident_weights=True)}
+#: the spawned ranks' meshes by world size (one a card, NCCL); with one
+#: card, SERVE_SHARED's two ranks share it, their collectives over gloo
+#: through the host (NCCL refuses two ranks on one card)
+SERVE_MESHES = {2: ({"data": 2, "model": 1}, {"data": 1, "model": 2}),
+                4: ({"data": 2, "model": 2},)}
+SERVE_SHARED = ({"data": 1, "model": 2},)
+#: mixtral-8x22b on 4 cards, mesh (2, 2): B x S prompt tokens over its
+#: 4096-token window (banded), then `steps` decode steps in each mode.  In
+#: bf16 ~281 GB of weights, ~65.5 GiB a card; ``serve_depth`` picks the
+#: deepest depth whose peak (measured at SERVE_CAL layers, the layers past
+#: them added from the sharding rules) fits SERVE_FIT of the card
+SERVE_DEEP = dict(arch=MIXTRAL_ARCH, B=4, S=8192, steps=32,
+                  modes=("hd", "lc_per_row", "resident"))
+#: the share of a card's memory (free plus PyTorch's cache, at the start of
+#: the deep run) a rank's estimated peak may take, and the depth at which
+#: the prefill's peak is measured to calibrate the estimate (on H100 80GB
+#: HBM3 cards at 700 W the estimate put 54 layers at 71.32 GiB, and the
+#: prefill peaked at 71.32 GiB there, with 75.35 GiB free + cached: 0.95
+#: stopped at 54 layers, whose 56 need 73.70)
+SERVE_FIT = 0.98
+SERVE_CAL = 4
+#: the sequence-parallel prefill at depth: mixtral where ZeRO-3's whole-layer
+#: gather fits SERVE_FIT of the card by the estimate, else this config at
+#: full depth
+SERVE_SEQ_FALLBACK = MOE_ARCH
+#: bfloat16 parity of a mesh step with the one-device step, each against
+#: the same step in float32 compute: a tensor's error is ||x - x32|| /
+#: ||x32|| (2-norms over the whole tensor, a NaN infinite); a mesh step's
+#: may be at most `ratio` times the one-device bf16 step's plus `floor`.
+#: The bf16 steps round partial sums in another order than each other (a
+#: tensor-parallel product rounds each rank's partial before the sum), and
+#: a near-tie of the MoE routing may send a row to another expert, so they
+#: differ by bf16's noise; a wrong shard gives an error of order 1.
+SERVE_TOL = dict(ratio=2.0, floor=2e-3)
+#: the deep decode modes' logits against the hd mode's: at most the worst
+#: 2-layer mesh error times the depth ratio, and never more than `cap`
+#: (unrelated logits differ by ~1.4)
+SERVE_DEEP_CAP = 0.3
+
+
+def serve_cfg(C, arch, layers=SERVE_LAYERS, compute="bfloat16"):
+    return C.get_config(arch).replace(num_layers=layers,
+                                      compute_dtype=compute)
+
+
+def serve_batches(cfg, B, S, steps, seed=SEED):
+    """The prompt (B x S random tokens, positions arange) and `steps`
+    decode batches (random tokens at positions S, S + 1, ...), numpy."""
+    rng = np.random.default_rng(seed)
+    pre = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+           "positions": np.tile(np.arange(S, dtype=np.int32), (B, 1))}
+    dec = [{"tokens": rng.integers(0, cfg.vocab_size, (B, 1)).astype(
+        np.int32), "positions": np.full((B, 1), S + i, np.int32)}
+        for i in range(steps)]
+    return pre, dec
+
+
+def serve_groups(cfg, data_shards):
+    B, S = SERVE["B"], SERVE["S"]
+    if not cfg.has_moe:
+        return 1, 1
+    from repro_torch.models.moe import pick_num_groups
+    return pick_num_groups(B * S, data_shards), pick_num_groups(B,
+                                                                 data_shards)
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True) \
+        if isinstance(tree, torch.Tensor) else tree
+
+
+def serve_one_device(cfg, params, data_shards):
+    """The one-device prefill and decode chain at SERVE's shapes in the
+    capacity groups of a mesh with `data_shards` data shards (with one,
+    through the builders): {"prefill": (logits, cache), "decode": (stacked
+    logits, final cache)}, on the CPU."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MDL
+    from repro_torch.models.config import ShapeSpec
+    B, S, L, steps = (SERVE[k] for k in ("B", "S", "L", "steps"))
+    pre, dec = serve_batches(cfg, B, S, steps)
+    gp, gd = serve_groups(cfg, data_shards)
+    t = {k: torch.from_numpy(v).cuda() for k, v in pre.items()}
+    with torch.no_grad():
+        if data_shards == 1:
+            step, _ = ST.make_prefill_step(cfg, None, ShapeSpec(
+                "p", S, B, "prefill"), cache_len=L)
+            logits, cache = step(params, pre)
+        else:
+            cache = MDL.init_cache(cfg, B, L, device="cuda")
+            logits, cache = MDL.forward(cfg, params, t, "prefill", cache,
+                                        remat=False, last_only=True,
+                                        num_groups=gp)
+            logits = logits[:, -1]
+        out = {"prefill": (logits.cpu(), _cpu(cache))}
+        decode, _ = ST.make_decode_step(cfg, None,
+                                        ShapeSpec("d", L, B, "decode"))
+        ls = []
+        for b in dec:
+            if data_shards == 1:
+                lg, cache = decode(params, b, cache)
+            else:
+                lg, cache = MDL.forward(
+                    cfg, params, {k: torch.from_numpy(v).cuda()
+                                  for k, v in b.items()}, "decode", cache,
+                    remat=False, num_groups=gd)
+            ls.append(lg.cpu())
+        out["decode"] = (torch.stack(ls), _cpu(cache))
+    return out
+
+
+def serve_references(C, data_shards):
+    """{(arch, compute dtype, data shards): serve_one_device} for every
+    serving config, its weights drawn from SEED on the card."""
+    from repro_torch.models.params import init_params
+    refs = {}
+    for arch in SERVE_ARCHS:
+        for compute in ("bfloat16", "float32"):
+            cfg = serve_cfg(C, arch, compute=compute)
+            params = init_params(cfg, torch.Generator("cuda").manual_seed(
+                SEED), "cuda")
+            for ds in data_shards:
+                if ds > 1 and not cfg.has_moe:
+                    refs[(arch, compute, ds)] = refs[(arch, compute, 1)]
+                    continue
+                refs[(arch, compute, ds)] = serve_one_device(cfg, params, ds)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return refs
+
+
+def _rel(x, ref) -> float:
+    """||x - ref|| / ||ref|| in float64, a NaN or an inf infinite."""
+    d = (x.double() - ref.double())
+    if not torch.isfinite(d).all():
+        return float("inf")
+    return (d.norm() / max(ref.double().norm().item(), 1e-300)).item()
+
+
+def serve_errors(got, one, ref32):
+    """Per output tensor (logits; the cache's k, v, conv, h) the mesh
+    step's and the one-device bf16 step's errors against float32, and
+    whether the integer parts (slot positions, cursors) agree."""
+    out = {"logits": (_rel(got[0], ref32[0]), _rel(one[0], ref32[0]))}
+    exact = True
+    for k, w in ref32[1].items():
+        if k in ("k", "v", "conv", "h"):
+            out[k] = (_rel(got[1][k], w), _rel(one[1][k], w))
+        elif k in got[1] and k != "row_idx":
+            exact &= bool(torch.equal(torch.as_tensor(got[1][k]),
+                                      torch.as_tensor(w)))
+    return out, exact
+
+
+def serve_over_bound(errs) -> float:
+    """The largest ratio of an error to its bound (SERVE_TOL)."""
+    return max(m / (SERVE_TOL["ratio"] * o + SERVE_TOL["floor"])
+               for m, o in errs.values())
+
+
+def serve_mesh_runs(C, mesh, arch, launches):
+    """Every variant of `arch` at SERVE's shapes on `mesh` (a dist.Mesh),
+    each rank drawing the same weights (SEED) and keeping its shards of
+    the variant's layout; the outputs gathered whole, on the CPU.  The
+    mesh steps' launches go into `launches`."""
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import init_params
+    cfg = serve_cfg(C, arch)
+    B, S, L, steps = (SERVE[k] for k in ("B", "S", "L", "steps"))
+    pre_b, dec_b = serve_batches(cfg, B, S, steps)
+    pshape, dshape = (ShapeSpec("p", S, B, "prefill"),
+                      ShapeSpec("d", L, B, "decode"))
+
+    def weights(specs):
+        return init_params(cfg, torch.Generator(mesh.device).manual_seed(
+            SEED), mesh.device, local=lambda n, t: MS.local_shard(
+                t, specs["layers"][n][1:] if n in specs["layers"]
+                else specs[n], mesh, mesh.coords))
+
+    out = {}
+    for k in SERVE_PREFILL:
+        if k == "banded" and not cfg.sliding_window:
+            continue
+        step, _ = ST.make_prefill_step(cfg, mesh, pshape, cache_len=L,
+                                       **SERVE_PREFILL[k])
+        params = weights(step.param_pspecs)
+        mesh.bytes.clear()
+        logits, cache = counted(lambda: step(params, pre_b), launches)
+        out[("prefill", k)] = (mesh.full(logits, step.logits_pspec).cpu(),
+                               _cpu(MS.gather_tree(mesh, cache,
+                                                   step.cache_pspecs)),
+                               dict(mesh.bytes))
+        if k == "default":        # the decode modes start from its cache
+            pre, cache0 = step, cache
+        del params, cache
+    for k, kw in SERVE_DECODE.items():
+        step, _ = ST.make_decode_step(cfg, mesh, dshape, **kw)
+        cache = ST.reshard_cache(mesh, {n: v.clone() if isinstance(
+            v, torch.Tensor) else v for n, v in cache0.items()},
+            pre.cache_pspecs, step.cache_pspecs)
+        params = weights(step.param_pspecs)
+        mesh.bytes.clear()
+
+        def run():
+            ls = []
+            c = cache
+            for b in dec_b:
+                lg, c = step(params, b, c)
+                ls.append(mesh.full(lg, step.logits_pspec).cpu())
+            return torch.stack(ls), c
+        logits, cache = counted(run, launches)
+        out[("decode", k)] = (logits, _cpu(MS.gather_tree(
+            mesh, cache, step.cache_pspecs)), dict(mesh.bytes))
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    del cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_one_by_one(C, smi, refs):
+    """World size 1 (NCCL over a FileStore in this process), a 1 x 1 mesh:
+    every variant of every serving config equal to the bit to the
+    one-device builders' step, moving no collective byte.  Returns the
+    results and the mesh steps' launches (the ``serve`` path)."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.launch import dist as D
+    work = os.path.join(ROOT, "build", "chip_smoke_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    D.init_world(0, 1, os.path.join(work, "store"))
+    out, launches = {}, {}
+    try:
+        mesh = D.Mesh({"data": 1, "model": 1})
+        for arch in SERVE_ARCHS:
+            ref = refs[(arch, "bfloat16", 1)]
+            got = serve_mesh_runs(C, mesh, arch, launches)
+            for (kind, k), (g0, g1, moved) in got.items():
+                w0, w1 = ref[kind]
+                same = torch.equal(g0, w0) and all(
+                    torch.equal(torch.as_tensor(g1[n]), torch.as_tensor(v))
+                    for n, v in w1.items())
+                out[(arch, kind, k)] = same
+                if not same or sum(moved.values()):
+                    fail(f"serve: the 1 x 1 mesh {kind} {k} of {arch} "
+                         "differs from the one-device step")
+            print(f"serve 1 x 1 mesh ({arch}, full width, {SERVE_LAYERS} "
+                  f"layers, bf16, B {SERVE['B']} x {SERVE['S']} prompt, "
+                  f"{SERVE['steps']} decode steps): every variant "
+                  f"({sorted(got)}) equal to the bit to the one-device "
+                  f"builders [{smi}]", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def serve_memory(C, mesh, arch, seq_parallel=False) -> dict:
+    """A rank's bytes of `arch` at full width on `mesh`, by layout (the
+    prefill's, and unless `seq_parallel` each decode mode's of SERVE_DEEP):
+    a layer's shards, the largest per-layer gather (FSDP: the layer's
+    leaves whole over the data axes; ZeRO-3: the whole layer; resident:
+    none) and the leaves outside the stack; and the cache a layer."""
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MDL
+    from repro_torch.models import params as PRM
+    full = C.get_config(arch)
+    B, S, steps = (SERVE_DEEP[k] for k in ("B", "S", "steps"))
+    ds = mesh.size(MS.data_axes(mesh))
+    layouts = {"prefill": (MS.param_pspecs_zero3(full, mesh), "zero3")
+               if seq_parallel else (MS.param_pspecs(full, mesh), "fsdp")}
+    if not seq_parallel:
+        for mode in SERVE_DEEP["modes"]:
+            kw = SERVE_DECODE[mode]
+            res = kw.get("resident_weights", False)
+            layouts[mode] = (MS.param_pspecs(
+                full, mesh, fsdp=not res, resident=res,
+                attn_mode=ST.decode_attn_mode(full, kw.get(
+                    "cache_shard_mode", "hd"))), "resident" if res else "fsdp")
+    specs = PRM.param_specs(full)
+    cache = MDL.cache_specs(full, B, S + steps)
+    cps = MS.cache_pspecs(full, mesh, cache)
+    cache_b = sum(int(np.prod(MS.local_shape(s, cps[k], mesh))) * dt.itemsize
+                  for k, (s, dt) in cache.items()) // full.num_layers
+    out = {"cache_layer": cache_b, "layouts": {}}
+    for name, (pspecs, kind) in layouts.items():
+        layer = gather = 0
+        for n, (shp, _) in specs["layers"].items():
+            dt = PRM._dtype(full, n).itemsize
+            local = int(np.prod(MS.local_shape(shp, pspecs["layers"][n],
+                                               mesh))) * dt // shp[0]
+            layer += local
+            if kind == "zero3":
+                gather += int(np.prod(shp[1:])) * dt
+            elif kind == "fsdp" and any(e is not None and e != "model"
+                                        for e in pspecs["layers"][n][1:]):
+                gather += local * ds
+        top = sum(int(np.prod(MS.local_shape(spec[0], pspecs[n], mesh)))
+                  * PRM._dtype(full, n).itemsize
+                  for n, spec in specs.items() if n != "layers")
+        out["layouts"][name] = dict(layer=layer, gather=gather, top=top)
+    return out
+
+
+def serve_depth(mem, peak_cal, cal_layers, budget, max_depth):
+    """The deepest depth (at most `max_depth`) whose peak fits `budget`: the
+    prefill's measured peak at `cal_layers` layers plus a layer's shards
+    and cache for each layer more; each decode layout's shards, gather,
+    outer leaves and two caches (the prefill's and the mode's copy)."""
+    pre = mem["layouts"]["prefill"]
+
+    def peak(d):
+        p = peak_cal + (d - cal_layers) * (pre["layer"] + mem["cache_layer"])
+        for name, lay in mem["layouts"].items():
+            if name != "prefill":
+                p = max(p, lay["layer"] * d + lay["gather"] + lay["top"]
+                        + 2 * mem["cache_layer"] * d)
+        return p
+    depth = max_depth
+    while depth > cal_layers and peak(depth) > budget:
+        depth -= 1
+    return depth, peak(depth), peak(max_depth)
+
+
+def _profiled_step(fn):
+    """(wall s, device busy s) of fn() under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+               and not e.name().startswith("nccl:")) / 1e9
+    return wall, busy
+
+
+def serve_deep(C, mesh, rank, launches):
+    """mixtral-8x22b at full width on the mesh (4 cards, 2 x 2): the banded
+    prefill of SERVE_DEEP's prompt at the deepest depth that fits, then
+    `steps` decode steps in each mode from its cache (the hd mode feeds its
+    greedy tokens; the other modes the same tokens), one more step of each
+    mode profiled; then the sequence-parallel prefill (mixtral where
+    ZeRO-3 fits, else SERVE_SEQ_FALLBACK at full depth).  Returns this
+    rank's numbers and logits (its shards, on the CPU)."""
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import init_params
+    from repro_torch.training import optim as OPT
+    arch = SERVE_DEEP["arch"]
+    B, S, steps = (SERVE_DEEP[k] for k in ("B", "S", "steps"))
+    pre_b, _ = serve_batches(C.get_config(arch), B, S, 0, seed=SEED + 8)
+
+    def weights(c, specs):
+        t = time.time()
+        p = init_params(c, torch.Generator(mesh.device).manual_seed(SEED),
+                        mesh.device, local=lambda n, x: MS.local_shard(
+                            x, specs["layers"][n][1:] if n in specs["layers"]
+                            else specs[n], mesh, mesh.coords))
+        torch.cuda.synchronize()
+        return p, time.time() - t
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(mesh.device)
+    budget = SERVE_FIT * (free + torch.cuda.memory_reserved(mesh.device))
+
+    def fitting(a, seq):
+        """(depth, figures): the prefill at SERVE_CAL layers measured, the
+        rest estimated (serve_memory, serve_depth)."""
+        mem = serve_memory(C, mesh, a, seq)
+        c = C.get_config(a).replace(num_layers=SERVE_CAL)
+        step, _ = ST.make_prefill_step(c, mesh, ShapeSpec("p", S, B,
+                                                          "prefill"),
+                                       cache_len=S + steps,
+                                       seq_parallel=seq, banded=not seq)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p, _ = weights(c, step.param_pspecs)
+        counted(lambda: step(p, pre_b), launches)
+        torch.cuda.synchronize()
+        peak_cal = torch.cuda.max_memory_allocated()
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        # every rank takes the least depth that fits every rank
+        d, at, full = serve_depth(mem, peak_cal, SERVE_CAL, budget,
+                                  C.get_config(a).num_layers)
+        t = torch.tensor([d], device=mesh.device)
+        mesh.all_reduce_(t, mesh.axis_names, op=torch.distributed.ReduceOp.MIN)
+        d = int(t.item())
+        gib = 2 ** 30
+        return d, dict(
+            calibration_layers=SERVE_CAL,
+            calibration_peak_gib=round(peak_cal / gib, 2),
+            per_layer_gib={k: round(v["layer"] / gib, 3)
+                           for k, v in mem["layouts"].items()},
+            gather_gib={k: round(v["gather"] / gib, 3)
+                        for k, v in mem["layouts"].items()},
+            cache_gib_a_layer=round(mem["cache_layer"] / gib, 4),
+            budget_gib=round(budget / gib, 2),
+            peak_gib_at_depth=round(serve_depth(mem, peak_cal, SERVE_CAL,
+                                                float("inf"), d)[1] / gib, 2),
+            peak_gib_full_depth=round(full / gib, 2))
+
+    depth, figures = fitting(arch, False)
+    cfg = C.get_config(arch).replace(num_layers=depth)
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in OPT.leaves(tree)
+                   if isinstance(x, torch.Tensor))
+
+    out = {"arch": arch, "depth": depth, "figures": figures, "modes": {},
+           "mesh": dict(mesh.shape)}
+    pshape = ShapeSpec("p", S, B, "prefill")
+    pre, _ = ST.make_prefill_step(cfg, mesh, pshape, cache_len=S + steps,
+                                  banded=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, out["init_s"] = weights(cfg, pre.param_pspecs)
+    mesh.bytes.clear()
+    torch.cuda.synchronize()
+    t = time.time()
+    logits, cache0 = counted(lambda: pre(params, pre_b), launches)
+    torch.cuda.synchronize()
+    out["prefill"] = dict(
+        s=time.time() - t, peak_bytes=torch.cuda.max_memory_allocated(),
+        state_bytes=nbytes(params) + nbytes(cache0),
+        collective_bytes=dict(mesh.bytes),
+        finite=bool(torch.isfinite(logits).all()))
+    first = mesh.full(logits, pre.logits_pspec).argmax(-1)     # (B,)
+    del params, logits
+    dshape = ShapeSpec("d", S + steps, B, "decode")
+    fed = None
+    for mode in SERVE_DEEP["modes"]:
+        step, _ = ST.make_decode_step(cfg, mesh, dshape,
+                                      **SERVE_DECODE[mode])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = ST.reshard_cache(mesh, {n: v.clone() if isinstance(
+            v, torch.Tensor) else v for n, v in cache0.items()},
+            pre.cache_pspecs, step.cache_pspecs)
+        params, init_s = weights(cfg, step.param_pspecs)
+        toks = [first.cpu().numpy()] if fed is None else fed
+        shards, greedy, times, moved = [], [], [], None
+        for i in range(steps):
+            b = {"tokens": toks[i].astype(np.int32)[:, None],
+                 "positions": np.full((B, 1), S + i, np.int32)}
+            mesh.bytes.clear()
+            torch.cuda.synchronize()
+            t = time.time()
+            lg, cache = counted(lambda: step(params, b, cache), launches)
+            torch.cuda.synchronize()
+            times.append(time.time() - t)
+            moved = moved or dict(mesh.bytes)
+            shards.append(lg.float().cpu())
+            top = mesh.full(lg, step.logits_pspec)[:, 0].float()
+            greedy.append(top.argmax(-1).cpu().numpy())
+            if fed is None and i + 1 < steps:
+                toks.append(greedy[-1])
+        if fed is None:
+            fed = toks
+        b = {"tokens": toks[-1].astype(np.int32)[:, None],
+             "positions": np.full((B, 1), S + steps, np.int32)}
+        wall, busy = counted(lambda: _profiled_step(
+            lambda: step(params, b, cache)), launches)
+        # where one more step's device time goes: every rank runs it (its
+        # collectives need them all), rank 0 under the profiler
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            step(params, b, cache)
+            torch.cuda.synchronize()
+            return time.time() - t0
+        if rank == 0:
+            print(f"profile of one more {mode} decode step of {arch} "
+                  f"({depth} layers) on rank 0:", flush=True)
+            counted(lambda: profile(timed), launches)
+        else:
+            counted(timed, launches)
+        out["modes"][mode] = dict(
+            logits=torch.stack(shards), greedy=np.stack(greedy),
+            step_s=times, init_s=init_s, profiled_wall_s=wall,
+            profiled_busy_s=busy, idle_share=1 - busy / wall,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            state_bytes=nbytes(params) + nbytes(cache),
+            collective_bytes=moved)
+        if rank == 0:
+            print(f"  serve deep rank 0 {mode}: "
+                  f"{ {k: v for k, v in out['modes'][mode].items() if k not in ('logits', 'greedy')} }",
+                  flush=True)
+        del params, cache
+    del cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the sequence-parallel prefill
+    seq_depth, seq_fig = fitting(arch, True)
+    seq_arch = arch if seq_depth == C.get_config(arch).num_layers else \
+        SERVE_SEQ_FALLBACK
+    scfg = C.get_config(seq_arch)
+    step, _ = ST.make_prefill_step(scfg, mesh, pshape, cache_len=S,
+                                   seq_parallel=True)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = weights(scfg, step.param_pspecs)
+    sb, _ = serve_batches(scfg, B, S, 0, seed=SEED + 9)
+    mesh.bytes.clear()
+    torch.cuda.synchronize()
+    t = time.time()
+    logits, cache = counted(lambda: step(params, sb), launches)
+    torch.cuda.synchronize()
+    out["seq_parallel"] = dict(
+        arch=seq_arch, layers=scfg.num_layers, mixtral_figures=seq_fig,
+        mixtral_depth_that_fits=seq_depth, s=time.time() - t,
+        init_s=init_s, peak_bytes=torch.cuda.max_memory_allocated(),
+        state_bytes=nbytes(params) + nbytes(cache),
+        collective_bytes=dict(mesh.bytes),
+        finite=bool(torch.isfinite(logits).all()))
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_ranks(rank, world, meshes, deep, backend):
+    """One spawned rank of the serve phase (card rank % cards): every
+    config and variant at SERVE's shapes on each mesh of `meshes`; then,
+    with `deep`, ``serve_deep`` on the last mesh.  Returns rank 0's
+    gathered outputs (the others': None), and every rank's launches of its
+    mesh steps and deep numbers."""
+    import repro_torch.configs as C
+    from repro_torch.launch import dist as D
+    out = {"device": torch.cuda.get_device_name(), "runs": {},
+           "launches": {}, "deep": None}
+    mesh = None
+    for shape in meshes:
+        mesh = D.Mesh(shape)
+        for arch in SERVE_ARCHS:
+            t = time.time()
+            got = serve_mesh_runs(C, mesh, arch, out["launches"])
+            if rank == 0:
+                print(f"  serve rank 0: mesh {shape} {arch} "
+                      f"{len(got)} variants in {time.time() - t:.1f} s",
+                      flush=True)
+                for key, val in got.items():
+                    out["runs"][(tuple(shape.items()), arch) + key] = val
+    if deep:
+        out["deep"] = serve_deep(C, mesh, rank, out["launches"])
+    return out
+
+
+def serve_path(C, smi):
+    """Phase 8, the serving half of distribution (``make_prefill_step``,
+    ``make_decode_step``, ``launch.mesh.ServeShards``): the one-device
+    references in bf16 and float32, the 1 x 1 mesh equal to the bit to the
+    one-device builders, then spawned ranks on the meshes of SERVE_MESHES
+    that fit the cards (with one card SERVE_SHARED's two ranks on it) at 2
+    layers against the one-device step (SERVE_TOL), and on 4 cards the
+    deep mixtral run.  Prints a ``serve`` JSON line; "launches": "serve"
+    those of the 1 x 1 mesh steps, "serve_ranks" rank 0's of the spawned
+    ranks."""
+    from repro_torch.launch import dist as D
+    cards = torch.cuda.device_count()
+    worlds = [(w, m, None) for w, m in SERVE_MESHES.items() if w <= cards]
+    if not worlds:
+        worlds = [(2, SERVE_SHARED, "gloo")]
+    stamp("serve: the one-device references (bf16, float32)")
+    ds = sorted({1} | {s.get("pod", 1) * s["data"] for _, ms, _ in worlds
+                       for s in ms})
+    refs = serve_references(C, ds)
+    stamp("serve: the 1 x 1 mesh")
+    one, launches = serve_one_by_one(C, smi, refs)
+    summary = {"one_by_one": len(one), "launches": {"serve": launches},
+               "parity": [], "deep": None, "ranks": cards,
+               "shared_card": worlds[0][2] == "gloo"}
+    worst = 0.0
+    for world, meshes, backend in worlds:
+        deep = world == 4
+        stamp(f"serve: {world} ranks{' on one card (gloo)' if backend else ''}"
+              f", meshes {list(meshes)}"
+              + (f", then {SERVE_DEEP['arch']} deep" if deep else ""))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = D.run_ranks(serve_ranks, world, meshes, deep, backend,
+                            timeout_s=2400, backend=backend,
+                            workdir=os.path.join(ROOT, "build"))
+        for key, (logits, cache, moved) in ranks[0]["runs"].items():
+            shape, arch, kind, variant = dict(key[0]), key[1], key[2], key[3]
+            n = shape.get("pod", 1) * shape["data"]
+            ref, ref32 = (refs[(arch, c, n)][kind]
+                          for c in ("bfloat16", "float32"))
+            errs, exact = serve_errors((logits, cache), ref, ref32)
+            over = serve_over_bound(errs)
+            worst = max(worst, max(m for m, _ in errs.values()))
+            summary["parity"].append(dict(
+                mesh=shape, arch=arch, kind=kind, variant=variant,
+                errors=errs, over_bound=over, exact=exact,
+                collective_bytes=moved))
+            print(f"serve mesh {shape} {arch} {kind} {variant} ({world} "
+                  f"ranks): errors vs float32 (mesh, one device) {errs}; "
+                  f"{over:.3f} of the bound ({SERVE_TOL}); positions "
+                  f"{'equal' if exact else 'DIFFERENT'}; collective bytes "
+                  f"(rank 0) {moved} [{smi}]", flush=True)
+            if not (over <= 1.0 and exact):
+                fail(f"serve {shape} {arch} {kind} {variant}: {errs}")
+        into = summary["launches"].setdefault("serve_ranks", {})
+        for k, n in ranks[0]["launches"].items():
+            into[k] = into.get(k, 0) + n
+        print(f"serve: rank 0's launches in the {world}-rank mesh steps: "
+              f"{ranks[0]['launches']}", flush=True)
+        if deep:
+            summary["deep"] = serve_deep_report(ranks, worst, smi)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "serve_phase.json"), "w") as f:
+        json.dump(summary, f, default=str)
+    print("serve " + json.dumps({k: v for k, v in summary.items()
+                                 if k != "parity"}, default=str), flush=True)
+    if cards < 4:
+        print(f"serve: {cards} card(s), so no 4-rank mesh and no deep "
+              "mixtral-8x22b run (not measured in this run)", flush=True)
+    return summary
+
+
+def serve_deep_report(ranks, worst, smi):
+    """Print and check the deep run of every rank: finite logits, the
+    modes' logits against hd's within the 2-layer parity's worst error
+    times the depth ratio (SERVE_DEEP_CAP at most), hd's and lc's greedy
+    tokens compared (each difference with hd's logit gap between the two
+    tokens)."""
+    deep = [r["deep"] for r in ranks]
+    d0 = deep[0]
+    depth = d0["depth"]
+    limit = min(SERVE_DEEP_CAP, worst * depth / SERVE_LAYERS)
+    B, S = SERVE_DEEP["B"], SERVE_DEEP["S"]
+    print(f"serve deep {d0['arch']} at {depth} layers (the deepest that "
+          f"fits: {d0['figures']}), mesh (2, 2), B {B} x {S} banded prefill: "
+          f"prefill s by rank {[round(d['prefill']['s'], 3) for d in deep]}"
+          f", prefill tokens/s {B * S / d0['prefill']['s']:.0f}, peak GiB by "
+          f"rank {[round(d['prefill']['peak_bytes'] / 2**30, 2) for d in deep]}"
+          f", state GiB by rank "
+          f"{[round(d['prefill']['state_bytes'] / 2**30, 2) for d in deep]}, "
+          f"collective bytes (rank 0) {d0['prefill']['collective_bytes']}, "
+          f"init s {[round(d['init_s'], 1) for d in deep]} [{smi}]",
+          flush=True)
+    if not all(d["prefill"]["finite"] for d in deep):
+        fail("serve deep: the prefill's logits are not finite")
+    report = {"arch": d0["arch"], "depth": depth, "figures": d0["figures"],
+              "prefill_s": [d["prefill"]["s"] for d in deep],
+              "limit": limit, "modes": {}}
+    hd = [d["modes"]["hd"] for d in deep]
+
+    def whole(rows):
+        """The ranks' logit shards (steps, B / data, 1, Vp / model) as the
+        whole (steps, B, Vp): rank r is (data r // model, model r % model)."""
+        m = d0["mesh"]["model"]
+        return torch.cat([torch.cat([rows[d * m + j]["logits"]
+                                     for j in range(m)], -1)
+                          for d in range(len(rows) // m)], 1)[:, :, 0]
+    hd_full = whole(hd)
+    for mode in SERVE_DEEP["modes"]:
+        rows = [d["modes"][mode] for d in deep]
+        err = math.sqrt(sum((r["logits"] - h["logits"]).double().square()
+                            .sum().item() for r, h in zip(rows, hd))
+                        / max(sum(h["logits"].double().square().sum().item()
+                                  for h in hd), 1e-300))
+        finite = all(torch.isfinite(r["logits"]).all() for r in rows)
+        ms = [1e3 * float(np.mean(r["step_s"][1:])) for r in rows]
+        diffs = []
+        if mode != "hd":
+            # each differing token with the logit gap between the two
+            # choices, in hd's logits and in this mode's
+            g, gh = rows[0]["greedy"], hd[0]["greedy"]
+            mine = whole(rows)
+            for i, j in zip(*np.nonzero(g != gh)):
+                a, b = int(gh[i, j]), int(g[i, j])
+                diffs.append((int(i), int(j), a, b, round(float(
+                    hd_full[i, j, a] - hd_full[i, j, b]), 4), round(float(
+                        mine[i, j, b] - mine[i, j, a]), 4)))
+        report["modes"][mode] = dict(
+            vs_hd=err, finite=finite, decode_ms=ms,
+            tokens_per_s=[B / (m / 1e3) for m in ms],
+            idle_share=[r["idle_share"] for r in rows],
+            peak_gib=[r["peak_bytes"] / 2**30 for r in rows],
+            state_gib=[r["state_bytes"] / 2**30 for r in rows],
+            collective_bytes=rows[0]["collective_bytes"],
+            greedy_differs=diffs)
+        print(f"serve deep {mode}: {SERVE_DEEP['steps']} steps, logits vs "
+              f"hd {err:.5f} (limit {limit:.5f}), decode ms a token by rank "
+              f"{[round(x, 3) for x in ms]}, tokens/s by rank "
+              f"{[round(B / (x / 1e3), 1) for x in ms]}, idle share by rank "
+              f"{[round(r['idle_share'], 3) for r in rows]}, peak GiB by "
+              f"rank {[round(r['peak_bytes'] / 2**30, 2) for r in rows]}, "
+              f"state GiB by rank "
+              f"{[round(r['state_bytes'] / 2**30, 2) for r in rows]}, "
+              f"collective bytes a step (rank 0) "
+              f"{rows[0]['collective_bytes']}, GB by rank "
+              f"{[round(sum(r['collective_bytes'].values()) / 1e9, 3) for r in rows]}"
+              f"; greedy tokens that differ "
+              f"from hd's (step, row, hd token, this token, hd's logit gap "
+              f"between them, this mode's): {diffs} [{smi}]", flush=True)
+        if not finite or err > limit:
+            fail(f"serve deep {mode}: logits vs hd {err} (limit {limit})")
+    sp = [d["seq_parallel"] for d in deep]
+    report["seq_parallel"] = {k: v for k, v in sp[0].items()}
+    print(f"serve deep seq_parallel prefill: {sp[0]['arch']} at "
+          f"{sp[0]['layers']} layers (mixtral under ZeRO-3: "
+          f"{sp[0]['mixtral_figures']}: {sp[0]['mixtral_depth_that_fits']} "
+          f"layers fit), B {B} x {S}: s by rank "
+          f"{[round(x['s'], 3) for x in sp]}, peak GiB by rank "
+          f"{[round(x['peak_bytes'] / 2**30, 2) for x in sp]}, state GiB "
+          f"by rank {[round(x['state_bytes'] / 2**30, 2) for x in sp]}, "
+          f"collective bytes (rank 0) {sp[0]['collective_bytes']} [{smi}]",
+          flush=True)
+    if not all(x["finite"] for x in sp):
+        fail("serve deep: the sequence-parallel prefill's logits are not "
+             "finite")
+    return report
+
+
 def frontdoor_path(smi):
     """The HTTP front door (``repro_torch.frontdoor``) on localhost over
     repro_torch's IPDB with ``PATH 'torch:olmo-1b'`` at its published
@@ -2792,7 +3687,8 @@ def main(argv=None) -> int:
     print("comparisons: torch.backends.cuda.matmul.allow_tf32 = False, "
           "cudnn.allow_tf32 = False", flush=True)
     gen = torch.Generator("cuda").manual_seed(SEED)
-    shapes = {a: path_shapes(C.get_config(a)) for a in ALL + tuple(TRAIN)}
+    shapes = {a: path_shapes(C.get_config(a))
+              for a in ALL + tuple(TRAIN) + SERVE_KERNEL_ARCHS}
     stamp("phase 2: the kernels")
     report = {}
     for kname, replaces, check, path_dtype, src, path, archs in KERNELS:
@@ -2843,6 +3739,10 @@ def main(argv=None) -> int:
         compare_bwd_steps(C, ops, report)
     if only and "dist" in only.split(","):
         for path, launches in dist_path(C, smi)["launches"].items():
+            print(f"launches during the {path} path: {launches}", flush=True)
+    if only and "serve" in only.split(","):
+        stamp("phase 8: serving")
+        for path, launches in serve_path(C, smi)["launches"].items():
             print(f"launches during the {path} path: {launches}", flush=True)
     if only:
         print(json.dumps({"kernels": list(report.values())}), flush=True)
@@ -3029,6 +3929,13 @@ def main(argv=None) -> int:
     stamp("phase 7: distribution")
     for path, launches in dist_path(C, smi)["launches"].items():
         record(path, launches, train_kernels)
+    stamp("phase 8: serving")
+    serve_kernels = ("flash_attention", "decode_attention", "gmm",
+                     "selective_scan")
+    for path, launches in serve_path(C, smi)["launches"].items():
+        record(path, launches, serve_kernels + (
+            ("decode_attention_lse", "decode_attention_hd_scores",
+             "decode_attention_hd_out") if path == "serve_ranks" else ()))
     stamp("done")
 
     for r in report.values():

@@ -728,12 +728,15 @@ __device__ __forceinline__ void merge_warps(const float* wpart, int PW, int W, i
 // The cluster's S partials, in rank order through distributed shared
 // memory, each block a share of the Gh x D outputs, written to out (Gh x
 // D).  When no split has a valid slot (M = -inf), output i is empty(i).
-// Synchronises the cluster before (the partials are written) and after (no
-// block leaves while another still reads its shared memory).
+// `lse` (Gh floats, or null) receives each head's log-sum-exp of its scaled
+// scores over the valid slots, -inf where it has none.  Synchronises the
+// cluster before (the partials are written) and after (no block leaves while
+// another still reads its shared memory).
 template <typename T, typename Empty>
 __device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& cluster,
                                              float* bm, float* bl, float* bacc, int Gh,
-                                             int D, T* out, Empty empty) {
+                                             int D, T* out, Empty empty,
+                                             float* lse = nullptr) {
   const int S = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   cluster.sync();
@@ -749,6 +752,7 @@ __device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& 
     float o;
     if (M == -INFINITY) {
       o = empty(i);
+      if (lse != nullptr && i == g * D) lse[g] = -INFINITY;
     } else {
       float lt = 0.f, x = 0.f;
 #pragma unroll
@@ -759,6 +763,7 @@ __device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& 
         x = fmaf(*cluster.map_shared_rank(bacc + i, s), w, x);
       }
       o = x / lt;
+      if (lse != nullptr && i == g * D) lse[g] = M + logf(lt);
     }
     out[i] = from_f<T>(o);
   }

@@ -1,5 +1,9 @@
 // Dense decode attention for Hopper (sm_90a): one query token per sequence
-// against the ring-buffered KV cache.
+// against the ring-buffered KV cache; with the distribution layer's two
+// variants of it: (a) the same kernel writing each head's log-sum-exp (a
+// rank's slot range of a cache split over its length, whose partials the
+// ranks combine), and (b) two launches for a cache split over head_dim
+// (at the end of this file).
 //
 // Replaces: repro/kernels/decode_attention.py::decode_attention_pallas (the
 // TPU kernel behind ops.decode_attention).  Same function: for each (row b,
@@ -87,6 +91,7 @@ struct DecodeArgs {
   const int* spos;
   const int* qpos;
   void* out;
+  float* lse;           // (B, H) log-sum-exp of each head's scores, or null
   int H, KV, L, D;
   int NG;               // head groups per kv head
   int tiles_per_split;
@@ -246,7 +251,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(Decode
                  float x = 0.f;
                  for (int r = 0; r < L; ++r) x += to_f(vbase[(size_t)r * slot_stride + d]);
                  return x / (float)L;
-               });
+               },
+               a.lse == nullptr ? nullptr : a.lse + head0);
 }
 
 template <typename T, int DPL, int DK>
@@ -265,8 +271,8 @@ int launch_kernel(DecodeArgs a, int B, int ntiles, int W, cudaStream_t stream) {
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* spos,
-           const void* qpos, void* out, int B, int H, int KV, int L, int D,
-           float scale, cudaStream_t stream) {
+           const void* qpos, void* out, float* lse, int B, int H, int KV, int L,
+           int D, float scale, cudaStream_t stream) {
   if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0 || D > 256 ||
       (D * (int)sizeof(T)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -275,7 +281,7 @@ int launch(const void* q, const void* k, const void* v, const void* spos,
   const size_t tile_bytes = (size_t)2 * kTile * row_stride<T>(D) * sizeof(T);
   const int W = (int)std::max<size_t>(1, std::min<size_t>(kMaxWarps, kTileBudget / tile_bytes));
   DecodeArgs a{q, k, v, static_cast<const int*>(spos), static_cast<const int*>(qpos),
-               out, H, KV, L, D, (G + kHeads - 1) / kHeads, 0, scale};
+               out, lse, H, KV, L, D, (G + kHeads - 1) / kHeads, 0, scale};
   if constexpr (sizeof(T) == 2) {   // bf16: the tensor cores where D allows
     if (D % 16 == 0 && D <= 64) return launch_kernel<T, 2, 64>(a, B, ntiles, W, stream);
     if (D % 16 == 0 && D <= 128) return launch_kernel<T, 4, 128>(a, B, ntiles, W, stream);
@@ -288,20 +294,280 @@ int launch(const void* q, const void* k, const void* v, const void* spos,
 }  // namespace
 
 // q (B, H, D); k, v (B, L, KV, D); spos (B, L) int32; qpos (B,) int32;
-// out (B, H, D).  All contiguous, q/k/v/out of one dtype, 16-byte aligned.
-// Returns the CUDA error code of the launch (0 on success); a cluster launch
-// the device refuses returns its error, and the wrapper raises.
+// out (B, H, D); lse (B, H) float32 or null (kernel (a): each head's
+// log-sum-exp over the valid slots, -inf where there is none).  All
+// contiguous, q/k/v/out of one dtype, 16-byte aligned.  Returns the CUDA
+// error code of the launch (0 on success); a cluster launch the device
+// refuses returns its error, and the wrapper raises.
 extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
                                       const void* v, const void* spos,
                                       const void* qpos, void* out, int B, int H,
-                                      int KV, int L, int D, float scale,
+                                      int KV, int L, int D, float scale, void* lse,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case repro::kFloat32:
-      return launch<float>(q, k, v, spos, qpos, out, B, H, KV, L, D, scale, s);
+      return launch<float>(q, k, v, spos, qpos, out, l, B, H, KV, L, D, scale, s);
     case repro::kBFloat16:
-      return launch<__nv_bfloat16>(q, k, v, spos, qpos, out, B, H, KV, L, D, scale, s);
+      return launch<__nv_bfloat16>(q, k, v, spos, qpos, out, l, B, H, KV, L, D, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---- kernel (b): decode attention with head_dim split over ranks ----------
+//
+// The decode step whose attention weights and cache are split over head_dim
+// (the JAX package's attn_mode "hd", cache_shard_mode "hd": each rank holds
+// a D-column slice of every head and of every cached K and V row).  A
+// score is a dot product over the whole head_dim, so it is a sum over the
+// ranks, taken before the softmax:
+//   1. repro_decode_attention_hd_scores: the rank's partial fp32 scores
+//      scale * q[b, h, :] . k[b, l, kv(h), :] over its D columns, (B, H, L);
+//   2. (the caller all-reduces them over the ranks);
+//   3. repro_decode_attention_hd_out: the masked softmax over the slots with
+//      0 <= spos <= qpos (every slot alike where none is valid: the
+//      reference's softmax over all -1e30 scores, the mean of V), then P.V
+//      over the rank's D columns, (B, H, D).
+// Plain version: kernels/ref.py decode_attention_hd_scores_ref and
+// decode_attention_hd_out_ref (the einsums of repro/models/layers.py
+// decode_attention on the slices).
+//
+// Design (simple first).  Scores: grid (ceil(L / 128), KV, B), a thread a
+// slot, the kv head's G query heads staged in shared memory as fp32 times the
+// scale (broadcast reads); each thread reads its K row in 16-byte vectors
+// and keeps kHeads partial dots in registers (more heads: another pass over
+// the row, from L1).  Output: grid (ceil(D / 16), KV, B), 256 threads as 16
+// slot lanes x 16 columns; the block takes its heads' max and sum over the
+// valid slots (block reductions over the scores, which every column block
+// of a kv head reads again from L2), then, for kHeads heads at a time,
+// stages P of 256 slots in shared memory and accumulates P.V, 16 columns of
+// a slot being one 32-byte sector in bf16; the 16 slot lanes' partials add
+// up in a fixed order.  No atomics: the same sums in every run.
+namespace {
+
+constexpr int kScoreThreads = 128;   // slots a score block, one a thread
+constexpr int kOutCols = 16;         // head_dim columns an output block
+constexpr int kOutLanes = 16;        // slot lanes an output block
+constexpr int kOutThreads = kOutCols * kOutLanes;
+constexpr int kOutTile = 256;        // slots whose P is staged at a time
+
+struct HdScoreArgs {
+  const void* q;
+  const void* k;
+  float* scores;
+  int H, KV, L, D;
+  float scale;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kScoreThreads) decode_hd_scores_kernel(HdScoreArgs a) {
+  extern __shared__ __align__(16) float qs[];   // G x D, times the scale
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KV, D = a.D, L = a.L;
+  const T* q = static_cast<const T*>(a.q) + ((size_t)b * a.H + (size_t)kv * G) * D;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) qs[i] = to_f(q[i]) * a.scale;
+  __syncthreads();
+  const int slot = blockIdx.x * kScoreThreads + threadIdx.x;
+  if (slot >= L) return;
+  constexpr int E = 16 / sizeof(T);   // elements of a 16-byte chunk
+  const T* krow = static_cast<const T*>(a.k) + (((size_t)b * L + slot) * a.KV + kv) * D;
+  float* out = a.scores + ((size_t)b * a.H + (size_t)kv * G) * L + slot;
+  for (int g0 = 0; g0 < G; g0 += kHeads) {
+    const int gn = min(kHeads, G - g0);
+    float acc[kHeads];
+#pragma unroll
+    for (int g = 0; g < kHeads; ++g) acc[g] = 0.f;
+    for (int c = 0; c < D; c += E) {
+      float kf[E];
+      load_vec<T, E>(krow + c, kf);
+#pragma unroll
+      for (int g = 0; g < kHeads; ++g) {
+        if (g < gn) {
+          const float* qg = qs + (g0 + g) * D + c;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g] = fmaf(qg[e], kf[e], acc[g]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kHeads; ++g)
+      if (g < gn) out[(size_t)(g0 + g) * L] = acc[g];
+  }
+}
+
+struct HdOutArgs {
+  const float* scores;
+  const void* v;
+  const int* spos;
+  const int* qpos;
+  void* out;
+  int H, KV, L, D;
+};
+
+// the block's reduction of one value a thread (max or sum), every thread
+// gets the result; `red` holds a float a warp
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  x = kMax ? warp_max(x) : warp_sum(x);
+  __syncthreads();   // red is free (a previous reduction's readers are done)
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float r = kMax ? -INFINITY : 0.f;
+  for (int w = 0; w < (int)blockDim.x / 32; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kOutThreads) decode_hd_out_kernel(HdOutArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KV, D = a.D, L = a.L;
+  float* mg = sm;                          // G: each head's max over valid slots
+  float* wg = mg + G;                      // G: 1 / sum, or 1 / L (no valid slot)
+  float* red = wg + G;                     // a float a warp
+  float* ps = red + kOutThreads / 32;      // kHeads x kOutTile
+  float* part = ps + kHeads * kOutTile;    // kOutLanes x kHeads x kOutCols
+  const float* s = a.scores + ((size_t)b * a.H + (size_t)kv * G) * L;
+  const int* sp = a.spos + (size_t)b * L;
+  const int qp = a.qpos[b];
+  auto valid = [&](int l) {
+    const int p = sp[l];
+    return p >= 0 && p <= qp;
+  };
+  // 1. each head's max and sum over the valid slots
+  for (int g = 0; g < G; ++g) {
+    float m = -INFINITY;
+    for (int l = threadIdx.x; l < L; l += blockDim.x)
+      if (valid(l)) m = fmaxf(m, s[(size_t)g * L + l]);
+    m = block_reduce<true>(m, red);
+    float z = 0.f;
+    if (m != -INFINITY)
+      for (int l = threadIdx.x; l < L; l += blockDim.x)
+        if (valid(l)) z += expf(s[(size_t)g * L + l] - m);
+    z = block_reduce<false>(z, red);
+    if (threadIdx.x == 0) {
+      mg[g] = m;
+      wg[g] = m == -INFINITY ? 1.f / (float)L : 1.f / z;
+    }
+  }
+  __syncthreads();
+  // 2. P.V over the block's columns, kHeads heads at a time
+  const int col = threadIdx.x % kOutCols, sl = threadIdx.x / kOutCols;
+  const int d = blockIdx.x * kOutCols + col;
+  const T* vcol = static_cast<const T*>(a.v) + ((size_t)b * L * a.KV + kv) * D + d;
+  const size_t slot_stride = (size_t)a.KV * D;
+  for (int g0 = 0; g0 < G; g0 += kHeads) {
+    const int gn = min(kHeads, G - g0);
+    float acc[kHeads];
+#pragma unroll
+    for (int g = 0; g < kHeads; ++g) acc[g] = 0.f;
+    for (int t0 = 0; t0 < L; t0 += kOutTile) {
+      const int tn = min(kOutTile, L - t0);
+      __syncthreads();   // the previous tile's P is read
+      for (int i = threadIdx.x; i < gn * kOutTile; i += blockDim.x) {
+        const int g = i / kOutTile, r = i - g * kOutTile, l = t0 + r;
+        float p = 0.f;
+        if (r < tn) {
+          const float m = mg[g0 + g];
+          if (m == -INFINITY) p = wg[g0 + g];
+          else if (valid(l)) p = expf(s[(size_t)(g0 + g) * L + l] - m) * wg[g0 + g];
+        }
+        ps[g * kOutTile + r] = p;
+      }
+      __syncthreads();
+      if (d < D) {
+        for (int r = sl; r < tn; r += kOutLanes) {
+          const float vf = to_f(vcol[(size_t)(t0 + r) * slot_stride]);
+#pragma unroll
+          for (int g = 0; g < kHeads; ++g)
+            if (g < gn) acc[g] = fmaf(ps[g * kOutTile + r], vf, acc[g]);
+        }
+      }
+    }
+    // the slot lanes' partials, added in lane order
+#pragma unroll
+    for (int g = 0; g < kHeads; ++g) part[(sl * kHeads + g) * kOutCols + col] = acc[g];
+    __syncthreads();
+    if (sl == 0 && d < D) {
+      for (int g = 0; g < gn; ++g) {
+        float x = 0.f;
+        for (int r = 0; r < kOutLanes; ++r) x += part[(r * kHeads + g) * kOutCols + col];
+        static_cast<T*>(a.out)[((size_t)b * a.H + (size_t)kv * G + g0 + g) * D + d] =
+            from_f<T>(x);
+      }
+    }
+    __syncthreads();   // part is free for the next heads
+  }
+}
+
+template <typename T>
+int launch_hd_scores(const void* q, const void* k, float* scores, int B, int H, int KV,
+                     int L, int D, float scale, cudaStream_t stream) {
+  if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0 || (D * (int)sizeof(T)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = decode_hd_scores_kernel<T>;
+  const size_t smem = sizeof(float) * (size_t)(H / KV) * D;
+  cudaError_t e = allow_smem_once(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  HdScoreArgs a{q, k, scores, H, KV, L, D, scale};
+  kernel<<<dim3((L + kScoreThreads - 1) / kScoreThreads, KV, B), kScoreThreads, smem,
+           stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_hd_out(const float* scores, const void* v, const int* spos, const int* qpos,
+                  void* out, int B, int H, int KV, int L, int D, cudaStream_t stream) {
+  if (B <= 0 || L <= 0 || KV <= 0 || D <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  auto kernel = decode_hd_out_kernel<T>;
+  const size_t smem = sizeof(float) * ((size_t)2 * (H / KV) + kOutThreads / 32 +
+                                       kHeads * kOutTile + kOutLanes * kHeads * kOutCols);
+  cudaError_t e = allow_smem_once(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  HdOutArgs a{scores, v, spos, qpos, out, H, KV, L, D};
+  kernel<<<dim3((D + kOutCols - 1) / kOutCols, KV, B), kOutThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel (b), launch 1.  q (B, H, D) and k (B, L, KV, D) of one dtype, D of
+// a rank's head_dim slice (D * sizeof(T) % 16 == 0); scores (B, H, L)
+// float32 receives scale * the partial dots.  All contiguous.
+extern "C" int repro_decode_attention_hd_scores(int dtype, const void* q, const void* k,
+                                                void* scores, int B, int H, int KV, int L,
+                                                int D, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scores);
+  switch (dtype) {
+    case repro::kFloat32:
+      return launch_hd_scores<float>(q, k, sc, B, H, KV, L, D, scale, s);
+    case repro::kBFloat16:
+      return launch_hd_scores<__nv_bfloat16>(q, k, sc, B, H, KV, L, D, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel (b), launch 2.  scores (B, H, L) float32 summed over the ranks;
+// v (B, L, KV, D) of `dtype`; spos (B, L) int32; qpos (B,) int32; out (B,
+// H, D) of `dtype`.  All contiguous.
+extern "C" int repro_decode_attention_hd_out(int dtype, const void* scores, const void* v,
+                                             const void* spos, const void* qpos, void* out,
+                                             int B, int H, int KV, int L, int D,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scores);
+  const int* sp = static_cast<const int*>(spos);
+  const int* qp = static_cast<const int*>(qpos);
+  switch (dtype) {
+    case repro::kFloat32:
+      return launch_hd_out<float>(sc, v, sp, qp, out, B, H, KV, L, D, s);
+    case repro::kBFloat16:
+      return launch_hd_out<__nv_bfloat16>(sc, v, sp, qp, out, B, H, KV, L, D, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

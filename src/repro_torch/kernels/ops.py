@@ -50,7 +50,18 @@ KERNELS = {
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "decode_attention": ("decode_attention.cu", "repro_decode_attention",
                          [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _P]),
+                          _P, _P]),
+    # kernel 2 writing each head's lse (kernel (a)): the same entry point
+    "decode_attention_lse": ("decode_attention.cu", "repro_decode_attention",
+                             [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _F, _P, _P]),
+    # kernel (b): decode attention over a head_dim slice, two launches
+    "decode_attention_hd_scores": (
+        "decode_attention.cu", "repro_decode_attention_hd_scores",
+        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "decode_attention_hd_out": (
+        "decode_attention.cu", "repro_decode_attention_hd_out",
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "decode_attention_paged": (
         "decode_attention_paged.cu", "repro_decode_attention_paged",
         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
@@ -349,25 +360,105 @@ def decode_attention(q, k_cache, v_cache, slot_positions, q_position):
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k_cache, v_cache, slot_positions,
                                         q_position)
-    B, H, D = q.shape
-    L, KV = k_cache.shape[1], k_cache.shape[2]
-    _check_attention_inputs("decode_attention", q, k_cache, v_cache,
-                            slot_positions, q_position)
-    _require(H % KV == 0 and k_cache.shape == v_cache.shape == (B, L, KV, D)
-             and slot_positions.shape == (B, L)
-             and q_position.shape == (B,),
-             "decode_attention: shape mismatch")
-    out = torch.empty_like(q)
-    err = _fn("decode_attention")(
-        _DTYPES[q.dtype], _ptr(q), _ptr(k_cache), _ptr(v_cache),
-        _ptr(slot_positions), _ptr(q_position), _ptr(out), B, H, KV, L, D,
-        1.0 / math.sqrt(D), _stream())
-    _check("decode_attention", err)
-    decode_attention.launches += 1
-    return out
+    return _decode(q, k_cache, v_cache, slot_positions, q_position, None)
 
 
 decode_attention.launches = 0
+
+
+def _decode(q, k_cache, v_cache, slot_positions, q_position, lse):
+    """Launch kernel 2 (`lse` None) or kernel (a) (`lse` (B, H) float32)."""
+    name = "decode_attention" if lse is None else "decode_attention_lse"
+    B, H, D = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    _check_attention_inputs(name, q, k_cache, v_cache, slot_positions,
+                            q_position)
+    _require(H % KV == 0 and k_cache.shape == v_cache.shape == (B, L, KV, D)
+             and slot_positions.shape == (B, L)
+             and q_position.shape == (B,), f"{name}: shape mismatch")
+    out = torch.empty_like(q)
+    err = _fn(name)(
+        _DTYPES[q.dtype], _ptr(q), _ptr(k_cache), _ptr(v_cache),
+        _ptr(slot_positions), _ptr(q_position), _ptr(out), B, H, KV, L, D,
+        1.0 / math.sqrt(D), None if lse is None else _ptr(lse), _stream())
+    _check(name, err)
+    WRAPPERS[name].launches += 1
+    return out
+
+
+def decode_attention_lse(q, k_cache, v_cache, slot_positions, q_position):
+    """Kernel (a): kernel 2 that also returns each (row, head)'s
+    log-sum-exp of its scaled scores over the valid slots, (B, H) float32,
+    -inf where the row has none (its output is then the mean of V over the
+    cache's slots, as kernel 2's).  For a cache split over its length: each
+    rank attends over its slot range, and ``combine_slot_splits`` merges
+    the ranks' (out, lse).  Returns (out, lse)."""
+    _forward_only("decode_attention_lse", q, k_cache, v_cache)
+    if not q.is_cuda:
+        return ref.decode_attention_lse_ref(q, k_cache, v_cache,
+                                            slot_positions, q_position)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return _decode(q, k_cache, v_cache, slot_positions, q_position, lse), lse
+
+
+decode_attention_lse.launches = 0
+
+
+def decode_attention_hd_scores(q, k_cache, scale):
+    """Kernel (b), launch 1: q (B, H, D) and k_cache (B, L, KV, D) hold a
+    rank's D-column slice of head_dim; returns the partial scores scale *
+    q . k over those columns, (B, H, L) float32, which the caller sums over
+    the ranks before ``decode_attention_hd_out``."""
+    _forward_only("decode_attention_hd_scores", q, k_cache)
+    if not q.is_cuda:
+        return ref.decode_attention_hd_scores_ref(q, k_cache, scale)
+    B, H, D = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    _check_attention_inputs("decode_attention_hd_scores", q, k_cache, k_cache)
+    _require(H % KV == 0 and k_cache.shape == (B, L, KV, D),
+             "decode_attention_hd_scores: shape mismatch")
+    scores = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    err = _fn("decode_attention_hd_scores")(
+        _DTYPES[q.dtype], _ptr(q), _ptr(k_cache), _ptr(scores), B, H, KV, L,
+        D, float(scale), _stream())
+    _check("decode_attention_hd_scores", err)
+    decode_attention_hd_scores.launches += 1
+    return scores
+
+
+decode_attention_hd_scores.launches = 0
+
+
+def decode_attention_hd_out(scores, v_cache, slot_positions, q_position):
+    """Kernel (b), launch 2: the softmax of the summed scores (B, H, L)
+    float32 over the slots with 0 <= slot position <= q_position (every
+    slot alike where none is valid), times the rank's D columns of
+    v_cache (B, L, KV, D).  Returns (B, H, D) in v_cache's dtype."""
+    _forward_only("decode_attention_hd_out", v_cache)
+    if not v_cache.is_cuda:
+        return ref.decode_attention_hd_out_ref(scores, v_cache,
+                                               slot_positions, q_position)
+    B, H, L = scores.shape
+    KV, D = v_cache.shape[2], v_cache.shape[3]
+    _check_attention_inputs("decode_attention_hd_out", v_cache, v_cache,
+                            v_cache, slot_positions, q_position)
+    _require(scores.is_cuda and scores.dtype == torch.float32
+             and scores.is_contiguous() and H % KV == 0
+             and v_cache.shape == (B, L, KV, D)
+             and slot_positions.shape == (B, L)
+             and q_position.shape == (B,),
+             "decode_attention_hd_out: shape mismatch")
+    out = torch.empty(B, H, D, dtype=v_cache.dtype, device=v_cache.device)
+    err = _fn("decode_attention_hd_out")(
+        _DTYPES[v_cache.dtype], _ptr(scores), _ptr(v_cache),
+        _ptr(slot_positions), _ptr(q_position), _ptr(out), B, H, KV, L, D,
+        _stream())
+    _check("decode_attention_hd_out", err)
+    decode_attention_hd_out.launches += 1
+    return out
+
+
+decode_attention_hd_out.launches = 0
 
 
 # --------------------------- paged decode attention ---------------------------
@@ -777,6 +868,9 @@ WRAPPERS = {"flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "flash_attention_prefix": flash_attention_prefix,
             "decode_attention": decode_attention,
+            "decode_attention_lse": decode_attention_lse,
+            "decode_attention_hd_scores": decode_attention_hd_scores,
+            "decode_attention_hd_out": decode_attention_hd_out,
             "decode_attention_paged": decode_attention_paged,
             "decode_attention_paged_quant": decode_attention_paged_quant,
             "constrained_sample": constrained_sample,

@@ -202,6 +202,46 @@ def decode_attention_ref(q, k_cache, v_cache, slot_positions, q_position):
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def decode_attention_lse_ref(q, k_cache, v_cache, slot_positions,
+                             q_position):
+    """decode_attention_ref and each (row, head)'s log-sum-exp of its
+    scaled scores over the valid slots, (B, H) float32, -inf where the row
+    has none (kernel (a)'s plain version).  Returns (out, lse)."""
+    B, H, D = q.shape
+    KV = k_cache.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, D) / math.sqrt(D)
+    s = torch.einsum("bkgd,blkd->bkgl", qf, k_cache.float())
+    ok = (slot_positions >= 0) & (slot_positions <= q_position[:, None])
+    lse = torch.logsumexp(torch.where(ok[:, None, None, :], s,
+                                      torch.full_like(s, -math.inf)), -1)
+    return (decode_attention_ref(q, k_cache, v_cache, slot_positions,
+                                 q_position), lse.reshape(B, H))
+
+
+def decode_attention_hd_scores_ref(q, k_cache, scale):
+    """Kernel (b)'s first launch: scale * q . k over the columns given,
+    q (B, H, D), k_cache (B, L, KV, D) → (B, H, L) float32."""
+    B, H, D = q.shape
+    KV = k_cache.shape[2]
+    s = torch.einsum("bkgd,blkd->bkgl", q.float().reshape(B, KV, H // KV, D),
+                     k_cache.float()) * scale
+    return s.reshape(B, H, -1)
+
+
+def decode_attention_hd_out_ref(scores, v_cache, slot_positions, q_position):
+    """Kernel (b)'s second launch: the softmax of the summed scores over the
+    valid slots (a row with none: uniform, as softmax over all -1e30
+    scores) times v_cache's columns, in v_cache's dtype (the second einsum
+    of ``repro/models/layers.py::decode_attention``)."""
+    B, H, L = scores.shape
+    KV = v_cache.shape[2]
+    ok = (slot_positions >= 0) & (slot_positions <= q_position[:, None])
+    s = torch.where(ok[:, None, :], scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(s, dim=-1).reshape(B, KV, H // KV, L)
+    o = torch.einsum("bkgl,blkd->bkgd", p, v_cache.float())
+    return o.reshape(B, H, -1).to(v_cache.dtype)
+
+
 def constrained_sample_ref(logits, mask, noise=None, *, temperature=1.0):
     """argmax(mask ? logits/T + noise : NEG_INF) per row, lowest index on
     ties.  Follows the serving engine's numpy sampler bit for bit: the

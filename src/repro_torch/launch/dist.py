@@ -31,7 +31,10 @@ the output's (n-1)/n; reduce-scatter: the input's (n-1)/n; all-reduce:
 twice the tensor's (n-1)/n), as ``kernels.ops`` counts launches.
 
 CUDA with NCCL unless the caller asks for ``device_type="cpu"`` (gloo);
-without a GPU the CUDA default raises.
+without a GPU the CUDA default raises.  ``backend="gloo"`` with CUDA runs
+the ranks' collectives over gloo through the host (each collective copies
+its tensor to the CPU and back): ranks that share one card, which NCCL
+refuses, e.g. a two-rank mesh on a one-card machine.
 """
 from __future__ import annotations
 
@@ -75,15 +78,16 @@ def device_type_of(device_type: Optional[str]) -> str:
 
 def init_world(rank: int, world_size: int, store_path: str, *,
                device_type: Optional[str] = None,
-               timeout_s: float = 600.0) -> None:
+               timeout_s: float = 600.0, backend: Optional[str] = None) -> None:
     """The default process group of `world_size` ranks over a FileStore at
-    `store_path` (NCCL on CUDA, rank r on card r % cards; gloo on the CPU),
-    whose collectives give up after `timeout_s`."""
+    `store_path` (NCCL on CUDA, rank r on card r % cards; gloo on the CPU;
+    `backend` "gloo" on CUDA: see the module docstring), whose collectives
+    give up after `timeout_s`."""
     dt = device_type_of(device_type)
     if dt == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(
-        BACKENDS[dt], store=dist.FileStore(store_path, world_size),
+        backend or BACKENDS[dt], store=dist.FileStore(store_path, world_size),
         rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
 
@@ -114,6 +118,9 @@ class Mesh:
                                    torch.cuda.current_device()) \
             if self.device_type == "cuda" else torch.device("cpu")
         self.bytes = collections.Counter()
+        # gloo on CUDA tensors: every collective goes through the host
+        self.staged = self.device_type == "cuda" and \
+            dist.get_backend() == "gloo"
         layout = np.arange(world).reshape(tuple(self.shape.values()))
         me = dist.get_rank()
         self._groups = {(a,): self.device_mesh.get_group(a)
@@ -164,6 +171,17 @@ class Mesh:
         factor = 2 if kind == "all_reduce" else 1
         self.bytes[kind] += factor * nbytes * (n - 1) // n
 
+    def _run(self, collective, out: torch.Tensor, *inputs: torch.Tensor,
+             **kw) -> torch.Tensor:
+        """collective(out, *inputs, **kw), through host copies where the
+        ranks' collectives are gloo over CUDA tensors; returns out."""
+        if not self.staged:
+            collective(out, *inputs, **kw)
+            return out
+        host = out.cpu()
+        collective(host, *(t.cpu() for t in inputs), **kw)
+        return out.copy_(host)
+
     # -- collectives without gradient -------------------------------------
     def all_reduce_(self, t: torch.Tensor, entry,
                     op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -172,7 +190,7 @@ class Mesh:
         if g is not None:
             self._count("all_reduce", t.numel() * t.element_size(),
                         self.size(entry))
-            dist.all_reduce(t, op=op, group=g)
+            self._run(lambda x: dist.all_reduce(x, op=op, group=g), t)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int, entry) -> torch.Tensor:
@@ -183,7 +201,7 @@ class Mesh:
         t = t.contiguous()
         out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
-        _ALL_GATHER(out, t, group=g)
+        self._run(_ALL_GATHER, out, t, group=g)
         self._count("all_gather", out.numel() * out.element_size(), n)
         out = out.view((n,) + tuple(t.shape)).movedim(0, dim)
         shape = list(t.shape)
@@ -201,10 +219,33 @@ class Mesh:
         chunks = t.reshape(shape[:dim] + [n, shape[dim]] + shape[dim + 1:])
         chunks = chunks.movedim(dim, 0).reshape([n * shape[0]] + shape[1:])
         out = torch.empty(shape, dtype=t.dtype, device=t.device)
-        _REDUCE_SCATTER(out, chunks, group=g)
+        self._run(_REDUCE_SCATTER, out, chunks, group=g)
         self._count("reduce_scatter", chunks.numel() * chunks.element_size(),
                     n)
         return out
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int, concat_dim: int,
+                   entry) -> torch.Tensor:
+        """`t` cut into `entry`'s n ranks' chunks along `split_dim`, chunk
+        i sent to rank i, and the chunks each rank receives concatenated
+        along `concat_dim` in rank order: a dim split over `entry` moves
+        from `concat_dim` to `split_dim` (a cache from head_dim over
+        `model` to its length over `model`)."""
+        g, n = self.group(entry), self.size(entry)
+        if g is None:
+            return t
+        x = t.movedim(split_dim, 0)
+        x = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:])).contiguous()
+        out = self._run(dist.all_to_all_single, torch.empty_like(x), x,
+                        group=g)
+        self._count("all_to_all", x.numel() * x.element_size(), n)
+        # out[i] is rank i's chunk: back to t's dims, then rank-major along
+        # concat_dim
+        out = out.movedim(1, split_dim + 1).movedim(0, concat_dim)
+        shape = list(out.shape)
+        shape[concat_dim:concat_dim + 2] = [shape[concat_dim]
+                                            * shape[concat_dim + 1]]
+        return out.reshape(shape)
 
     # -- collectives with gradient ----------------------------------------
     def gather_cast(self, shard: torch.Tensor, dtype, dim: int, entry
@@ -280,11 +321,12 @@ class _ReduceFrom(torch.autograd.Function):
 
 # ------------------------------ rank processes --------------------------------
 def _rank_main(rank: int, fn: Callable, world_size: int, device_type: str,
-               workdir: str, timeout_s: float, args: tuple) -> None:
+               workdir: str, timeout_s: float, args: tuple,
+               backend: Optional[str] = None) -> None:
     if device_type == "cpu":
         torch.set_num_threads(1)
     init_world(rank, world_size, os.path.join(workdir, "store"),
-               device_type=device_type, timeout_s=timeout_s)
+               device_type=device_type, timeout_s=timeout_s, backend=backend)
     try:
         out = fn(rank, world_size, *args)
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
@@ -301,19 +343,22 @@ def _rank_main(rank: int, fn: Callable, world_size: int, device_type: str,
 
 def run_ranks(fn: Callable, world_size: int, *args,
               device_type: Optional[str] = None, timeout_s: float = 600.0,
-              workdir: Optional[str] = None) -> list:
+              workdir: Optional[str] = None,
+              backend: Optional[str] = None) -> list:
     """Run ``fn(rank, world_size, *args)`` in `world_size` spawned
     processes, each in a process group of them all (``init_world``), and
     return their results by rank.  `fn` must be importable by name
     (spawned processes start from a fresh import).  A rank that raises
     fails the run at once: the others are stopped, and the error carries
     its traceback.  The run fails after `timeout_s` seconds whatever the
-    ranks are doing; their collectives give up at the same limit."""
+    ranks are doing; their collectives give up at the same limit.
+    `backend` as ``init_world``'s."""
     import torch.multiprocessing as mp
     dt = device_type_of(device_type)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         ctx = mp.start_processes(
-            _rank_main, args=(fn, world_size, dt, tmp, timeout_s, args),
+            _rank_main, args=(fn, world_size, dt, tmp, timeout_s, args,
+                              backend),
             nprocs=world_size, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
 

@@ -1,5 +1,5 @@
 """Production mesh + sharding rules (port of ``repro/launch/mesh.py``), and
-what one rank of a mesh reads of them in the train step.
+what one rank of a mesh reads of them in the train and serving steps.
 
 The rules are data: a spec is a tuple with one entry a dim -- None, an axis
 name, or a tuple of names (``P(...)`` builds one) -- and every rule takes an
@@ -17,8 +17,8 @@ of divisibility are against the production model axis's 16
     (+`pod`), feature dims over `model`; optimizer state like weights.
   * serving   = the same weight layout, or ``resident`` / ``hd`` /
     ``replicated`` attention and ZeRO-3 (``param_pspecs_zero3``); caches
-    by ``cache_pspecs`` (hd, lc, kv or none).  These serving rules are
-    here as data; no step of the port runs them yet (ROADMAP).
+    by ``cache_pspecs`` (hd, lc, kv or none), which the prefill and decode
+    step builders of ``launch/steps.py`` run (``ServeShards``).
   * attention = query heads over `model` when the padded head count
     divides 16; otherwise attention weights replicate over `model`.
   * MoE       = experts over `model` when num_experts % 16 == 0 (EP), else
@@ -27,14 +27,17 @@ of divisibility are against the production model axis's 16
 
 ``local_shape``, ``local_shard`` and ``put_shard`` map between a full
 tensor and a rank's shard under a spec; a dim that does not divide raises
-(nothing is padded).  ``TrainShards`` is the train step's view of a mesh for
-one rank (``models.model.forward``'s ``shard``): which leaves it gathers
-over the data axes and along which dim, its slice of the heads, vocabulary
-and experts, and the collectives of ``launch/dist.py`` over `model` and the
-data axes.  ``moe_constraint_fns`` and ``logits_constraint`` give the
-forward's ``dispatch_cs``/``combine_cs`` and ``logits_cs`` hooks.  The
-sequence-parallel hooks (``seq_parallel_hooks``) belong to the sharded
-prefill and are not ported yet.
+(nothing is padded); ``shard_tree`` / ``gather_tree`` do it for a tree of a
+running mesh, and ``reshard`` moves a rank's shard from one spec to another
+(a cache from the prefill's hd layout to a decode mode's: an all-to-all over
+`model`).  ``TrainShards`` is the train step's view of a mesh for one rank
+(``models.model.forward``'s ``shard``): which leaves it gathers over the
+data axes and along which dim, its slice of the heads, vocabulary and
+experts, and the collectives of ``launch/dist.py`` over `model` and the
+data axes.  ``ServeShards`` is the serving steps' (prefill and decode, any
+of the layouts above).  ``moe_constraint_fns``, ``logits_constraint`` and
+``seq_parallel_hooks`` give the forward's ``dispatch_cs``/``combine_cs``,
+``logits_cs`` and ``residual_cs``/``kv_cs`` hooks.
 """
 from __future__ import annotations
 
@@ -431,12 +434,14 @@ class TrainShards:
       mask count over the data axes, the vocab-parallel log-sum-exp's max).
     """
 
+    serving = False
+
     def __init__(self, cfg: ModelConfig, mesh):
         self.cfg, self.mesh = cfg, mesh
         self.specs = param_pspecs(cfg, mesh, fsdp=True)
         self.data = data_axes(mesh)
         m = mesh.size("model")
-        self.tp = m > 1
+        self.tp = self.mixer_tp = m > 1
         self.heads_tp = self.tp and cfg.has_attention and cfg.heads_shardable
         mi = mesh.index("model")
         self.q_lo = mi * (cfg.padded_heads // m) if self.heads_tp else 0
@@ -467,19 +472,22 @@ class TrainShards:
     def kv_heads(self, w: torch.Tensor, h: int) -> torch.Tensor:
         """The kv heads (dim 1 of wk/wv, dim 0 of bk/bv after the layer
         axis is gone) that this rank's `h` query heads read, from a weight
-        replicated over `model`: a contiguous run where the rank's heads
+        replicated over `model` (``_kv_pick``).  The weight's gradient is
+        summed over `model`."""
+        return self._kv_pick(self.to_model(w), h, 1 if w.dim() == 3 else 0)
+
+    def _kv_pick(self, t: torch.Tensor, h: int, dim: int) -> torch.Tensor:
+        """Of `t` (every kv head along `dim`), those that this rank's `h`
+        query heads from ``q_lo`` read: a contiguous run where the heads
         tile whole GQA groups or sit inside one, else one kv head per query
-        head.  The weight's gradient is summed over `model`."""
+        head."""
         cfg = self.cfg
         g = cfg.padded_heads // cfg.num_kv_heads
         lo = self.q_lo
-        w = self.to_model(w)
-        dim = 1 if w.dim() == 3 else 0
         if h % g == 0 or (g % h == 0 and lo // g == (lo + h - 1) // g):
-            first = lo // g
-            return w.narrow(dim, first, max(1, h // g))
-        idx = torch.tensor([(lo + i) // g for i in range(h)], device=w.device)
-        return w.index_select(dim, idx)
+            return t.narrow(dim, lo // g, max(1, h // g))
+        idx = torch.tensor([(lo + i) // g for i in range(h)], device=t.device)
+        return t.index_select(dim, idx)
 
     def data_sum(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce_(t.detach().clone(), self.data)
@@ -487,6 +495,224 @@ class TrainShards:
     def model_max(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce_(t.detach().clone(), "model",
                                      op=dist.ReduceOp.MAX)
+
+
+def seq_parallel_hooks(mesh):
+    """(residual_cs, kv_cs) of the sequence-parallel prefill on a
+    ``dist.Mesh``.  JAX constrains the residual stream to (batch over the
+    data axes, sequence over `model`) and K/V to replicated over `model`,
+    and GSPMD inserts the all-gather.  Here the step hands each rank its
+    rows and its slice of the sequence, so residual_cs is the identity;
+    kv_cs all-gathers a (B, S, ...) tensor (K, V and their positions) along
+    the sequence over `model`, for full-context attention."""
+    def residual_cs(x):
+        return x
+
+    def kv_cs(x):
+        return mesh.all_gather(x, 1, "model")
+
+    return residual_cs, kv_cs
+
+
+class ServeShards(TrainShards):
+    """One rank's view of a serving layout on a ``dist.Mesh``: the prefill
+    and decode steps' `shard` (``models.model.forward``), with no autograd.
+
+    `specs` is the parameter layout (``param_pspecs`` of any attention mode,
+    FSDP or not, resident or not, or ``param_pspecs_zero3``), `cache` the
+    cache's specs (``cache_pspecs``, or None).  Of each leaf's spec entries
+    the rank gathers some where the layer runs and keeps the others split:
+      * FSDP layouts: the data axes are gathered (one layer at a time),
+        `model` stays (heads, head_dim, d_ff, d_inner, experts, vocab);
+      * resident layouts: nothing is gathered; a feature dim split over the
+        data axes (and `model`) is tensor parallel over them, so the tiny
+        decode activations are all-gathered over the data axes before such
+        a product and its partial sums reduced over all its axes;
+      * ZeRO-3 (`zero3`, the sequence-parallel prefill): every leaf is
+        gathered whole; the rank holds its rows and its slice of the
+        sequence (`seq`), K/V and positions are gathered along it, and the
+        mixer and the MoE block (whose capacity groups and scan run along
+        the sequence) gather the sequence too.
+    ``axes_of`` gives a leaf dim's kept axes (those wider than 1) and
+    ``lo`` a rank's first index along them; ``cache_kv`` / ``cache_hd`` are
+    the (first, count) of the kv heads and head_dim columns this rank's
+    cache holds, ``slot_axes`` the axes its slots split over.  `row_shards` is the number of data shards the batch's
+    rows are split over (1: every data rank holds every row), and
+    `moe_gather` says that the MoE block must all-gather the rows over the
+    data axes to route JAX's capacity groups (a group count that is no
+    multiple of the data shards, or expert weights split over them)."""
+
+    serving = True
+
+    def __init__(self, cfg: ModelConfig, mesh, specs, *, batch: int,
+                 cache=None, resident: bool = False, zero3: bool = False,
+                 seq: bool = False, num_groups: int = 1):
+        self.cfg, self.mesh, self.specs = cfg, mesh, specs
+        self.data = data_axes(mesh)
+        self.zero3, self.resident = zero3, resident
+        m = mesh.size("model")
+        self.tp = m > 1 and not zero3
+        self.seq = seq and m > 1
+        ds = mesh.size(self.data)
+        if batch % ds:
+            raise ValueError(f"batch {batch} does not split over the {ds} "
+                             "data shards (the port's serving steps keep "
+                             "the cache's slots whole over the data axes)")
+        self.row_shards = ds
+        self.rows_lo = mesh.index(self.data) * (batch // ds)
+        self.rows_n = batch // ds
+        self.heads_tp = False
+        if cfg.has_attention:
+            self.heads_tp = bool(self.axes_of("attn.wq", 1))
+            self.q_lo = self.lo(self.axes_of("attn.wq", 1), cfg.padded_heads)
+            self.hd_axes = self.axes_of("attn.wq", 2)
+            self.hd_lo = self.lo(self.hd_axes, cfg.head_dim)
+        self.mixer_tp = cfg.has_ssm and bool(self.axes_of("ssm.in_x", 1))
+        if cfg.has_moe:
+            self.expert_axes = self.axes_of("moe.w_gate", 0)
+            self.expert_lo = self.lo(self.expert_axes, cfg.num_experts)
+            self.moe_axes = self.union(self.expert_axes,
+                                       self.axes_of("moe.w_gate", 2))
+            self.moe_gather = ds > 1 and (
+                num_groups % ds != 0
+                or bool(set(self.moe_axes) & set(self.data)))
+        self.cache_kv = self.cache_hd = None
+        if cache is not None and "k" in cache:
+            _, _, lspec, kspec, hspec = cache["k"]
+            kv, hd = cfg.num_kv_heads, cfg.head_dim
+            self.slot_axes = self._split(lspec)
+            self.cache_kv = self._range(kspec, kv)
+            self.cache_hd = self._range(hspec, hd)
+            if set(self.slot_axes) & set(self.data):
+                raise ValueError("a cache whose slots split over the data "
+                                 "axes is not supported")
+            if self.slot_axes and self.cache_hd[1] < hd:
+                raise ValueError("a cache split over both its slots and "
+                                 "head_dim is not supported")
+        if cache is not None and "h" in cache and self.mixer_tp \
+                and not mesh.axes(cache["h"][2]):
+            raise ValueError("d_inner is split over `model` but the SSM "
+                             "state is not (d_inner % 16 != 0)")
+
+    def _range(self, entry, n: int) -> tuple:
+        axes = self.mesh.axes(entry)
+        k = self.mesh.size(axes) if axes else 1
+        return (self.lo(axes, n), n // k)
+
+    def _split(self, entry) -> tuple:
+        """The axes of a spec entry wider than 1."""
+        return tuple(a for a in self.mesh.axes(entry)
+                     if self.mesh.shape[a] > 1)
+
+    def _kept(self, entry) -> tuple:
+        axes = self._split(entry)
+        if self.zero3:
+            return ()
+        if self.resident:
+            return axes
+        return tuple(a for a in axes if a == "model")
+
+    def union(self, *axes) -> tuple:
+        """Tuples of axes together, in mesh order."""
+        names = {a for t in axes for a in t}
+        return tuple(a for a in self.mesh.axis_names if a in names)
+
+    def axes_of(self, name: str, dim: int) -> tuple:
+        """The axes that leaf `name`'s core dim `dim` stays split over on
+        this rank (the layer axis not counted)."""
+        return self._kept(self.spec(name)[dim])
+
+    def lo(self, axes, n: int) -> int:
+        """This rank's first index of a dim of `n` split over `axes`."""
+        if not axes:
+            return 0
+        return self.mesh.index(axes) * (n // self.mesh.size(axes))
+
+    def leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The shard in its serving dtype, gathered along the entries the
+        layout gathers (no autograd)."""
+        t = t.to(PRM._dtype(self.cfg, name))
+        for dim, entry in enumerate(self.spec(name)):
+            if entry is not None and not self._kept(entry):
+                t = self.mesh.all_gather(t, dim, entry)
+        return t
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The leaf gathered whole, whatever the layout keeps split."""
+        for dim, entry in enumerate(self.spec(name)):
+            if self._kept(entry):
+                t = self.mesh.all_gather(t, dim, self._kept(entry))
+        return t
+
+    def to_model(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def from_model(self, x: torch.Tensor) -> torch.Tensor:
+        return self.sum(x, ("model",))
+
+    def sum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The sum over `axes`' ranks (in place; no-op without axes)."""
+        return self.mesh.all_reduce_(t.contiguous(), axes) if axes else t
+
+    def rows_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """`x` (rows first) with every data rank's rows, where `axes` (a
+        product's split axes) include data axes and the rows are split."""
+        if self.row_shards > 1 and set(axes) & set(self.data):
+            return self.mesh.all_gather(x, 0, self.data)
+        return x
+
+    def own_rows(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The reverse of ``rows_over``: this rank's rows."""
+        if self.row_shards > 1 and set(axes) & set(self.data):
+            return x[self.rows_lo:self.rows_lo + self.rows_n]
+        return x
+
+    def kv_subset(self, t: torch.Tensor, h: int, dim: int) -> torch.Tensor:
+        """``_kv_pick`` of a K/V tensor or cache, contiguous (the attention
+        kernels read it whole)."""
+        return self._kv_pick(t, h, dim).contiguous()
+
+
+def shard_tree(mesh, tree, specs):
+    """A full tree (params, or a cache whose host int ``idx`` passes
+    through) as this rank's shards on the mesh's device."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(mesh, v, specs[k]) if k in specs else v
+                for k, v in tree.items()}
+    return mesh.local(tree, specs)
+
+
+def gather_tree(mesh, tree, specs):
+    """The reverse of ``shard_tree`` (a collective: every rank gets the
+    full tree)."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(mesh, v, specs[k]) if k in specs else v
+                for k, v in tree.items()}
+    return mesh.full(tree, specs)
+
+
+def reshard(mesh, t: torch.Tensor, src, dst) -> torch.Tensor:
+    """This rank's shard of a tensor laid out by `src`, laid out by `dst`.
+    Where one dim's axes move to another dim (a cache from head_dim over
+    `model` to its length or kv heads over `model`) an all-to-all over
+    those axes; otherwise an all-gather and a slice."""
+    src, dst = tuple(src), tuple(dst)
+    if src == dst:
+        return t
+    moved = [d for d in range(len(src)) if src[d] != dst[d]]
+    if len(moved) == 2:
+        a, b = moved if src[moved[0]] is not None else moved[::-1]
+        if dst[a] is None and src[b] is None and src[a] == dst[b]:
+            return mesh.all_to_all(t, b, a, src[a])
+    return mesh.local(mesh.full(t, src), dst)
+
+
+def reshard_tree(mesh, tree, src, dst):
+    """``reshard`` of every tensor of a tree (a cache: ``idx`` passes)."""
+    if isinstance(tree, dict):
+        return {k: reshard_tree(mesh, v, src[k], dst[k]) if k in src else v
+                for k, v in tree.items()}
+    return reshard(mesh, tree, src, dst)
 
 
 class NamedSharding:

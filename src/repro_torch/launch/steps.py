@@ -1,5 +1,6 @@
-"""The train step, on one device or on a mesh of ranks (port of the train
-part of ``repro/launch/steps.py``: ``make_train_step(..., mesh=)``).
+"""The train, prefill and decode steps, on one device or on a mesh of ranks
+(port of ``repro/launch/steps.py``: ``make_train_step(..., mesh=)``,
+``make_prefill_step`` and ``make_decode_step``).
 
 The train state is ``{"params": master weights in the param dtype (fp32 by
 default), "opt": {"m", "v"} fp32 moments, "step": int}``, the JAX package's
@@ -8,8 +9,7 @@ train mode (the masters cast to the compute dtype inside the graph, the
 attention through the training path of ``kernels.ops.flash_attention``:
 kernel 1 with its lse, differentiated by the flash backward kernel),
 ``lm_loss``, the gradients in fp32, optional micro-batch accumulation, and
-AdamW in place.  The prefill and decode step builders belong to the serving
-engine (``serving/engine.py``).
+AdamW in place.
 
 Every family trains.  The MoE family's expert products go through the
 grouped matmul and its backward kernel (``kernels.ops.gmm``/``gmm_bwd``),
@@ -32,12 +32,27 @@ i is the global rows [i n, (i + 1) n), split over the data axes, as JAX's
 ``micro_cs`` groups them, and the MoE family routes a data rank's tokens
 in its share of ``pick_num_groups(micro-batch tokens, data shards)``
 groups; a count that is not a multiple of the data shards would let a
-group span two ranks, and the step refuses it.  The prefill and decode
-builders with a mesh (the serving half) are not ported yet (ROADMAP).
+group span two ranks, and the step refuses it.
+
+The serving builders (JAX's names, arguments and defaults) run the forward
+without autograd: ``make_prefill_step`` a full-sequence forward into a fresh
+decode cache, returning the last position's logits; ``make_decode_step``
+one token against a ``shape.seq_len``-deep cache.  With `mesh` they are
+JAX's sharded steps, each rank running its shards through
+``launch.mesh.ServeShards``: the prefill in the train layout (heads over
+`model`, FSDP over the data axes unless ``fsdp=False``) or sequence
+parallel over ZeRO-3 weights, its cache in the hd layout; the decode step
+in the layout that ``cache_shard_mode`` (hd, lc, kv) and
+``resident_weights`` pick, as JAX picks it.  A mesh step takes the rank's
+parameter shards (the step's ``param_pspecs``; ``mesh.shard_tree``), the
+global batch (it keeps its rows, and in the sequence-parallel prefill its
+slice of the sequence) and, in decode, the rank's cache shard; it returns
+the rank's logits and cache shards (``logits_pspec``, ``cache_pspecs``).
+``reshard_cache`` moves a prefill's cache into a decode layout.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +63,7 @@ from repro_torch.launch import mesh as MS
 from repro_torch.models import model as MDL
 from repro_torch.models import moe as MOE
 from repro_torch.models import params as PRM
-from repro_torch.models.config import ModelConfig, ShapeSpec
+from repro_torch.models.config import VLM, ModelConfig, ShapeSpec
 from repro_torch.training import optim as OPT
 
 
@@ -275,3 +290,235 @@ def state_equal(a, b) -> Tuple[bool, str]:
         if not torch.equal(x, y):
             return False, f"leaf {i}"
     return True, ""
+
+
+# ------------------------------ serving steps ---------------------------------
+def _refuse_calibrate(calibrate: bool) -> None:
+    if calibrate:
+        raise NotImplementedError(
+            "calibrate: XLA's unrolled cost-analysis compile has no torch "
+            "counterpart (see launch/dryrun.py)")
+
+
+def _tensors(batch, dev) -> Dict[str, torch.Tensor]:
+    return {k: (v if isinstance(v, torch.Tensor) else
+                torch.from_numpy(np.ascontiguousarray(v))).to(dev)
+            for k, v in batch.items()}
+
+
+def _local_cache(cfg, batch: int, cache_len: int, specs, mesh,
+                 include_row_idx: bool = False) -> Dict[str, Any]:
+    """A fresh cache's shards on this rank (``init_cache``'s values)."""
+    out: Dict[str, Any] = {
+        k: torch.zeros(MS.local_shape(shape, specs[k], mesh), dtype=dt,
+                       device=mesh.device)
+        for k, (shape, dt) in MDL.cache_specs(cfg, batch, cache_len,
+                                              include_row_idx).items()}
+    if "slot_pos" in out:
+        out["slot_pos"].fill_(-1)
+    out["idx"] = 0
+    return out
+
+
+def _serving(step, **attrs):
+    for k, v in attrs.items():
+        setattr(step, k, v)
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
+                      cache_len: Optional[int] = None,
+                      emit_cache: bool = True, calibrate: bool = False,
+                      banded: bool = False, seq_parallel: bool = False,
+                      fsdp: bool = True, device=None):
+    """Prefill: full-sequence forward → (last-token logits, decode cache).
+    Returns (step, (param_specs, batch_specs)); ``step(params, batch)``.
+
+    A fresh ``init_cache(B, cache_len or shape.seq_len)`` (where
+    `emit_cache` and the model decodes; else the forward runs in train mode
+    and no cache is returned), ``forward(mode="prefill")`` with
+    ``last_only`` for a model that decodes, the MoE family in
+    ``pick_num_groups(B·S, data shards)`` capacity groups.
+
+    banded -- JAX's sliding-window flash runs only the kv blocks of a band
+              from the batch's least query position.  Kernel 1 already skips
+              every tile wholly outside the window, so the step is the same
+              (ROADMAP queue 3: where left pads exceed a kv block, JAX's
+              band drops visible keys; this step does not).
+    seq_parallel -- (mesh) the sequence over `model`, ZeRO-3 weights
+              gathered whole a layer at a time, K/V all-gathered for
+              full-context attention; logits of the whole vocabulary.
+    fsdp   -- (mesh) the train layout's data-axis sharding of the weights.
+    device -- (no mesh) where the cache is made and the batch moved: CUDA
+              by default, "cpu" on request; the params must be there.
+    calibrate=True raises: XLA's cost-analysis compile has no counterpart.
+
+    With `mesh` the step has ``param_pspecs``, ``batch_pspecs``,
+    ``cache_pspecs`` (hd layout; None without a cache) and
+    ``logits_pspec``; it takes the rank's parameter shards and the global
+    batch and returns the rank's logits and cache shards."""
+    _refuse_calibrate(calibrate)
+    B, S = shape.global_batch, shape.seq_len
+    batch_specs = CC.prefill_batch_specs(cfg, B, S)
+    cache_len = cache_len or S
+    data_shards = MS.axis_size(mesh, MS.data_axes(mesh)) if mesh else 1
+    num_groups = MOE.pick_num_groups(B * S, data_shards) if cfg.has_moe \
+        else 1
+    with_cache = emit_cache and cfg.supports_decode
+    mode = "prefill" if with_cache else "train"
+    fwd = dict(mode=mode, remat=False, num_groups=num_groups,
+               last_only=cfg.supports_decode)
+
+    if mesh is None:
+        dev = device or D.device_type_of(None)
+
+        def prefill_step(params, batch):
+            batch = _tensors(batch, dev)
+            cache = MDL.init_cache(cfg, B, cache_len, device=dev) \
+                if with_cache else None
+            with torch.no_grad():
+                logits, cache = MDL.forward(cfg, params, batch, cache=cache,
+                                            **fwd)
+            return logits[:, -1], cache
+
+        return prefill_step, (PRM.param_specs(cfg), batch_specs)
+
+    da = MS.data_axes(mesh)
+    pp = MS.param_pspecs_zero3(cfg, mesh) if seq_parallel else \
+        MS.param_pspecs(cfg, mesh, fsdp=fsdp)
+    bps = MS.batch_pspecs(cfg, mesh, batch_specs)
+    seq = seq_parallel and mesh.size("model") > 1
+    if seq_parallel:
+        if cfg.family == VLM:
+            raise NotImplementedError(
+                "seq_parallel: the VLM's image prefix joins the sequence "
+                "inside the forward; not supported")
+        if S % mesh.size("model"):
+            raise ValueError(f"seq_parallel: sequence {S} does not split "
+                             f"over model ({mesh.size('model')})")
+        bps = {k: MS.P(v[0], "model", *v[2:]) for k, v in bps.items()}
+    cps = MS.cache_pspecs(cfg, mesh, MDL.cache_specs(cfg, B, cache_len)) \
+        if with_cache else None
+    shard = MS.ServeShards(cfg, mesh, pp, batch=B, cache=cps,
+                           zero3=seq_parallel, seq=seq,
+                           num_groups=num_groups)
+    if seq:
+        fwd["residual_cs"], fwd["kv_cs"] = MS.seq_parallel_hooks(mesh)
+
+    def mesh_prefill_step(params, batch):
+        batch = {k: MS.local_shard(v, bps[k], mesh, mesh.coords)
+                 for k, v in _tensors(batch, "cpu").items()}
+        batch = {k: v.to(mesh.device) for k, v in batch.items()}
+        cache = _local_cache(cfg, B, cache_len, cps, mesh) if with_cache \
+            else None
+        with torch.no_grad():
+            logits, cache = MDL.forward(cfg, params, batch, cache=cache,
+                                        shard=shard, **fwd)
+            out = logits[:, -1]
+            if seq:       # the last position is the last model rank's
+                last = mesh.index("model") == mesh.size("model") - 1
+                out = shard.sum(out if last else torch.zeros_like(out),
+                                ("model",))
+        return out, cache
+
+    return _serving(mesh_prefill_step, param_pspecs=pp, batch_pspecs=bps,
+                    cache_pspecs=cps,
+                    logits_pspec=MS.P(da, None if seq_parallel else "model")
+                    ), (PRM.param_specs(cfg), batch_specs)
+
+
+def decode_attn_mode(cfg: ModelConfig, cache_shard_mode: str) -> str:
+    """The attention layout of a decode step on a mesh, as JAX picks it."""
+    if cache_shard_mode == "hd" and cfg.head_dim % 16 == 0:
+        return "hd"
+    if cache_shard_mode == "lc":
+        return "replicated"      # the model axis belongs to the cache length
+    return "heads"
+
+
+def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
+                     cache_shard_mode: str = "hd", donate_cache: bool = True,
+                     calibrate: bool = False, per_row_write: bool = False,
+                     resident_weights: bool = False, device=None):
+    """One-token serve step against a ``shape.seq_len``-deep cache.
+    Returns (step, (param_specs, batch_specs, cache_specs));
+    ``step(params, batch, cache) -> (logits (B, 1, Vp), cache)``.
+
+    The cache is updated in place and returned (JAX donates it); with
+    ``donate_cache=False`` the step works on a copy and leaves the caller's
+    cache as it was.  `per_row_write`: the cache carries ``row_idx`` (B,),
+    each row's own write cursor (``cache_specs(include_row_idx=True)``).
+    The MoE family routes in ``pick_num_groups(B, data shards)`` groups.
+
+    With `mesh`: ``cache_shard_mode`` 'hd' (head_dim over `model`, the
+    attention weights' head_dim too, kernel (b)), 'lc' (the cache length
+    over `model`, attention weights replicated, kernel (a); with
+    per_row_write the slot write is masked), 'kv' (kv heads over `model`
+    where they divide 16, heads over `model`, kernel 2 on the rank's
+    heads) or 'none'; ``resident_weights`` takes ``param_pspecs(fsdp=False,
+    resident=True)`` (nothing gathered per step).  The step has
+    ``param_pspecs``, ``batch_pspecs``, ``cache_pspecs`` and
+    ``logits_pspec``.  calibrate=True raises, as in make_prefill_step."""
+    _refuse_calibrate(calibrate)
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name} has no decode step")
+    B = shape.global_batch
+    batch_specs = CC.decode_batch_specs(cfg, B)
+    cache_specs = MDL.cache_specs(cfg, B, shape.seq_len,
+                                  include_row_idx=per_row_write)
+    data_shards = MS.axis_size(mesh, MS.data_axes(mesh)) if mesh else 1
+    num_groups = MOE.pick_num_groups(B, data_shards) if cfg.has_moe else 1
+    fwd = dict(mode="decode", remat=False, num_groups=num_groups)
+
+    def copied(cache):
+        return cache if donate_cache else {
+            k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in cache.items()}
+
+    if mesh is None:
+        dev = device or D.device_type_of(None)
+
+        def decode_step(params, batch, cache):
+            with torch.no_grad():
+                return MDL.forward(cfg, params, _tensors(batch, dev),
+                                   cache=copied(cache), **fwd)
+
+        return decode_step, (PRM.param_specs(cfg), batch_specs, cache_specs)
+
+    da = MS.data_axes(mesh)
+    pp = MS.param_pspecs(cfg, mesh, fsdp=not resident_weights,
+                         attn_mode=decode_attn_mode(cfg, cache_shard_mode),
+                         resident=resident_weights)
+    bps = MS.batch_pspecs(cfg, mesh, batch_specs)
+    cps = MS.cache_pspecs(cfg, mesh, cache_specs,
+                          shard_mode=cache_shard_mode)
+    shard = MS.ServeShards(cfg, mesh, pp, batch=B, cache=cps,
+                           resident=resident_weights, num_groups=num_groups)
+
+    def mesh_decode_step(params, batch, cache):
+        batch = {k: MS.local_shard(v, bps[k], mesh, mesh.coords).to(
+            mesh.device) for k, v in _tensors(batch, "cpu").items()}
+        with torch.no_grad():
+            return MDL.forward(cfg, params, batch, cache=copied(cache),
+                               shard=shard, **fwd)
+
+    return _serving(mesh_decode_step, param_pspecs=pp, batch_pspecs=bps,
+                    cache_pspecs=cps,
+                    logits_pspec=MS.P(da, None, "model")), \
+        (PRM.param_specs(cfg), batch_specs, cache_specs)
+
+
+def reshard_cache(mesh, cache, src, dst):
+    """A rank's cache shards laid out by `src` (a prefill step's
+    ``cache_pspecs``: hd) as laid out by `dst` (a decode step's): an
+    all-to-all over `model` where a dim's split moves (hd → lc, hd → kv),
+    the same tensors where nothing moves.  The decode step's cache may carry
+    ``row_idx``, which a prefill's lacks: each row's cursor starts at the
+    shared ``idx``."""
+    out = MS.reshard_tree(mesh, cache, src, dst)
+    if "row_idx" in dst and "row_idx" not in out:
+        b = cache["slot_pos"].shape[0] if "slot_pos" in cache else \
+            cache["conv"].shape[1]
+        out["row_idx"] = torch.full((b,), int(cache["idx"]),
+                                    dtype=torch.int32, device=mesh.device)
+    return out

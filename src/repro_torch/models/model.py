@@ -170,6 +170,19 @@ def _norm_p(lp: Dict[str, torch.Tensor], prefix: str) -> Optional[dict]:
     return {"scale": scale, "bias": bias}
 
 
+def _ring_write(ck, cv, k, v):
+    """A prefill's K/V (B, S, KV, D) into the ring (B, lc, KV, D): the last
+    lc tokens at slot p % lc where S >= lc, else the first S slots."""
+    S, lc = k.shape[1], ck.shape[1]
+    if S >= lc:
+        shift = S % lc
+        ck.copy_(torch.roll(k[:, S - lc:].to(ck.dtype), shift, dims=1))
+        cv.copy_(torch.roll(v[:, S - lc:].to(cv.dtype), shift, dims=1))
+    else:
+        ck[:, :S] = k.to(ck.dtype)
+        cv[:, :S] = v.to(cv.dtype)
+
+
 def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
                write_slot, attn_fn, decode_attn_fn, extend_offset: int = 0,
                paged=None, hooks=None):
@@ -186,6 +199,10 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
     `model`."""
     B, S, m = x.shape
     hooks = hooks or NO_HOOKS
+    if hooks.shard is not None and hooks.shard.serving:
+        return _serve_attention(cfg, x, lp, positions, mode, ck, cv,
+                                slot_pos, write_slot, attn_fn, decode_attn_fn,
+                                hooks)
     h, hd = lp["attn.wq"].shape[1], cfg.head_dim
     wk, wv = lp["attn.wk"], lp["attn.wv"]
     bk, bv = lp.get("attn.bk"), lp.get("attn.bv")
@@ -254,14 +271,7 @@ def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
         o = attn_fn(q, k, v, positions, positions, causal=cfg.causal,
                     window=cfg.sliding_window, prefix_len=prefix_len)
         if mode == "prefill":
-            lc = ck.shape[1]
-            if S >= lc:          # ring: keep the last lc tokens at slot p % lc
-                shift = S % lc
-                ck.copy_(torch.roll(k[:, S - lc:].to(ck.dtype), shift, dims=1))
-                cv.copy_(torch.roll(v[:, S - lc:].to(cv.dtype), shift, dims=1))
-            else:
-                ck[:, :S] = k.to(ck.dtype)
-                cv[:, :S] = v.to(cv.dtype)
+            _ring_write(ck, cv, k, v)
     o = o.reshape(B, S, h * hd) @ lp["attn.wo"].reshape(h * hd, m)
     return hooks.shard.from_model(o) if tp else o
 
@@ -271,7 +281,9 @@ def _mixer(cfg: ModelConfig, x, lp, state, scan_fn, shard=None):
     cache views, None in train mode) is updated in place.  With `shard`
     (train mode, a model axis wider than 1) the rank's leaves hold its
     d_inner channels, whose partial sums go over `model`."""
-    tp = shard is not None and shard.tp
+    if shard is not None and shard.serving and shard.seq:
+        return _seq_mixer(cfg, x, lp, state, scan_fn, shard)
+    tp = shard is not None and shard.mixer_tp
     out, _ = MAMBA.mamba_mixer(
         x, {k[4:]: v for k, v in lp.items() if k.startswith("ssm.")},
         ssm_state_dim=cfg.ssm_state, dt_rank=cfg.dt_rank_eff,
@@ -284,6 +296,8 @@ def _mixer(cfg: ModelConfig, x, lp, state, scan_fn, shard=None):
 def _mlp(cfg: ModelConfig, x, lp, shard=None):
     """The dense MLP; with `shard` (a model axis wider than 1) on the rank's
     d_ff slice, its down products summed over `model`."""
+    if shard is not None and shard.serving:
+        return _serve_mlp(cfg, x, lp, shard)
     if shard is None or not shard.tp:
         if cfg.mlp_act == "silu":
             return L.swiglu_mlp(x, lp["mlp.w_gate"], lp["mlp.w_up"],
@@ -298,6 +312,231 @@ def _mlp(cfg: ModelConfig, x, lp, shard=None):
     return shard.from_model(h) + lp["mlp.b_out"]
 
 
+# ====================== the serving layouts of a mesh ==========================
+# With `shard` a ``launch.mesh.ServeShards`` (the prefill and decode step
+# builders on a mesh), the blocks below run on the rank's shards, with the
+# collectives of ``launch/dist.py`` written out where JAX's GSPMD inserts
+# them.  No autograd.
+
+def _serve_attention(cfg, x, lp, positions, mode, ck, cv, slot_pos,
+                     write_slot, attn_fn, decode_attn_fn, hooks):
+    """The attention of a serving layout.  The rank's wq/wk/wv/wo hold its
+    query heads (heads over `model`), its head_dim columns of every head
+    (hd), or every head (replicated, lc, ZeRO-3).  Its cache holds the
+    kv heads and head_dim columns of ``shard.cache_kv`` / ``cache_hd``,
+    its slots split over ``shard.slot_axes``: a prefill computes every kv
+    head and
+    writes its cache's columns (the cache is in the hd layout whatever the
+    attention's); a decode step writes the new K/V where this rank holds
+    the slot (a masked write: the ranks of an lc cache hold a slot each).
+    Decode attention over a head_dim slice is kernel (b), two launches with
+    the scores summed over the slice's axes between them; over a slot range
+    it is kernel (a), the ranks' (out, lse) merged by
+    ``_combine_slot_splits``; else kernel 2 on the kv heads of the rank's
+    query heads.  RoPE rotates column i with i + hd / 2, so a head_dim
+    slice gathers the new token's q and k over its axes to rotate them.
+    The output projection's partial sums (heads or head_dim split) are
+    summed over their axes."""
+    shard = hooks.shard
+    B, S, m = x.shape
+    hd = cfg.head_dim
+    wq, wk, wv, wo = (lp[f"attn.{n}"] for n in ("wq", "wk", "wv", "wo"))
+    hq, kvw, hdl = wq.shape[1], wk.shape[1], wq.shape[2]
+    q = (x @ wq.reshape(m, hq * hdl)).view(B, S, hq, hdl)
+    k = (x @ wk.reshape(m, kvw * hdl)).view(B, S, kvw, hdl)
+    v = (x @ wv.reshape(m, kvw * hdl)).view(B, S, kvw, hdl)
+    if cfg.qkv_bias:
+        q = q + lp["attn.bq"]
+        k = k + lp["attn.bk"]
+        v = v + lp["attn.bv"]
+    if hdl < hd:
+        lo, axes = shard.hd_lo, shard.hd_axes
+        q, k = (L.rope(shard.mesh.all_gather(t, 3, axes), positions,
+                       cfg.rope_theta)[..., lo:lo + hdl] for t in (q, k))
+    else:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+    if mode == "decode":
+        o = _serve_decode_attention(cfg, shard, q[:, 0].contiguous(), k[:, 0],
+                                    v[:, 0], ck, cv, slot_pos, write_slot,
+                                    positions[:, 0].contiguous(),
+                                    decode_attn_fn)[:, None]
+    else:
+        k, v = hooks.kv_cs(k), hooks.kv_cs(v)
+        ka, va = k, v
+        if shard.heads_tp:
+            ka, va = (shard.kv_subset(t, hq, 2) for t in (k, v))
+        o = attn_fn(q, ka, va, positions, hooks.kv_positions,
+                    causal=cfg.causal, window=cfg.sliding_window,
+                    prefix_len=cfg.num_prefix_tokens if cfg.family == VLM
+                    else 0)
+        if mode == "prefill":
+            hlo, hn = shard.cache_hd
+            _ring_write(ck, cv, k[..., hlo:hlo + hn], v[..., hlo:hlo + hn])
+    o = o.reshape(B, S, hq * hdl) @ wo.reshape(hq * hdl, m)
+    return shard.sum(o, shard.union(shard.axes_of("attn.wo", 0),
+                                    shard.axes_of("attn.wo", 1)))
+
+
+def _serve_decode_attention(cfg, shard, q, k, v, ck, cv, slot_pos,
+                            write_slot, qpos, decode_attn_fn):
+    """One decode step's attention on a rank (``_serve_attention``): q (B,
+    hq, hdl), the new k/v (B, kv, hdl), this layer's cache shard (B, lc',
+    kv', hd'), slot_pos (B, lc) with this step's positions written."""
+    B = q.shape[0]
+    klo, kn = shard.cache_kv
+    slo, sn = 0, ck.shape[1]
+    if shard.slot_axes:
+        slo = shard.lo(shard.slot_axes, slot_pos.shape[1])
+    # the masked write: a row whose slot another rank holds writes back the
+    # value it read
+    rows = torch.arange(B, device=q.device)
+    local = write_slot - slo
+    mine = ((local >= 0) & (local < sn))[:, None, None]
+    at = local.clamp(0, sn - 1)
+    for cache, new in ((ck, k), (cv, v)):
+        cache[rows, at] = torch.where(mine, new[:, klo:klo + kn].to(
+            cache.dtype), cache[rows, at])
+    if q.shape[-1] < cfg.head_dim:                       # kernel (b)
+        scores = KOPS.decode_attention_hd_scores(q, ck,
+                                                 1.0 / math.sqrt(cfg.head_dim))
+        shard.sum(scores, shard.hd_axes)
+        return KOPS.decode_attention_hd_out(scores, cv, slot_pos, qpos)
+    if shard.slot_axes:                                   # kernel (a)
+        o, lse = KOPS.decode_attention_lse(
+            q, ck, cv, slot_pos[:, slo:slo + sn].contiguous(), qpos)
+        return _combine_slot_splits(shard, o, lse)
+    if shard.heads_tp and kn == cfg.num_kv_heads:
+        ck, cv = (shard.kv_subset(t, q.shape[1], 2) for t in (ck, cv))
+    return decode_attn_fn(q, ck, cv, slot_pos, qpos)
+
+
+def _combine_slot_splits(shard, o, lse):
+    """The ranks' decode attention over their slot ranges (o (B, H, D),
+    lse (B, H)) merged: sum_r e^(lse_r - max) o_r / sum_r e^(lse_r - max),
+    a rank with no valid slot (lse -inf) weighing 0.  Where no rank has one,
+    the mean of the ranks' outputs (each the mean of V over its equal share
+    of the slots): the mean of V over every slot, as the one-device
+    softmax over all -1e30 scores gives."""
+    axes = shard.slot_axes
+    os_ = shard.mesh.all_gather(o[None], 0, axes).float()
+    ls = shard.mesh.all_gather(lse[None], 0, axes)
+    top = ls.max(0).values
+    w = torch.where(torch.isneginf(ls), 0.0, torch.exp(ls - top))
+    w = torch.where(torch.isneginf(top)[None], 1.0, w)
+    return ((w[..., None] * os_).sum(0) / w.sum(0)[..., None]).to(o.dtype)
+
+
+def _serve_mlp(cfg, x, lp, shard):
+    """The dense MLP on the rank's d_ff slice (over `model`, or in the
+    resident layout over every axis that divides d_ff: the rows are then
+    gathered over the data axes first), its partial down products summed
+    over the slice's axes."""
+    name = "mlp.w_gate" if cfg.mlp_act == "silu" else "mlp.w_in"
+    axes = shard.axes_of(name, 1)
+    if not axes:
+        return _mlp(cfg, x, lp)
+    xa = shard.rows_over(x, axes)
+    if cfg.mlp_act == "silu":
+        y = L.swiglu_mlp(xa, lp["mlp.w_gate"], lp["mlp.w_up"],
+                         lp["mlp.w_down"])
+    else:
+        b_in = lp["mlp.b_in"]
+        if b_in.shape[0] != lp["mlp.w_in"].shape[1]:   # split otherwise
+            n = lp["mlp.w_in"].shape[1]
+            lo = shard.lo(axes, cfg.d_ff)
+            b_in = shard.whole("mlp.b_in", b_in)[lo:lo + n]
+        y = L.gelu_mlp(xa, lp["mlp.w_in"], b_in, lp["mlp.w_out"])
+    y = shard.sum(y, axes)
+    if cfg.mlp_act != "silu":
+        y = y + lp["mlp.b_out"]
+    return shard.own_rows(y, axes)
+
+
+def _serve_moe(cfg, x, lp, shard, num_groups, gmm_fn):
+    """The MoE block on the rank's experts (EP) or d_ff slice (TP), routing
+    exactly JAX's capacity groups (contiguous runs of the B·S tokens): a
+    data rank routes its rows in its share of `num_groups` groups, or, where
+    a group would span data ranks (``shard.moe_gather``), every rank routes
+    every row; a sequence split over `model` is gathered first, so no
+    rank's slice is ever routed as a group of its own.  The expert outputs
+    are summed over the experts' and d_ff's axes."""
+    B, S, m = x.shape
+    xa = shard.mesh.all_gather(x, 1, "model") if shard.seq else x
+    if shard.moe_gather:
+        xa = shard.mesh.all_gather(xa, 0, shard.data)
+    groups = num_groups if shard.moe_gather or shard.row_shards == 1 \
+        else num_groups // shard.row_shards
+    y = MOE.moe_block(xa.reshape(-1, m),
+                      {k[4:]: v for k, v in lp.items() if k.startswith("moe.")},
+                      num_experts=cfg.num_experts, top_k=cfg.top_k,
+                      capacity_factor=cfg.capacity_factor, num_groups=groups,
+                      compute_dtype=DTYPES[cfg.compute_dtype], gmm_fn=gmm_fn,
+                      combine_cs=lambda t: shard.sum(t, shard.moe_axes),
+                      first_expert=shard.expert_lo).reshape(xa.shape)
+    if shard.moe_gather:
+        y = y[shard.rows_lo:shard.rows_lo + shard.rows_n]
+    if shard.seq:
+        lo = shard.mesh.index("model") * S
+        y = y[:, lo:lo + S]
+    return y
+
+
+def _seq_mixer(cfg, x, lp, state, scan_fn, shard):
+    """The mixer of a sequence split over `model`: the scan runs along the
+    whole sequence, so each rank gathers it (and the state, split over
+    d_inner), runs the whole mixer (ZeRO-3 weights are whole) and keeps its
+    slice of the output and its channels of the new state."""
+    S = x.shape[1]
+    xa = shard.mesh.all_gather(x, 1, "model")
+    full = None
+    if state is not None:
+        full = MAMBA.SSMState(
+            conv=shard.mesh.all_gather(state.conv, 2, "model"),
+            h=shard.mesh.all_gather(state.h, 1, "model"))
+    out = _mixer(cfg, xa, lp, full, scan_fn)
+    if state is not None:
+        di = state.conv.shape[-1]
+        lo = shard.lo(("model",), cfg.d_inner) if di < cfg.d_inner else 0
+        state.conv.copy_(full.conv[..., lo:lo + di])
+        state.h.copy_(full.h[:, lo:lo + di])
+    lo = shard.mesh.index("model") * S
+    return out[:, lo:lo + S]
+
+
+def _serve_embed(shard, emb: torch.Tensor, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """The embedding lookup of the rank's vocab rows (tokens of another
+    rank's rows give zeros), summed over the vocab's axes; the tokens of
+    every data rank where the vocab splits over the data axes."""
+    axes = shard.axes_of("embed", 0)
+    if not axes:
+        return emb[tokens]
+    toks = shard.rows_over(tokens, axes)
+    local = toks - shard.lo(axes, shard.cfg.padded_vocab)
+    mine = (local >= 0) & (local < emb.shape[0])
+    rows = emb[torch.where(mine, local, 0)] * mine[..., None].to(emb.dtype)
+    return shard.own_rows(shard.sum(rows, axes), axes)
+
+
+def _serve_logits(cfg, shard, x, head):
+    """The logits of the rank's rows: its vocab columns over `model` where
+    the model axis is wider than 1 and the layout is not ZeRO-3 (JAX's
+    output specs), else every column.  A head whose vocab splits over other
+    axes too (resident) gives its columns for every data rank's rows, which
+    are all-gathered to the whole vocab and sliced."""
+    axes = shard.axes_of("embed", 0) if cfg.tie_embeddings else \
+        shard.axes_of("lm_head", 1)
+    want = ("model",) if shard.tp else ()
+    if axes == want:
+        return x @ head
+    full = shard.mesh.all_gather(shard.rows_over(x, axes) @ head, x.dim() - 1,
+                                 axes)
+    lo = shard.lo(want, cfg.padded_vocab)
+    n = cfg.padded_vocab // (shard.mesh.size(want) if want else 1)
+    return shard.own_rows(full, axes)[..., lo:lo + n]
+
+
 class Hooks(NamedTuple):
     """The distribution layer's hooks of a forward (``launch/mesh.py``):
     JAX's names, the identity by default.  ``shard`` (a
@@ -308,6 +547,9 @@ class Hooks(NamedTuple):
     kv_cs: Callable = MOE.Identity
     residual_cs: Callable = MOE.Identity
     shard: Any = None
+    #: the K/V positions of a non-decode call: kv_cs of the positions (the
+    #: whole sequence where the residual stream splits it), or None
+    kv_positions: Any = None
 
 
 NO_HOOKS = Hooks()
@@ -330,6 +572,8 @@ def _block(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
     else:
         x = x + a
     xin2 = L.apply_norm(cfg.norm_type, x, _norm_p(lp, "ln_mlp"))
+    if cfg.has_moe and hooks.shard is not None and hooks.shard.serving:
+        return x + _serve_moe(cfg, xin2, lp, hooks.shard, num_groups, gmm_fn)
     if cfg.has_moe:
         B, S, m = x.shape
         y = MOE.moe_block(xin2.reshape(B * S, m),
@@ -465,15 +709,18 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
     decode_attn_fn = decode_attn_fn or KOPS.decode_attention
     cd = DTYPES[cfg.compute_dtype]
     cast = _leaf_cast(cfg, params) if shard is None else shard.leaf
-    tp = shard is not None and shard.tp
-    hooks = Hooks(dispatch_cs, combine_cs, kv_cs, residual_cs, shard)
+    serving = shard is not None and shard.serving
+    tp = shard is not None and shard.tp and not serving
     positions = batch["positions"]
     if "embeds" in batch:                       # encoder / stub frontend
         x = batch["embeds"].to(cd)
     else:
-        x = _vocab_rows(shard, cast("embed", params["embed"]),
-                        batch["tokens"]) if tp else \
-            cast("embed", params["embed"])[batch["tokens"]]
+        emb = cast("embed", params["embed"])
+        if serving:
+            x = _serve_embed(shard, emb, batch["tokens"])
+        else:
+            x = _vocab_rows(shard, emb, batch["tokens"]) if tp else \
+                emb[batch["tokens"]]
         if cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
         if cfg.family == VLM and "prefix_embeds" in batch:
@@ -486,6 +733,9 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                 positions + P], dim=1)
     B, S = positions.shape
     x = residual_cs(x)
+    kv_positions = None if mode == "decode" else kv_cs(positions)
+    hooks = Hooks(dispatch_cs, combine_cs, kv_cs, residual_cs, shard,
+                  kv_positions)
 
     slot_pos = write_slot = row_idx = paged = None
     idx = 0
@@ -534,13 +784,17 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
         x = layer(x, *leaves) if remat_layer is None else \
             remat_layer(layer, x, *leaves)
 
-    fn_params = {k: v for k, v in params.items() if k.startswith("final_norm")}
+    fn_params = {k: cast(k, v) for k, v in params.items()
+                 if k.startswith("final_norm")}
     x = L.apply_norm(cfg.norm_type, x, _norm_p(fn_params, "final_norm"))
     if last_only:
         x = x[:, -1:]
     head = cast("embed", params["embed"]).t() if cfg.tie_embeddings else \
         cast("lm_head", params["lm_head"])
-    logits = logits_cs((shard.to_model(x) if tp else x) @ head)
+    if serving:
+        logits = logits_cs(_serve_logits(cfg, shard, x, head))
+    else:
+        logits = logits_cs((shard.to_model(x) if tp else x) @ head)
 
     if mode == "train" or cache is None:
         return logits, None
@@ -553,6 +807,8 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
         new_cache["idx"] = idx + 1
     else:
         off = extend_offset
+        positions = kv_positions            # the whole sequence
+        S = positions.shape[1]
         if slot_pos is not None:
             lc = slot_pos.shape[1]
             if off == 0 and S >= lc:

@@ -150,12 +150,23 @@ def param_specs(cfg: ModelConfig) -> dict:
     return out
 
 
-def params_from_jax(cfg: ModelConfig, tree, device) -> dict:
+def params_from_jax(cfg: ModelConfig, tree, device, *, specs=None,
+                    mesh=None) -> dict:
     """The JAX param tree with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, params)``) → the port's tree on `device`, in
-    the compute dtype (the fp32 leaves of ``_fp32_leaf`` in fp32)."""
+    the compute dtype (the fp32 leaves of ``_fp32_leaf`` in fp32).  With
+    `specs` (a spec tree of ``launch/mesh.py``, e.g. a serving step's
+    ``param_pspecs``) and `mesh` (a ``launch.dist.Mesh``), this rank's
+    shards of it: each leaf is cut on the host, and only the shard moves
+    to `device`."""
     def conv(name, x):
-        return _cast(cfg, name, torch.from_numpy(np.array(x)).to(device))
+        t = torch.from_numpy(np.array(x))
+        if specs is not None:
+            from repro_torch.launch.mesh import local_shard
+            spec = specs["layers"][name] if name in specs["layers"] \
+                else specs[name]
+            t = local_shard(t, spec, mesh, mesh.coords)
+        return _cast(cfg, name, t.to(device))
 
     out = {"layers": {k: conv(k, v) for k, v in tree["layers"].items()}}
     out.update({k: conv(k, v) for k, v in tree.items() if k != "layers"})

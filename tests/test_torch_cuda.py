@@ -206,6 +206,83 @@ def test_decode_attention_kernel_split_cases(cuda, case, dtype):
     torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
 
 
+#: kernels (a) and (b): (B, H, KV, D, L) of a rank's cache, the ring laid
+#: out as by decode_case or wrapped; D is a rank's head_dim slice for (b)
+#: (mixtral-8x22b's 128 over 2 and 4 ranks, olmo-1b's 128 over 2, the smoke
+#: configs' 16 over 2)
+DECODE_RANK_CASES = {
+    "mixtral_hd2": (4, 48, 8, 64, 512, None),
+    "mixtral_hd4": (4, 48, 8, 32, 300, _wrapped_ring),
+    "olmo_hd2": (8, 16, 16, 64, 512, _wrapped_ring),
+    "gqa16_d8": (3, 32, 2, 8, 130, None),
+    "d256": (2, 4, 1, 256, 77, _wrapped_ring),
+}
+
+
+def _rank_case(case, dtype, cuda, seed):
+    B, H, KV, D, L, layout = DECODE_RANK_CASES[case]
+    arrays = decode_case(seed, B, H, KV, D, L)
+    if layout is not None:
+        arrays = layout(*arrays)
+    q, kc, vc, spos, qpos = (t(np.ascontiguousarray(a)).to(cuda)
+                             for a in arrays)
+    if B > 2:
+        spos[-1] = -1                   # a row with no valid slot
+    return (q.to(dtype), kc.to(dtype), vc.to(dtype), spos, qpos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(DECODE_RANK_CASES))
+def test_decode_attention_lse_kernel_matches_plain(cuda, case, dtype):
+    """Kernel (a): kernel 2's output and each head's lse (-inf for the row
+    with no valid slot)."""
+    q, kc, vc, spos, qpos = _rank_case(case, dtype, cuda, 21)
+    n = ops.decode_attention_lse.launches
+    out, lse = ops.decode_attention_lse(q, kc, vc, spos, qpos)
+    assert ops.decode_attention_lse.launches == n + 1
+    r, rl = ref.decode_attention_lse_ref(q, kc, vc, spos, qpos)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    if spos.shape[0] > 2:
+        assert torch.isneginf(lse[-1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(DECODE_RANK_CASES))
+def test_decode_attention_hd_kernels_match_plain(cuda, case, dtype):
+    """Kernel (b): the partial scores of a head_dim slice, then the softmax
+    and P.V of the summed scores; two slices summed equal the whole."""
+    q, kc, vc, spos, qpos = _rank_case(case, dtype, cuda, 22)
+    scale = 1.0 / np.sqrt(2 * q.shape[-1])
+    n = (ops.decode_attention_hd_scores.launches,
+         ops.decode_attention_hd_out.launches)
+    s = ops.decode_attention_hd_scores(q, kc, scale)
+    out = ops.decode_attention_hd_out(s, vc, spos, qpos)
+    assert (ops.decode_attention_hd_scores.launches,
+            ops.decode_attention_hd_out.launches) == (n[0] + 1, n[1] + 1)
+    rs = ref.decode_attention_hd_scores_ref(q, kc, scale)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-5)
+    r = ref.decode_attention_hd_out_ref(rs, vc, spos, qpos)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+    # the whole head_dim as two slices: the sum of the partial scores is
+    # kernel 2's attention
+    half = q.shape[-1] // 2
+    if half % 8 == 0:
+        parts = [ops.decode_attention_hd_scores(
+            q[..., i:i + half].contiguous(), kc[..., i:i + half].contiguous(),
+            1.0 / np.sqrt(q.shape[-1])) for i in (0, half)]
+        whole = ops.decode_attention_hd_out(parts[0] + parts[1], vc, spos,
+                                            qpos)
+        torch.testing.assert_close(
+            whole.float(), ref.decode_attention_ref(q, kc, vc, spos,
+                                                    qpos).float(),
+            atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("temperature", [0.0, 0.7])
 @pytest.mark.parametrize("V", [50432, 152064, 65024, 32001])

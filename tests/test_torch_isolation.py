@@ -10,9 +10,10 @@
   ``launch/mesh.py::data_axes`` and ``axis_size``,
   ``launch/dryrun.py::model_flops``) equal theirs;
 * the entry points refuse to run on the CPU unless asked: the engine, the
-  database, the trainer, the serving drivers, the example twins, and the
-  distribution layer (``launch.dist``'s process group, mesh and rank
-  launcher, and with them ``init_train_state(mesh=)`` and
+  database, the trainer, the serving drivers, the example twins, the
+  serving step builders (``make_prefill_step`` / ``make_decode_step``),
+  and the distribution layer (``launch.dist``'s process group, mesh and
+  rank launcher, and with them ``init_train_state(mesh=)`` and
   ``make_train_step(mesh=)``), which runs with gloo when asked for
   ``device_type="cpu"``.
 """
@@ -176,3 +177,18 @@ def test_distribution_refuses_cpu_unless_asked(monkeypatch, tmp_path):
     assert {x.device.type for x in OPT.leaves(state["params"])} == {"cpu"}
     assert D.run_ranks(DC.cpu_entry_ranks, 1, "cpu", device_type="cpu",
                        timeout_s=60) == [("cpu", 1)]
+
+
+@pytest.mark.parametrize("build", ["make_prefill_step", "make_decode_step"])
+def test_serving_builders_refuse_cpu_unless_asked(build, monkeypatch):
+    """With no mesh the step runs where `device` says: CUDA by default,
+    which raises without a GPU; "cpu" builds a step whose cache and batch
+    live on the CPU."""
+    from repro_torch.models.config import ShapeSpec
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TC.get_smoke_config("olmo-1b").replace(compute_dtype="float32")
+    shape = ShapeSpec("s", 8, 2, "prefill")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        getattr(ST, build)(cfg, None, shape)
+    step, _ = getattr(ST, build)(cfg, None, shape, device="cpu")
+    assert callable(step)

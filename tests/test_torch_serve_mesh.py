@@ -1,0 +1,165 @@
+"""The serving step builders of repro_torch on meshes of spawned ranks (gloo
+on the CPU), against the port's one-device step and JAX's own sharded
+steps (tests/torch_serve_cases.py holds the configs and rank functions):
+
+* every family (dense with heads over `model` and with 16 kv heads, EP and
+  TP MoE, ssm, hybrid, VLM, encoder) on (data 2, model 2) and (pod 2, data
+  2, model 1): the prefill variants (default, ``fsdp=False``,
+  ``seq_parallel``, ``banded`` for the sliding-window config) and, from
+  the default prefill's cache resharded into each decode layout, three
+  decode steps in each mode (hd, lc with per_row_write, kv, resident),
+  against the one-device step on the same weights, batches and capacity
+  groups: logits and caches;
+* on a 1 x 1 mesh, every variant equal to the bit to the one-device step,
+  and no collective byte;
+* dense hd decode, lc + per_row_write decode, TP MoE decode and the
+  sequence-parallel prefill (dense and TP MoE) against
+  ``repro.launch.steps``' sharded steps on a (2, 2) mesh of 4 host devices,
+  in a subprocess whose XLA_FLAGS alone give it 4 devices;
+* the MoE capacity groups of a sequence-parallel prefill and of a decode
+  batch whose single group spans the data ranks are JAX's (the one-device
+  step in those groups is the reference above);
+* the refusals: a batch that does not split over the data axes, the VLM's
+  sequence-parallel prefill, ``calibrate=True``.
+
+The ranks run in the background while this process computes the
+one-device references and a subprocess JAX's steps.  Tolerances (float32,
+sums in another order): logits and caches 1e-4 absolute (values of order
+1 to 10; measured within 1e-5).
+"""
+import concurrent.futures
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import torch_serve_cases as T
+from repro_torch.launch import dist as D
+from torch_cases import one_torch_thread  # noqa: F401
+
+TESTS = Path(__file__).resolve().parent
+SRC = TESTS.parent / "src"
+RANKS_TIMEOUT = 240.0
+TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("serve")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=f"{SRC}{os.pathsep}{TESTS}")
+    jax_out = root / "jax.npz"
+    jax_proc = subprocess.Popen(
+        [sys.executable, "-c", "import torch_serve_cases as T; "
+         f"T.jax_reference({str(jax_out)!r})"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = {}
+    try:
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            kw = dict(device_type="cpu", timeout_s=RANKS_TIMEOUT,
+                      workdir=str(root))
+            ranks = pool.submit(D.run_ranks, T.serve_ranks, 4, **kw)
+            one = pool.submit(D.run_ranks, T.one_by_one_ranks, 1, **kw)
+            refusing = pool.submit(D.run_ranks, T.refusing_ranks, 2, **kw)
+            refs = {}
+            for mk, shp in T.MESHES.items():
+                ds = shp["data"] * shp.get("pod", 1)
+                for case in T.CASES:
+                    for key, val in T.one_device(case, ds).items():
+                        refs[(mk, case) + key] = val
+            out["refs"] = refs
+            out["mesh"] = ranks.result()[0]
+            out["one_by_one"] = one.result()[0]
+            out["refusing"] = dict(refusing.result()[0])
+        log, _ = jax_proc.communicate(timeout=RANKS_TIMEOUT)
+        assert jax_proc.returncode == 0, log[-4000:]
+        with np.load(jax_out) as z:
+            out["jax"] = dict(z)
+        yield out
+    finally:
+        if jax_proc.poll() is None:
+            jax_proc.kill()
+            jax_proc.wait()
+
+
+def assert_cache_close(got, want, what):
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        if isinstance(w, torch.Tensor):
+            np.testing.assert_allclose(np.asarray(got[k], dtype=np.float64),
+                                       w.double().numpy(), atol=TOL, rtol=0,
+                                       err_msg=f"{what} {k}")
+        else:
+            assert int(got[k]) == int(w), (what, k)
+
+
+VARIANTS = [(mk, case, "prefill", k) for mk in T.MESHES for case in T.CASES
+            for k in T.prefill_variants(case)] + \
+    [(mk, case, "decode", k) for mk in T.MESHES for case in T.CASES
+     for k in T.decode_variants(case)]
+
+
+@pytest.mark.parametrize("mk,case,kind,variant", VARIANTS,
+                         ids=["-".join(v) for v in VARIANTS])
+def test_mesh_step_matches_one_device(runs, mk, case, kind, variant):
+    key = (mk, case, kind, variant)
+    got, want = runs["mesh"][key], runs["refs"][key]
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=TOL,
+                               rtol=0, err_msg=str(key))
+    if want[1] is not None:
+        assert_cache_close(got[1], want[1], key)
+    if kind == "decode" and mk == "2x2":
+        assert sum(got[2].values()) > 0, got[2]
+
+
+ONE = [(case, kind, k) for case in T.CASES
+       for kind, ks in (("prefill", T.prefill_variants(case)),
+                        ("decode", T.decode_variants(case))) for k in ks]
+
+
+@pytest.mark.parametrize("case,kind,variant", ONE,
+                         ids=["-".join(v) for v in ONE])
+def test_one_by_one_mesh_equals_one_device_to_the_bit(runs, case, kind,
+                                                      variant):
+    same, moved = runs["one_by_one"][(case, kind, variant)]
+    assert same
+    assert moved == 0
+
+
+@pytest.mark.parametrize("case", list(T.CASES))
+def test_one_device_builder_is_the_reference(runs, case):
+    assert runs["one_by_one"][(case, "builder")][0]
+
+
+JAXS = [(c, "prefill", k) for c, k in T.JAX_PREFILL] + \
+    [(c, "decode", k) for c, k in T.JAX_DECODE]
+
+
+@pytest.mark.parametrize("case,kind,variant", JAXS,
+                         ids=["-".join(v) for v in JAXS])
+def test_mesh_step_matches_jax_sharded_step(runs, case, kind, variant):
+    z = runs["jax"]
+    pre = f"{case}|{kind}|{variant}|"
+    want = {k[len(pre):]: v for k, v in z.items() if k.startswith(pre)}
+    logits, cache = runs["mesh"][("2x2", case, kind, variant)][:2]
+    np.testing.assert_allclose(logits.numpy(), want.pop("logits"),
+                               atol=TOL, rtol=0, err_msg=pre)
+    assert set(cache) == set(want), (set(cache), set(want))
+    for k, w in want.items():
+        np.testing.assert_allclose(np.asarray(cache[k], dtype=np.float64),
+                                   w.astype(np.float64), atol=TOL, rtol=0,
+                                   err_msg=pre + k)
+
+
+@pytest.mark.parametrize("what,match", [
+    ("odd batch", "does not split over the 2 data shards"),
+    ("vlm seq", "image prefix"),
+    ("calibrate", "cost-analysis compile")])
+def test_mesh_steps_refuse(runs, what, match):
+    msg = runs["refusing"][what]
+    assert msg is not None and match in msg, msg

@@ -1,0 +1,306 @@
+"""The rank side of tests/test_torch_serve_mesh.py: configs, seeded weights
+and batches, and the functions that ``launch.dist.run_ranks`` runs in each
+spawned rank (gloo on the CPU).  Imports no jax, so the ranks start
+quickly; the JAX reference (``jax_reference``) imports it inside, in its
+own process.
+
+Every rank draws the same weights from a seeded torch generator, keeps its
+shards (``mesh.shard_tree``) and returns the outputs of its steps gathered
+whole (``mesh.full`` / ``mesh.gather_tree``); rank 0's are compared with
+the one-device step in the test process."""
+import numpy as np
+import torch
+
+import repro_torch.configs as TC
+from repro_torch.configs import common as CC
+from repro_torch.launch import dist as D
+from repro_torch.launch import mesh as MS
+from repro_torch.launch import steps as ST
+from repro_torch.models import model as MDL
+from repro_torch.models import moe as MOE
+from repro_torch.models import params as PRM
+from repro_torch.models.config import ShapeSpec
+
+#: batch, prompt length, and the decode steps' cache depth (the lc split
+#: needs a length that divides 16; mixtral's smoke window makes it 16)
+B, S, LC = 4, 16, 32
+DECODE_STEPS = 3
+MESHES = {"2x2": {"data": 2, "model": 2},
+          "pod2x2x1": {"pod": 2, "data": 2, "model": 1}}
+#: the smoke configs in float32, widened where a rule branch needs it
+CASES = {
+    # 16 heads over `model`, 4 kv heads replicated, q/k/v biases, hd 16
+    "dense_heads": ("qwen2-7b", dict(num_heads=16, num_kv_heads=4,
+                                     head_dim=16)),
+    # 16 kv heads: the kv mode's cache splits its kv heads over `model`
+    "dense_kv16": ("olmo-1b", dict(num_heads=16, num_kv_heads=16)),
+    # 16 experts over `model` (EP), 16 heads on 1 kv head
+    "moe_ep": ("qwen3-moe-30b-a3b", dict(num_experts=16, num_heads=16,
+                                         num_kv_heads=1)),
+    # mixtral: per-expert d_ff over `model` (TP), sliding window 16
+    "moe_tp": ("mixtral-8x22b", {}),
+    "ssm": ("falcon-mamba-7b", {}),        # d_inner 128 over `model`
+    "hybrid": ("hymba-1.5b", {}),          # hd 8: its hd mode is "heads"
+    "vlm": ("paligemma-3b", {}),           # 4 image tokens, tied head
+    "encoder": ("hubert-xlarge", {}),      # prefill only
+}
+#: the prefill variants (banded: the sliding-window config only;
+#: seq_parallel: not the VLM, whose image prefix joins inside the forward)
+PREFILL = {"default": {}, "no_fsdp": dict(fsdp=False),
+           "seq_parallel": dict(seq_parallel=True), "banded": dict(banded=True)}
+DECODE = {"hd": {}, "lc_per_row": dict(cache_shard_mode="lc",
+                                       per_row_write=True),
+          "kv": dict(cache_shard_mode="kv"),
+          "resident": dict(resident_weights=True)}
+#: the variants held against JAX's own sharded steps on (data 2, model 2)
+JAX_PREFILL = (("dense_heads", "seq_parallel"), ("moe_tp", "seq_parallel"))
+JAX_DECODE = (("dense_heads", "hd"), ("dense_kv16", "lc_per_row"),
+              ("moe_tp", "hd"))
+
+
+def cfg_of(case: str):
+    arch, kw = CASES[case]
+    return TC.get_smoke_config(arch).replace(compute_dtype="float32", **kw)
+
+
+def prefill_variants(case: str):
+    cfg = cfg_of(case)
+    return [k for k in PREFILL
+            if not (k == "banded" and not cfg.sliding_window)
+            and not (k == "seq_parallel" and cfg.family == "vlm")]
+
+
+def decode_variants(case: str):
+    return list(DECODE) if cfg_of(case).supports_decode else []
+
+
+def params(case: str):
+    cfg = cfg_of(case)
+    return PRM.init_params(cfg, torch.Generator().manual_seed(
+        sorted(CASES).index(case)), "cpu")
+
+
+def prefill_batch(case: str) -> dict:
+    cfg = cfg_of(case)
+    rng = np.random.default_rng(1)
+    out = {}
+    for k, (shape, dt) in CC.prefill_batch_specs(cfg, B, S).items():
+        if k == "tokens":
+            out[k] = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        elif k == "positions":
+            out[k] = np.broadcast_to(np.arange(shape[1], dtype=np.int32),
+                                     shape).copy()
+        else:
+            out[k] = rng.standard_normal(shape).astype(np.float32)
+    return out
+
+
+def decode_batch(case: str, step: int) -> dict:
+    cfg = cfg_of(case)
+    rng = np.random.default_rng(100 + step)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32),
+            "positions": np.full((B, 1), S + step, np.int32)}
+
+
+def shape(kind: str) -> ShapeSpec:
+    return ShapeSpec(kind, S if kind == "prefill" else LC, B, kind)
+
+
+def groups(case: str, data_shards: int, tokens: int) -> int:
+    """The capacity groups a mesh step picks (the one-device reference
+    must route the same)."""
+    return MOE.pick_num_groups(tokens, data_shards) \
+        if cfg_of(case).has_moe else 1
+
+
+def one_device(case: str, data_shards: int) -> dict:
+    """The one-device prefill (logits, cache) of the mesh's capacity
+    groups, and from its cache each decode variant's DECODE_STEPS steps
+    (stacked logits, final cache)."""
+    cfg = cfg_of(case)
+    p = params(case)
+    with_cache = cfg.supports_decode
+
+    def prefill():
+        b = {k: torch.from_numpy(v) for k, v in prefill_batch(case).items()}
+        cache = MDL.init_cache(cfg, B, LC) if with_cache else None
+        with torch.no_grad():
+            logits, cache = MDL.forward(
+                cfg, p, b, "prefill" if with_cache else "train", cache,
+                remat=False, last_only=with_cache,
+                num_groups=groups(case, data_shards, B * S))
+        return logits[:, -1], cache
+
+    out = {("prefill", k): prefill() for k in prefill_variants(case)}
+    for k in decode_variants(case):
+        _, cache = prefill()
+        if DECODE[k].get("per_row_write"):
+            cache["row_idx"] = torch.full((B,), S, dtype=torch.int32)
+        logits = []
+        for st in range(DECODE_STEPS):
+            b = {n: torch.from_numpy(v) for n, v in
+                 decode_batch(case, st).items()}
+            with torch.no_grad():
+                lg, cache = MDL.forward(
+                    cfg, p, b, "decode", cache, remat=False,
+                    num_groups=groups(case, data_shards, B))
+            logits.append(lg)
+        out[("decode", k)] = (torch.stack(logits), cache)
+    return out
+
+
+def mesh_runs(case: str, mesh) -> dict:
+    """Every variant of `case` on `mesh`, gathered whole: the prefill
+    variants' (logits, cache), and each decode variant's (stacked logits,
+    final cache, the collective bytes of its steps) from the default mesh
+    prefill's cache resharded into the decode layout."""
+    cfg = cfg_of(case)
+    p = params(case)
+    out = {}
+    for k in prefill_variants(case):
+        step, _ = ST.make_prefill_step(cfg, mesh, shape("prefill"),
+                                       cache_len=LC, **PREFILL[k])
+        logits, cache = step(MS.shard_tree(mesh, p, step.param_pspecs),
+                             prefill_batch(case))
+        out[("prefill", k)] = (
+            mesh.full(logits, step.logits_pspec),
+            None if cache is None else
+            MS.gather_tree(mesh, cache, step.cache_pspecs))
+    for k in decode_variants(case):
+        pre, _ = ST.make_prefill_step(cfg, mesh, shape("prefill"),
+                                      cache_len=LC)
+        _, cache = pre(MS.shard_tree(mesh, p, pre.param_pspecs),
+                       prefill_batch(case))
+        step, _ = ST.make_decode_step(cfg, mesh, shape("decode"),
+                                      **DECODE[k])
+        cache = ST.reshard_cache(mesh, cache, pre.cache_pspecs,
+                                 step.cache_pspecs)
+        local = MS.shard_tree(mesh, p, step.param_pspecs)
+        mesh.bytes.clear()
+        logits = []
+        for st in range(DECODE_STEPS):
+            lg, cache = step(local, decode_batch(case, st), cache)
+            logits.append(mesh.full(lg, step.logits_pspec))
+        moved = dict(mesh.bytes)
+        out[("decode", k)] = (torch.stack(logits),
+                              MS.gather_tree(mesh, cache, step.cache_pspecs),
+                              moved)
+    return out
+
+
+# ------------------------------ rank functions --------------------------------
+def serve_ranks(rank, world):
+    """Every case on both 4-rank meshes; rank 0 returns the results."""
+    out = {}
+    for mk, shp in MESHES.items():
+        mesh = D.Mesh(shp, device_type="cpu")
+        for case in CASES:
+            for key, val in mesh_runs(case, mesh).items():
+                out[(mk, case) + key] = val
+    return out if rank == 0 else None
+
+
+def one_by_one_ranks(rank, world):
+    """Every case on a 1 x 1 mesh against the one-device builders (the
+    same groups: one data shard), compared to the bit here: {(case, kind,
+    variant): (equal, collective bytes)}."""
+    mesh = D.Mesh({"data": 1, "model": 1}, device_type="cpu")
+    out = {}
+    for case in CASES:
+        cfg = cfg_of(case)
+        p = params(case)
+        ref = one_device(case, 1)
+        got = mesh_runs(case, mesh)
+        for key, want in ref.items():
+            g = got[key]
+            same = torch.equal(g[0], want[0]) and (
+                want[1] is None or all(
+                    torch.equal(g[1][n], want[1][n]) if
+                    isinstance(want[1][n], torch.Tensor)
+                    else g[1][n] == want[1][n] for n in want[1]))
+            out[(case,) + key] = (same, sum(mesh.bytes.values()))
+        # and the one-device builders themselves on the same inputs
+        step, _ = ST.make_prefill_step(cfg, None, shape("prefill"),
+                                       cache_len=LC, device="cpu")
+        logits, _ = step(p, prefill_batch(case))
+        out[(case, "builder")] = (torch.equal(
+            logits, ref[("prefill", "default")][0]), 0)
+    return out
+
+
+def refusing_ranks(rank, world):
+    """The refusals a mesh step makes, as (variant, message) pairs."""
+    mesh = D.Mesh({"data": 2, "model": 1}, device_type="cpu")
+    out = []
+    for what, build in (
+            ("odd batch", lambda: ST.make_decode_step(
+                cfg_of("dense_heads"), mesh, ShapeSpec("d", LC, 3, "decode"))),
+            ("vlm seq", lambda: ST.make_prefill_step(
+                cfg_of("vlm"), mesh, shape("prefill"), seq_parallel=True)),
+            ("calibrate", lambda: ST.make_prefill_step(
+                cfg_of("dense_heads"), mesh, shape("prefill"),
+                calibrate=True))):
+        try:
+            build()
+            out.append((what, None))
+        except (ValueError, NotImplementedError) as e:
+            out.append((what, str(e)))
+    return out
+
+
+# ------------------------------ JAX's own steps -------------------------------
+def jax_reference(out_path: str) -> None:
+    """JAX's sharded steps (``repro.launch.steps.make_prefill_step`` /
+    ``make_decode_step`` on a (data 2, model 2) mesh of 4 host devices) for
+    JAX_PREFILL and JAX_DECODE, on the same weights and batches; logits and
+    caches to `out_path` (npz).  The decode runs from JAX's default sharded
+    prefill.  Run in a process whose XLA_FLAGS give the host 4 devices."""
+    import jax
+    import jax.numpy as jnp
+
+    import repro.configs as JC
+    from repro.launch import steps as JST
+    from repro.models.config import ShapeSpec as JShape
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    out = {}
+
+    def jcfg_of(case):
+        arch, kw = CASES[case]
+        return JC.get_smoke_config(arch).replace(compute_dtype="float32",
+                                                 **kw)
+
+    def jparams(case):
+        return jax.tree.map(lambda t: jnp.asarray(t.numpy()), params(case))
+
+    def put(prefix, tree):
+        for k, v in tree.items():
+            out[f"{prefix}|{k}"] = np.asarray(v)
+
+    for case, k in JAX_PREFILL:
+        fn, _ = JST.make_prefill_step(jcfg_of(case), mesh,
+                                      JShape("p", S, B, "prefill"),
+                                      cache_len=LC, **PREFILL[k])
+        logits, cache = fn(jparams(case), {n: jnp.asarray(v) for n, v in
+                                           prefill_batch(case).items()})
+        put(f"{case}|prefill|{k}", dict(cache, logits=logits))
+    for case, k in JAX_DECODE:
+        jcfg = jcfg_of(case)
+        pre, _ = JST.make_prefill_step(jcfg, mesh, JShape("p", S, B,
+                                                          "prefill"),
+                                       cache_len=LC)
+        jp = jparams(case)
+        _, cache = pre(jp, {n: jnp.asarray(v) for n, v in
+                            prefill_batch(case).items()})
+        cache = jax.tree.map(np.asarray, cache)
+        if DECODE[k].get("per_row_write"):
+            cache["row_idx"] = np.full((B,), S, np.int32)
+        fn, _ = JST.make_decode_step(jcfg, mesh, JShape("d", LC, B, "decode"),
+                                     donate_cache=False, **DECODE[k])
+        logits = []
+        for st in range(DECODE_STEPS):
+            lg, cache = fn(jp, {n: jnp.asarray(v) for n, v in
+                                decode_batch(case, st).items()}, cache)
+            logits.append(np.asarray(lg))
+        put(f"{case}|decode|{k}", dict(cache, logits=np.stack(logits)))
+    np.savez(out_path, **out)
