@@ -453,6 +453,51 @@ def ptxas_resources(log: str) -> list:
 
 
 # ------------------------------ phase 2: kernels -------------------------------
+def max_err(got, want) -> float:
+    """The largest |got - want| over a tensor or a tuple of them; equal
+    entries (an lse of -inf in both) count 0."""
+    if isinstance(got, tuple):
+        return max(max_err(g, w) for g, w in zip(got, want))
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    d[got == want] = 0
+    return d.max().item()
+
+
+def parent_turns(ops, entry, label, fn, sets, kernel, plain):
+    """With the parent's build of `entry`'s source (--compare-bwd): the
+    parent's largest error against the plain version on sets[0], then fn
+    over `sets` timed in turns with this build (this, parent, this,
+    parent): CUDA events' ms and the profiler's device ms of `kernel`.
+    None without the parent's build."""
+    if entry not in PARENT:
+        return None
+    with build_fns(ops, "parent"):
+        err = max_err(fn(*sets[0]), plain(*sets[0]))
+    turns = in_turns(ops, lambda: (time_ms(fn, sets),
+                                   device_ms(fn, sets[0], kernel)))
+    print(f"  {label} parent: max_abs_err {err}; in turns, ms (device_ms): "
+          + "; ".join(f"{lab} " + ", ".join(
+              f"{m:.4f} ({fmt_ms(d)})" for m, d in ts)
+              for lab, ts in turns.items()), flush=True)
+    return dict(parent_max_abs_err=err, **turns)
+
+
+def decode_split_shape(ops, dtype, hd_out, shape) -> dict:
+    """The (splits, warps, stages) with which kernel 2 and (a) (or (b)'s
+    launch 2, `hd_out`) launch at `shape`, as the library picks them (a
+    query: nothing is launched)."""
+    fn = ops.build()["decode_attention.cu"].repro_decode_attention_shape
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(ops._DTYPES[dtype], int(hd_out), *(shape[k] for k in (
+        "B", "H", "KV", "L", "D")), out)
+    if err:
+        fail(f"decode_attention shape query: CUDA error {err}")
+    return dict(splits=out[0], warps=out[1], stages=out[2])
+
+
 def check_decode(ops, ref, dtype, gen, shape):
     B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
     dev = "cuda"
@@ -479,13 +524,23 @@ def check_decode(ops, ref, dtype, gen, shape):
     def library(q4, k, v):
         return torch.nn.functional.scaled_dot_product_attention(
             q4, k, v, attn_mask=mask, enable_gqa=H != KV)
-    return dict(max_abs_err=err.item(),
-                ms=time_ms(ops.decode_attention, sets),
-                device_ms=device_ms(ops.decode_attention, sets[0],
-                                    "decode_attention_kernel"),
-                plain_ms=time_ms(ref.decode_attention_ref, sets),
-                library_ms=time_ms(library, lib_sets),
-                bound_ms=b_ms, bound_by=b_by)
+    r = dict(max_abs_err=err.item(),
+             ms=time_ms(ops.decode_attention, sets),
+             device_ms=device_ms(ops.decode_attention, sets[0],
+                                 "decode_attention_kernel"),
+             plain_ms=time_ms(ref.decode_attention_ref, sets),
+             library_ms=time_ms(library, lib_sets),
+             bound_ms=b_ms, bound_by=b_by,
+             **decode_split_shape(ops, dtype, False, shape))
+    if dtype == torch.bfloat16:
+        turns = parent_turns(ops, "decode_attention",
+                             f"decode_attention {str(dtype)[6:]}",
+                             ops.decode_attention, sets,
+                             "decode_attention_kernel",
+                             ref.decode_attention_ref)
+        if turns:
+            r["in_turns"] = turns
+    return r
 
 
 def _rank_decode_inputs(gen, dtype, shape, nbytes_of):
@@ -527,12 +582,35 @@ def check_decode_lse(ops, ref, dtype, gen, shape):
         fail("decode_attention_lse: a row with no valid slot has a finite "
              "lse")
     # no PyTorch call returns a masked GQA decode's output with its lse
-    return dict(max_abs_err=err,
-                ms=time_ms(ops.decode_attention_lse, sets),
-                device_ms=device_ms(ops.decode_attention_lse, sets[0],
-                                    "decode_attention_kernel"),
-                plain_ms=time_ms(ref.decode_attention_lse_ref, sets),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    fn, name = ops.decode_attention_lse, "decode_attention_kernel"
+    r = dict(max_abs_err=err, ms=time_ms(fn, sets),
+             device_ms=device_ms(fn, sets[0], name),
+             plain_ms=time_ms(ref.decode_attention_lse_ref, sets),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+             **decode_split_shape(ops, dtype, False, shape))
+    # beside the yardstick: the same inputs with the last row filled as
+    # its qpos says (every row has a valid slot)
+    spos = sets[0][3].clone()
+    spos[-1] = torch.arange(L, device=spos.device, dtype=torch.int32)
+    spos[-1][spos[-1] > sets[0][4][-1]] = -1
+    full = [st[:3] + (spos, st[4]) for st in sets]
+    r["no_empty_row"] = dict(ms=time_ms(fn, full),
+                             device_ms=device_ms(fn, full[0], name))
+    print(f"  decode_attention_lse {str(dtype)[6:]} without the empty row: "
+          f"ms {r['no_empty_row']['ms']:.4f} (device_ms "
+          f"{fmt_ms(r['no_empty_row']['device_ms'])}); with it ms "
+          f"{r['ms']:.4f} (device_ms {fmt_ms(r['device_ms'])})", flush=True)
+    if dtype == torch.bfloat16:
+        turns = parent_turns(ops, "decode_attention_lse",
+                             f"decode_attention_lse {str(dtype)[6:]}", fn,
+                             sets, name, ref.decode_attention_lse_ref)
+        if turns:
+            r["in_turns"] = turns
+            r["no_empty_row"]["in_turns"] = parent_turns(
+                ops, "decode_attention_lse", f"decode_attention_lse "
+                f"{str(dtype)[6:]} without the empty row", fn, full, name,
+                ref.decode_attention_lse_ref)
+    return r
 
 
 def check_decode_hd_scores(ops, ref, dtype, gen, shape):
@@ -575,12 +653,19 @@ def check_decode_hd_out(ops, ref, dtype, gen, shape):
     err = (got.float() - ref.decode_attention_hd_out_ref(*args[0]).float()
            ).abs().max()
     # softmax then a product: no single PyTorch call
-    return dict(max_abs_err=err.item(),
-                ms=time_ms(ops.decode_attention_hd_out, args),
-                device_ms=device_ms(ops.decode_attention_hd_out, args[0],
-                                    "decode_hd_out_kernel"),
-                plain_ms=time_ms(ref.decode_attention_hd_out_ref, args),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    fn, name = ops.decode_attention_hd_out, "decode_hd_out_kernel"
+    r = dict(max_abs_err=err.item(), ms=time_ms(fn, args),
+             device_ms=device_ms(fn, args[0], name),
+             plain_ms=time_ms(ref.decode_attention_hd_out_ref, args),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+             **decode_split_shape(ops, dtype, True, shape))
+    if dtype == torch.bfloat16:
+        turns = parent_turns(ops, "decode_attention_hd_out",
+                             f"decode_attention_hd_out {str(dtype)[6:]}", fn,
+                             args, name, ref.decode_attention_hd_out_ref)
+        if turns:
+            r["in_turns"] = turns
+    return r
 
 
 def check_flash(ops, ref, dtype, gen, shape):
@@ -768,11 +853,18 @@ def check_decode_paged(ops, ref, dtype, gen, shape, quant=False):
         return torch.nn.functional.scaled_dot_product_attention(
             q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=H != KV)
     splits, warps = paged_split_shape(ops, dtype, quant, shape, P)
-    return dict(max_abs_err=err.item(), ms=time_ms(fn, sets),
-                device_ms=device_ms(fn, sets[0], name),
-                plain_ms=time_ms(plain, sets),
-                library_ms=time_ms(library, sets),
-                bound_ms=b_ms, bound_by=b_by, splits=splits, warps=warps)
+    r = dict(max_abs_err=err.item(), ms=time_ms(fn, sets),
+             device_ms=device_ms(fn, sets[0], name),
+             plain_ms=time_ms(plain, sets),
+             library_ms=time_ms(library, sets),
+             bound_ms=b_ms, bound_by=b_by, splits=splits, warps=warps)
+    if dtype == torch.bfloat16:
+        entry = name.removesuffix("_kernel")
+        turns = parent_turns(ops, entry, f"{entry} {str(dtype)[6:]}", fn,
+                             sets, name, plain)
+        if turns:
+            r["in_turns"] = turns
+    return r
 
 
 def check_flash_prefix(ops, ref, dtype, gen, shape):
@@ -837,11 +929,18 @@ def check_flash_prefix(ops, ref, dtype, gen, shape):
           f"library_ms "
           f"(dequantize, prefix gather + SDPA) {int8['library_ms']:.4f}",
           flush=True)
-    return dict(max_abs_err=err, ms=time_ms(fn, sets),
-                device_ms=device_ms(fn, sets[0], name),
-                plain_ms=time_ms(ref.flash_attention_prefix_ref, sets),
-                library_ms=time_ms(library, sets),
-                bound_ms=b_ms, bound_by=b_by, int8_pages=int8)
+    r = dict(max_abs_err=err, ms=time_ms(fn, sets),
+             device_ms=device_ms(fn, sets[0], name),
+             plain_ms=time_ms(ref.flash_attention_prefix_ref, sets),
+             library_ms=time_ms(library, sets),
+             bound_ms=b_ms, bound_by=b_by, int8_pages=int8)
+    if dtype == torch.bfloat16:
+        turns = parent_turns(ops, "flash_attention_prefix",
+                             f"flash_attention_prefix {str(dtype)[6:]}", fn,
+                             sets, name, ref.flash_attention_prefix_ref)
+        if turns:
+            r["in_turns"] = turns
+    return r
 
 
 def gmm_case(gen, shape, tokens, M, N, dtype):
@@ -1284,9 +1383,12 @@ PARENT = {}
 #: a kernel's symbols in the parent's build where its source holds it alone
 #: (KERNELS): every __global__ function there, read from the parent's source
 PARENT_SYMBOLS = {}
-#: the sources --compare-bwd builds from the parent's csrc directory
+#: the sources --compare-bwd builds from the parent's csrc directory: the
+#: training path's, and the decode kernels' (2, (a), (b), A, B) and kernel
+#: 1's with C, which share repro::split and common.cuh
 PARENT_SOURCES = ("flash_attention_bwd.cu", "gmm.cu", "selective_scan.cu",
-                  "selective_scan_bwd.cu")
+                  "selective_scan_bwd.cu", "decode_attention.cu",
+                  "decode_attention_paged.cu", "flash_attention.cu")
 
 
 def bwd_design(ops, dtype, B, S, H, KV, D) -> dict:
@@ -3706,6 +3808,8 @@ def main(argv=None) -> int:
                     f" (device_ms {fmt_ms(r['device_ms'])})"
                 if "splits" in r:
                     dev += f" splits {r['splits']} warps {r['warps']}"
+                if "stages" in r:
+                    dev += f" stages {r['stages']}"
                 # a reckoning from the shape, printed beside the bound:
                 # not a measurement, so not in the kernels line
                 sfu = r.pop("sfu_floor_ms", None)
@@ -3730,6 +3834,7 @@ def main(argv=None) -> int:
                     k: r[k] for k in ("max_abs_err", "ms", "device_ms",
                                       "plain_ms", "library_ms", "bound_ms",
                                       "bound_by", "splits", "warps",
+                                      "stages", "no_empty_row",
                                       "int8_pages", "forward", "chunks",
                                       "device_ms_by_launch", "by_shape",
                                       "forward_device_ms", "in_turns")
@@ -3946,7 +4051,8 @@ def main(argv=None) -> int:
     print("kernels: " + ", ".join(report), flush=True)
     print(json.dumps({"kernels": [
         {k: report[n][k] for k in keys + ("device_ms", "splits", "warps",
-                                          "int8_pages", "by_shape",
+                                          "stages", "no_empty_row",
+                                          "in_turns", "int8_pages", "by_shape",
                                           "by_config")
          if k in report[n]}
         for n in report]}), flush=True)

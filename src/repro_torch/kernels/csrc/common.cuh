@@ -473,6 +473,20 @@ __device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
   }
 }
 
+// fn(r, c) for the (row, 16-byte chunk) pairs of a kTile-row tile with
+// `chunks` chunks a row that this lane handles; every lane makes the same
+// number of calls (fn may shuffle), and when 32 % chunks == 0 (the SQL
+// paths' head dims) a lane keeps one chunk column and needs no division
+template <typename F>
+__device__ __forceinline__ void for_tile_chunks(int chunks, int lane, F fn) {
+  if (32 % chunks == 0) {
+    const int step = 32 / chunks, c = lane % chunks;
+    for (int r = lane / chunks; r < kTile; r += step) fn(r, c);
+  } else {
+    for (int i = lane; i < kTile * chunks; i += 32) fn(i / chunks, i % chunks);
+  }
+}
+
 // ---- the tensor-core warp (bf16, D % 16 == 0, D <= DK) ----
 
 // the group's query rows as A fragments: row g = lane / 4 of every fragment
@@ -486,35 +500,19 @@ __device__ __forceinline__ void mma_load_q(uint32_t (&qa)[DK / 16][4],
     if (16 * kk < D) ldmatrix_x4(qa[kk], q16 + (lane & 15) * RS + (2 * kk + (lane >> 4)) * 8);
 }
 
-// One tile of kTile slots (K and V rows in ks/vs, row stride RS) into the
-// warp's state: S = Q K^T on mma.sync.m16n8k16, the fp32 online softmax per
-// row (a quad of lanes holds a row's 8 slots of each n8 fragment), and
-// O += P V with P split into a bf16 high part and the bf16 rounding of its
-// remainder (P to ~16 bits, two products).  `valid` has a bit per slot and
-// at least one set, so m stays finite.
+// The softmax and P.V half of a tile on the tensor cores: the scores in sc
+// (row g = lane / 4 of the C fragments; fragment (jn, e < 2) is slot 8 jn +
+// 2 (lane % 4) + e) times `scale`, -inf where `valid` has no bit, into the
+// fp32 online softmax per row (a quad of lanes holds a row's 8 slots of
+// each n8 fragment), and O += P V with P split into a bf16 high part and
+// the bf16 rounding of its remainder (P to ~16 bits, two products).
+// `valid` has at least one bit set, so m stays finite.
 template <int DK>
-__device__ __forceinline__ void mma_tile(const uint32_t (&qa)[DK / 16][4],
-                                         const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-                                         int D, unsigned valid, float scale, bool uniform,
-                                         float (&o)[DK / 8][4], float& mr, float& lr,
-                                         int lane) {
+__device__ __forceinline__ void mma_softmax_pv(float (&sc)[4][4], const __nv_bfloat16* vs,
+                                               int D, unsigned valid, float scale,
+                                               float (&o)[DK / 8][4], float& mr, float& lr,
+                                               int lane) {
   const int RS = row_stride<__nv_bfloat16>(D);
-  float sc[4][4] = {};
-  if (!uniform) {
-#pragma unroll
-    for (int kk = 0; kk < DK / 16; ++kk) {
-      if (16 * kk >= D) break;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * RS +
-                            (2 * kk + ((lane >> 3) & 1)) * 8);
-        mma_bf16(sc[2 * jj], qa[kk], kb[0], kb[1]);
-        mma_bf16(sc[2 * jj + 1], qa[kk], kb[2], kb[3]);
-      }
-    }
-  }
-  // row g's scores: fragment (jn, e < 2) is slot 8 jn + 2 (lane % 4) + e
   float mx = -INFINITY;
 #pragma unroll
   for (int jn = 0; jn < 4; ++jn) {
@@ -572,6 +570,34 @@ __device__ __forceinline__ void mma_tile(const uint32_t (&qa)[DK / 16][4],
   }
 }
 
+// One tile of kTile slots (K and V rows in ks/vs, row stride RS) into the
+// warp's state: S = Q K^T on mma.sync.m16n8k16 (every score 0 when
+// `uniform`), then mma_softmax_pv.
+template <int DK>
+__device__ __forceinline__ void mma_tile(const uint32_t (&qa)[DK / 16][4],
+                                         const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                         int D, unsigned valid, float scale, bool uniform,
+                                         float (&o)[DK / 8][4], float& mr, float& lr,
+                                         int lane) {
+  const int RS = row_stride<__nv_bfloat16>(D);
+  float sc[4][4] = {};
+  if (!uniform) {
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      if (16 * kk >= D) break;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                            (2 * kk + ((lane >> 3) & 1)) * 8);
+        mma_bf16(sc[2 * jj], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[2 * jj + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+  }
+  mma_softmax_pv<DK>(sc, vs, D, valid, scale, o, mr, lr, lane);
+}
+
 // the warp's partial at `mine`: m (kHeads), l (kHeads), acc (Gh x D)
 template <int DK>
 __device__ __forceinline__ void mma_partial(float* mine, const float (&o)[DK / 8][4],
@@ -594,10 +620,55 @@ __device__ __forceinline__ void mma_partial(float* mine, const float (&o)[DK / 8
 
 // ---- the CUDA-core warp (float32, other head dims): DPL output columns a lane ----
 
+// The softmax and P.V half of a tile on the CUDA cores: s[g] is this lane's
+// slot's (scaled) score for head g, -inf where `valid` has no bit; a warp
+// max and sum per head, and P.V over the first `rows` rows of the tile
+// (pwarp: the warp's kHeads x kTile p's), DPL output columns a lane.
+// `valid` has at least one bit set, so m_new is finite.
+template <typename T, int DPL>
+__device__ __forceinline__ void fma_softmax_pv(const float (&s)[kHeads], const T* vs, int D,
+                                               unsigned valid, int rows, int Gh,
+                                               float* pwarp, float (&m)[kHeads],
+                                               float (&l)[kHeads],
+                                               float (&acc)[kHeads][DPL], int lane) {
+  const int RS = row_stride<T>(D);
+  const bool ok = (valid >> lane) & 1u;
+#pragma unroll
+  for (int g = 0; g < kHeads; ++g) {
+    if (g < Gh) {
+      const float sg = ok ? s[g] : -INFINITY;
+      const float m_new = fmaxf(m[g], warp_max(sg));
+      const float p = expf(sg - m_new);
+      const float corr = expf(m[g] - m_new);
+      l[g] = l[g] * corr + warp_sum(p);
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[g][e] *= corr;
+      pwarp[g * kTile + lane] = p;
+    }
+  }
+  __syncwarp();
+  const int d0 = lane * DPL;
+  if (d0 < D) {
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      float vf[DPL];
+      load_vec<T, DPL>(vs + r * RS + d0, vf);
+#pragma unroll
+      for (int g = 0; g < kHeads; ++g) {
+        if (g < Gh) {
+          const float pr = pwarp[g * kTile + r];
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
+        }
+      }
+    }
+  }
+}
+
 // One tile into the warp's state: a lane scores one slot for every head of
 // the group (q broadcast from shared memory, already scaled: every lane
-// works at G = 1 too), a warp max and sum per head, and P.V over the first
-// `rows` rows of the tile (pwarp: the warp's kHeads x kTile p's).
+// works at G = 1 too; every score 0 when `uniform`), then fma_softmax_pv.
 template <typename T, int DPL>
 __device__ __forceinline__ void fma_tile(const float* qs, const T* ks, const T* vs, int D,
                                          unsigned valid, int rows, bool uniform, int Gh,
@@ -638,40 +709,10 @@ __device__ __forceinline__ void fma_tile(const float* qs, const T* ks, const T* 
     }
     if (c < C) chunk(c, 0);
   }
-  // online softmax; a tile has a valid slot, so m_new is finite
-  const bool ok = (valid >> lane) & 1u;
+  float sum[kHeads];
 #pragma unroll
-  for (int g = 0; g < kHeads; ++g) {
-    if (g < Gh) {
-      const float sg = ok ? s[g][0] + s[g][1] : -INFINITY;
-      const float m_new = fmaxf(m[g], warp_max(sg));
-      const float p = expf(sg - m_new);
-      const float corr = expf(m[g] - m_new);
-      l[g] = l[g] * corr + warp_sum(p);
-      m[g] = m_new;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[g][e] *= corr;
-      pwarp[g * kTile + lane] = p;
-    }
-  }
-  __syncwarp();
-  // P.V: DPL columns a lane
-  const int d0 = lane * DPL;
-  if (d0 < D) {
-#pragma unroll 4
-    for (int r = 0; r < rows; ++r) {
-      float vf[DPL];
-      load_vec<T, DPL>(vs + r * RS + d0, vf);
-#pragma unroll
-      for (int g = 0; g < kHeads; ++g) {
-        if (g < Gh) {
-          const float pr = pwarp[g * kTile + r];
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
-        }
-      }
-    }
-  }
+  for (int g = 0; g < kHeads; ++g) sum[g] = s[g][0] + s[g][1];
+  fma_softmax_pv<T, DPL>(sum, vs, D, valid, rows, Gh, pwarp, m, l, acc, lane);
 }
 
 // the warp's partial at `mine`, as mma_partial
@@ -727,16 +768,16 @@ __device__ __forceinline__ void merge_warps(const float* wpart, int PW, int W, i
 
 // The cluster's S partials, in rank order through distributed shared
 // memory, each block a share of the Gh x D outputs, written to out (Gh x
-// D).  When no split has a valid slot (M = -inf), output i is empty(i).
+// D).  Some split has a tile (a row with no valid slot runs every slot with
+// uniform weights), so M is finite; were it not, the output would be 0.
 // `lse` (Gh floats, or null) receives each head's log-sum-exp of its scaled
-// scores over the valid slots, -inf where it has none.  Synchronises the
-// cluster before (the partials are written) and after (no block leaves while
-// another still reads its shared memory).
-template <typename T, typename Empty>
+// scores over the tiles' slots.  Synchronises the cluster before (the
+// partials are written) and after (no block leaves while another still
+// reads its shared memory).
+template <typename T>
 __device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& cluster,
                                              float* bm, float* bl, float* bacc, int Gh,
-                                             int D, T* out, Empty empty,
-                                             float* lse = nullptr) {
+                                             int D, T* out, float* lse = nullptr) {
   const int S = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   cluster.sync();
@@ -749,11 +790,8 @@ __device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& 
       ms[s] = s < S ? *cluster.map_shared_rank(bm + g, s) : -INFINITY;
       M = fmaxf(M, ms[s]);
     }
-    float o;
-    if (M == -INFINITY) {
-      o = empty(i);
-      if (lse != nullptr && i == g * D) lse[g] = -INFINITY;
-    } else {
+    float o = 0.f;
+    if (M != -INFINITY) {
       float lt = 0.f, x = 0.f;
 #pragma unroll
       for (int s = 0; s < kMaxSplits; ++s) {

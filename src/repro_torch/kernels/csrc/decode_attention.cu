@@ -2,16 +2,18 @@
 // against the ring-buffered KV cache; with the distribution layer's two
 // variants of it: (a) the same kernel writing each head's log-sum-exp (a
 // rank's slot range of a cache split over its length, whose partials the
-// ranks combine), and (b) two launches for a cache split over head_dim
-// (at the end of this file).
+// ranks combine), and (b) two launches for a cache split over head_dim, the
+// second of which (the softmax of the summed scores and P.V) is this body
+// with its scores read from memory.
 //
 // Replaces: repro/kernels/decode_attention.py::decode_attention_pallas (the
 // TPU kernel behind ops.decode_attention).  Same function: for each (row b,
 // query head h) the softmax over cache slots with 0 <= spos <= qpos, scale
 // 1/sqrt(D), fp32 accumulation.  Masked slots score -1e30, as the
 // reference's, so a row with no valid slot is the mean of V over all L (the
-// engine never builds one: a decode step writes its own slot first).  Plain
-// version: kernels/ref.py decode_attention_ref.
+// engine never builds one: a decode step writes its own slot first; a rank
+// of a cache split over its length whose range is not yet filled does).
+// Plain version: kernels/ref.py decode_attention_ref.
 //
 // Bound on the H100: bytes.  A call needs the K and V rows of the valid
 // slots (2 * valid * KV * D elements), q, out and the slot positions, for
@@ -24,25 +26,23 @@
 // Design.  The TPU kernel walks L as a sequential grid axis and carries the
 // softmax state (m, l, acc) in VMEM scratch from one grid step to the next.
 // Here the slots of one (row, kv head) are split across the S blocks of a
-// thread-block cluster: grid (S, KV * NG, B), cluster (S, 1, 1).  S is the
-// largest of {1, 2, 4, 8} whose clusters all fit on the card at once
-// (cudaOccupancyMaxActiveClusters for this kernel's shared memory) while
-// every split keeps a tile of kTile = 32 slots: more splits than fit would
-// queue whole clusters behind the first wave (at olmo-1b's 8 x 16 rows in
-// bf16 that is S = 2, at qwen3-moe-30b-a3b's 8 x 4 rows S = 4 or 8).  NG is
-// 1 unless a kv head has more than kHeads = 8 query heads; each block then
-// takes 8 of them.  Block `rank` owns a contiguous range of whole tiles:
+// thread-block cluster: grid (S, KV * NG, B), cluster (S, 1, 1).  NG is 1
+// unless a kv head has more than kHeads = 8 query heads; each block then
+// takes 8 of them.  Block `rank` owns a contiguous range of whole 32-slot
+// tiles:
 //   1. it reads its range's slot positions and keeps one validity bit per
 //      slot (a warp ballot: one 32-bit word per tile); validity comes from
-//      spos alone, so a wrapped ring is handled like a filled prefix;
-//   2. it keeps the live tiles (a tile with no valid slot contributes
-//      exp(-1e30 - m) = 0 exactly, so skipping it changes nothing) and deals
-//      them to its warps.  Each warp runs on its own, with no block barrier,
-//      its softmax state in registers: it stages a tile's K and V rows with
-//      cp.async, 16 bytes a lane, into its own shared memory (rows padded by
-//      16 bytes, so that the 8 rows an ldmatrix or a lane-per-row read
-//      touches fall in 8 different bank groups; rows past the cache are
-//      zero-filled), then
+//      spos alone, so a wrapped ring is handled like a filled prefix; warp 0
+//      lists the tiles with a valid slot (a ballot and a popc prefix, 32
+//      tiles a step: a tile with no valid slot contributes exp(-1e30 - m) =
+//      0 exactly, so skipping it changes nothing);
+//   2. it deals the live tiles to its W warps.  Each warp runs on its own,
+//      with no block barrier, its softmax state in registers: it stages a
+//      tile's rows with cp.async, 16 bytes a lane, into its own shared
+//      memory (rows padded by 16 bytes, so that the 8 rows an ldmatrix or a
+//      lane-per-row read touches fall in 8 different bank groups; rows past
+//      the cache are zero-filled), in a ring of one or two stages (two: the
+//      next tile's loads go out before the current one is computed), then
 //      - bf16 with D % 16 == 0 and D <= 128 (the SQL paths' 64 and 128): on
 //        the tensor cores, as flash_attention.cu: S = Q K^T with
 //        mma.sync.m16n8k16, the group's query heads as the rows of the A
@@ -62,16 +62,44 @@
 //      rank's state in a fixed rank order through distributed shared memory
 //      (map_shared_rank), and write out.  One launch, no workspace, no
 //      counters, the same sums in every run.
+// A row with no valid slot: a block whose range has none reads the rest of
+// the row's positions (a block with a valid slot knows better and skips
+// it, so the other rows pay nothing); when the row has none, every block
+// runs its whole range with every slot inside the cache valid and scoring
+// 0 (K is not read), the reference's uniform softmax over all-masked
+// scores, i.e. the mean of V, at the speed of any row, and (a)'s lse is
+// -inf.
 // A warp or split with no live tile merges as m = -inf with weight 0 (never
-// exp(-inf - -inf)).  When no split of the cluster has a valid slot, the
-// row is the reference's uniform softmax over all L slots: the merge
-// computes the mean of V directly.  The warp tiles, the merges, the choice
-// of S and the cluster launch are repro::split in common.cuh, which the
-// int8 paged decode (decode_attention_paged.cu) shares.
+// exp(-inf - -inf)).  (S, W, stages): of W in 1..4 warps a block (8 for
+// (b)'s launch 2) and one or two stages, with S the largest of {1, 2, 4, 8}
+// whose clusters all fit on the card at once (split::pick_splits, every
+// split keeping a tile), the triple that puts the most warps on the card in
+// the first wave; on a tie, the one whose warps keep two tiles in flight,
+// then the larger W, then one stage.  In bf16 on an H100: at olmo-1b's 8 x
+// 16 rows one stage, W 4, S 2; at (a)'s 2 x 8 rows of mixtral's 2048-slot
+// range of 128 columns one stage, W 4, S 8 (two stages of 4 warps fill a
+// block an SM, and 16 clusters of 8 such do not fit); at (b)'s 2 x 8 rows
+// of 4096 slots of 64 columns two stages, W 8, S 8.
+// The warp tiles, the merges, the choice of S and the cluster launch are
+// repro::split in common.cuh, which the paged decode
+// (decode_attention_paged.cu) shares.
+//
+// Kernel (b)'s launch 2 (decode_hd_out_kernel, below) is the same body over
+// the scores summed over the ranks, (B, H, L) fp32 already scaled: a warp
+// stages a tile's V rows and its G x 32 scores (4-byte cp.async, a lane a
+// slot) instead of K, and the scores enter the same softmax and P.V: on
+// the tensor cores in bf16 (P.V is 2 * valid * H * D flops against ~valid *
+// KV * D * 2 bytes of V, bytes either way; mma.sync keeps a warp's
+// instruction count per tile at ~40 products instead of ~400 FMAs a lane),
+// on the CUDA cores otherwise.  Each score is read once and exponentiated
+// once; up to 8 warps a block, since a stage holds no K.
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "common.cuh"
 
@@ -81,27 +109,40 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxWarps = 4;
-constexpr size_t kTileBudget = 140 * 1024;  // shared memory for the warps' tiles
+// where a block's scores come from: q . K (kernel 2 and (a)) or memory
+// (kernel (b)'s launch 2)
+enum Source : int { kFromQK = 0, kFromScores = 1 };
 
-struct DecodeArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int* spos;
-  const int* qpos;
-  void* out;
-  float* lse;           // (B, H) log-sum-exp of each head's scores, or null
+constexpr int max_warps(int src) { return src == kFromQK ? 4 : 8; }
+
+struct SplitArgs {
+  const void* q;          // kFromQK: (B, H, D)
+  const void* k;          // kFromQK: (B, L, KV, D)
+  const float* scores;    // kFromScores: (B, H, L), scaled and summed
+  const void* v;          // (B, L, KV, D)
+  const int* spos;        // (B, L)
+  const int* qpos;        // (B,)
+  void* out;              // (B, H, D)
+  float* lse;             // (B, H) log-sum-exp of each head's scores, or null
   int H, KV, L, D;
-  int NG;               // head groups per kv head
+  int NG;                 // head groups per kv head
   int tiles_per_split;
+  int stages;             // a warp's ring: 1 or 2 tiles
   float scale;
 };
 
-template <typename T>
-size_t smem_bytes(int W, int G, int D, int tiles_per_split, bool mma) {
-  return (size_t)W * 2 * kTile * row_stride<T>(D) * sizeof(T) +  // warps' K/V tiles
-         q_bytes<T>(G, D, mma) +                                   // q
+// bytes of one stage of a warp's ring: K and V rows, or V rows and the
+// group's scores of the tile
+template <int SRC, typename T>
+__host__ __device__ inline size_t stage_bytes(int G, int D) {
+  const size_t rows = (size_t)kTile * row_stride<T>(D) * sizeof(T);
+  return SRC == kFromQK ? 2 * rows : rows + sizeof(float) * group_heads(G) * kTile;
+}
+
+template <int SRC, typename T>
+size_t smem_bytes(int W, int stages, int G, int D, int tiles_per_split, bool mma) {
+  return (size_t)W * stages * stage_bytes<SRC, T>(G, D) +          // warps' rings
+         (SRC == kFromQK ? q_bytes<T>(G, D, mma) : 0) +             // q
          sizeof(float) * ((size_t)group_heads(G) * D +             // block acc
                           (mma ? 0 : W * kHeads * kTile) +         // p
                           2 * kHeads) +                            // block m, l
@@ -110,11 +151,12 @@ size_t smem_bytes(int W, int G, int D, int tiles_per_split, bool mma) {
 
 // DK > 0: the tensor-core path (bf16, D % 16 == 0, D <= DK); DK == 0: the
 // CUDA-core path, DPL output columns a lane (D <= 32 * DPL)
-template <typename T, int DPL, int DK>
-__global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(DecodeArgs a) {
+template <int SRC, typename T, int DPL, int DK>
+__device__ __forceinline__ void split_decode(const SplitArgs& a) {
   constexpr bool kMma = DK > 0;
+  constexpr bool kQK = SRC == kFromQK;
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int kv = blockIdx.y / a.NG, g0 = (blockIdx.y % a.NG) * kHeads;
   const int b = blockIdx.z;
   const int H = a.H, L = a.L, D = a.D;
@@ -125,11 +167,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(Decode
   constexpr int E = 16 / sizeof(T);   // elements of a 16-byte chunk
   const int C = D / E;                // chunks per row (D * sizeof(T) % 16 == 0)
   const int RS = row_stride<T>(D);
+  const int SE = (int)(stage_bytes<SRC, T>(G, D) / sizeof(T));   // a stage in T
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* wtiles = reinterpret_cast<T*>(smem_raw);              // W x {K, V} x kTile x RS
-  unsigned char* qraw = reinterpret_cast<unsigned char*>(wtiles + (size_t)W * 2 * kTile * RS);
-  float* bacc = reinterpret_cast<float*>(qraw + q_bytes<T>(G, D, kMma));  // Gb x D
+  T* wtiles = reinterpret_cast<T*>(smem_raw);              // W x stages x SE
+  unsigned char* qraw = reinterpret_cast<unsigned char*>(wtiles + (size_t)W * a.stages * SE);
+  float* bacc = reinterpret_cast<float*>(qraw + (kQK ? q_bytes<T>(G, D, kMma) : 0));  // Gb x D
   float* pw = bacc + Gb * D;                 // W x kHeads x kTile (CUDA cores)
   float* bm = pw + (kMma ? 0 : W * kHeads * kTile);  // kHeads, the block's max
   float* bl = bm + kHeads;                   // kHeads, the block's sum
@@ -144,72 +187,152 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(Decode
   const size_t head0 = (size_t)b * H + (size_t)kv * G + g0;   // first output head
 
   // 1. validity bits of the range (a warp's lanes share their loop count:
-  //    the bound is a multiple of 32 and i steps by whole warps)
+  //    the bound is a multiple of 32 and i steps by whole warps), then warp
+  //    0 lists the tiles with a valid slot
   for (int i = tid; i < ntiles * kTile; i += blockDim.x) {
     const int slot = s0 + i;
     const int p = slot < s1 ? a.spos[(size_t)b * L + slot] : -1;
     const unsigned w = __ballot_sync(0xffffffffu, p >= 0 && p <= qp);
     if (lane == 0) bits[i / 32] = w;
   }
-  stage_q(qraw, static_cast<const T*>(a.q) + head0 * D, Gh, D, a.scale, kMma);
+  if constexpr (kQK) stage_q(qraw, static_cast<const T*>(a.q) + head0 * D, Gh, D, a.scale, kMma);
   __syncthreads();
-  if (tid == 0) {
+  if (warp == 0) {
     int n = 0;
-    for (int t = 0; t < ntiles; ++t)
-      if (bits[t]) live[n++] = t;
-    *n_live_s = n;
+    for (int i0 = 0; i0 < ntiles; i0 += 32) {
+      const int i = i0 + lane;
+      const unsigned w = i < ntiles ? bits[i] : 0u;
+      const unsigned m = __ballot_sync(0xffffffffu, w != 0);
+      if (w) live[n + __popc(m & ((1u << lane) - 1u))] = i;
+      n += __popc(m);
+    }
+    if (lane == 0) *n_live_s = n;
   }
   __syncthreads();
-  const int n_live = *n_live_s;
+  int n_live = *n_live_s;
 
-  // 2. each warp: its live tiles, its state in registers
-  const size_t slot_stride = (size_t)a.KV * D;   // elements between slots
-  const T* kbase = static_cast<const T*>(a.k) + ((size_t)b * L * a.KV + kv) * D;
-  const T* vbase = static_cast<const T*>(a.v) + ((size_t)b * L * a.KV + kv) * D;
-  T* ks = wtiles + (size_t)warp * 2 * kTile * RS;
-  T* vs = ks + kTile * RS;
-  // the tile's rows [t0, t0 + 32) into ks/vs, 16 bytes a lane; rows past
-  // the cache are zero-filled (p is 0 there, and 0 * V must stay 0)
-  auto load_tile = [&](int t0) {
-    if (32 % C == 0) {   // a lane keeps one chunk of every (32 / C)-th row
-      const int step = 32 / C, c = lane % C;
-      for (int r = lane / C; r < kTile; r += step) {
-        const bool ok = t0 + r < L;
-        const size_t off = ok ? (size_t)(t0 + r) * slot_stride + c * E : 0;
-        cp_async16(ks + r * RS + c * E, kbase + off, ok);
-        cp_async16(vs + r * RS + c * E, vbase + off, ok);
+  // a block with no valid slot in its range reads the rest of the row's
+  // positions: when no slot of the row is valid, the reference's softmax
+  // over its all-masked scores is uniform over the L slots, and every block
+  // runs its whole range with every slot inside the cache valid, scoring 0
+  bool uniform = false;
+  if (n_live == 0) {
+    constexpr int kU = 8;   // loads in flight a thread
+    const int* row = a.spos + (size_t)b * L;
+    int any = 0;
+    for (int base = tid; base < L; base += kU * blockDim.x) {
+      int p[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int slot = base + u * blockDim.x;
+        p[u] = slot < L ? row[slot] : -1;
       }
-    } else {
-      for (int i = lane; i < kTile * C; i += 32) {
-        const int r = i / C, c = i - r * C;
-        const bool ok = t0 + r < L;
-        const size_t off = ok ? (size_t)(t0 + r) * slot_stride + c * E : 0;
-        cp_async16(ks + r * RS + c * E, kbase + off, ok);
-        cp_async16(vs + r * RS + c * E, vbase + off, ok);
+#pragma unroll
+      for (int u = 0; u < kU; ++u) any |= p[u] >= 0 && p[u] <= qp;
+    }
+    uniform = !__syncthreads_or(any);
+    if (uniform) {
+      for (int i = tid; i < ntiles; i += blockDim.x) {
+        const int n = min(kTile, s1 - s0 - i * kTile);   // slots inside the cache
+        bits[i] = n == kTile ? 0xffffffffu : (1u << n) - 1u;
+        live[i] = i;
+      }
+      n_live = ntiles;
+      __syncthreads();
+    }
+  }
+
+  // 2. each warp: its live tiles through its ring, its state in registers
+  const size_t slot_stride = (size_t)a.KV * D;   // elements between slots
+  const size_t cache0 = ((size_t)b * L * a.KV + kv) * D;
+  const T* vbase = static_cast<const T*>(a.v) + cache0;
+  T* ring = wtiles + (size_t)warp * a.stages * SE;
+  // the tile at t0 into stage st (one commit group): its K (or its scores)
+  // and V rows, 16 bytes a lane; rows past the cache are zero-filled (p is
+  // 0 there, and 0 * V must stay 0); a uniform row reads V alone
+  auto issue = [&](int t0, int st) {
+    T* stg = ring + (size_t)st * SE;
+    T* vs = kQK ? stg + kTile * RS : stg;
+    for_tile_chunks(C, lane, [&](int r, int c) {
+      const bool ok = t0 + r < L;
+      const size_t off = ok ? (size_t)(t0 + r) * slot_stride + c * E : 0;
+      if constexpr (kQK) {
+        if (!uniform)
+          cp_async16(stg + r * RS + c * E, static_cast<const T*>(a.k) + cache0 + off, ok);
+      }
+      cp_async16(vs + r * RS + c * E, vbase + off, ok);
+    });
+    if constexpr (!kQK) {
+      if (!uniform) {   // the group's scores of the tile, a lane a slot
+        float* ss = reinterpret_cast<float*>(stg + kTile * RS);
+        const bool ok = t0 + lane < L;
+        const float* src = a.scores + head0 * L + (ok ? t0 + lane : 0);
+        for (int g = 0; g < Gh; ++g) cp_async4(ss + g * kTile + lane, src + (size_t)g * L, ok);
       }
     }
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncwarp();
+  };
+  // fn(t, t0, stage) over the warp's tiles in list order, each landed in
+  // shared memory; with two stages the next tile's loads go out first
+  auto for_my_tiles = [&](auto&& fn) {
+    if (a.stages == 1) {
+      for (int jt = warp; jt < n_live; jt += W) {
+        const int t = live[jt], t0 = s0 + t * kTile;
+        __syncwarp();   // the previous tile's reads are done
+        issue(t0, 0);
+        cp_async_wait<0>();
+        __syncwarp();
+        fn(t, t0, ring);
+      }
+      return;
+    }
+    int st = 0;
+    if (warp < n_live) issue(s0 + live[warp] * kTile, 0);
+    for (int jt = warp; jt < n_live; jt += W) {
+      const int t = live[jt], t0 = s0 + t * kTile;
+      if (jt + W < n_live) {
+        issue(s0 + live[jt + W] * kTile, st ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      fn(t, t0, ring + (size_t)st * SE);
+      __syncwarp();   // this stage's reads are done before it is refilled
+      st ^= 1;
+    }
   };
 
   const int PW = 2 * kHeads + Gb * D;   // a warp's partial: m, l, acc
   float* wpart = reinterpret_cast<float*>(wtiles);
   float* mine = wpart + warp * PW;
-
   if constexpr (kMma) {
-    uint32_t qa[DK / 16][4];
-    mma_load_q<DK>(qa, reinterpret_cast<const __nv_bfloat16*>(qraw), D, lane);
+    uint32_t qa[kQK ? DK / 16 : 1][4];   // the group's query rows (kFromQK)
+    if constexpr (kQK) mma_load_q<DK>(qa, reinterpret_cast<const __nv_bfloat16*>(qraw), D, lane);
     float o[DK / 8][4] = {};
     float mr = -INFINITY, lr = 0.f;
-    for (int j = warp; j < n_live; j += W) {
-      const int t = live[j];
-      const int t0 = s0 + t * kTile;
-      __syncwarp();   // the previous tile's reads are done
-      load_tile(t0);
-      mma_tile<DK>(qa, ks, vs, D, bits[t], a.scale, false, o, mr, lr, lane);
-    }
-    // the warp's partial (over the tiles, free once every warp is done)
+    for_my_tiles([&](int t, int, const T* stg) {
+      if constexpr (kQK) {
+        mma_tile<DK>(qa, stg, stg + kTile * RS, D, bits[t], a.scale, uniform, o, mr, lr, lane);
+      } else {
+        // row g = lane / 4 of the C fragments: head g's scores at slots
+        // 8 jn + 2 (lane % 4) + {0, 1}
+        float sc[4][4] = {};
+        const int g = lane >> 2;
+        if (!uniform && g < Gh) {
+          const float* ss =
+              reinterpret_cast<const float*>(stg + kTile * RS) + g * kTile + 2 * (lane & 3);
+#pragma unroll
+          for (int jn = 0; jn < 4; ++jn) {
+            const float2 x = *reinterpret_cast<const float2*>(ss + 8 * jn);
+            sc[jn][0] = x.x;
+            sc[jn][1] = x.y;
+          }
+        }
+        mma_softmax_pv<DK>(sc, stg, D, bits[t], 1.f, o, mr, lr, lane);
+      }
+    });
+    // the warp's partial (over the rings, free once every warp is done)
     cp_async_wait<0>();
     __syncthreads();
     mma_partial<DK>(mine, o, mr, lr, Gh, D, lane);
@@ -224,71 +347,166 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_attention_kernel(Decode
 #pragma unroll
       for (int e = 0; e < DPL; ++e) acc[g][e] = 0.f;
     }
-    for (int j = warp; j < n_live; j += W) {
-      const int t = live[j];
-      const int t0 = s0 + t * kTile;
-      __syncwarp();   // the previous tile's reads are done
-      load_tile(t0);
-      // P.V over every row of the tile inside the cache
-      fma_tile<T, DPL>(qs, ks, vs, D, bits[t], min(kTile, L - t0), false, Gh, pwarp, m, l,
-                       acc, lane);
-    }
-    // the warp's partial (over the tiles, free once every warp is done)
+    for_my_tiles([&](int t, int t0, const T* stg) {
+      const int rows = min(kTile, L - t0);   // P.V over the tile's rows inside the cache
+      if constexpr (kQK) {
+        fma_tile<T, DPL>(qs, stg, stg + kTile * RS, D, bits[t], rows, uniform, Gh, pwarp, m,
+                         l, acc, lane);
+      } else {
+        const float* ss = reinterpret_cast<const float*>(stg + kTile * RS);
+        float s[kHeads];
+#pragma unroll
+        for (int g = 0; g < kHeads; ++g) s[g] = !uniform && g < Gh ? ss[g * kTile + lane] : 0.f;
+        fma_softmax_pv<T, DPL>(s, stg, D, bits[t], rows, Gh, pwarp, m, l, acc, lane);
+      }
+    });
     cp_async_wait<0>();
     __syncthreads();
     fma_partial<DPL>(mine, m, l, acc, Gh, D, lane);
   }
 
   // 3. the warps' partials into the block's, then the S blocks' in rank
-  //    order through distributed shared memory
+  //    order through distributed shared memory; (a)'s lse is -inf where no
+  //    slot of the row is valid
   __syncthreads();
   merge_warps(wpart, PW, W, Gh, D, bacc, bm, bl);
-  // no valid slot in the whole row: every slot scores -1e30 in the
-  // reference, whose softmax is then uniform over the L slots
-  merge_splits(cluster, bm, bl, bacc, Gh, D, static_cast<T*>(a.out) + head0 * D,
-               [&](int i) {
-                 const int d = i % D;
-                 float x = 0.f;
-                 for (int r = 0; r < L; ++r) x += to_f(vbase[(size_t)r * slot_stride + d]);
-                 return x / (float)L;
-               },
-               a.lse == nullptr ? nullptr : a.lse + head0);
+  float* lse = a.lse == nullptr ? nullptr : a.lse + head0;
+  if (uniform && lse != nullptr) {
+    if (rank == 0 && tid < Gh) lse[tid] = -INFINITY;
+    lse = nullptr;
+  }
+  merge_splits(cluster, bm, bl, bacc, Gh, D, static_cast<T*>(a.out) + head0 * D, lse);
 }
 
 template <typename T, int DPL, int DK>
-int launch_kernel(DecodeArgs a, int B, int ntiles, int W, cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<T, DPL, DK>;
-  const int G = a.H / a.KV;
-  // the largest shared memory any S needs (the bits and live lists shrink
-  // as S grows), so that the query and the launch agree
-  size_t smem = smem_bytes<T>(W, G, a.D, ntiles, DK > 0);
-  cudaError_t e = allow_smem_once(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int S = pick_splits(kernel, B * a.KV * a.NG, ntiles, 32 * W, smem);
-  a.tiles_per_split = (ntiles + S - 1) / S;
-  return (int)launch_cluster(kernel, a, S, a.KV * a.NG, B, 32 * W, smem, stream);
+__global__ void __launch_bounds__(max_warps(kFromQK) * 32) decode_attention_kernel(SplitArgs a) {
+  split_decode<kFromQK, T, DPL, DK>(a);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* spos,
-           const void* qpos, void* out, float* lse, int B, int H, int KV, int L,
-           int D, float scale, cudaStream_t stream) {
-  if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0 || D > 256 ||
+template <typename T, int DPL, int DK>
+__global__ void __launch_bounds__(max_warps(kFromScores) * 32) decode_hd_out_kernel(SplitArgs a) {
+  split_decode<kFromScores, T, DPL, DK>(a);
+}
+
+template <int SRC, typename T, int DPL, int DK>
+auto kernel_of() {
+  if constexpr (SRC == kFromQK) return decode_attention_kernel<T, DPL, DK>;
+  else return decode_hd_out_kernel<T, DPL, DK>;
+}
+
+// (S, W, stages) of a launch, as the design note at the top says: the
+// triple that puts the most warps on the card in the first wave, then the
+// one whose warps keep two tiles in flight, the larger W, one stage.
+// Cached per (kernel, rows, tiles, G, D).
+template <typename K, typename F>
+cudaError_t pick_shape(K kernel, int rows, int ntiles, int G, int D, int maxW, F smem, int& S,
+                       int& W, int& stages) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int, int>, std::tuple<int, int, int>> picked;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), rows, ntiles, G, D);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = picked.find(key);
+    if (it != picked.end()) {
+      std::tie(S, W, stages) = it->second;
+      return cudaSuccess;
+    }
+  }
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  size_t most = 0;
+  for (int st = 1; st <= 2; ++st)
+    for (int w = 1; w <= maxW; ++w)
+      if (smem(w, st) <= (size_t)optin) most = std::max(most, smem(w, st));
+  if (most == 0) return cudaErrorInvalidValue;
+  e = allow_smem_once(kernel, most);
+  if (e != cudaSuccess) return e;
+  std::tuple<long, int, int, int> best(-1, 0, 0, 0);   // warps, tiles in flight, W, -stages
+  for (int st = 1; st <= 2; ++st) {
+    for (int w = 1; w <= maxW; ++w) {
+      const size_t bytes = smem(w, st);
+      if (bytes > (size_t)optin) continue;
+      const int s = pick_splits(kernel, rows, ntiles, 32 * w, bytes);
+      long warps = (long)rows * s * w;
+      if (s == 1) {
+        int per_sm = 0;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * w, bytes);
+        if (e != cudaSuccess) return e;
+        warps = (long)std::min(rows, per_sm * sms) * w;
+      }
+      const int per_warp = ((ntiles + s - 1) / s + w - 1) / w;
+      const auto cand = std::make_tuple(warps, std::min(st, per_warp), w, -st);
+      if (cand > best) {
+        best = cand;
+        S = s;
+        W = w;
+        stages = st;
+      }
+    }
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  picked[key] = std::make_tuple(S, W, stages);
+  return cudaSuccess;
+}
+
+// Launch, or with `shape` given, only write the (S, W, stages) the launch
+// would take there
+template <int SRC, typename T, int DPL, int DK>
+int launch_split(SplitArgs a, int B, cudaStream_t stream, int* shape) {
+  auto kernel = kernel_of<SRC, T, DPL, DK>();
+  const int G = a.H / a.KV, rows = B * a.KV * a.NG;
+  const int ntiles = (a.L + kTile - 1) / kTile;
+  // the largest shared memory any S needs (the bits and live lists shrink
+  // as S grows), so that the query and the launch agree
+  auto smem = [&](int W, int stages) {
+    return smem_bytes<SRC, T>(W, stages, G, a.D, ntiles, DK > 0);
+  };
+  int S = 1, W = 1, stages = 1;
+  const cudaError_t e =
+      pick_shape(kernel, rows, ntiles, G, a.D, max_warps(SRC), smem, S, W, stages);
+  if (e != cudaSuccess) return (int)e;
+  if (shape) {
+    shape[0] = S;
+    shape[1] = W;
+    shape[2] = stages;
+    return 0;
+  }
+  a.tiles_per_split = (ntiles + S - 1) / S;
+  a.stages = stages;
+  return (int)launch_cluster(kernel, a, S, a.KV * a.NG, B, 32 * W, smem(W, stages), stream);
+}
+
+template <int SRC, typename T>
+int dispatch(SplitArgs a, int B, cudaStream_t stream, int* shape) {
+  const int D = a.D;
+  if (B <= 0 || a.L <= 0 || a.KV <= 0 || a.H % a.KV != 0 || D <= 0 || D > 256 ||
       (D * (int)sizeof(T)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  const int ntiles = (L + kTile - 1) / kTile;
-  const size_t tile_bytes = (size_t)2 * kTile * row_stride<T>(D) * sizeof(T);
-  const int W = (int)std::max<size_t>(1, std::min<size_t>(kMaxWarps, kTileBudget / tile_bytes));
-  DecodeArgs a{q, k, v, static_cast<const int*>(spos), static_cast<const int*>(qpos),
-               out, lse, H, KV, L, D, (G + kHeads - 1) / kHeads, 0, scale};
+  a.NG = (a.H / a.KV + kHeads - 1) / kHeads;
   if constexpr (sizeof(T) == 2) {   // bf16: the tensor cores where D allows
-    if (D % 16 == 0 && D <= 64) return launch_kernel<T, 2, 64>(a, B, ntiles, W, stream);
-    if (D % 16 == 0 && D <= 128) return launch_kernel<T, 4, 128>(a, B, ntiles, W, stream);
+    if (D % 16 == 0 && D <= 64) return launch_split<SRC, T, 2, 64>(a, B, stream, shape);
+    if (D % 16 == 0 && D <= 128) return launch_split<SRC, T, 4, 128>(a, B, stream, shape);
   }
-  if (D <= 64) return launch_kernel<T, 2, 0>(a, B, ntiles, W, stream);
-  if (D <= 128) return launch_kernel<T, 4, 0>(a, B, ntiles, W, stream);
-  return launch_kernel<T, 8, 0>(a, B, ntiles, W, stream);
+  if (D <= 64) return launch_split<SRC, T, 2, 0>(a, B, stream, shape);
+  if (D <= 128) return launch_split<SRC, T, 4, 0>(a, B, stream, shape);
+  return launch_split<SRC, T, 8, 0>(a, B, stream, shape);
+}
+
+template <int SRC>
+int run(int dtype, const SplitArgs& a, int B, void* stream, int* shape) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return dispatch<SRC, float>(a, B, s, shape);
+    case kBFloat16:
+      return dispatch<SRC, __nv_bfloat16>(a, B, s, shape);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -304,16 +522,35 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
                                       const void* qpos, void* out, int B, int H,
                                       int KV, int L, int D, float scale, void* lse,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  switch (dtype) {
-    case repro::kFloat32:
-      return launch<float>(q, k, v, spos, qpos, out, l, B, H, KV, L, D, scale, s);
-    case repro::kBFloat16:
-      return launch<__nv_bfloat16>(q, k, v, spos, qpos, out, l, B, H, KV, L, D, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const SplitArgs a{q, k, nullptr, v, static_cast<const int*>(spos),
+                    static_cast<const int*>(qpos), out, static_cast<float*>(lse),
+                    H, KV, L, D, 0, 0, 1, scale};
+  return run<kFromQK>(dtype, a, B, stream, nullptr);
+}
+
+// Kernel (b), launch 2.  scores (B, H, L) float32 summed over the ranks;
+// v (B, L, KV, D) of `dtype`; spos (B, L) int32; qpos (B,) int32; out (B,
+// H, D) of `dtype`.  All contiguous, 16-byte aligned.
+extern "C" int repro_decode_attention_hd_out(int dtype, const void* scores, const void* v,
+                                             const void* spos, const void* qpos, void* out,
+                                             int B, int H, int KV, int L, int D,
+                                             void* stream) {
+  const SplitArgs a{nullptr, nullptr, static_cast<const float*>(scores), v,
+                    static_cast<const int*>(spos), static_cast<const int*>(qpos), out,
+                    nullptr, H, KV, L, D, 0, 0, 1, 1.f};
+  return run<kFromScores>(dtype, a, B, stream, nullptr);
+}
+
+// The (splits, warps, stages) that the launch of kernel 2 and (a) (hd_out
+// 0) or of (b)'s launch 2 (hd_out 1) takes at these shapes, written to
+// shape[0..2] without launching.  Returns the CUDA error code (0 on
+// success).
+extern "C" int repro_decode_attention_shape(int dtype, int hd_out, int B, int H, int KV,
+                                            int L, int D, int* shape) {
+  const SplitArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    H, KV, L, D, 0, 0, 1, 1.f};
+  return hd_out ? run<kFromScores>(dtype, a, B, nullptr, shape)
+                : run<kFromQK>(dtype, a, B, nullptr, shape);
 }
 
 // ---- kernel (b): decode attention with head_dim split over ranks ----------
@@ -334,24 +571,17 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
 // decode_attention_hd_out_ref (the einsums of repro/models/layers.py
 // decode_attention on the slices).
 //
-// Design (simple first).  Scores: grid (ceil(L / 128), KV, B), a thread a
+// Design.  Scores (simple first): grid (ceil(L / 128), KV, B), a thread a
 // slot, the kv head's G query heads staged in shared memory as fp32 times the
 // scale (broadcast reads); each thread reads its K row in 16-byte vectors
 // and keeps kHeads partial dots in registers (more heads: another pass over
-// the row, from L1).  Output: grid (ceil(D / 16), KV, B), 256 threads as 16
-// slot lanes x 16 columns; the block takes its heads' max and sum over the
-// valid slots (block reductions over the scores, which every column block
-// of a kv head reads again from L2), then, for kHeads heads at a time,
-// stages P of 256 slots in shared memory and accumulates P.V, 16 columns of
-// a slot being one 32-byte sector in bf16; the 16 slot lanes' partials add
-// up in a fixed order.  No atomics: the same sums in every run.
+// the row, from L1).  Output: the split body above (decode_hd_out_kernel,
+// kFromScores): the slots of a (row, kv head) over the S blocks of a
+// cluster, one online softmax for the group's heads, the splits merged in
+// rank order.  No atomics: the same sums in every run.
 namespace {
 
 constexpr int kScoreThreads = 128;   // slots a score block, one a thread
-constexpr int kOutCols = 16;         // head_dim columns an output block
-constexpr int kOutLanes = 16;        // slot lanes an output block
-constexpr int kOutThreads = kOutCols * kOutLanes;
-constexpr int kOutTile = 256;        // slots whose P is staged at a time
 
 struct HdScoreArgs {
   const void* q;
@@ -397,112 +627,6 @@ __global__ void __launch_bounds__(kScoreThreads) decode_hd_scores_kernel(HdScore
   }
 }
 
-struct HdOutArgs {
-  const float* scores;
-  const void* v;
-  const int* spos;
-  const int* qpos;
-  void* out;
-  int H, KV, L, D;
-};
-
-// the block's reduction of one value a thread (max or sum), every thread
-// gets the result; `red` holds a float a warp
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float x, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  x = kMax ? warp_max(x) : warp_sum(x);
-  __syncthreads();   // red is free (a previous reduction's readers are done)
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float r = kMax ? -INFINITY : 0.f;
-  for (int w = 0; w < (int)blockDim.x / 32; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kOutThreads) decode_hd_out_kernel(HdOutArgs a) {
-  extern __shared__ __align__(16) float sm[];
-  const int kv = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.KV, D = a.D, L = a.L;
-  float* mg = sm;                          // G: each head's max over valid slots
-  float* wg = mg + G;                      // G: 1 / sum, or 1 / L (no valid slot)
-  float* red = wg + G;                     // a float a warp
-  float* ps = red + kOutThreads / 32;      // kHeads x kOutTile
-  float* part = ps + kHeads * kOutTile;    // kOutLanes x kHeads x kOutCols
-  const float* s = a.scores + ((size_t)b * a.H + (size_t)kv * G) * L;
-  const int* sp = a.spos + (size_t)b * L;
-  const int qp = a.qpos[b];
-  auto valid = [&](int l) {
-    const int p = sp[l];
-    return p >= 0 && p <= qp;
-  };
-  // 1. each head's max and sum over the valid slots
-  for (int g = 0; g < G; ++g) {
-    float m = -INFINITY;
-    for (int l = threadIdx.x; l < L; l += blockDim.x)
-      if (valid(l)) m = fmaxf(m, s[(size_t)g * L + l]);
-    m = block_reduce<true>(m, red);
-    float z = 0.f;
-    if (m != -INFINITY)
-      for (int l = threadIdx.x; l < L; l += blockDim.x)
-        if (valid(l)) z += expf(s[(size_t)g * L + l] - m);
-    z = block_reduce<false>(z, red);
-    if (threadIdx.x == 0) {
-      mg[g] = m;
-      wg[g] = m == -INFINITY ? 1.f / (float)L : 1.f / z;
-    }
-  }
-  __syncthreads();
-  // 2. P.V over the block's columns, kHeads heads at a time
-  const int col = threadIdx.x % kOutCols, sl = threadIdx.x / kOutCols;
-  const int d = blockIdx.x * kOutCols + col;
-  const T* vcol = static_cast<const T*>(a.v) + ((size_t)b * L * a.KV + kv) * D + d;
-  const size_t slot_stride = (size_t)a.KV * D;
-  for (int g0 = 0; g0 < G; g0 += kHeads) {
-    const int gn = min(kHeads, G - g0);
-    float acc[kHeads];
-#pragma unroll
-    for (int g = 0; g < kHeads; ++g) acc[g] = 0.f;
-    for (int t0 = 0; t0 < L; t0 += kOutTile) {
-      const int tn = min(kOutTile, L - t0);
-      __syncthreads();   // the previous tile's P is read
-      for (int i = threadIdx.x; i < gn * kOutTile; i += blockDim.x) {
-        const int g = i / kOutTile, r = i - g * kOutTile, l = t0 + r;
-        float p = 0.f;
-        if (r < tn) {
-          const float m = mg[g0 + g];
-          if (m == -INFINITY) p = wg[g0 + g];
-          else if (valid(l)) p = expf(s[(size_t)(g0 + g) * L + l] - m) * wg[g0 + g];
-        }
-        ps[g * kOutTile + r] = p;
-      }
-      __syncthreads();
-      if (d < D) {
-        for (int r = sl; r < tn; r += kOutLanes) {
-          const float vf = to_f(vcol[(size_t)(t0 + r) * slot_stride]);
-#pragma unroll
-          for (int g = 0; g < kHeads; ++g)
-            if (g < gn) acc[g] = fmaf(ps[g * kOutTile + r], vf, acc[g]);
-        }
-      }
-    }
-    // the slot lanes' partials, added in lane order
-#pragma unroll
-    for (int g = 0; g < kHeads; ++g) part[(sl * kHeads + g) * kOutCols + col] = acc[g];
-    __syncthreads();
-    if (sl == 0 && d < D) {
-      for (int g = 0; g < gn; ++g) {
-        float x = 0.f;
-        for (int r = 0; r < kOutLanes; ++r) x += part[(r * kHeads + g) * kOutCols + col];
-        static_cast<T*>(a.out)[((size_t)b * a.H + (size_t)kv * G + g0 + g) * D + d] =
-            from_f<T>(x);
-      }
-    }
-    __syncthreads();   // part is free for the next heads
-  }
-}
-
 template <typename T>
 int launch_hd_scores(const void* q, const void* k, float* scores, int B, int H, int KV,
                      int L, int D, float scale, cudaStream_t stream) {
@@ -515,20 +639,6 @@ int launch_hd_scores(const void* q, const void* k, float* scores, int B, int H, 
   HdScoreArgs a{q, k, scores, H, KV, L, D, scale};
   kernel<<<dim3((L + kScoreThreads - 1) / kScoreThreads, KV, B), kScoreThreads, smem,
            stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_hd_out(const float* scores, const void* v, const int* spos, const int* qpos,
-                  void* out, int B, int H, int KV, int L, int D, cudaStream_t stream) {
-  if (B <= 0 || L <= 0 || KV <= 0 || D <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  auto kernel = decode_hd_out_kernel<T>;
-  const size_t smem = sizeof(float) * ((size_t)2 * (H / KV) + kOutThreads / 32 +
-                                       kHeads * kOutTile + kOutLanes * kHeads * kOutCols);
-  cudaError_t e = allow_smem_once(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  HdOutArgs a{scores, v, spos, qpos, out, H, KV, L, D};
-  kernel<<<dim3((D + kOutCols - 1) / kOutCols, KV, B), kOutThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -547,27 +657,6 @@ extern "C" int repro_decode_attention_hd_scores(int dtype, const void* q, const 
       return launch_hd_scores<float>(q, k, sc, B, H, KV, L, D, scale, s);
     case repro::kBFloat16:
       return launch_hd_scores<__nv_bfloat16>(q, k, sc, B, H, KV, L, D, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Kernel (b), launch 2.  scores (B, H, L) float32 summed over the ranks;
-// v (B, L, KV, D) of `dtype`; spos (B, L) int32; qpos (B,) int32; out (B,
-// H, D) of `dtype`.  All contiguous.
-extern "C" int repro_decode_attention_hd_out(int dtype, const void* scores, const void* v,
-                                             const void* spos, const void* qpos, void* out,
-                                             int B, int H, int KV, int L, int D,
-                                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scores);
-  const int* sp = static_cast<const int*>(spos);
-  const int* qp = static_cast<const int*>(qpos);
-  switch (dtype) {
-    case repro::kFloat32:
-      return launch_hd_out<float>(sc, v, sp, qp, out, B, H, KV, L, D, s);
-    case repro::kBFloat16:
-      return launch_hd_out<__nv_bfloat16>(sc, v, sp, qp, out, B, H, KV, L, D, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

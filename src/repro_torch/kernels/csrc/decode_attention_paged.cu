@@ -90,6 +90,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using split::for_tile_chunks;
 using split::kHeads;
 using split::kTile;
 constexpr int kMaxWarps = 4;
@@ -147,20 +148,6 @@ __device__ __forceinline__ void dequant16(__nv_bfloat16* dst, const uint4& w, fl
   }
   reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
   reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
-}
-
-// fn(r, c) for the (row, 16-byte chunk) pairs of a kTile-row tile with
-// `chunks` chunks a row that this lane handles; every lane makes the same
-// number of calls (fn may shuffle), and when 32 % chunks == 0 (the SQL
-// paths' head dims) a lane keeps one chunk column and needs no division
-template <typename F>
-__device__ __forceinline__ void for_tile_chunks(int chunks, int lane, F fn) {
-  if (32 % chunks == 0) {
-    const int step = 32 / chunks, c = lane % chunks;
-    for (int r = lane / chunks; r < kTile; r += step) fn(r, c);
-  } else {
-    for (int i = lane; i < kTile * chunks; i += 32) fn(i / chunks, i % chunks);
-  }
 }
 
 // K/V stages of a warp: A issues its next tile while it computes the
@@ -422,11 +409,10 @@ __device__ __forceinline__ void paged_split(const Args& a) {
 
   // 4. the warps' partials into the block's, then the splits' in rank order
   //    (some split always has a valid slot: a uniform row makes every slot
-  //    valid, so the empty case below never runs)
+  //    valid)
   __syncthreads();
   split::merge_warps(wpart, PW, W, Gh, D, bacc, bm, bl);
-  split::merge_splits(cluster, bm, bl, bacc, Gh, D, static_cast<T*>(a.out) + head0 * D,
-                      [](int) { return 0.f; });
+  split::merge_splits(cluster, bm, bl, bacc, Gh, D, static_cast<T*>(a.out) + head0 * D);
 }
 
 template <typename T, int DPL, int DK>

@@ -283,6 +283,72 @@ def test_decode_attention_hd_kernels_match_plain(cuda, case, dtype):
             atol=tol, rtol=tol)
 
 
+#: the split designs of (a) and (b)'s second launch: chip_smoke.py's
+#: yardstick shapes (a (2, 2) rank of mixtral-8x22b's decode: B 2, 48 heads
+#: on 8; (a) 2048 slots of 128, (b) 4096 slots of 64 columns), L under one
+#: 32-slot tile, L no multiple of 32, G over 8 (two head groups), a head dim
+#: off the tensor cores
+DECODE_SPLIT_RANK_CASES = {
+    "mixtral_lc": (2, 48, 8, 128, 2048),
+    "mixtral_hd": (2, 48, 8, 64, 4096),
+    "L20": (3, 8, 2, 64, 20),
+    "L333_g12": (3, 24, 2, 64, 333),
+    "g12_d24": (3, 24, 2, 24, 100),
+}
+
+
+def _split_rank_case(case, dtype, cuda, empty):
+    """decode_case's ring; `empty` "last_row": the last row has no valid
+    slot, "all_rows": no row has one."""
+    B, H, KV, D, L = DECODE_SPLIT_RANK_CASES[case]
+    q, kc, vc, spos, qpos = (t(a).to(cuda) for a in
+                             decode_case(23, B, H, KV, D, L))
+    if empty == "all_rows":
+        spos[:] = -1
+    else:
+        spos[-1] = -1
+    return q.to(dtype), kc.to(dtype), vc.to(dtype), spos, qpos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty", ["last_row", "all_rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(DECODE_SPLIT_RANK_CASES))
+def test_decode_attention_lse_split_edges(cuda, case, dtype, empty):
+    """Kernel (a) against its plain version where rows have no valid slot
+    (their output the mean of V read at bandwidth, their lse -inf); two
+    calls equal to the bit."""
+    args = _split_rank_case(case, dtype, cuda, empty)
+    out, lse = ops.decode_attention_lse(*args)
+    r, rl = ref.decode_attention_lse_ref(*args)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    assert torch.isneginf(lse[-1]).all()
+    again = ops.decode_attention_lse(*args)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty", ["last_row", "all_rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(DECODE_SPLIT_RANK_CASES))
+def test_decode_attention_hd_out_split_edges(cuda, case, dtype, empty):
+    """Kernel (b)'s second launch against its plain version over scores of
+    chip_smoke.py's spread (3 x a standard normal), rows with no valid slot
+    included; two calls equal to the bit."""
+    _, _, vc, spos, qpos = _split_rank_case(case, dtype, cuda, empty)
+    B, H = spos.shape[0], DECODE_SPLIT_RANK_CASES[case][1]
+    scores = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        (B, H, spos.shape[1]), np.float32) * 3).to(cuda)
+    out = ops.decode_attention_hd_out(scores, vc, spos, qpos)
+    r = ref.decode_attention_hd_out_ref(scores, vc, spos, qpos)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+    assert torch.equal(out, ops.decode_attention_hd_out(scores, vc, spos,
+                                                        qpos))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("temperature", [0.0, 0.7])
 @pytest.mark.parametrize("V", [50432, 152064, 65024, 32001])

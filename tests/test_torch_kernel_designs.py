@@ -1,4 +1,4 @@
-"""The arithmetic of two Hopper kernel designs, written out as plain torch
+"""The arithmetic of the Hopper kernel designs, written out as plain torch
 and held against the JAX package on the same numpy inputs (float32, CPU).
 
 * ``chunked_scan``: the prefill of ``kernels/csrc/selective_scan.cu`` --
@@ -24,6 +24,21 @@ and held against the JAX package on the same numpy inputs (float32, CPU).
   the others, ROADMAP queue 3) and against the jnp function the SQL engine
   runs and the port's plain version, with such holes and with idle rows.
   Tolerance 2e-5 (sums in another order), as tests/test_torch_paged.py.
+* ``split_decode_lse`` and ``split_hd_out``: kernels (a) and (b)'s second
+  launch in ``kernels/csrc/decode_attention.cu`` (kernel 2's body) -- a
+  (row, kv head)'s slots cut into S contiguous splits of whole 32-slot
+  tiles, each split's tiles with a valid slot dealt to W warps, each warp's
+  online softmax for the group's heads (8 at most; more take another
+  group) over q . K / sqrt(D) for (a) or the scores summed over the ranks
+  for (b), the warps merged per split and the splits in rank order; a row
+  with no valid slot in the whole range runs every slot with uniform
+  weights (the mean of V) and (a)'s lse is -inf.  Held against JAX's
+  ``decode_attention`` over the whole head_dim (b's two ranks' columns put
+  together) and over the whole ring (a's two ranks' halves combined by
+  ``_combine_slot_splits``' formula), and each rank against the port's
+  plain version: S 1 to 8, G 1 to 12, L under a tile and no multiple of
+  32, wrapped rings, an empty row and a batch with no valid slot.
+  Tolerance 2e-5, as the paged models.
 * ``split_heads_dkdv``: the dK/dV launch of
   ``kernels/csrc/flash_attention_bwd.cu`` -- a kv head's G query heads
   split over S blocks of a cluster, block r summing the partial dk and dv
@@ -80,11 +95,11 @@ from repro.kernels.selective_scan import selective_scan_pallas
 from repro.models import layers as JL
 from repro.models import mamba as JMB
 from repro_torch.kernels import ref
-from test_torch_cuda import paged_scenario
+from test_torch_cuda import _wrapped_ring, paged_scenario
 from test_torch_flash_bwd import jax_vjp
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
-from torch_cases import (MASKS, paged_case, prefill_case, quantize_pool,
-                         scan_case, t as _t)
+from torch_cases import (MASKS, decode_case, paged_case, prefill_case,
+                         quantize_pool, scan_case, t as _t)
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -455,6 +470,174 @@ def test_split_paged_decode_fp_ragged_matches_pallas(S):
             jnp.asarray(table), jnp.asarray(qpos))
     pallas = JOPS.decode_attention_paged(*args, head_dim=32, interpret=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(pallas),
+                               atol=PAGED_TOL, rtol=PAGED_TOL)
+
+
+# ----------------------- the serving mesh's decode: (a), (b) -----------------------
+def _split_softmax(score_of, G, V, valid, S, W):
+    """decode_attention.cu's split body over one (row, group of <= 8 query
+    heads): L slots of V (L, D) cut into 32-slot tiles, S splits owning
+    ceil(tiles / S) contiguous tiles each, each split's tiles with a valid
+    slot dealt to W warps in list order, each warp's online softmax over its
+    tiles, the warps merged per split and the splits in rank order.
+    score_of(slots) gives the group's scaled scores there.  When no slot of
+    the row is valid, every slot is, scoring 0 (the uniform softmax: the
+    mean of V), and the lse is -inf.  Returns (out (G, D), lse (G,))."""
+    L, D = V.shape
+    uniform = not bool(valid.any())
+    if uniform:
+        valid = torch.ones(L, dtype=torch.bool)
+    ntiles = -(-L // TILE)
+    tps = -(-ntiles // S)
+    splits = []
+    for rank in range(S):
+        tiles = range(min(ntiles, rank * tps), min(ntiles, (rank + 1) * tps))
+        live = [t for t in tiles if valid[t * TILE:(t + 1) * TILE].any()]
+        warps = []
+        for w in range(W):
+            m = torch.full((G,), -math.inf)
+            l, acc = torch.zeros(G), torch.zeros(G, D)
+            for t in live[w::W]:
+                sl = slice(t * TILE, min(L, (t + 1) * TILE))
+                s = (torch.zeros(G, sl.stop - sl.start) if uniform
+                     else score_of(sl))
+                s = torch.where(valid[sl][None], s, -math.inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[:, None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[:, None] + p @ V[sl]
+                m = m_new
+            warps.append((m, l, acc))
+        splits.append(_merge(warps))
+    M, lt, x = _merge(splits)
+    lse = torch.full((G,), -math.inf) if uniform else M + torch.log(lt)
+    return x / lt[:, None], lse
+
+
+def _split_rows(score_of, B, H, KV, V, spos, qpos, S, W):
+    """_split_softmax for every (row, kv head, group of kHeads = 8 query
+    heads); score_of(b, heads, kv, slots).  Returns (out (B, H, D), lse)."""
+    G, D = H // KV, V.shape[-1]
+    out, lse = torch.empty(B, H, D), torch.empty(B, H)
+    for b in range(B):
+        valid = (spos[b] >= 0) & (spos[b] <= qpos[b])
+        for kv in range(KV):
+            for g0 in range(0, G, 8):
+                h = slice(kv * G + g0, kv * G + min(G, g0 + 8))
+                out[b, h], lse[b, h] = _split_softmax(
+                    functools.partial(score_of, b, h, kv), h.stop - h.start,
+                    V[b, :, kv], valid, S, W)
+    return out, lse
+
+
+def split_decode_lse(q, k, v, spos, qpos, S, W=4):
+    """Kernel (a): kernel 2's split body over a rank's slot range, scores
+    q . k / sqrt(D), with each head's lse.  Returns (out, lse)."""
+    B, H, D = q.shape
+    return _split_rows(lambda b, h, kv, sl: q[b, h] @ k[b, sl, kv].T
+                       / math.sqrt(D), B, H, k.shape[2], v, spos, qpos, S, W)
+
+
+def split_hd_out(scores, v, spos, qpos, S, W=8):
+    """Kernel (b)'s launch 2: the same body over the scores summed over the
+    ranks (B, H, L), already scaled, and the rank's columns of V."""
+    B, H, _ = scores.shape
+    return _split_rows(lambda b, h, kv, sl: scores[b, h, sl], B, H,
+                       v.shape[2], v, spos, qpos, S, W)[0]
+
+
+def combine_slot_splits(outs, lses):
+    """repro_torch.models.model._combine_slot_splits' formula over the
+    ranks' (out, lse): sum_r e^(lse_r - max) out_r / sum_r e^(lse_r - max),
+    a rank with lse -inf weighing 0; where every rank's is -inf, the mean."""
+    os_, ls = torch.stack(outs), torch.stack(lses)
+    top = ls.max(0).values
+    w = torch.where(torch.isneginf(ls), 0.0, torch.exp(ls - top))
+    w = torch.where(torch.isneginf(top)[None], 1.0, w)
+    return (w[..., None] * os_).sum(0) / w.sum(0)[..., None]
+
+
+#: (B, H, KV, D, L, layout): the ring as decode_case lays it out or
+#: wrapped; the last row of B > 2 has no valid slot.  G 1, 6 (mixtral's), 8
+#: and 12 (two head groups); L of 20 (< one tile), 77, 130 and 300 (no
+#: multiple of 32); D splits over 2 ranks for (b), L for (a)
+RANK_CASES = {
+    "g6_L300": (3, 12, 2, 16, 300, None),
+    "g1_L78": (2, 4, 4, 16, 78, None),
+    "g8_wrapped": (3, 16, 2, 16, 130, "wrapped"),
+    "g12_wrapped": (3, 24, 2, 16, 100, "wrapped"),
+    "L20": (3, 8, 2, 16, 20, None),
+    "all_empty": (2, 12, 2, 16, 70, "empty"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_case(case):
+    """The case's numpy inputs and JAX's decode_attention over them."""
+    B, H, KV, D, L, layout = RANK_CASES[case]
+    q, k, v, spos, qpos = decode_case(40 + len(case), B, H, KV, D, L)
+    if layout == "wrapped":
+        q, k, v, spos, qpos = _wrapped_ring(q, k, v, spos, qpos)
+    if layout == "empty":
+        spos[:] = -1
+    elif B > 2:
+        spos[-1] = -1
+    arrays = tuple(np.ascontiguousarray(a) for a in (q, k, v, spos, qpos))
+    want = np.asarray(JL.decode_attention(*map(jnp.asarray, arrays)))
+    return arrays, want
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(RANK_CASES))
+def test_split_hd_out_matches_jax(case, S):
+    """Kernel (b) on 2 ranks of head_dim: the partial scores summed, then
+    each rank's split softmax and P.V over its columns; the columns put
+    together are JAX's decode_attention over the whole head_dim, and each
+    rank's the port's plain version."""
+    arrays, want = _rank_case(case)
+    q, k, v, spos, qpos = map(_t, arrays)
+    D = q.shape[-1]
+    cols = [slice(0, D // 2), slice(D // 2, D)]
+    scores = sum(ref.decode_attention_hd_scores_ref(
+        q[..., c].contiguous(), k[..., c].contiguous(), 1 / math.sqrt(D))
+        for c in cols)
+    outs = []
+    for c in cols:
+        vr = v[..., c].contiguous()
+        out = split_hd_out(scores, vr, spos, qpos, S)
+        np.testing.assert_allclose(
+            out.numpy(), ref.decode_attention_hd_out_ref(
+                scores, vr, spos, qpos).numpy(), atol=PAGED_TOL,
+            rtol=PAGED_TOL)
+        outs.append(out)
+    np.testing.assert_allclose(torch.cat(outs, -1).numpy(), want,
+                               atol=PAGED_TOL, rtol=PAGED_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(RANK_CASES))
+def test_split_decode_lse_matches_jax(case, S):
+    """Kernel (a) on 2 ranks of the slots: each rank's split body over its
+    half of the ring (an empty half: lse -inf, the mean of its V) is the
+    port's plain version, and the halves combined by _combine_slot_splits'
+    formula are JAX's decode_attention over the whole ring."""
+    arrays, want = _rank_case(case)
+    q, k, v, spos, qpos = map(_t, arrays)
+    L = k.shape[1]
+    outs, lses = [], []
+    for sl in (slice(0, L // 2), slice(L // 2, L)):
+        part = (q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                spos[:, sl].contiguous(), qpos)
+        out, lse = split_decode_lse(*part, S)
+        r_out, r_lse = ref.decode_attention_lse_ref(*part)
+        np.testing.assert_allclose(out.numpy(), r_out.numpy(),
+                                   atol=PAGED_TOL, rtol=PAGED_TOL)
+        np.testing.assert_allclose(lse.numpy(), r_lse.numpy(),
+                                   atol=PAGED_TOL, rtol=PAGED_TOL)
+        outs.append(out)
+        lses.append(lse)
+    np.testing.assert_allclose(combine_slot_splits(outs, lses).numpy(), want,
                                atol=PAGED_TOL, rtol=PAGED_TOL)
 
 
