@@ -10,6 +10,7 @@
         --compare-bwd build/parent/src/repro_torch/kernels/csrc
     python3 chip_smoke.py --only dist      # the build and phase 7 only
     python3 chip_smoke.py --only serve     # the build and phase 8 only
+    python3 chip_smoke.py --only serve_b1  # the build and phase 8's batch 1
 
 Phases, each reported on its own lines:
 
@@ -167,10 +168,24 @@ Phases, each reported on its own lines:
    the deepest depth that fits, 32 decode steps in each of hd, lc and
    resident, per rank the prefill time, decode ms a token, tokens/s, peak
    and state GiB, collective bytes and the idle share of one profiled
-   step, then the sequence-parallel prefill.  Kernels (a) and (b) are
-   checked in phase 2 at a (2, 2) rank's share of that decode.  The 1 x 1
-   mesh's launches are the ``serve`` path, rank 0's of the spawned ranks
-   ``serve_ranks``;
+   step, then the sequence-parallel prefill, then the same at batch 1
+   (``SERVE_B1_DEEP``: the banded B 1 x 8192 prefill and 32 decode steps
+   in hd, lc and resident; rank 0's launches the ``serve_b1_deep`` path).
+   Then a batch that does not split over the data axes (``SERVE_B1``,
+   JAX's long_500k decode layout: every data rank holds the row, the
+   cache's slots split over the data axes): hymba-1.5b at full width and
+   depth in bf16, B 1 x 8192 (its 1024-slot ring wraps 8 times), the
+   prefill and 32 decode steps in each of hd, lc with per_row_write, kv
+   and resident on (2, 2) (four ranks sharing card 0 over gloo with one
+   card, one a card over NCCL with four), then falcon-mamba-7b at 2 layers
+   on (2, 1), each step against the one-device step in bf16 and float32
+   (SERVE_TOL), per rank the prefill s, decode ms a token, peak GiB and
+   collective bytes a step; rank 0's launches the ``serve_b1`` path.
+   Kernels (a) and (b) are checked in phase 2 at a (2, 2) rank's share of
+   the deep decode, and (b) at the batch-1 ranks' shares (hymba-1.5b's 512
+   slots x 32 columns, mixtral-8x22b's 2048 x 64), its output launch with
+   each head's lse there.  The 1 x 1 mesh's launches are the ``serve``
+   path, rank 0's of the spawned ranks ``serve_ranks``;
 9. a JSON line with every kernel's numbers at the dtype its path gives it,
    then the last line ``{"ok": true, "device": {...}}``.
 
@@ -178,7 +193,9 @@ Each phase prints the script's elapsed time as it starts.  Any failed
 check raises, so the script exits non-zero and prints no last line.  Without a GPU it exits 2 at once.  ``--only`` runs phases 1 and 2
 for the named kernels, prints their JSON line and stops, without the last
 line (for comparing kernel versions on one card in one call); ``--only
-dist`` runs the build and phase 7, ``--only serve`` the build and phase 8.
+dist`` runs the build and phase 7, ``--only serve`` the build and phase 8,
+``--only serve_b1`` the build and phase 8's batch-1 runs (SERVE_B1),
+``--only serve_b1_deep`` (four cards) the batch-1 mixtral run alone.
 """
 from __future__ import annotations
 
@@ -332,6 +349,23 @@ def path_shapes(cfg) -> dict:
     if cfg.name in TRAIN and cfg.has_ssm:
         out["selective_scan_bwd"] = dict(TRAIN[cfg.name], Di=cfg.d_inner,
                                          N=cfg.ssm_state)
+    return out
+
+
+def b1_rank_shapes(C) -> dict:
+    """Kernel (b)'s shapes on a (2, 2) rank of phase 8's batch-1 decode
+    (``SERVE_B1``, ``SERVE_B1_DEEP``): one row, the ring's slots (min(cache,
+    window): 1024 and 4096) over `data` and head_dim over `model`, keyed
+    "<arch> b1"."""
+    out = {}
+    for arch in B1_RANK_ARCHS:
+        cfg = C.get_config(arch)
+        cache = SERVE_B1["S"] + SERVE_B1["steps"]
+        ring = min(cache, cfg.sliding_window or cache)
+        shp = dict(B=1, L=ring // 2, H=cfg.padded_heads, KV=cfg.num_kv_heads,
+                   D=cfg.head_dim // 2)
+        out[f"{arch} b1"] = {"decode_attention_hd_scores": shp,
+                             "decode_attention_hd_out": shp}
     return out
 
 
@@ -546,23 +580,28 @@ def check_decode(ops, ref, dtype, gen, shape):
 def _rank_decode_inputs(gen, dtype, shape, nbytes_of):
     """Rotating input sets of a rank's decode attention at `shape` (B, L,
     H, KV, D: a rank's rows, slots and head_dim columns): rows filled to
-    L/2..L, the last row empty; and the positions."""
+    L/2..L, the last row empty where there is more than one (at batch 1 the
+    one row is the main path's: filled); the valid slots, and the slots of
+    the rows with none (whose output, the mean of V, reads every V row);
+    nbytes_of(valid, empty) the bytes the launch moves."""
     B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
     dev = "cuda"
     fills = torch.randint(L // 2, L + 1, (B,), generator=gen, device=dev)
     spos = torch.arange(L, device=dev, dtype=torch.int32).repeat(B, 1)
     spos[spos >= fills[:, None]] = -1
-    spos[-1] = -1
+    if B > 1:
+        spos[-1] = -1
     qpos = (fills - 1).to(torch.int32)
     valid = (spos >= 0).sum().item()
-    nbytes = nbytes_of(valid)
+    empty = L * ((spos >= 0).sum(1) == 0).sum().item()
+    nbytes = nbytes_of(valid, empty)
     sets = []
     for _ in range(rotations(nbytes)):
         q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
         kc = torch.randn(B, L, KV, D, generator=gen, device=dev).to(dtype)
         vc = torch.randn(B, L, KV, D, generator=gen, device=dev).to(dtype)
         sets.append((q, kc, vc, spos, qpos))
-    return sets, valid, nbytes
+    return sets, valid, empty, nbytes
 
 
 def check_decode_lse(ops, ref, dtype, gen, shape):
@@ -570,10 +609,10 @@ def check_decode_lse(ops, ref, dtype, gen, shape):
     of a cache split over its length (the lc decode mode)."""
     B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
     s = torch.tensor([], dtype=dtype).element_size()
-    sets, valid, nbytes = _rank_decode_inputs(
-        gen, dtype, shape, lambda valid: 2 * B * H * D * s + B * H * 4
-        + 2 * valid * KV * D * s + B * L * 4 + B * 4)
-    b_ms, b_by = bound(nbytes, 4 * valid * H * D, dtype)
+    sets, valid, empty, nbytes = _rank_decode_inputs(
+        gen, dtype, shape, lambda valid, empty: 2 * B * H * D * s + B * H * 4
+        + (2 * valid + empty) * KV * D * s + B * L * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, (4 * valid + 2 * empty) * H * D, dtype)
     out, lse = ops.decode_attention_lse(*sets[0])
     r, rl = ref.decode_attention_lse_ref(*sets[0])
     err = max((out.float() - r.float()).abs().max().item(),
@@ -613,56 +652,106 @@ def check_decode_lse(ops, ref, dtype, gen, shape):
     return r
 
 
+def hd_scores_shape(ops, dtype, shape) -> dict:
+    """The (slots a tile, warps a block, tiles a warp, stages) of kernel
+    (b)'s scores launch at `shape`, and its blocks (a query: nothing is
+    launched)."""
+    fn = ops.build()["decode_attention.cu"].repro_decode_attention_hd_scores_shape
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
+    err = fn(ops._DTYPES[dtype], B, H, KV, L, D, out)
+    if err:
+        fail(f"decode_attention_hd_scores shape query: CUDA error {err}")
+    tiles = -(-L // out[0])
+    return dict(tile=out[0], warps=out[1], tiles_per_warp=out[2],
+                stages=out[3],
+                blocks=-(-tiles // (out[1] * out[2])) * KV * B)
+
+
 def check_decode_hd_scores(ops, ref, dtype, gen, shape):
     """Kernel (b), launch 1: the partial scores of a rank's head_dim
-    columns, every slot."""
+    columns, every slot; in bf16 timed in turns with the parent's build
+    (--compare-bwd)."""
     B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
     s = torch.tensor([], dtype=dtype).element_size()
-    sets, _, nbytes = _rank_decode_inputs(
-        gen, dtype, shape, lambda valid: B * H * D * s + B * L * KV * D * s
+    sets, _, _, nbytes = _rank_decode_inputs(
+        gen, dtype, shape, lambda *_: B * H * D * s + B * L * KV * D * s
         + B * H * L * 4)
     scale = 1.0 / math.sqrt(2 * D)
     b_ms, b_by = bound(nbytes, 2 * B * L * H * D, dtype)
     args = [(q, kc, scale) for q, kc, _, _, _ in sets]
     got = ops.decode_attention_hd_scores(*args[0])
     err = (got - ref.decode_attention_hd_scores_ref(*args[0])).abs().max()
+    if not torch.equal(got, ops.decode_attention_hd_scores(*args[0])):
+        fail("decode_attention_hd_scores: two calls differ")
     G = H // KV
     lib = [((q.reshape(B, KV, G, D) * scale), kc.permute(0, 2, 3, 1))
            for q, kc, _, _, _ in sets]
-    return dict(max_abs_err=err.item(),
-                ms=time_ms(ops.decode_attention_hd_scores, args),
-                device_ms=device_ms(ops.decode_attention_hd_scores, args[0],
-                                    "decode_hd_scores_kernel"),
-                plain_ms=time_ms(ref.decode_attention_hd_scores_ref, args),
-                library_ms=time_ms(torch.matmul, lib),
-                bound_ms=b_ms, bound_by=b_by)
+    fn, name = ops.decode_attention_hd_scores, "decode_hd_scores_kernel"
+    design = hd_scores_shape(ops, dtype, shape)
+    r = dict(max_abs_err=err.item(), ms=time_ms(fn, args),
+             device_ms=device_ms(fn, args[0], name),
+             plain_ms=time_ms(ref.decode_attention_hd_scores_ref, args),
+             library_ms=time_ms(torch.matmul, lib),
+             # every kernel the product launches (cuBLAS picks them)
+             library_device_ms=device_ms(torch.matmul, lib[0], ""),
+             bound_ms=b_ms, bound_by=b_by, design=design)
+    print(f"  decode_attention_hd_scores {str(dtype)[6:]} B {B} L {L} H {H} "
+          f"KV {KV} D {D}: {design}; device_ms {fmt_ms(r['device_ms'])}, "
+          f"bmm device_ms {fmt_ms(r['library_device_ms'])}", flush=True)
+    if dtype == torch.bfloat16:
+        turns = parent_turns(ops, "decode_attention_hd_scores",
+                             f"decode_attention_hd_scores {str(dtype)[6:]} "
+                             f"B {B} L {L} D {D}", fn, args, name,
+                             ref.decode_attention_hd_scores_ref)
+        if turns:
+            r["in_turns"] = turns
+    return r
 
 
 def check_decode_hd_out(ops, ref, dtype, gen, shape):
     """Kernel (b), launch 2: the masked softmax of the summed scores and
-    P.V over a rank's head_dim columns."""
+    P.V over a rank's head_dim columns, and each head's lse (by which the
+    slot ranges of a cache split over its slots too are merged); -inf for
+    a row with no valid slot.  In bf16 timed in turns with the parent's
+    build (--compare-bwd; a parent whose launch wrote no lse is called
+    without it)."""
     B, L, H, KV, D = (shape[k] for k in ("B", "L", "H", "KV", "D"))
     s = torch.tensor([], dtype=dtype).element_size()
-    sets, valid, nbytes = _rank_decode_inputs(
-        gen, dtype, shape, lambda valid: B * H * L * 4 + valid * KV * D * s
-        + B * L * 4 + B * 4 + B * H * D * s)
-    b_ms, b_by = bound(nbytes, 2 * valid * H * D, dtype)
+    sets, valid, empty, nbytes = _rank_decode_inputs(
+        gen, dtype, shape, lambda valid, empty: B * H * L * 4
+        + (valid + empty) * KV * D * s + B * L * 4 + B * 4 + B * H * D * s
+        + B * H * 4)
+    b_ms, b_by = bound(nbytes, 2 * (valid + empty) * H * D, dtype)
     args = [(torch.randn(B, H, L, generator=gen, device="cuda") * 3, vc,
              spos, qpos) for _, _, vc, spos, qpos in sets]
-    got = ops.decode_attention_hd_out(*args[0])
-    err = (got.float() - ref.decode_attention_hd_out_ref(*args[0]).float()
-           ).abs().max()
+    fn, plain = ops.decode_attention_hd_out, ref.decode_attention_hd_out_ref
+    out, lse = fn(*args[0])
+    err = max_err((out, lse), plain(*args[0]))
+    if torch.isneginf(lse[-1]).all() != (empty > 0):
+        fail("decode_attention_hd_out: the last row's lse is "
+             f"{lse[-1, :4].tolist()}..., with {empty} slots of rows with "
+             "no valid slot")
     # softmax then a product: no single PyTorch call
-    fn, name = ops.decode_attention_hd_out, "decode_hd_out_kernel"
-    r = dict(max_abs_err=err.item(), ms=time_ms(fn, args),
+    name = "decode_hd_out_kernel"
+    r = dict(max_abs_err=err, ms=time_ms(fn, args),
              device_ms=device_ms(fn, args[0], name),
-             plain_ms=time_ms(ref.decode_attention_hd_out_ref, args),
+             plain_ms=time_ms(plain, args),
              library_ms=None, bound_ms=b_ms, bound_by=b_by,
+             valid_slots=valid, empty_row_slots=empty,
              **decode_split_shape(ops, dtype, True, shape))
+    print(f"  decode_attention_hd_out {str(dtype)[6:]} B {B} L {L} H {H} KV "
+          f"{KV} D {D}: {valid} valid slots, {empty} of empty rows; "
+          f"max_abs_err {err}, device_ms {fmt_ms(r['device_ms'])}, bound_ms "
+          f"{b_ms:.5f}", flush=True)
     if dtype == torch.bfloat16:
+        # the output alone: a parent without lse leaves it unwritten
         turns = parent_turns(ops, "decode_attention_hd_out",
-                             f"decode_attention_hd_out {str(dtype)[6:]}", fn,
-                             args, name, ref.decode_attention_hd_out_ref)
+                             f"decode_attention_hd_out {str(dtype)[6:]} B "
+                             f"{B} L {L} D {D}", lambda *a: fn(*a)[0], args,
+                             name, lambda *a: plain(*a)[0])
         if turns:
             r["in_turns"] = turns
     return r
@@ -1389,6 +1478,18 @@ PARENT_SYMBOLS = {}
 PARENT_SOURCES = ("flash_attention_bwd.cu", "gmm.cu", "selective_scan.cu",
                   "selective_scan_bwd.cu", "decode_attention.cu",
                   "decode_attention_paged.cu", "flash_attention.cu")
+#: entry points whose C function in an older parent takes one argument
+#: fewer, and the index of the argument it lacks: (b)'s output launch
+#: before it wrote each head's lse
+PARENT_WITHOUT = {"decode_attention_hd_out": 6}
+
+
+def c_params(path: str, sym: str):
+    """The number of parameters of the extern "C" function `sym` in the
+    source at `path` (None where it is not there)."""
+    with open(path) as f:
+        m = re.search(r'extern "C" int ' + sym + r"\(([^)]*)\)", f.read())
+    return None if m is None else m.group(1).count(",") + 1
 
 
 def bwd_design(ops, dtype, B, S, H, KV, D) -> dict:
@@ -1446,6 +1547,13 @@ def build_parent_bwd(ops, parent: str, alias: dict) -> None:
         fn = getattr(libs[src], sym)
         fn.argtypes = argtypes
         fn.restype = res[0] if res else ctypes.c_int
+        drop = PARENT_WITHOUT.get(name)
+        if drop is not None and c_params(os.path.join(csrc, src), sym) \
+                == len(argtypes) - 1:
+            fn.argtypes = argtypes[:drop] + argtypes[drop + 1:]
+            alias[name] = f"{sym} without argument {drop}"
+            fn = functools.partial(
+                lambda f, i, *a: f(*a[:i], *a[i + 1:]), fn, drop)
         PARENT[name] = fn
     print(f"--compare-bwd: the parent's {', '.join(PARENT_SOURCES)} built "
           f"for this call ({csrc}): {sorted(PARENT)}; aliases {alias}; "
@@ -1646,6 +1754,10 @@ BOTH = (DENSE_ARCH, MOE_ARCH)
 ALL = BOTH + (SSM_ARCH, HYBRID_ARCH)
 #: the serving configs with attention whose decode runs kernels (a) and (b)
 SERVE_KERNEL_ARCHS = ("mixtral-8x22b", DENSE_ARCH, MOE_ARCH)
+#: the configs of phase 8's batch-1 decode whose hd mode runs kernel (b)
+#: over a rank's slot range, and their shapes' keys (b1_rank_shapes)
+B1_RANK_ARCHS = (HYBRID_ARCH, "mixtral-8x22b")
+B1_RANK_KEYS = tuple(f"{a} b1" for a in B1_RANK_ARCHS)
 #: a kernel's symbols in a profile, where not "<name>_kernel"
 SYMBOL = {"flash_attention_bwd": ("flash_bwd_",),
           # kernel 6: bf16, f32
@@ -1702,10 +1814,10 @@ KERNELS = [
      SERVE_KERNEL_ARCHS),
     ("decode_attention_hd_scores", "src/repro/kernels/decode_attention.py:65",
      check_decode_hd_scores, torch.bfloat16, "decode_attention.cu",
-     "serve_ranks", SERVE_KERNEL_ARCHS),
+     "serve_ranks", SERVE_KERNEL_ARCHS + B1_RANK_KEYS),
     ("decode_attention_hd_out", "src/repro/kernels/decode_attention.py:65",
      check_decode_hd_out, torch.bfloat16, "decode_attention.cu",
-     "serve_ranks", SERVE_KERNEL_ARCHS),
+     "serve_ranks", SERVE_KERNEL_ARCHS + B1_RANK_KEYS),
 ]
 
 
@@ -2899,7 +3011,30 @@ SERVE_SHARED = ({"data": 1, "model": 2},)
 #: deepest depth whose peak (measured at SERVE_CAL layers, the layers past
 #: them added from the sharding rules) fits SERVE_FIT of the card
 SERVE_DEEP = dict(arch=MIXTRAL_ARCH, B=4, S=8192, steps=32,
-                  modes=("hd", "lc_per_row", "resident"))
+                  modes=("hd", "lc_per_row", "resident"), seq_parallel=True)
+#: a batch that does not split over the data axes (JAX's long_500k decode
+#: layout: every data rank holds the row, the cache splits its slots over
+#: them): hymba-1.5b at full width and depth in bf16, B rows of S prompt
+#: tokens (its 1024-slot ring wraps S / 1024 times) into a cache of S +
+#: steps, then `steps` decode steps in each mode, on `mesh`: four ranks
+#: sharing card 0 over gloo with one card, one a card over NCCL with four;
+#: then falcon-mamba-7b at `ssm_layers` layers on `ssm_mesh` (no KV cache:
+#: its conv and SSM states whole over `data`), `ssm_steps` decode steps a
+#: mode.  Each step against the one-device step by SERVE_TOL's rule.
+#: hymba's hd mode runs kernel (b) on a rank's 512 slots and 32 head_dim
+#: columns.  Ranks sharing a card pay ~3-5 ms a collective (gloo through
+#: the host, four processes on one card): hymba's FSDP decode modes take
+#: ~2.6-3.3 s a step there, falcon-mamba's 1.5-1.7 s (its 0.73 GB of
+#: embedding and head gathered a step), hence its 3 steps
+SERVE_B1 = dict(arch=HYBRID_ARCH, B=1, S=8192, steps=32,
+                mesh={"data": 2, "model": 2},
+                modes=("hd", "lc_per_row", "kv", "resident"),
+                ssm_arch=SSM_ARCH, ssm_layers=2, ssm_steps=3,
+                ssm_mesh={"data": 2, "model": 1})
+#: the deep run at batch 1 on 4 cards: mixtral-8x22b (its 4096-slot ring:
+#: the hd mode's kernel (b) on 2048 slots x 64 columns), the banded prefill
+#: and SERVE_DEEP's rules otherwise
+SERVE_B1_DEEP = dict(SERVE_DEEP, B=1, seq_parallel=False)
 #: the share of a card's memory (free plus PyTorch's cache, at the start of
 #: the deep run) a rank's estimated peak may take, and the depth at which
 #: the prefill's peak is measured to calibrate the estimate (on H100 80GB
@@ -2921,6 +3056,23 @@ SERVE_SEQ_FALLBACK = MOE_ARCH
 #: a near-tie of the MoE routing may send a row to another expert, so they
 #: differ by bf16's noise; a wrong shard gives an error of order 1.
 SERVE_TOL = dict(ratio=2.0, floor=2e-3)
+#: the kernels each serving path must launch: the 1 x 1 mesh's steps
+#: (``serve``), rank 0's of the spawned ranks' at 2 layers (``serve_ranks``:
+#: (a) in lc, (b) in hd), of SERVE_B1's runs (``serve_b1``: every decode
+#: layout's slots split over `data`, so kernel 2 runs nowhere, (a) in lc and
+#: kv, (b) over a slot range with its lse in hd and resident) and of the
+#: 4-card batch-1 mixtral run (``serve_b1_deep``)
+_SERVE_KERNELS = ("flash_attention", "decode_attention", "gmm",
+                  "selective_scan")
+_B1_KERNELS = ("flash_attention", "decode_attention_lse",
+               "decode_attention_hd_scores", "decode_attention_hd_out")
+SERVE_NEEDED = {
+    "serve": _SERVE_KERNELS,
+    "serve_ranks": _SERVE_KERNELS + ("decode_attention_lse",
+                                     "decode_attention_hd_scores",
+                                     "decode_attention_hd_out"),
+    "serve_b1": _B1_KERNELS + ("selective_scan",),
+    "serve_b1_deep": _B1_KERNELS + ("gmm",)}
 #: the deep decode modes' logits against the hd mode's: at most the worst
 #: 2-layer mesh error times the depth ratio, and never more than `cap`
 #: (unrelated logits differ by ~1.4)
@@ -2928,8 +3080,10 @@ SERVE_DEEP_CAP = 0.3
 
 
 def serve_cfg(C, arch, layers=SERVE_LAYERS, compute="bfloat16"):
-    return C.get_config(arch).replace(num_layers=layers,
-                                      compute_dtype=compute)
+    """`arch` at `layers` layers (None: its full depth) in `compute`."""
+    cfg = C.get_config(arch)
+    return cfg.replace(num_layers=layers or cfg.num_layers,
+                       compute_dtype=compute)
 
 
 def serve_batches(cfg, B, S, steps, seed=SEED):
@@ -2960,16 +3114,17 @@ def _cpu(tree):
         if isinstance(tree, torch.Tensor) else tree
 
 
-def serve_one_device(cfg, params, data_shards):
-    """The one-device prefill and decode chain at SERVE's shapes in the
-    capacity groups of a mesh with `data_shards` data shards (with one,
-    through the builders): {"prefill": (logits, cache), "decode": (stacked
-    logits, final cache)}, on the CPU."""
+def serve_one_device(cfg, params, data_shards, shape=None, seed=SEED):
+    """The one-device prefill and decode chain at `shape` (B rows of S
+    prompt tokens into an L-slot cache, `steps` decode steps; SERVE's by
+    default) in the capacity groups of a mesh with `data_shards` data
+    shards (with one, through the builders): {"prefill": (logits, cache),
+    "decode": (stacked logits, final cache)}, on the CPU."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import model as MDL
     from repro_torch.models.config import ShapeSpec
-    B, S, L, steps = (SERVE[k] for k in ("B", "S", "L", "steps"))
-    pre, dec = serve_batches(cfg, B, S, steps)
+    B, S, L, steps = ((shape or SERVE)[k] for k in ("B", "S", "L", "steps"))
+    pre, dec = serve_batches(cfg, B, S, steps, seed)
     gp, gd = serve_groups(cfg, data_shards)
     t = {k: torch.from_numpy(v).cuda() for k, v in pre.items()}
     with torch.no_grad():
@@ -3155,9 +3310,9 @@ def serve_one_by_one(C, smi, refs):
     return out, launches
 
 
-def serve_memory(C, mesh, arch, seq_parallel=False) -> dict:
+def serve_memory(C, mesh, arch, seq_parallel=False, spec=SERVE_DEEP) -> dict:
     """A rank's bytes of `arch` at full width on `mesh`, by layout (the
-    prefill's, and unless `seq_parallel` each decode mode's of SERVE_DEEP):
+    prefill's, and unless `seq_parallel` each decode mode's of `spec`):
     a layer's shards, the largest per-layer gather (FSDP: the layer's
     leaves whole over the data axes; ZeRO-3: the whole layer; resident:
     none) and the leaves outside the stack; and the cache a layer."""
@@ -3166,12 +3321,12 @@ def serve_memory(C, mesh, arch, seq_parallel=False) -> dict:
     from repro_torch.models import model as MDL
     from repro_torch.models import params as PRM
     full = C.get_config(arch)
-    B, S, steps = (SERVE_DEEP[k] for k in ("B", "S", "steps"))
+    B, S, steps = (spec[k] for k in ("B", "S", "steps"))
     ds = mesh.size(MS.data_axes(mesh))
     layouts = {"prefill": (MS.param_pspecs_zero3(full, mesh), "zero3")
                if seq_parallel else (MS.param_pspecs(full, mesh), "fsdp")}
     if not seq_parallel:
-        for mode in SERVE_DEEP["modes"]:
+        for mode in spec["modes"]:
             kw = SERVE_DECODE[mode]
             res = kw.get("resident_weights", False)
             layouts[mode] = (MS.param_pspecs(
@@ -3240,21 +3395,22 @@ def _profiled_step(fn):
     return wall, busy
 
 
-def serve_deep(C, mesh, rank, launches):
+def serve_deep(C, mesh, rank, launches, spec=SERVE_DEEP):
     """mixtral-8x22b at full width on the mesh (4 cards, 2 x 2): the banded
-    prefill of SERVE_DEEP's prompt at the deepest depth that fits, then
-    `steps` decode steps in each mode from its cache (the hd mode feeds its
-    greedy tokens; the other modes the same tokens), one more step of each
-    mode profiled; then the sequence-parallel prefill (mixtral where
-    ZeRO-3 fits, else SERVE_SEQ_FALLBACK at full depth).  Returns this
-    rank's numbers and logits (its shards, on the CPU)."""
+    prefill of `spec`'s prompt (SERVE_DEEP, or SERVE_B1_DEEP's one row) at
+    the deepest depth that fits, then `steps` decode steps in each mode
+    from its cache (the hd mode feeds its greedy tokens; the other modes
+    the same tokens), one more step of each mode profiled; then, where
+    `spec` says, the sequence-parallel prefill (mixtral where ZeRO-3 fits,
+    else SERVE_SEQ_FALLBACK at full depth).  Returns this rank's numbers
+    and logits (its shards, on the CPU)."""
     from repro_torch.launch import mesh as MS
     from repro_torch.launch import steps as ST
     from repro_torch.models.config import ShapeSpec
     from repro_torch.models.params import init_params
     from repro_torch.training import optim as OPT
-    arch = SERVE_DEEP["arch"]
-    B, S, steps = (SERVE_DEEP[k] for k in ("B", "S", "steps"))
+    arch = spec["arch"]
+    B, S, steps = (spec[k] for k in ("B", "S", "steps"))
     pre_b, _ = serve_batches(C.get_config(arch), B, S, 0, seed=SEED + 8)
 
     def weights(c, specs):
@@ -3274,7 +3430,7 @@ def serve_deep(C, mesh, rank, launches):
     def fitting(a, seq):
         """(depth, figures): the prefill at SERVE_CAL layers measured, the
         rest estimated (serve_memory, serve_depth)."""
-        mem = serve_memory(C, mesh, a, seq)
+        mem = serve_memory(C, mesh, a, seq, spec)
         c = C.get_config(a).replace(num_layers=SERVE_CAL)
         step, _ = ST.make_prefill_step(c, mesh, ShapeSpec("p", S, B,
                                                           "prefill"),
@@ -3322,6 +3478,7 @@ def serve_deep(C, mesh, rank, launches):
     pshape = ShapeSpec("p", S, B, "prefill")
     pre, _ = ST.make_prefill_step(cfg, mesh, pshape, cache_len=S + steps,
                                   banded=True)
+    out["rows_split"] = pre.logits_pspec[0] is not None
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3340,7 +3497,7 @@ def serve_deep(C, mesh, rank, launches):
     del params, logits
     dshape = ShapeSpec("d", S + steps, B, "decode")
     fed = None
-    for mode in SERVE_DEEP["modes"]:
+    for mode in spec["modes"]:
         step, _ = ST.make_decode_step(cfg, mesh, dshape,
                                       **SERVE_DECODE[mode])
         gc.collect()
@@ -3402,6 +3559,8 @@ def serve_deep(C, mesh, rank, launches):
     del cache0
     gc.collect()
     torch.cuda.empty_cache()
+    if not spec["seq_parallel"]:
+        return out
     # the sequence-parallel prefill
     seq_depth, seq_fig = fitting(arch, True)
     seq_arch = arch if seq_depth == C.get_config(arch).num_layers else \
@@ -3518,6 +3677,12 @@ def serve_path(C, smi):
               f"{ranks[0]['launches']}", flush=True)
         if deep:
             summary["deep"] = serve_deep_report(ranks, worst, smi)
+            b1 = serve_b1_deep_path(C, smi, worst)
+            summary["launches"].update(b1["launches"])
+            summary["b1_deep"] = b1.get("report")
+    b1 = serve_b1_path(C, smi)
+    summary["launches"].update(b1["launches"])
+    summary["b1"] = b1["runs"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "serve_phase.json"), "w") as f:
         json.dump(summary, f, default=str)
@@ -3529,18 +3694,223 @@ def serve_path(C, smi):
     return summary
 
 
-def serve_deep_report(ranks, worst, smi):
+# ---------------------- phase 8: a batch that does not split --------------------
+def serve_b1_runs():
+    """(arch, layers, mesh shape, decode steps) of SERVE_B1's two runs."""
+    return ((SERVE_B1["arch"], None, SERVE_B1["mesh"], SERVE_B1["steps"]),
+            (SERVE_B1["ssm_arch"], SERVE_B1["ssm_layers"],
+             SERVE_B1["ssm_mesh"], SERVE_B1["ssm_steps"]))
+
+
+def serve_b1_references(C):
+    """{(arch, compute dtype): serve_one_device} of SERVE_B1's runs (its
+    prompt into a cache of S + steps, through the builders), the weights
+    drawn from SEED on the card."""
+    from repro_torch.models.params import init_params
+    refs = {}
+    for arch, layers, _, steps in serve_b1_runs():
+        for compute in ("bfloat16", "float32"):
+            cfg = serve_cfg(C, arch, layers, compute)
+            params = init_params(cfg, torch.Generator("cuda").manual_seed(
+                SEED), "cuda")
+            B, S = SERVE_B1["B"], SERVE_B1["S"]
+            refs[(arch, compute)] = serve_one_device(
+                cfg, params, 1, dict(B=B, S=S, L=S + steps, steps=steps),
+                SEED + 10)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return refs
+
+
+def serve_b1_ranks(rank, world, arch, layers, shape, steps):
+    """One spawned rank of SERVE_B1's run of `arch` on `shape`: the prefill
+    of the one-row prompt, then each decode mode's steps from its cache
+    resharded, every rank drawing the same weights (SEED) and keeping its
+    shards.  Returns this rank's numbers (prefill s, decode ms a token,
+    peak GiB, collective bytes a step) and launches; rank 0 also the
+    outputs gathered whole, on the CPU."""
+    import repro_torch.configs as C
+    from repro_torch.launch import dist as D
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import init_params
+    mesh = D.Mesh(shape)
+    cfg = serve_cfg(C, arch, layers)
+    B, S = SERVE_B1["B"], SERVE_B1["S"]
+    pre_b, dec_b = serve_batches(cfg, B, S, steps, seed=SEED + 10)
+    launches, stats, runs = {}, {}, {}
+
+    def weights(specs):
+        return init_params(cfg, torch.Generator(mesh.device).manual_seed(
+            SEED), mesh.device, local=lambda n, t: MS.local_shard(
+                t, specs["layers"][n][1:] if n in specs["layers"]
+                else specs[n], mesh, mesh.coords))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = counted(fn, launches)
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    gib = 2 ** 30
+    pre, _ = ST.make_prefill_step(cfg, mesh, ShapeSpec("p", S, B, "prefill"),
+                                  cache_len=S + steps)
+    params = weights(pre.param_pspecs)
+    torch.cuda.reset_peak_memory_stats()
+    mesh.bytes.clear()
+    (logits, cache0), took = timed(lambda: pre(params, pre_b))
+    stats["prefill"] = dict(s=took, collective_bytes=dict(mesh.bytes),
+                            peak_gib=torch.cuda.max_memory_allocated() / gib)
+    runs[("prefill", "default")] = (
+        mesh.full(logits, pre.logits_pspec).cpu(),
+        _cpu(MS.gather_tree(mesh, cache0, pre.cache_pspecs)))
+    del params, logits
+    for mode in SERVE_B1["modes"]:
+        step, _ = ST.make_decode_step(cfg, mesh, ShapeSpec(
+            "d", S + steps, B, "decode"), **SERVE_DECODE[mode])
+        cache = ST.reshard_cache(mesh, {n: v.clone() if isinstance(
+            v, torch.Tensor) else v for n, v in cache0.items()},
+            pre.cache_pspecs, step.cache_pspecs)
+        params = weights(step.param_pspecs)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ls, times, moved = [], [], None
+        for b in dec_b:
+            mesh.bytes.clear()
+            (lg, cache), took = timed(lambda: step(params, b, cache))
+            times.append(took)
+            moved = moved or dict(mesh.bytes)
+            ls.append(mesh.full(lg, step.logits_pspec).cpu())
+        stats[mode] = dict(
+            decode_ms=1e3 * float(np.mean(times[1:])), collective_bytes=moved,
+            peak_gib=torch.cuda.max_memory_allocated() / gib)
+        runs[("decode", mode)] = (torch.stack(ls), _cpu(MS.gather_tree(
+            mesh, cache, step.cache_pspecs)))
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"stats": stats, "launches": launches,
+            "runs": runs if rank == 0 else None,
+            "device": torch.cuda.get_device_name()}
+
+
+def serve_b1_errors(got, one, ref32):
+    """serve_errors of a run's prefill and final cache, and each decode
+    step's logits: {tensor: (mesh error, one-device bf16 error)} against
+    float32, and whether the positions agree."""
+    errs, exact = serve_errors(got, one, ref32)
+    if got[0].dim() == 4:      # stacked decode logits: one entry a step
+        del errs["logits"]
+        for i in range(got[0].shape[0]):
+            errs[f"logits step {i}"] = (_rel(got[0][i], ref32[0][i]),
+                                        _rel(one[0][i], ref32[0][i]))
+    return errs, exact
+
+
+def serve_b1_path(C, smi):
+    """Phase 8's batch that does not split over the data axes (SERVE_B1):
+    the one-device references in bf16 and float32, then each run's ranks
+    (sharing card 0 over gloo where the cards are fewer than its ranks,
+    else one a card over NCCL), every step within SERVE_TOL of the
+    one-device step; per rank the prefill's seconds, decode ms a token,
+    peak GiB and collective bytes a step.  Returns {"launches":
+    {"serve_b1": rank 0's launches of the mesh steps}, "runs": ...}."""
+    from repro_torch.launch import dist as D
+    cards = torch.cuda.device_count()
+    stamp("serve_b1: the one-device references (bf16, float32)")
+    refs = serve_b1_references(C)
+    launches, summary = {}, {}
+    for arch, layers, shape, steps in serve_b1_runs():
+        world = int(np.prod(list(shape.values())))
+        backend = None if world <= cards else "gloo"
+        stamp(f"serve_b1: {arch} ({layers or 'all'} layers) B "
+              f"{SERVE_B1['B']} x {SERVE_B1['S']}, {steps} decode steps a "
+              f"mode, on {shape}, {world} ranks"
+              + (" sharing card 0 (gloo)" if backend else " (NCCL)"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = D.run_ranks(serve_b1_ranks, world, arch, layers, shape,
+                            steps, timeout_s=900, backend=backend,
+                            workdir=os.path.join(ROOT, "build"))
+        for k, n in ranks[0]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        for r, got in enumerate(ranks):
+            print(f"serve_b1 {arch} rank {r} ({got['device']}): " + "; ".join(
+                f"{k} " + ", ".join(
+                    f"{n} {round(v, 4) if isinstance(v, float) else v}"
+                    for n, v in st.items())
+                for k, st in got["stats"].items()) + f" [{smi}]",
+                flush=True)
+        worst = 0.0
+        for (kind, variant), val in ranks[0]["runs"].items():
+            one, ref32 = (refs[(arch, c)][kind]
+                          for c in ("bfloat16", "float32"))
+            errs, exact = serve_b1_errors(val, one, ref32)
+            over = serve_over_bound(errs)
+            worst = max(worst, over)
+            key = f"{arch} {kind} {variant}"
+            summary[key] = dict(
+                over_bound=over, exact=exact,
+                logits=max((m, o) for n, (m, o) in errs.items()
+                           if n.startswith("logits")))
+            print(f"serve_b1 {key}: {over:.3f} of the bound ({SERVE_TOL}, "
+                  f"each step and cache tensor; worst logits (mesh, one "
+                  f"device) vs float32 {summary[key]['logits']}); positions "
+                  f"{'equal' if exact else 'DIFFERENT'} [{smi}]", flush=True)
+            if not (over <= 1.0 and exact):
+                fail(f"serve_b1 {arch} {kind} {variant}: {errs}")
+        print(f"serve_b1 {arch}: every step within {worst:.3f} of the bound",
+              flush=True)
+    print(f"serve_b1: rank 0's launches of the mesh steps: {launches}",
+          flush=True)
+    return {"launches": {"serve_b1": launches}, "runs": summary}
+
+
+def serve_b1_deep_ranks(rank, world):
+    """One NCCL rank (a card each) of SERVE_B1_DEEP's run on (2, 2)."""
+    import repro_torch.configs as C
+    from repro_torch.launch import dist as D
+    launches = {}
+    out = serve_deep(C, D.Mesh({"data": 2, "model": 2}), rank, launches,
+                     SERVE_B1_DEEP)
+    return {"b1_deep": out, "b1_deep_launches": launches}
+
+
+def serve_b1_deep_path(C, smi, worst=float("inf")):
+    """SERVE_B1_DEEP on four cards, spawned after the B 4 deep run (or
+    alone, ``--only serve_b1_deep``): the modes' logits against hd's within
+    `worst` (the 2-layer parity's worst error) times the depth ratio, and
+    SERVE_DEEP_CAP at most; "launches": {"serve_b1_deep": rank 0's}.
+    With fewer cards, not run."""
+    from repro_torch.launch import dist as D
+    if torch.cuda.device_count() < 4:
+        print("serve_b1_deep: fewer than 4 cards (not measured in this run)",
+              flush=True)
+        return {"launches": {}}
+    stamp(f"serve_b1_deep: {SERVE_B1_DEEP['arch']} B 1 x "
+          f"{SERVE_B1_DEEP['S']} on (2, 2), 4 NCCL ranks")
+    ranks = D.run_ranks(serve_b1_deep_ranks, 4, timeout_s=2400,
+                        workdir=os.path.join(ROOT, "build"))
+    report = serve_deep_report(ranks, worst, smi, SERVE_B1_DEEP, "b1_deep")
+    return {"launches": {"serve_b1_deep": ranks[0]["b1_deep_launches"]},
+            "report": report}
+
+
+def serve_deep_report(ranks, worst, smi, spec=SERVE_DEEP, key="deep"):
     """Print and check the deep run of every rank: finite logits, the
     modes' logits against hd's within the 2-layer parity's worst error
     times the depth ratio (SERVE_DEEP_CAP at most), hd's and lc's greedy
     tokens compared (each difference with hd's logit gap between the two
     tokens)."""
-    deep = [r["deep"] for r in ranks]
+    deep = [r[key] for r in ranks]
     d0 = deep[0]
     depth = d0["depth"]
     limit = min(SERVE_DEEP_CAP, worst * depth / SERVE_LAYERS)
-    B, S = SERVE_DEEP["B"], SERVE_DEEP["S"]
-    print(f"serve deep {d0['arch']} at {depth} layers (the deepest that "
+    B, S = spec["B"], spec["S"]
+    print(f"serve {key} {d0['arch']} at {depth} layers (the deepest that "
           f"fits: {d0['figures']}), mesh (2, 2), B {B} x {S} banded prefill: "
           f"prefill s by rank {[round(d['prefill']['s'], 3) for d in deep]}"
           f", prefill tokens/s {B * S / d0['prefill']['s']:.0f}, peak GiB by "
@@ -3559,13 +3929,15 @@ def serve_deep_report(ranks, worst, smi):
 
     def whole(rows):
         """The ranks' logit shards (steps, B / data, 1, Vp / model) as the
-        whole (steps, B, Vp): rank r is (data r // model, model r % model)."""
+        whole (steps, B, Vp): rank r is (data r // model, model r % model);
+        rows that do not split over `data` are every data rank's."""
         m = d0["mesh"]["model"]
+        n = len(rows) // m if d0["rows_split"] else 1
         return torch.cat([torch.cat([rows[d * m + j]["logits"]
                                      for j in range(m)], -1)
-                          for d in range(len(rows) // m)], 1)[:, :, 0]
+                          for d in range(n)], 1)[:, :, 0]
     hd_full = whole(hd)
-    for mode in SERVE_DEEP["modes"]:
+    for mode in spec["modes"]:
         rows = [d["modes"][mode] for d in deep]
         err = math.sqrt(sum((r["logits"] - h["logits"]).double().square()
                             .sum().item() for r, h in zip(rows, hd))
@@ -3592,7 +3964,7 @@ def serve_deep_report(ranks, worst, smi):
             state_gib=[r["state_bytes"] / 2**30 for r in rows],
             collective_bytes=rows[0]["collective_bytes"],
             greedy_differs=diffs)
-        print(f"serve deep {mode}: {SERVE_DEEP['steps']} steps, logits vs "
+        print(f"serve {key} {mode}: {spec['steps']} steps, logits vs "
               f"hd {err:.5f} (limit {limit:.5f}), decode ms a token by rank "
               f"{[round(x, 3) for x in ms]}, tokens/s by rank "
               f"{[round(B / (x / 1e3), 1) for x in ms]}, idle share by rank "
@@ -3607,7 +3979,9 @@ def serve_deep_report(ranks, worst, smi):
               f"from hd's (step, row, hd token, this token, hd's logit gap "
               f"between them, this mode's): {diffs} [{smi}]", flush=True)
         if not finite or err > limit:
-            fail(f"serve deep {mode}: logits vs hd {err} (limit {limit})")
+            fail(f"serve {key} {mode}: logits vs hd {err} (limit {limit})")
+    if not spec["seq_parallel"]:
+        return report
     sp = [d["seq_parallel"] for d in deep]
     report["seq_parallel"] = {k: v for k, v in sp[0].items()}
     print(f"serve deep seq_parallel prefill: {sp[0]['arch']} at "
@@ -3791,6 +4165,7 @@ def main(argv=None) -> int:
     gen = torch.Generator("cuda").manual_seed(SEED)
     shapes = {a: path_shapes(C.get_config(a))
               for a in ALL + tuple(TRAIN) + SERVE_KERNEL_ARCHS}
+    shapes.update(b1_rank_shapes(C))
     stamp("phase 2: the kernels")
     report = {}
     for kname, replaces, check, path_dtype, src, path, archs in KERNELS:
@@ -3837,7 +4212,8 @@ def main(argv=None) -> int:
                                       "stages", "no_empty_row",
                                       "int8_pages", "forward", "chunks",
                                       "device_ms_by_launch", "by_shape",
-                                      "forward_device_ms", "in_turns")
+                                      "forward_device_ms", "in_turns",
+                                      "design", "library_device_ms")
                     if k in r}
 
     if args.compare_bwd:
@@ -3849,6 +4225,14 @@ def main(argv=None) -> int:
         stamp("phase 8: serving")
         for path, launches in serve_path(C, smi)["launches"].items():
             print(f"launches during the {path} path: {launches}", flush=True)
+    elif only:
+        for part, run in (("serve_b1", serve_b1_path),
+                          ("serve_b1_deep", serve_b1_deep_path)):
+            if part in only.split(","):
+                stamp(f"phase 8: {part}")
+                for path, launches in run(C, smi)["launches"].items():
+                    print(f"launches during the {path} path: {launches}",
+                          flush=True)
     if only:
         print(json.dumps({"kernels": list(report.values())}), flush=True)
         return 0
@@ -4035,12 +4419,8 @@ def main(argv=None) -> int:
     for path, launches in dist_path(C, smi)["launches"].items():
         record(path, launches, train_kernels)
     stamp("phase 8: serving")
-    serve_kernels = ("flash_attention", "decode_attention", "gmm",
-                     "selective_scan")
     for path, launches in serve_path(C, smi)["launches"].items():
-        record(path, launches, serve_kernels + (
-            ("decode_attention_lse", "decode_attention_hd_scores",
-             "decode_attention_hd_out") if path == "serve_ranks" else ()))
+        record(path, launches, SERVE_NEEDED[path])
     stamp("done")
 
     for r in report.values():

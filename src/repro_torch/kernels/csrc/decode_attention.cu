@@ -530,14 +530,17 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
 
 // Kernel (b), launch 2.  scores (B, H, L) float32 summed over the ranks;
 // v (B, L, KV, D) of `dtype`; spos (B, L) int32; qpos (B,) int32; out (B,
-// H, D) of `dtype`.  All contiguous, 16-byte aligned.
+// H, D) of `dtype`; lse (B, H) float32, each head's log-sum-exp of its
+// scores over the valid slots (-inf where the row has none), by which the
+// outputs of a cache split over its slots too are merged.  All contiguous,
+// 16-byte aligned.
 extern "C" int repro_decode_attention_hd_out(int dtype, const void* scores, const void* v,
                                              const void* spos, const void* qpos, void* out,
-                                             int B, int H, int KV, int L, int D,
+                                             void* lse, int B, int H, int KV, int L, int D,
                                              void* stream) {
   const SplitArgs a{nullptr, nullptr, static_cast<const float*>(scores), v,
                     static_cast<const int*>(spos), static_cast<const int*>(qpos), out,
-                    nullptr, H, KV, L, D, 0, 0, 1, 1.f};
+                    static_cast<float*>(lse), H, KV, L, D, 0, 0, 1, 1.f};
   return run<kFromScores>(dtype, a, B, stream, nullptr);
 }
 
@@ -566,98 +569,379 @@ extern "C" int repro_decode_attention_shape(int dtype, int hd_out, int B, int H,
 //   3. repro_decode_attention_hd_out: the masked softmax over the slots with
 //      0 <= spos <= qpos (every slot alike where none is valid: the
 //      reference's softmax over all -1e30 scores, the mean of V), then P.V
-//      over the rank's D columns, (B, H, D).
+//      over the rank's D columns, (B, H, D), and each head's lse; over a
+//      rank's slot range (a batch that does not split over the data axes
+//      splits the cache's slots over them too) the caller merges the
+//      ranges' outputs by their lse.
 // Plain version: kernels/ref.py decode_attention_hd_scores_ref and
 // decode_attention_hd_out_ref (the einsums of repro/models/layers.py
 // decode_attention on the slices).
 //
-// Design.  Scores (simple first): grid (ceil(L / 128), KV, B), a thread a
-// slot, the kv head's G query heads staged in shared memory as fp32 times the
-// scale (broadcast reads); each thread reads its K row in 16-byte vectors
-// and keeps kHeads partial dots in registers (more heads: another pass over
-// the row, from L1).  Output: the split body above (decode_hd_out_kernel,
-// kFromScores): the slots of a (row, kv head) over the S blocks of a
-// cluster, one online softmax for the group's heads, the splits merged in
-// rank order.  No atomics: the same sums in every run.
+// Bound on the H100: bytes.  The scores read every slot's K row of the
+// rank's D columns (B * L * KV * D elements, whatever spos says: the
+// validity mask is the output launch's) and write B * H * L fp32 scores,
+// for 2 * B * H * L * D flops: under one flop a byte.  At a (2, 2) rank of
+// mixtral-8x22b's decode (B 2, 48 heads on 8, 4096 slots, 64 columns) that
+// is 8.4 MB read and 1.6 MB written, 2.98 us of HBM time; at batch 1 (the
+// slots split over `data` too) 2.1 + 0.4 MB (mixtral's 2048 slots) or 164
+// + 51 KB (hymba-1.5b's 512 slots of 25 heads on 5, 32 columns).
+//
+// Design.  Output: the split body above (decode_hd_out_kernel, kFromScores):
+// the slots of a (row, kv head) over the S blocks of a cluster, one online
+// softmax for the group's heads, the splits merged in rank order.  Scores
+// (decode_hd_scores_kernel; its first design, a thread a slot reading its
+// own K row, put a warp's load on 32 rows KV * D * 2 bytes apart in a grid
+// of (L / 128, KV, B) blocks, 20 at hymba-1.5b's batch-1 rank):
+//   * the slots of a (row, kv head) in tiles of TW = 32 slots (16 where the
+//     32-slot tiles of the whole call number fewer than the SMs), a warp a
+//     tile; W warps a block take consecutive tiles of one (row, kv head),
+//     grid (ceil(tiles / (W * per)), KV, B), W the most of {4, 2, 1} that
+//     still gives a block an SM;
+//   * a warp stages its tile's K rows into shared memory with 16-byte
+//     cp.async, neighbouring lanes on a row's neighbouring chunks (a row is
+//     D * 2 contiguous bytes, whole 32-byte sectors), rows padded by 16
+//     bytes; when the blocks fit the card at once a warp takes one tile and
+//     all loads go out together; else `per` tiles a warp through a
+//     two-stage ring (the next tile's loads go out before this one is
+//     computed);
+//   * bf16 with D % 16 == 0 and D <= 128: S = Q K^T on mma.sync.m16n8k16,
+//     the group's query heads (up to 16 a pass: every row of the A operand)
+//     staged once a block of four warps, read by a block of one or two
+//     warps straight into its A fragments (no barrier before its first
+//     product: at the batch-1 shapes the kernel is latency-bound), K fed by
+//     ldmatrix, the scale applied to the fp32 sums; a lane stores two neighbouring slots of a head (8 bytes), four
+//     lanes a head's 32 contiguous bytes; otherwise (float32, other head
+//     dims) on the CUDA cores: a lane a slot of the tile, its row read from
+//     shared memory (the padding puts 8 lanes' rows in 8 bank groups), the
+//     group's heads kHeads at a time against q broadcast from shared
+//     memory, a warp's 32 slots of a head stored as 128 contiguous bytes.
+// Each score is one thread's fixed-order sum: no atomics, the same sums in
+// every run.
 namespace {
-
-constexpr int kScoreThreads = 128;   // slots a score block, one a thread
 
 struct HdScoreArgs {
   const void* q;
   const void* k;
   float* scores;
   int H, KV, L, D;
+  int per;      // tiles a warp
+  int stages;   // 1: every tile's loads at once; 2: a ring
   float scale;
 };
 
+// (TW, W, per, stages) of a scores launch
+struct HdScoreShape {
+  int TW, W, per, stages;
+};
+
+// bytes of the q region: 16-row bf16 groups of the mma A operand (rows
+// past G zero), or fp32 rows
 template <typename T>
-__global__ void __launch_bounds__(kScoreThreads) decode_hd_scores_kernel(HdScoreArgs a) {
-  extern __shared__ __align__(16) float qs[];   // G x D, times the scale
+__host__ __device__ inline size_t hd_q_bytes(int G, int D, bool mma) {
+  return mma ? (size_t)((G + 15) / 16) * 16 * row_stride<T>(D) * sizeof(T)
+             : (size_t)G * D * sizeof(float);
+}
+
+template <typename T>
+__host__ __device__ inline size_t hd_score_smem(int W, int stages, int TW, int G, int D,
+                                                bool mma) {
+  return hd_q_bytes<T>(G, D, mma) + (size_t)W * stages * TW * row_stride<T>(D) * sizeof(T);
+}
+
+// DK > 0: the tensor-core path (bf16, D % 16 == 0, D <= DK); DK == 0: the
+// CUDA cores
+template <typename T, int DK, int TW>
+__global__ void __launch_bounds__(128) decode_hd_scores_kernel(HdScoreArgs a) {
+  constexpr bool kMma = DK > 0;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kv = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KV, D = a.D, L = a.L;
-  const T* q = static_cast<const T*>(a.q) + ((size_t)b * a.H + (size_t)kv * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) qs[i] = to_f(q[i]) * a.scale;
-  __syncthreads();
-  const int slot = blockIdx.x * kScoreThreads + threadIdx.x;
-  if (slot >= L) return;
+  const int W = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   constexpr int E = 16 / sizeof(T);   // elements of a 16-byte chunk
-  const T* krow = static_cast<const T*>(a.k) + (((size_t)b * L + slot) * a.KV + kv) * D;
-  float* out = a.scores + ((size_t)b * a.H + (size_t)kv * G) * L + slot;
-  for (int g0 = 0; g0 < G; g0 += kHeads) {
-    const int gn = min(kHeads, G - g0);
-    float acc[kHeads];
+  const int C = D / E;                // chunks a row
+  const int RS = row_stride<T>(D);
+  const size_t slot_stride = (size_t)a.KV * D;
+  const T* kbase = static_cast<const T*>(a.k) + ((size_t)b * L * a.KV + kv) * D;
+  const T* q = static_cast<const T*>(a.q) + ((size_t)b * a.H + (size_t)kv * G) * D;
+  float* out = a.scores + ((size_t)b * a.H + (size_t)kv * G) * L;
+  unsigned char* qraw = smem_raw;
+  T* ring = reinterpret_cast<T*>(smem_raw + hd_q_bytes<T>(G, D, kMma)) +
+            (size_t)warp * a.stages * TW * RS;
+  const int ntile = (L + TW - 1) / TW;
+
+  // a tile's K rows into stage st (one commit group); rows past the cache
+  // zero-filled
+  auto issue = [&](int t, int st) {
+    T* stg = ring + (size_t)st * TW * RS;
+    const int t0 = t * TW;
+    for (int i = lane; i < TW * C; i += 32) {
+      const int r = i / C, c = i - r * C;
+      const bool ok = t0 + r < L;
+      cp_async16(stg + r * RS + c * E, kbase + (ok ? (t0 + r) * slot_stride + c * E : 0), ok);
+    }
+    cp_async_commit();
+  };
+  int t = blockIdx.x * W * a.per + warp;
+  if (t < ntile) issue(t, 0);
+
+  // the group's query heads, meanwhile: bf16 rows of the A operand (16 a
+  // pass, rows past G zero) or fp32 rows.  A block of one or two warps
+  // (the batch-1 shapes) reads its A fragments straight from global memory
+  // instead: no shared-memory round trip and no barrier before its first
+  // product; four warps share the staged rows
+  const bool qreg = kMma && W <= 2;
+  if constexpr (kMma) {
+    T* q16 = reinterpret_cast<T*>(qraw);
+    const int rows = qreg ? 0 : (G + 15) / 16 * 16;
+    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+      const int r = i / C, c = i - r * C;
+      const uint4 v = r < G ? *reinterpret_cast<const uint4*>(q + (size_t)r * D + c * E)
+                            : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(q16 + r * RS + c * E) = v;
+    }
+  } else {
+    float* qs = reinterpret_cast<float*>(qraw);
+    for (int i = threadIdx.x; i < G * C; i += blockDim.x) {
+      float f[E];
+      load_vec<T, E>(q + (size_t)i * E, f);
 #pragma unroll
-    for (int g = 0; g < kHeads; ++g) acc[g] = 0.f;
-    for (int c = 0; c < D; c += E) {
-      float kf[E];
-      load_vec<T, E>(krow + c, kf);
+      for (int e = 0; e < E; ++e) qs[i * E + e] = f[e];
+    }
+  }
+  if (!qreg) __syncthreads();   // W is the block's: every thread agrees
+
+  const bool even = (L & 1) == 0;
+  auto store = [&](int h, int slot, float x0, float x1) {
+    float* o = out + (size_t)h * L + slot;
+    if (even && slot + 1 < L) {
+      *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+    } else {
+      if (slot < L) o[0] = x0;
+      if (slot + 1 < L) o[1] = x1;
+    }
+  };
+  // one staged tile's scores
+  auto compute = [&](int t, const T* ks) {
+    const int t0 = t * TW;
+    if constexpr (kMma) {
+      const __nv_bfloat16* kb16 = reinterpret_cast<const __nv_bfloat16*>(ks);
+      for (int h0 = 0; h0 < G; h0 += 16) {
+        uint32_t qa[DK / 16][4];
+        if (qreg) {   // the A fragment layout: rows g, g + 8; columns 2 (lane % 4) (+ 8)
+          const int g = lane >> 2, c = 2 * (lane & 3);
+          auto ld = [&](int r, int col) -> uint32_t {
+            return h0 + r < G ? *reinterpret_cast<const uint32_t*>(q + (size_t)(h0 + r) * D + col)
+                              : 0u;
+          };
 #pragma unroll
-      for (int g = 0; g < kHeads; ++g) {
-        if (g < gn) {
-          const float* qg = qs + (g0 + g) * D + c;
+          for (int kk = 0; kk < DK / 16; ++kk) {
+            if (16 * kk >= D) break;
+            qa[kk][0] = ld(g, 16 * kk + c);
+            qa[kk][1] = ld(g + 8, 16 * kk + c);
+            qa[kk][2] = ld(g, 16 * kk + 8 + c);
+            qa[kk][3] = ld(g + 8, 16 * kk + 8 + c);
+          }
+        } else {
+          mma_load_q<DK>(qa, reinterpret_cast<const __nv_bfloat16*>(qraw) + (size_t)h0 * RS, D,
+                         lane);
+        }
+        float sc[TW / 8][4] = {};
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[g] = fmaf(qg[e], kf[e], acc[g]);
+        for (int kk = 0; kk < DK / 16; ++kk) {
+          if (16 * kk >= D) break;
+#pragma unroll
+          for (int jj = 0; jj < TW / 16; ++jj) {
+            uint32_t kf[4];
+            ldmatrix_x4(kf, kb16 + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                                (2 * kk + ((lane >> 3) & 1)) * 8);
+            mma_bf16(sc[2 * jj], qa[kk], kf[0], kf[1]);
+            mma_bf16(sc[2 * jj + 1], qa[kk], kf[2], kf[3]);
+          }
+        }
+        // row g = lane / 4 (and g + 8) of the C fragments: slots 8 jn +
+        // 2 (lane % 4) + {0, 1}
+        const int g = h0 + (lane >> 2);
+#pragma unroll
+        for (int jn = 0; jn < TW / 8; ++jn) {
+          const int slot = t0 + 8 * jn + 2 * (lane & 3);
+          if (g < G) store(g, slot, sc[jn][0] * a.scale, sc[jn][1] * a.scale);
+          if (g + 8 < G) store(g + 8, slot, sc[jn][2] * a.scale, sc[jn][3] * a.scale);
         }
       }
-    }
+    } else {
+      const float* qs = reinterpret_cast<const float*>(qraw);
+      const T* krow = ks + (size_t)(lane < TW ? lane : 0) * RS;
+      const int slot = t0 + lane;
+      for (int g0 = 0; g0 < G; g0 += kHeads) {
+        const int gn = min(kHeads, G - g0);
+        float acc[kHeads];
 #pragma unroll
-    for (int g = 0; g < kHeads; ++g)
-      if (g < gn) out[(size_t)(g0 + g) * L] = acc[g];
+        for (int g = 0; g < kHeads; ++g) acc[g] = 0.f;
+        for (int c = 0; c < C; ++c) {
+          float kf[E];
+          load_vec<T, E>(krow + c * E, kf);
+#pragma unroll
+          for (int g = 0; g < kHeads; ++g) {
+            if (g < gn) {
+              const float* qg = qs + (g0 + g) * D + c * E;
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[g] = fmaf(qg[e], kf[e], acc[g]);
+            }
+          }
+        }
+        if (lane < TW && slot < L)
+          for (int g = 0; g < gn; ++g) out[(size_t)(g0 + g) * L + slot] = acc[g] * a.scale;
+      }
+    }
+  };
+
+  int st = 0;
+  for (int j = 0; j < a.per && t < ntile; ++j, t += W) {
+    const bool more = j + 1 < a.per && t + W < ntile;
+    if (more && a.stages == 2) {
+      issue(t + W, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    compute(t, ring + (size_t)st * TW * RS);
+    __syncwarp();   // this stage's reads are done before it is refilled
+    if (more && a.stages == 1) issue(t + W, 0);
+    if (a.stages == 2) st ^= 1;
   }
+}
+
+template <typename T, int DK, int TW>
+auto hd_scores_kernel_of() {
+  return decode_hd_scores_kernel<T, DK, TW>;
+}
+
+// The (TW, W, per, stages) of a scores launch, as the design note says.
+// Cached per (kernel, B, KV, L, G, D).
+template <typename T, int DK>
+cudaError_t pick_hd_scores(int B, int KV, int L, int G, int D, HdScoreShape& sh) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int, int, int, int>, HdScoreShape> picked;
+  const auto key = std::make_tuple(DK * 4 + (int)sizeof(T), B, KV, L, G, D);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = picked.find(key);
+    if (it != picked.end()) {
+      sh = it->second;
+      return cudaSuccess;
+    }
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long rows = (long)B * KV;
+  sh.TW = ((L + 31) / 32) * rows >= sms ? 32 : 16;
+  const int ntile = (L + sh.TW - 1) / sh.TW;
+  sh.W = 4;
+  while (sh.W > 1 && (long)((ntile + sh.W - 1) / sh.W) * rows < sms) sh.W /= 2;
+  const long blocks = (long)((ntile + sh.W - 1) / sh.W) * rows;
+  auto per_sm = [&](int stages, int& n) {
+    const size_t smem = hd_score_smem<T>(sh.W, stages, sh.TW, G, D, DK > 0);
+    cudaError_t err = sh.TW == 32 ? allow_smem_once(hd_scores_kernel_of<T, DK, 32>(), smem)
+                                  : allow_smem_once(hd_scores_kernel_of<T, DK, 16>(), smem);
+    if (err != cudaSuccess) return err;
+    return sh.TW == 32 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                             &n, hd_scores_kernel_of<T, DK, 32>(), 32 * sh.W, smem)
+                       : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                             &n, hd_scores_kernel_of<T, DK, 16>(), 32 * sh.W, smem);
+  };
+  int n1 = 0;
+  e = per_sm(1, n1);
+  if (e != cudaSuccess) return e;
+  if (n1 <= 0) return cudaErrorInvalidValue;
+  sh.per = 1;
+  sh.stages = 1;
+  if (blocks > (long)n1 * sms) {   // more than one wave: a ring of tiles a warp
+    int n2 = 0;
+    e = per_sm(2, n2);
+    if (e != cudaSuccess) return e;
+    if (n2 > 0) {
+      sh.stages = 2;
+      sh.per = (int)((blocks + (long)n2 * sms - 1) / ((long)n2 * sms));
+    }
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  picked[key] = sh;
+  return cudaSuccess;
+}
+
+template <typename T, int DK>
+int launch_hd_scores_dk(const void* q, const void* k, float* scores, int B, int H, int KV,
+                        int L, int D, float scale, cudaStream_t stream, int* shape) {
+  const int G = H / KV;
+  HdScoreShape sh{};
+  cudaError_t e = pick_hd_scores<T, DK>(B, KV, L, G, D, sh);
+  if (e != cudaSuccess) return (int)e;
+  if (shape) {
+    shape[0] = sh.TW;
+    shape[1] = sh.W;
+    shape[2] = sh.per;
+    shape[3] = sh.stages;
+    return 0;
+  }
+  const int ntile = (L + sh.TW - 1) / sh.TW;
+  const size_t smem = hd_score_smem<T>(sh.W, sh.stages, sh.TW, G, D, DK > 0);
+  const HdScoreArgs a{q, k, scores, H, KV, L, D, sh.per, sh.stages, scale};
+  const dim3 grid((ntile + sh.W * sh.per - 1) / (sh.W * sh.per), KV, B);
+  if (sh.TW == 32)
+    decode_hd_scores_kernel<T, DK, 32><<<grid, 32 * sh.W, smem, stream>>>(a);
+  else
+    decode_hd_scores_kernel<T, DK, 16><<<grid, 32 * sh.W, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd_scores(const void* q, const void* k, float* scores, int B, int H, int KV,
-                     int L, int D, float scale, cudaStream_t stream) {
-  if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0 || (D * (int)sizeof(T)) % 16 != 0)
+                     int L, int D, float scale, cudaStream_t stream, int* shape) {
+  if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0 || D <= 0 ||
+      (D * (int)sizeof(T)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  auto kernel = decode_hd_scores_kernel<T>;
-  const size_t smem = sizeof(float) * (size_t)(H / KV) * D;
-  cudaError_t e = allow_smem_once(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  HdScoreArgs a{q, k, scores, H, KV, L, D, scale};
-  kernel<<<dim3((L + kScoreThreads - 1) / kScoreThreads, KV, B), kScoreThreads, smem,
-           stream>>>(a);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {   // bf16: the tensor cores where D allows
+    if (D % 16 == 0 && D <= 64)
+      return launch_hd_scores_dk<T, 64>(q, k, scores, B, H, KV, L, D, scale, stream, shape);
+    if (D % 16 == 0 && D <= 128)
+      return launch_hd_scores_dk<T, 128>(q, k, scores, B, H, KV, L, D, scale, stream, shape);
+  }
+  return launch_hd_scores_dk<T, 0>(q, k, scores, B, H, KV, L, D, scale, stream, shape);
+}
+
+int hd_scores(int dtype, const void* q, const void* k, void* scores, int B, int H, int KV,
+              int L, int D, float scale, void* stream, int* shape) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scores);
+  switch (dtype) {
+    case repro::kFloat32:
+      return launch_hd_scores<float>(q, k, sc, B, H, KV, L, D, scale, s, shape);
+    case repro::kBFloat16:
+      return launch_hd_scores<__nv_bfloat16>(q, k, sc, B, H, KV, L, D, scale, s, shape);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Kernel (b), launch 1.  q (B, H, D) and k (B, L, KV, D) of one dtype, D of
 // a rank's head_dim slice (D * sizeof(T) % 16 == 0); scores (B, H, L)
-// float32 receives scale * the partial dots.  All contiguous.
+// float32 receives scale * the partial dots.  All contiguous, 16-byte
+// aligned.
 extern "C" int repro_decode_attention_hd_scores(int dtype, const void* q, const void* k,
                                                 void* scores, int B, int H, int KV, int L,
                                                 int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* sc = static_cast<float*>(scores);
-  switch (dtype) {
-    case repro::kFloat32:
-      return launch_hd_scores<float>(q, k, sc, B, H, KV, L, D, scale, s);
-    case repro::kBFloat16:
-      return launch_hd_scores<__nv_bfloat16>(q, k, sc, B, H, KV, L, D, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return hd_scores(dtype, q, k, scores, B, H, KV, L, D, scale, stream, nullptr);
+}
+
+// The (slots a tile, warps a block, tiles a warp, stages) that the scores
+// launch takes at these shapes, written to shape[0..3] without launching.
+// Returns the CUDA error code (0 on success).
+extern "C" int repro_decode_attention_hd_scores_shape(int dtype, int B, int H, int KV, int L,
+                                                      int D, int* shape) {
+  return hd_scores(dtype, nullptr, nullptr, nullptr, B, H, KV, L, D, 1.f, nullptr, shape);
 }

@@ -61,7 +61,7 @@ KERNELS = {
         [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "decode_attention_hd_out": (
         "decode_attention.cu", "repro_decode_attention_hd_out",
-        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "decode_attention_paged": (
         "decode_attention_paged.cu", "repro_decode_attention_paged",
         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
@@ -433,7 +433,12 @@ def decode_attention_hd_out(scores, v_cache, slot_positions, q_position):
     """Kernel (b), launch 2: the softmax of the summed scores (B, H, L)
     float32 over the slots with 0 <= slot position <= q_position (every
     slot alike where none is valid), times the rank's D columns of
-    v_cache (B, L, KV, D).  Returns (B, H, D) in v_cache's dtype."""
+    v_cache (B, L, KV, D), and each (row, head)'s log-sum-exp of its
+    scores over the valid slots, (B, H) float32, -inf where the row has
+    none.  For a cache split over its slots and head_dim each rank's
+    softmax covers its slot range, and the ranks' (out, lse) are merged
+    over the slot axes (``models.model._combine_slot_splits``).  Returns
+    (out (B, H, D) in v_cache's dtype, lse)."""
     _forward_only("decode_attention_hd_out", v_cache)
     if not v_cache.is_cuda:
         return ref.decode_attention_hd_out_ref(scores, v_cache,
@@ -449,13 +454,14 @@ def decode_attention_hd_out(scores, v_cache, slot_positions, q_position):
              and q_position.shape == (B,),
              "decode_attention_hd_out: shape mismatch")
     out = torch.empty(B, H, D, dtype=v_cache.dtype, device=v_cache.device)
+    lse = torch.empty(B, H, dtype=torch.float32, device=v_cache.device)
     err = _fn("decode_attention_hd_out")(
         _DTYPES[v_cache.dtype], _ptr(scores), _ptr(v_cache),
-        _ptr(slot_positions), _ptr(q_position), _ptr(out), B, H, KV, L, D,
-        _stream())
+        _ptr(slot_positions), _ptr(q_position), _ptr(out), _ptr(lse), B, H,
+        KV, L, D, _stream())
     _check("decode_attention_hd_out", err)
     decode_attention_hd_out.launches += 1
-    return out
+    return out, lse
 
 
 decode_attention_hd_out.launches = 0

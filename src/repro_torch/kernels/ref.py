@@ -232,14 +232,20 @@ def decode_attention_hd_out_ref(scores, v_cache, slot_positions, q_position):
     """Kernel (b)'s second launch: the softmax of the summed scores over the
     valid slots (a row with none: uniform, as softmax over all -1e30
     scores) times v_cache's columns, in v_cache's dtype (the second einsum
-    of ``repro/models/layers.py::decode_attention``)."""
+    of ``repro/models/layers.py::decode_attention``), and each (row,
+    head)'s log-sum-exp of its scores over the valid slots, (B, H) float32,
+    -inf where the row has none (by which the partials of ranks over slot
+    ranges combine).  Returns (out, lse)."""
     B, H, L = scores.shape
     KV = v_cache.shape[2]
-    ok = (slot_positions >= 0) & (slot_positions <= q_position[:, None])
-    s = torch.where(ok[:, None, :], scores, torch.full_like(scores, NEG_INF))
+    ok = ((slot_positions >= 0)
+          & (slot_positions <= q_position[:, None]))[:, None, :]
+    s = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(s, dim=-1).reshape(B, KV, H // KV, L)
     o = torch.einsum("bkgl,blkd->bkgd", p, v_cache.float())
-    return o.reshape(B, H, -1).to(v_cache.dtype)
+    lse = torch.logsumexp(torch.where(ok, scores, torch.full_like(
+        scores, -math.inf)), -1)
+    return o.reshape(B, H, -1).to(v_cache.dtype), lse
 
 
 def constrained_sample_ref(logits, mask, noise=None, *, temperature=1.0):

@@ -174,13 +174,22 @@ class Mesh:
     def _run(self, collective, out: torch.Tensor, *inputs: torch.Tensor,
              **kw) -> torch.Tensor:
         """collective(out, *inputs, **kw), through host copies where the
-        ranks' collectives are gloo over CUDA tensors; returns out."""
+        ranks' collectives are gloo over CUDA tensors; returns out.  With
+        no `inputs` the collective works on `out` in place.  The host
+        copies live in pinned memory (PyTorch's caching host allocator: no
+        page faults for a buffer of a size seen before), the output is
+        copied from the device only where the collective reads it, and it
+        goes back to the device on the stream without waiting."""
         if not self.staged:
             collective(out, *inputs, **kw)
             return out
-        host = out.cpu()
-        collective(host, *(t.cpu() for t in inputs), **kw)
-        return out.copy_(host)
+
+        def pinned(t, copy):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return h.copy_(t) if copy else h
+        host = pinned(out, not inputs)
+        collective(host, *(pinned(t, True) for t in inputs), **kw)
+        return out.copy_(host, non_blocking=True)
 
     # -- collectives without gradient -------------------------------------
     def all_reduce_(self, t: torch.Tensor, entry,

@@ -536,16 +536,26 @@ class ServeShards(TrainShards):
     ``axes_of`` gives a leaf dim's kept axes (those wider than 1) and
     ``lo`` a rank's first index along them; ``cache_kv`` / ``cache_hd`` are
     the (first, count) of the kv heads and head_dim columns this rank's
-    cache holds, ``slot_axes`` the axes its slots split over.  `row_shards` is the number of data shards the batch's
-    rows are split over (1: every data rank holds every row), and
-    `moe_gather` says that the MoE block must all-gather the rows over the
-    data axes to route JAX's capacity groups (a group count that is no
-    multiple of the data shards, or expert weights split over them)."""
+    cache holds, ``slot_axes`` the axes its slots split over and
+    ``pos_axes`` those of its slot positions.
+
+    `row_shards` is the number of data shards the batch's rows are split
+    over, from `rows`, the rows' entry of ``batch_pspecs``.  JAX splits
+    them where the batch divides the data shards; else (batch 1, an odd batch) it is 1: every data
+    rank holds and computes every row, as GSPMD does for a replicated
+    batch, and the cache splits its slots over the data axes instead
+    (``cache_pspecs``), with the slot positions: alone (hd at `model` 1,
+    kv, none), with `model` (lc), or beside a head_dim split over `model`
+    (hd).  The conv and SSM states are then whole over the data axes.
+    `moe_gather` says that the MoE block must all-gather the split rows
+    over the data axes to route JAX's capacity groups (a group count that
+    is no multiple of the data shards, or expert weights split over
+    them)."""
 
     serving = True
 
     def __init__(self, cfg: ModelConfig, mesh, specs, *, batch: int,
-                 cache=None, resident: bool = False, zero3: bool = False,
+                 rows=None, cache=None, resident: bool = False, zero3: bool = False,
                  seq: bool = False, num_groups: int = 1):
         self.cfg, self.mesh, self.specs = cfg, mesh, specs
         self.data = data_axes(mesh)
@@ -554,13 +564,13 @@ class ServeShards(TrainShards):
         self.tp = m > 1 and not zero3
         self.seq = seq and m > 1
         ds = mesh.size(self.data)
-        if batch % ds:
-            raise ValueError(f"batch {batch} does not split over the {ds} "
-                             "data shards (the port's serving steps keep "
-                             "the cache's slots whole over the data axes)")
-        self.row_shards = ds
-        self.rows_lo = mesh.index(self.data) * (batch // ds)
-        self.rows_n = batch // ds
+        # `rows`: the rows' entry of ``batch_pspecs`` (the data axes where
+        # the batch splits over them, else None: every data rank holds
+        # every row)
+        self.row_shards = mesh.size(rows) if rows else 1
+        self.rows_n = batch // self.row_shards
+        self.rows_lo = mesh.index(self.data) * self.rows_n \
+            if self.row_shards > 1 else 0
         self.heads_tp = False
         if cfg.has_attention:
             self.heads_tp = bool(self.axes_of("attn.wq", 1))
@@ -573,22 +583,18 @@ class ServeShards(TrainShards):
             self.expert_lo = self.lo(self.expert_axes, cfg.num_experts)
             self.moe_axes = self.union(self.expert_axes,
                                        self.axes_of("moe.w_gate", 2))
-            self.moe_gather = ds > 1 and (
+            self.moe_gather = self.row_shards > 1 and (
                 num_groups % ds != 0
                 or bool(set(self.moe_axes) & set(self.data)))
         self.cache_kv = self.cache_hd = None
+        self.slot_axes = self.pos_axes = ()
         if cache is not None and "k" in cache:
             _, _, lspec, kspec, hspec = cache["k"]
             kv, hd = cfg.num_kv_heads, cfg.head_dim
             self.slot_axes = self._split(lspec)
             self.cache_kv = self._range(kspec, kv)
             self.cache_hd = self._range(hspec, hd)
-            if set(self.slot_axes) & set(self.data):
-                raise ValueError("a cache whose slots split over the data "
-                                 "axes is not supported")
-            if self.slot_axes and self.cache_hd[1] < hd:
-                raise ValueError("a cache split over both its slots and "
-                                 "head_dim is not supported")
+            self.pos_axes = self._split(cache["slot_pos"][1])
         if cache is not None and "h" in cache and self.mixer_tp \
                 and not mesh.axes(cache["h"][2]):
             raise ValueError("d_inner is split over `model` but the SSM "
@@ -693,17 +699,21 @@ def gather_tree(mesh, tree, specs):
 
 def reshard(mesh, t: torch.Tensor, src, dst) -> torch.Tensor:
     """This rank's shard of a tensor laid out by `src`, laid out by `dst`.
-    Where one dim's axes move to another dim (a cache from head_dim over
-    `model` to its length or kv heads over `model`) an all-to-all over
-    those axes; otherwise an all-gather and a slice."""
+    Where one dim's axes move to another dim, after the axes that dim
+    already splits over (a cache from head_dim over `model` to its length
+    or kv heads over `model`; a batch-1 cache's slots over the data axes,
+    head_dim over `model`, to its slots over the data axes and `model`) an
+    all-to-all over those axes; otherwise an all-gather and a slice."""
     src, dst = tuple(src), tuple(dst)
     if src == dst:
         return t
     moved = [d for d in range(len(src)) if src[d] != dst[d]]
     if len(moved) == 2:
-        a, b = moved if src[moved[0]] is not None else moved[::-1]
-        if dst[a] is None and src[b] is None and src[a] == dst[b]:
-            return mesh.all_to_all(t, b, a, src[a])
+        for a, b in (moved, moved[::-1]):
+            went = mesh.axes(src[a])
+            if went and dst[a] is None and \
+                    mesh.axes(dst[b]) == mesh.axes(src[b]) + went:
+                return mesh.all_to_all(t, b, a, src[a])
     return mesh.local(mesh.full(t, src), dst)
 
 

@@ -356,7 +356,12 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     With `mesh` the step has ``param_pspecs``, ``batch_pspecs``,
     ``cache_pspecs`` (hd layout; None without a cache) and
     ``logits_pspec``; it takes the rank's parameter shards and the global
-    batch and returns the rank's logits and cache shards."""
+    batch and returns the rank's logits and cache shards.  A batch that
+    does not split over the data axes (batch 1, an odd batch) is laid out
+    by JAX's rules: every data rank holds every row, the cache splits its
+    slots over the data axes (each rank writes its slots of the ring), and
+    the logits' rows are whole (``P(None, "model")``: JAX's decode step's
+    rule, where its prefill step refuses such a batch)."""
     _refuse_calibrate(calibrate)
     B, S = shape.global_batch, shape.seq_len
     batch_specs = CC.prefill_batch_specs(cfg, B, S)
@@ -383,7 +388,6 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
 
         return prefill_step, (PRM.param_specs(cfg), batch_specs)
 
-    da = MS.data_axes(mesh)
     pp = MS.param_pspecs_zero3(cfg, mesh) if seq_parallel else \
         MS.param_pspecs(cfg, mesh, fsdp=fsdp)
     bps = MS.batch_pspecs(cfg, mesh, batch_specs)
@@ -399,7 +403,8 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
         bps = {k: MS.P(v[0], "model", *v[2:]) for k, v in bps.items()}
     cps = MS.cache_pspecs(cfg, mesh, MDL.cache_specs(cfg, B, cache_len)) \
         if with_cache else None
-    shard = MS.ServeShards(cfg, mesh, pp, batch=B, cache=cps,
+    rows = bps["positions"][0]
+    shard = MS.ServeShards(cfg, mesh, pp, batch=B, rows=rows, cache=cps,
                            zero3=seq_parallel, seq=seq,
                            num_groups=num_groups)
     if seq:
@@ -423,7 +428,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
 
     return _serving(mesh_prefill_step, param_pspecs=pp, batch_pspecs=bps,
                     cache_pspecs=cps,
-                    logits_pspec=MS.P(da, None if seq_parallel else "model")
+                    logits_pspec=MS.P(rows, None if seq_parallel else "model")
                     ), (PRM.param_specs(cfg), batch_specs)
 
 
@@ -458,7 +463,14 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     heads) or 'none'; ``resident_weights`` takes ``param_pspecs(fsdp=False,
     resident=True)`` (nothing gathered per step).  The step has
     ``param_pspecs``, ``batch_pspecs``, ``cache_pspecs`` and
-    ``logits_pspec``.  calibrate=True raises, as in make_prefill_step."""
+    ``logits_pspec``.  A batch that does not split over the data axes
+    keeps every row on every data rank and splits the cache's slots over
+    the data axes (JAX's long_500k layout): hd then runs kernel (b) over
+    the rank's slot range and head_dim slice and merges the slot ranges by
+    their lse, lc splits the slots over the data axes and `model`, kv and
+    'none' over the data axes (kernel (a)); the logits' rows are whole
+    (``P(None, None, "model")``).  calibrate=True raises, as in
+    make_prefill_step."""
     _refuse_calibrate(calibrate)
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} has no decode step")
@@ -485,14 +497,14 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
 
         return decode_step, (PRM.param_specs(cfg), batch_specs, cache_specs)
 
-    da = MS.data_axes(mesh)
     pp = MS.param_pspecs(cfg, mesh, fsdp=not resident_weights,
                          attn_mode=decode_attn_mode(cfg, cache_shard_mode),
                          resident=resident_weights)
     bps = MS.batch_pspecs(cfg, mesh, batch_specs)
     cps = MS.cache_pspecs(cfg, mesh, cache_specs,
                           shard_mode=cache_shard_mode)
-    shard = MS.ServeShards(cfg, mesh, pp, batch=B, cache=cps,
+    rows = bps["positions"][0]
+    shard = MS.ServeShards(cfg, mesh, pp, batch=B, rows=rows, cache=cps,
                            resident=resident_weights, num_groups=num_groups)
 
     def mesh_decode_step(params, batch, cache):
@@ -504,15 +516,17 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
 
     return _serving(mesh_decode_step, param_pspecs=pp, batch_pspecs=bps,
                     cache_pspecs=cps,
-                    logits_pspec=MS.P(da, None, "model")), \
+                    logits_pspec=MS.P(rows, None, "model")), \
         (PRM.param_specs(cfg), batch_specs, cache_specs)
 
 
 def reshard_cache(mesh, cache, src, dst):
     """A rank's cache shards laid out by `src` (a prefill step's
     ``cache_pspecs``: hd) as laid out by `dst` (a decode step's): an
-    all-to-all over `model` where a dim's split moves (hd → lc, hd → kv),
-    the same tensors where nothing moves.  The decode step's cache may carry
+    all-to-all over `model` where a dim's split moves (hd → lc, hd → kv;
+    at a batch that does not split, hd's slot range over the data axes
+    cut further over `model` for lc), the same tensors where nothing
+    moves.  The decode step's cache may carry
     ``row_idx``, which a prefill's lacks: each row's cursor starts at the
     shared ``idx``."""
     out = MS.reshard_tree(mesh, cache, src, dst)

@@ -170,17 +170,31 @@ def _norm_p(lp: Dict[str, torch.Tensor], prefix: str) -> Optional[dict]:
     return {"scale": scale, "bias": bias}
 
 
-def _ring_write(ck, cv, k, v):
+def _ring_write(ck, cv, k, v, lc: Optional[int] = None, lo: int = 0):
     """A prefill's K/V (B, S, KV, D) into the ring (B, lc, KV, D): the last
-    lc tokens at slot p % lc where S >= lc, else the first S slots."""
-    S, lc = k.shape[1], ck.shape[1]
-    if S >= lc:
-        shift = S % lc
-        ck.copy_(torch.roll(k[:, S - lc:].to(ck.dtype), shift, dims=1))
-        cv.copy_(torch.roll(v[:, S - lc:].to(cv.dtype), shift, dims=1))
-    else:
-        ck[:, :S] = k.to(ck.dtype)
-        cv[:, :S] = v.to(cv.dtype)
+    lc tokens at slot p % lc where S >= lc, else the first S slots.  A
+    rank whose ck/cv hold the ring's slots lo .. lo + n of `lc` (a cache
+    split over its slots) writes those."""
+    S, n = k.shape[1], ck.shape[1]
+    lc = lc or n
+    if S >= lc:          # slot j holds the token of the last lc with p % lc == j
+        at = (torch.arange(lo, lo + n, device=k.device) - S) % lc + (S - lc)
+        ck.copy_(k[:, at])
+        cv.copy_(v[:, at])
+    elif S > lo:
+        hi = min(S, lo + n)
+        ck[:, :hi - lo] = k[:, lo:hi].to(ck.dtype)
+        cv[:, :hi - lo] = v[:, lo:hi].to(cv.dtype)
+
+
+def _pos_range(shard, n: int) -> Tuple[int, int]:
+    """(the ring's slots, this rank's first) of a slot-position shard of
+    `n` columns: a batch that does not split over the data axes splits
+    them over those axes (``ServeShards.pos_axes``)."""
+    if shard is None or not shard.serving or not shard.pos_axes:
+        return n, 0
+    lc = n * shard.mesh.size(shard.pos_axes)
+    return lc, shard.lo(shard.pos_axes, lc)
 
 
 def _attention(cfg: ModelConfig, x, lp, positions, mode, ck, cv, slot_pos,
@@ -324,17 +338,20 @@ def _serve_attention(cfg, x, lp, positions, mode, ck, cv, slot_pos,
     query heads (heads over `model`), its head_dim columns of every head
     (hd), or every head (replicated, lc, ZeRO-3).  Its cache holds the
     kv heads and head_dim columns of ``shard.cache_kv`` / ``cache_hd``,
-    its slots split over ``shard.slot_axes``: a prefill computes every kv
-    head and
-    writes its cache's columns (the cache is in the hd layout whatever the
-    attention's); a decode step writes the new K/V where this rank holds
-    the slot (a masked write: the ranks of an lc cache hold a slot each).
+    its slots split over ``shard.slot_axes`` (`model` in lc; the data axes
+    too where the batch does not split over them): a prefill computes
+    every kv head and writes its cache's columns and slots of the ring
+    (the cache is in the hd layout whatever the attention's); a decode
+    step writes the new K/V where this rank holds the slot (a masked
+    write: the ranks of a cache split over its slots hold a slot each).
     Decode attention over a head_dim slice is kernel (b), two launches with
-    the scores summed over the slice's axes between them; over a slot range
-    it is kernel (a), the ranks' (out, lse) merged by
-    ``_combine_slot_splits``; else kernel 2 on the kv heads of the rank's
-    query heads.  RoPE rotates column i with i + hd / 2, so a head_dim
-    slice gathers the new token's q and k over its axes to rotate them.
+    the scores summed over the slice's axes between them (over a slot range
+    too, its output launch writes each head's lse and the ranges are
+    merged as (a)'s); over a slot range alone it is kernel (a), the ranks'
+    (out, lse) merged by ``_combine_slot_splits``; else kernel 2 on the kv
+    heads of the rank's query heads.  RoPE rotates column i with i + hd /
+    2, so a head_dim slice gathers the new token's q and k over its axes to
+    rotate them.
     The output projection's partial sums (heads or head_dim split) are
     summed over their axes."""
     shard = hooks.shard
@@ -372,7 +389,9 @@ def _serve_attention(cfg, x, lp, positions, mode, ck, cv, slot_pos,
                     else 0)
         if mode == "prefill":
             hlo, hn = shard.cache_hd
-            _ring_write(ck, cv, k[..., hlo:hlo + hn], v[..., hlo:hlo + hn])
+            lc = ck.shape[1] * shard.mesh.size(shard.slot_axes)
+            _ring_write(ck, cv, k[..., hlo:hlo + hn], v[..., hlo:hlo + hn],
+                        lc, shard.lo(shard.slot_axes, lc))
     o = o.reshape(B, S, hq * hdl) @ wo.reshape(hq * hdl, m)
     return shard.sum(o, shard.union(shard.axes_of("attn.wo", 0),
                                     shard.axes_of("attn.wo", 1)))
@@ -382,12 +401,14 @@ def _serve_decode_attention(cfg, shard, q, k, v, ck, cv, slot_pos,
                             write_slot, qpos, decode_attn_fn):
     """One decode step's attention on a rank (``_serve_attention``): q (B,
     hq, hdl), the new k/v (B, kv, hdl), this layer's cache shard (B, lc',
-    kv', hd'), slot_pos (B, lc) with this step's positions written."""
+    kv', hd'), slot_pos this rank's shard of the (B, lc) slot positions
+    (``_pos_range``) with this step's positions written, write_slot (B,)
+    the ring's slot of each row."""
     B = q.shape[0]
     klo, kn = shard.cache_kv
-    slo, sn = 0, ck.shape[1]
-    if shard.slot_axes:
-        slo = shard.lo(shard.slot_axes, slot_pos.shape[1])
+    sn = ck.shape[1]
+    lc = sn * shard.mesh.size(shard.slot_axes)
+    slo = shard.lo(shard.slot_axes, lc)
     # the masked write: a row whose slot another rank holds writes back the
     # value it read
     rows = torch.arange(B, device=q.device)
@@ -397,18 +418,22 @@ def _serve_decode_attention(cfg, shard, q, k, v, ck, cv, slot_pos,
     for cache, new in ((ck, k), (cv, v)):
         cache[rows, at] = torch.where(mine, new[:, klo:klo + kn].to(
             cache.dtype), cache[rows, at])
+    # this rank's slots' positions
+    plo = slo - _pos_range(shard, slot_pos.shape[1])[1]
+    spos = slot_pos if sn == slot_pos.shape[1] else \
+        slot_pos[:, plo:plo + sn].contiguous()
     if q.shape[-1] < cfg.head_dim:                       # kernel (b)
         scores = KOPS.decode_attention_hd_scores(q, ck,
                                                  1.0 / math.sqrt(cfg.head_dim))
         shard.sum(scores, shard.hd_axes)
-        return KOPS.decode_attention_hd_out(scores, cv, slot_pos, qpos)
-    if shard.slot_axes:                                   # kernel (a)
-        o, lse = KOPS.decode_attention_lse(
-            q, ck, cv, slot_pos[:, slo:slo + sn].contiguous(), qpos)
-        return _combine_slot_splits(shard, o, lse)
+        o, lse = KOPS.decode_attention_hd_out(scores, cv, spos, qpos)
+        return _combine_slot_splits(shard, o, lse) if shard.slot_axes else o
     if shard.heads_tp and kn == cfg.num_kv_heads:
         ck, cv = (shard.kv_subset(t, q.shape[1], 2) for t in (ck, cv))
-    return decode_attn_fn(q, ck, cv, slot_pos, qpos)
+    if shard.slot_axes:                                   # kernel (a)
+        o, lse = KOPS.decode_attention_lse(q, ck, cv, spos, qpos)
+        return _combine_slot_splits(shard, o, lse)
+    return decode_attn_fn(q, ck, cv, spos, qpos)
 
 
 def _combine_slot_splits(shard, o, lse):
@@ -750,13 +775,21 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
         slot_pos, row_idx = cache.get("slot_pos"), cache.get("row_idx")
         idx = int(cache.get("idx", 0))
     if mode == "decode" and slot_pos is not None:
-        lc = slot_pos.shape[1]
+        lc, lo = _pos_range(shard, slot_pos.shape[1])
         if row_idx is not None:      # per-row write slots (ragged fills)
             write_slot = (row_idx % lc).long()
         else:
             write_slot = torch.full((B,), idx % lc, dtype=torch.long,
                                     device=x.device)
-        slot_pos[torch.arange(B, device=x.device), write_slot] = positions[:, 0]
+        rows = torch.arange(B, device=x.device)
+        if lc == slot_pos.shape[1]:             # the whole ring
+            slot_pos[rows, write_slot] = positions[:, 0]
+        else:         # a slot range: only where this rank holds the slot
+            at = write_slot - lo
+            mine = (at >= 0) & (at < slot_pos.shape[1])
+            at = at.clamp(0, slot_pos.shape[1] - 1)
+            slot_pos[rows, at] = torch.where(mine, positions[:, 0],
+                                             slot_pos[rows, at])
 
     # one unbind a leaf: its backward stacks the layers' gradients once,
     # where indexing each layer would add L zero-padded full-size ones
@@ -810,13 +843,16 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
         positions = kv_positions            # the whole sequence
         S = positions.shape[1]
         if slot_pos is not None:
-            lc = slot_pos.shape[1]
+            n = slot_pos.shape[1]
+            lc, lo = _pos_range(shard, n)   # this rank's slots lo .. lo + n
             if off == 0 and S >= lc:
                 slot_pos.copy_(torch.roll(positions[:, S - lc:], S % lc,
-                                          dims=1))
+                                          dims=1)[:, lo:lo + n])
             else:
-                slot_pos[:, off:off + S] = positions
-                slot_pos[:, off + S:] = -1
+                a, b = max(off, lo), min(off + S, lo + n)
+                if b > a:
+                    slot_pos[:, a - lo:b - lo] = positions[:, a - off:b - off]
+                slot_pos[:, max(off + S - lo, 0):] = -1
         new_cache["idx"] = off + S
     return logits, new_cache
 

@@ -260,14 +260,15 @@ def test_decode_attention_hd_kernels_match_plain(cuda, case, dtype):
     n = (ops.decode_attention_hd_scores.launches,
          ops.decode_attention_hd_out.launches)
     s = ops.decode_attention_hd_scores(q, kc, scale)
-    out = ops.decode_attention_hd_out(s, vc, spos, qpos)
+    out, lse = ops.decode_attention_hd_out(s, vc, spos, qpos)
     assert (ops.decode_attention_hd_scores.launches,
             ops.decode_attention_hd_out.launches) == (n[0] + 1, n[1] + 1)
     rs = ref.decode_attention_hd_scores_ref(q, kc, scale)
     torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-5)
-    r = ref.decode_attention_hd_out_ref(rs, vc, spos, qpos)
+    r, rl = ref.decode_attention_hd_out_ref(rs, vc, spos, qpos)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
     # the whole head_dim as two slices: the sum of the partial scores is
     # kernel 2's attention
     half = q.shape[-1] // 2
@@ -275,8 +276,8 @@ def test_decode_attention_hd_kernels_match_plain(cuda, case, dtype):
         parts = [ops.decode_attention_hd_scores(
             q[..., i:i + half].contiguous(), kc[..., i:i + half].contiguous(),
             1.0 / np.sqrt(q.shape[-1])) for i in (0, half)]
-        whole = ops.decode_attention_hd_out(parts[0] + parts[1], vc, spos,
-                                            qpos)
+        whole, _ = ops.decode_attention_hd_out(parts[0] + parts[1], vc,
+                                               spos, qpos)
         torch.testing.assert_close(
             whole.float(), ref.decode_attention_ref(q, kc, vc, spos,
                                                     qpos).float(),
@@ -299,13 +300,13 @@ DECODE_SPLIT_RANK_CASES = {
 
 def _split_rank_case(case, dtype, cuda, empty):
     """decode_case's ring; `empty` "last_row": the last row has no valid
-    slot, "all_rows": no row has one."""
+    slot, "all_rows": no row has one, "none": every row has one."""
     B, H, KV, D, L = DECODE_SPLIT_RANK_CASES[case]
     q, kc, vc, spos, qpos = (t(a).to(cuda) for a in
                              decode_case(23, B, H, KV, D, L))
     if empty == "all_rows":
         spos[:] = -1
-    else:
+    elif empty == "last_row":
         spos[-1] = -1
     return q.to(dtype), kc.to(dtype), vc.to(dtype), spos, qpos
 
@@ -329,24 +330,92 @@ def test_decode_attention_lse_split_edges(cuda, case, dtype, empty):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
+#: kernel (b)'s scores launch: chip_smoke.py's rank shapes (a (2, 2) rank
+#: of mixtral-8x22b's B 2 decode; hymba-1.5b's and mixtral-8x22b's batch-1
+#: decode, the slots over `data` and head_dim over `model`), L no multiple
+#: of a tile and odd, L under a 16-slot tile, G over 16 (two passes of the
+#: A operand), head dims off the tensor cores (8, 24, 256): (B, H, KV, D, L)
+HD_SCORE_CASES = {
+    "mixtral_b2": (2, 48, 8, 64, 4096),
+    "hymba_b1": (1, 25, 5, 32, 512),
+    "mixtral_b1": (1, 48, 8, 64, 2048),
+    "L333": (3, 24, 2, 64, 333),
+    "L7": (2, 8, 2, 32, 7),
+    "g24": (1, 48, 2, 64, 100),
+    "d8": (3, 32, 2, 8, 130),
+    "d24": (3, 24, 2, 24, 100),
+    "d256": (2, 4, 1, 256, 77),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("empty", ["last_row", "all_rows"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", list(DECODE_SPLIT_RANK_CASES))
+@pytest.mark.parametrize("case", list(HD_SCORE_CASES))
+def test_decode_attention_hd_scores_kernel_shapes(cuda, case, dtype):
+    """Kernel (b)'s scores launch against its plain version (one launch
+    counted); two calls equal to the bit; its launch shape gives the
+    batch-1 rank shapes a block an SM."""
+    B, H, KV, D, L = HD_SCORE_CASES[case]
+    q, kc, _, _, _ = (t(a).to(cuda) for a in decode_case(25, B, H, KV, D, L))
+    q, kc = q.to(dtype), kc.to(dtype)
+    scale = 1.0 / np.sqrt(2 * D)
+    n = ops.decode_attention_hd_scores.launches
+    s = ops.decode_attention_hd_scores(q, kc, scale)
+    assert ops.decode_attention_hd_scores.launches == n + 1
+    torch.testing.assert_close(
+        s, ref.decode_attention_hd_scores_ref(q, kc, scale), atol=1e-4,
+        rtol=1e-5)
+    assert torch.equal(s, ops.decode_attention_hd_scores(q, kc, scale))
+    if case.endswith("_b1"):
+        import ctypes
+        fn = ops.build()["decode_attention.cu"] \
+            .repro_decode_attention_hd_scores_shape
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        shape = (ctypes.c_int * 4)()
+        assert fn(ops._DTYPES[dtype], B, H, KV, L, D, shape) == 0
+        TW, W, per = shape[0], shape[1], shape[2]
+        blocks = -(-(-(-L // TW)) // (W * per)) * KV * B
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert blocks >= sms, (tuple(shape), blocks, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty", ["none", "last_row", "all_rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(DECODE_SPLIT_RANK_CASES)
+                         + ["hymba_b1", "mixtral_b1"])
 def test_decode_attention_hd_out_split_edges(cuda, case, dtype, empty):
     """Kernel (b)'s second launch against its plain version over scores of
-    chip_smoke.py's spread (3 x a standard normal), rows with no valid slot
-    included; two calls equal to the bit."""
-    _, _, vc, spos, qpos = _split_rank_case(case, dtype, cuda, empty)
-    B, H = spos.shape[0], DECODE_SPLIT_RANK_CASES[case][1]
-    scores = torch.from_numpy(np.random.default_rng(24).standard_normal(
+    chip_smoke.py's spread (3 x a standard normal), at the split designs'
+    shapes and the batch-1 rank shapes (the slots over `data`, head_dim
+    over `model`), every row filled or rows with no valid slot (their
+    output the mean of V, their lse -inf); one launch counted; two calls
+    equal to the bit."""
+    if case in DECODE_SPLIT_RANK_CASES:
+        _, _, vc, spos, qpos = _split_rank_case(case, dtype, cuda, empty)
+        H = DECODE_SPLIT_RANK_CASES[case][1]
+    else:
+        B, H, KV, D, L = HD_SCORE_CASES[case]
+        _, _, vc, spos, qpos = (t(a).to(cuda) for a in
+                                decode_case(26, B, H, KV, D, L))
+        vc = vc.to(dtype)
+        if empty != "none":
+            spos[-1 if empty == "last_row" else slice(None)] = -1
+    if empty == "none":
+        assert ((spos >= 0) & (spos <= qpos[:, None])).any(-1).all()
+    B = spos.shape[0]
+    scores = torch.from_numpy(np.random.default_rng(27).standard_normal(
         (B, H, spos.shape[1]), np.float32) * 3).to(cuda)
-    out = ops.decode_attention_hd_out(scores, vc, spos, qpos)
-    r = ref.decode_attention_hd_out_ref(scores, vc, spos, qpos)
+    n = ops.decode_attention_hd_out.launches
+    out, lse = ops.decode_attention_hd_out(scores, vc, spos, qpos)
+    assert ops.decode_attention_hd_out.launches == n + 1
+    r, rl = ref.decode_attention_hd_out_ref(scores, vc, spos, qpos)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
-    assert torch.equal(out, ops.decode_attention_hd_out(scores, vc, spos,
-                                                        qpos))
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    assert torch.isneginf(lse[-1]).all() == (empty != "none")
+    again = ops.decode_attention_hd_out(scores, vc, spos, qpos)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
 @pytest.mark.cuda

@@ -608,7 +608,7 @@ def test_split_hd_out_matches_jax(case, S):
         out = split_hd_out(scores, vr, spos, qpos, S)
         np.testing.assert_allclose(
             out.numpy(), ref.decode_attention_hd_out_ref(
-                scores, vr, spos, qpos).numpy(), atol=PAGED_TOL,
+                scores, vr, spos, qpos)[0].numpy(), atol=PAGED_TOL,
             rtol=PAGED_TOL)
         outs.append(out)
     np.testing.assert_allclose(torch.cat(outs, -1).numpy(), want,

@@ -10,17 +10,30 @@ steps (tests/torch_serve_cases.py holds the configs and rank functions):
   decode steps in each mode (hd, lc with per_row_write, kv, resident),
   against the one-device step on the same weights, batches and capacity
   groups: logits and caches;
+* batches that do not split over the data axes (1 and 3, JAX's long_500k
+  decode layout): every family that decodes on both meshes, the default
+  prefill of a prompt that wraps the windowed configs' ring and three
+  decode steps in each mode, against the one-device step.  Every data rank
+  holds every row; the cache splits its slots over the data axes (with
+  head_dim over `model` in hd: kernel (b) over the rank's slot range, its
+  lse merged over the data axes; with `model` in lc; alone in kv and
+  resident: kernel (a)), the conv and SSM states are whole over them;
 * on a 1 x 1 mesh, every variant equal to the bit to the one-device step,
   and no collective byte;
 * dense hd decode, lc + per_row_write decode, TP MoE decode and the
   sequence-parallel prefill (dense and TP MoE) against
   ``repro.launch.steps``' sharded steps on a (2, 2) mesh of 4 host devices,
-  in a subprocess whose XLA_FLAGS alone give it 4 devices;
+  in a subprocess whose XLA_FLAGS alone give it 4 devices; at batch 1 the
+  dense prefill, dense hd decode (slots over `data`, head_dim over
+  `model`), TP MoE lc + per_row_write decode (slots over `data` and
+  `model`) and hybrid hd decode (its head_dim 8 does not split: slots over
+  `data`, heads over `model`) the same way, where JAX's prefill step is
+  jitted again with its decode step's rule for the logits' rows and its
+  lc rule's specs flattened (``torch_serve_cases._jax_unsplit``);
 * the MoE capacity groups of a sequence-parallel prefill and of a decode
   batch whose single group spans the data ranks are JAX's (the one-device
   step in those groups is the reference above);
-* the refusals: a batch that does not split over the data axes, the VLM's
-  sequence-parallel prefill, ``calibrate=True``.
+* the refusals: the VLM's sequence-parallel prefill, ``calibrate=True``.
 
 The ranks run in the background while this process computes the
 one-device references and a subprocess JAX's steps.  Tolerances (float32,
@@ -60,10 +73,11 @@ def runs(tmp_path_factory):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     out = {}
     try:
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
             kw = dict(device_type="cpu", timeout_s=RANKS_TIMEOUT,
                       workdir=str(root))
             ranks = pool.submit(D.run_ranks, T.serve_ranks, 4, **kw)
+            unsplit = pool.submit(D.run_ranks, T.unsplit_ranks, 4, **kw)
             one = pool.submit(D.run_ranks, T.one_by_one_ranks, 1, **kw)
             refusing = pool.submit(D.run_ranks, T.refusing_ranks, 2, **kw)
             refs = {}
@@ -72,8 +86,15 @@ def runs(tmp_path_factory):
                 for case in T.CASES:
                     for key, val in T.one_device(case, ds).items():
                         refs[(mk, case) + key] = val
+                for case in T.unsplit_cases():
+                    for b in T.UNSPLIT:
+                        for key, val in T.one_device(
+                                case, ds, b, T.S_UNSPLIT,
+                                ["default"]).items():
+                            refs[(mk, case, b) + key] = val
             out["refs"] = refs
             out["mesh"] = ranks.result()[0]
+            out["unsplit"] = unsplit.result()[0]
             out["one_by_one"] = one.result()[0]
             out["refusing"] = dict(refusing.result()[0])
         log, _ = jax_proc.communicate(timeout=RANKS_TIMEOUT)
@@ -117,6 +138,25 @@ def test_mesh_step_matches_one_device(runs, mk, case, kind, variant):
         assert sum(got[2].values()) > 0, got[2]
 
 
+UNSPLIT = [(mk, case, b, kind, k) for mk in T.MESHES
+           for case in T.unsplit_cases() for b in T.UNSPLIT
+           for kind, ks in (("prefill", ["default"]),
+                            ("decode", T.decode_variants(case)))
+           for k in ks]
+
+
+@pytest.mark.parametrize("mk,case,b,kind,variant", UNSPLIT,
+                         ids=["-".join(map(str, v)) for v in UNSPLIT])
+def test_unsplit_batch_matches_one_device(runs, mk, case, b, kind, variant):
+    key = (mk, case, b, kind, variant)
+    got, want = runs["unsplit"][key], runs["refs"][key]
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=TOL,
+                               rtol=0, err_msg=str(key))
+    assert_cache_close(got[1], want[1], key)
+    if kind == "decode" and mk == "2x2":
+        assert sum(got[2].values()) > 0, got[2]
+
+
 ONE = [(case, kind, k) for case in T.CASES
        for kind, ks in (("prefill", T.prefill_variants(case)),
                         ("decode", T.decode_variants(case))) for k in ks]
@@ -136,17 +176,21 @@ def test_one_device_builder_is_the_reference(runs, case):
     assert runs["one_by_one"][(case, "builder")][0]
 
 
-JAXS = [(c, "prefill", k) for c, k in T.JAX_PREFILL] + \
-    [(c, "decode", k) for c, k in T.JAX_DECODE]
+JAXS = [(T.B, c, "prefill", k) for c, k in T.JAX_PREFILL] + \
+    [(T.B, c, "decode", k) for c, k in T.JAX_DECODE] + \
+    [(1, c, "prefill", k) for c, k in T.UNSPLIT_JAX_PREFILL] + \
+    [(1, c, "decode", k) for c, k in T.UNSPLIT_JAX_DECODE]
 
 
-@pytest.mark.parametrize("case,kind,variant", JAXS,
-                         ids=["-".join(v) for v in JAXS])
-def test_mesh_step_matches_jax_sharded_step(runs, case, kind, variant):
+@pytest.mark.parametrize("b,case,kind,variant", JAXS,
+                         ids=["-".join(map(str, v)) for v in JAXS])
+def test_mesh_step_matches_jax_sharded_step(runs, b, case, kind, variant):
     z = runs["jax"]
-    pre = f"{case}|{kind}|{variant}|"
+    pre = f"{case}|{kind}|{variant}|" if b == T.B else \
+        f"b{b}|{case}|{kind}|{variant}|"
     want = {k[len(pre):]: v for k, v in z.items() if k.startswith(pre)}
-    logits, cache = runs["mesh"][("2x2", case, kind, variant)][:2]
+    logits, cache = runs["mesh"][("2x2", case, kind, variant)][:2] \
+        if b == T.B else runs["unsplit"][("2x2", case, b, kind, variant)][:2]
     np.testing.assert_allclose(logits.numpy(), want.pop("logits"),
                                atol=TOL, rtol=0, err_msg=pre)
     assert set(cache) == set(want), (set(cache), set(want))
@@ -157,7 +201,6 @@ def test_mesh_step_matches_jax_sharded_step(runs, case, kind, variant):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("odd batch", "does not split over the 2 data shards"),
     ("vlm seq", "image prefix"),
     ("calibrate", "cost-analysis compile")])
 def test_mesh_steps_refuse(runs, what, match):

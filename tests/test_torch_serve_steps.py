@@ -367,21 +367,47 @@ def test_decode_lse_plain_matches_jax(name):
     assert np.isneginf(lse[-1].numpy()).all()
 
 
+def _hd_split(q, kc, vc, spos, qpos, cols, slots):
+    """Kernel (b)'s plain versions over head_dim slices `cols` and slot
+    ranges `slots`: each range's partial scores summed over the slices;
+    with one range (b)'s output launch on each slice, else each range's
+    output with its lse (the output launch's second result), merged over
+    the ranges by the lse combine; the slices concatenated."""
+    D = q.shape[-1]
+
+    def part(x, sl, c):
+        return t(np.ascontiguousarray(x[:, sl][..., c]))
+    outs = []
+    for c in cols:
+        parts = []
+        for sl in slots:
+            scores = sum(ops.decode_attention_hd_scores(
+                t(np.ascontiguousarray(q[..., cc])), part(kc, sl, cc),
+                1 / np.sqrt(D)) for cc in cols)
+            args = (scores, part(vc, sl, c),
+                    t(np.ascontiguousarray(spos[:, sl])), t(qpos))
+            parts.append(ops.decode_attention_hd_out(*args))
+        outs.append(parts[0][0] if len(slots) == 1 else
+                    TM._combine_slot_splits(_Slots(parts), *parts[0]))
+    return torch.cat(outs, -1)
+
+
 @pytest.mark.parametrize("name", list(RANK_CASES))
 @pytest.mark.parametrize("ranks", [2, 4])
-def test_decode_hd_plain_matches_jax(name, ranks):
+@pytest.mark.parametrize("slot_ranks", [1, 2])
+def test_decode_hd_plain_matches_jax(name, ranks, slot_ranks):
     """The head_dim split over `ranks`: each rank's partial scores, their
-    sum, each rank's softmax and P.V columns, concatenated."""
+    sum, each rank's softmax and P.V columns, concatenated; with
+    `slot_ranks` 2 the slots split too (JAX's batch-1 hd layout: slots
+    over `data`, head_dim over `model`), each slot range's output and lse
+    merged.  Row -1 has no valid slot on any rank."""
     q, kc, vc, spos, qpos = _case(name, 12)
-    D = q.shape[-1]
-    n = D // ranks
-    cols = [slice(r * n, (r + 1) * n) for r in range(ranks)]
-    scores = sum(ops.decode_attention_hd_scores(
-        t(np.ascontiguousarray(q[..., c])),
-        t(np.ascontiguousarray(kc[..., c])), 1 / np.sqrt(D)) for c in cols)
-    out = torch.cat([ops.decode_attention_hd_out(
-        scores, t(np.ascontiguousarray(vc[..., c])), t(spos), t(qpos))
-        for c in cols], -1)
+    D, L = q.shape[-1], kc.shape[1] // slot_ranks * slot_ranks
+    kc, vc, spos = kc[:, :L], vc[:, :L], spos[:, :L]
+    n, m = D // ranks, L // slot_ranks
+    out = _hd_split(q, kc, vc, spos, qpos,
+                    [slice(r * n, (r + 1) * n) for r in range(ranks)],
+                    [slice(r * m, (r + 1) * m) for r in range(slot_ranks)])
     np.testing.assert_allclose(out.numpy(), _jax_decode(q, kc, vc, spos,
                                                         qpos),
                                atol=ATT_TOL, rtol=0)
@@ -402,22 +428,47 @@ class _Slots:
 
 
 @pytest.mark.parametrize("name", list(RANK_CASES))
-def test_slot_split_combine_matches_jax(name):
+@pytest.mark.parametrize("kernel", ["a", "b"])
+def test_slot_split_combine_matches_jax(name, kernel):
     """A cache of L slots over 4 ranks' ranges (L rounded down to a
-    multiple of 4): each range through kernel (a)'s plain version, merged
-    by the lse combine; row -1 has no valid slot anywhere (the mean of V
-    over every slot), and a rank whose range has no valid slot weighs
+    multiple of 4): each range through kernel (a)'s plain version, or
+    through (b)'s over two head_dim slices (the output launch with each
+    head's lse, whose lse is JAX's log-sum-exp of the range's scores),
+    merged by the lse combine; row -1 has no valid slot anywhere (the mean
+    of V over every slot), and a rank whose range has no valid slot weighs
     0."""
     q, kc, vc, spos, qpos = _case(name, 13)
     L = kc.shape[1] // 4 * 4
     kc, vc, spos = kc[:, :L], vc[:, :L], spos[:, :L]
     n = L // 4
-    parts = [ops.decode_attention_lse(
-        t(q), t(np.ascontiguousarray(kc[:, r * n:(r + 1) * n])),
-        t(np.ascontiguousarray(vc[:, r * n:(r + 1) * n])),
-        t(np.ascontiguousarray(spos[:, r * n:(r + 1) * n])), t(qpos))
-        for r in range(4)]
-    out = TM._combine_slot_splits(_Slots(parts), *parts[0])
+    ranges = [slice(r * n, (r + 1) * n) for r in range(4)]
+    if kernel == "a":
+        parts = [ops.decode_attention_lse(
+            t(q), t(np.ascontiguousarray(kc[:, sl])),
+            t(np.ascontiguousarray(vc[:, sl])),
+            t(np.ascontiguousarray(spos[:, sl])), t(qpos)) for sl in ranges]
+        out = TM._combine_slot_splits(_Slots(parts), *parts[0])
+    else:
+        D = q.shape[-1]
+        out = _hd_split(q, kc, vc, spos, qpos,
+                        [slice(0, D // 2), slice(D // 2, D)], ranges)
+        Bq, H, _ = q.shape
+        KV = kc.shape[2]
+        for sl in ranges:
+            scores = ops.decode_attention_hd_scores(
+                t(q), t(np.ascontiguousarray(kc[:, sl])), 1 / np.sqrt(D))
+            _, lse = ops.decode_attention_hd_out(
+                scores, t(np.ascontiguousarray(vc[:, sl])),
+                t(np.ascontiguousarray(spos[:, sl])), t(qpos))
+            s = jnp.einsum("bkgd,blkd->bkgl", jnp.asarray(q).reshape(
+                Bq, KV, H // KV, D) / np.sqrt(D), jnp.asarray(kc[:, sl]))
+            ok = (spos[:, sl] >= 0) & (spos[:, sl] <= qpos[:, None])
+            want = jax.nn.logsumexp(jnp.where(jnp.asarray(ok)[:, None, None],
+                                              s, -jnp.inf), axis=-1)
+            np.testing.assert_allclose(lse.numpy(),
+                                       np.asarray(want).reshape(Bq, H),
+                                       atol=1e-5, rtol=1e-6)
+            assert np.isneginf(lse[-1].numpy()).all()
     np.testing.assert_allclose(out.numpy(), _jax_decode(q, kc, vc, spos,
                                                         qpos),
                                atol=ATT_TOL, rtol=0)

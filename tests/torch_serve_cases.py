@@ -25,6 +25,12 @@ from repro_torch.models.config import ShapeSpec
 #: needs a length that divides 16; mixtral's smoke window makes it 16)
 B, S, LC = 4, 16, 32
 DECODE_STEPS = 3
+#: batches that do not split over the data axes (JAX's layout: every data
+#: rank holds every row, the cache's slots split over the data axes) and
+#: their prompt length, past the windowed configs' 16-slot ring so that it
+#: wraps
+UNSPLIT = (1, 3)
+S_UNSPLIT = 24
 MESHES = {"2x2": {"data": 2, "model": 2},
           "pod2x2x1": {"pod": 2, "data": 2, "model": 1}}
 #: the smoke configs in float32, widened where a rule branch needs it
@@ -52,10 +58,14 @@ DECODE = {"hd": {}, "lc_per_row": dict(cache_shard_mode="lc",
                                        per_row_write=True),
           "kv": dict(cache_shard_mode="kv"),
           "resident": dict(resident_weights=True)}
-#: the variants held against JAX's own sharded steps on (data 2, model 2)
+#: the variants held against JAX's own sharded steps on (data 2, model 2),
+#: at batch B and at batch 1 (``UNSPLIT_JAX_*``)
 JAX_PREFILL = (("dense_heads", "seq_parallel"), ("moe_tp", "seq_parallel"))
 JAX_DECODE = (("dense_heads", "hd"), ("dense_kv16", "lc_per_row"),
               ("moe_tp", "hd"))
+UNSPLIT_JAX_PREFILL = (("dense_heads", "default"),)
+UNSPLIT_JAX_DECODE = (("dense_heads", "hd"), ("moe_tp", "lc_per_row"),
+                      ("hybrid", "hd"))
 
 
 def cfg_of(case: str):
@@ -80,11 +90,11 @@ def params(case: str):
         sorted(CASES).index(case)), "cpu")
 
 
-def prefill_batch(case: str) -> dict:
+def prefill_batch(case: str, b: int = B, s: int = S) -> dict:
     cfg = cfg_of(case)
     rng = np.random.default_rng(1)
     out = {}
-    for k, (shape, dt) in CC.prefill_batch_specs(cfg, B, S).items():
+    for k, (shape, dt) in CC.prefill_batch_specs(cfg, b, s).items():
         if k == "tokens":
             out[k] = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
         elif k == "positions":
@@ -95,15 +105,15 @@ def prefill_batch(case: str) -> dict:
     return out
 
 
-def decode_batch(case: str, step: int) -> dict:
+def decode_batch(case: str, step: int, b: int = B, s: int = S) -> dict:
     cfg = cfg_of(case)
     rng = np.random.default_rng(100 + step)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32),
-            "positions": np.full((B, 1), S + step, np.int32)}
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32),
+            "positions": np.full((b, 1), s + step, np.int32)}
 
 
-def shape(kind: str) -> ShapeSpec:
-    return ShapeSpec(kind, S if kind == "prefill" else LC, B, kind)
+def shape(kind: str, b: int = B, s: int = S) -> ShapeSpec:
+    return ShapeSpec(kind, s if kind == "prefill" else LC, b, kind)
 
 
 def groups(case: str, data_shards: int, tokens: int) -> int:
@@ -113,65 +123,72 @@ def groups(case: str, data_shards: int, tokens: int) -> int:
         if cfg_of(case).has_moe else 1
 
 
-def one_device(case: str, data_shards: int) -> dict:
+def one_device(case: str, data_shards: int, b: int = B, s: int = S,
+               prefills=None) -> dict:
     """The one-device prefill (logits, cache) of the mesh's capacity
-    groups, and from its cache each decode variant's DECODE_STEPS steps
-    (stacked logits, final cache)."""
+    groups (the `prefills` variants' keys, every prefill variant's by
+    default: they are the same step on one device), and from its cache
+    each decode variant's DECODE_STEPS steps (stacked logits, final cache),
+    at batch `b` of `s` prompt tokens."""
     cfg = cfg_of(case)
     p = params(case)
     with_cache = cfg.supports_decode
 
     def prefill():
-        b = {k: torch.from_numpy(v) for k, v in prefill_batch(case).items()}
-        cache = MDL.init_cache(cfg, B, LC) if with_cache else None
+        pb = {k: torch.from_numpy(v)
+              for k, v in prefill_batch(case, b, s).items()}
+        cache = MDL.init_cache(cfg, b, LC) if with_cache else None
         with torch.no_grad():
             logits, cache = MDL.forward(
-                cfg, p, b, "prefill" if with_cache else "train", cache,
+                cfg, p, pb, "prefill" if with_cache else "train", cache,
                 remat=False, last_only=with_cache,
-                num_groups=groups(case, data_shards, B * S))
+                num_groups=groups(case, data_shards, b * s))
         return logits[:, -1], cache
 
-    out = {("prefill", k): prefill() for k in prefill_variants(case)}
+    out = {("prefill", k): prefill()
+           for k in prefills or prefill_variants(case)}
     for k in decode_variants(case):
         _, cache = prefill()
         if DECODE[k].get("per_row_write"):
-            cache["row_idx"] = torch.full((B,), S, dtype=torch.int32)
+            cache["row_idx"] = torch.full((b,), s, dtype=torch.int32)
         logits = []
         for st in range(DECODE_STEPS):
-            b = {n: torch.from_numpy(v) for n, v in
-                 decode_batch(case, st).items()}
+            db = {n: torch.from_numpy(v) for n, v in
+                  decode_batch(case, st, b, s).items()}
             with torch.no_grad():
                 lg, cache = MDL.forward(
-                    cfg, p, b, "decode", cache, remat=False,
-                    num_groups=groups(case, data_shards, B))
+                    cfg, p, db, "decode", cache, remat=False,
+                    num_groups=groups(case, data_shards, b))
             logits.append(lg)
         out[("decode", k)] = (torch.stack(logits), cache)
     return out
 
 
-def mesh_runs(case: str, mesh) -> dict:
-    """Every variant of `case` on `mesh`, gathered whole: the prefill
-    variants' (logits, cache), and each decode variant's (stacked logits,
-    final cache, the collective bytes of its steps) from the default mesh
-    prefill's cache resharded into the decode layout."""
+def mesh_runs(case: str, mesh, b: int = B, s: int = S,
+              prefills=None) -> dict:
+    """Every variant of `case` on `mesh` at batch `b` of `s` prompt tokens
+    (of the prefill variants, `prefills`, every one by default), gathered
+    whole: the prefill variants' (logits, cache), and each decode variant's
+    (stacked logits, final cache, the collective bytes of its steps) from
+    the default mesh prefill's cache resharded into the decode layout."""
     cfg = cfg_of(case)
     p = params(case)
     out = {}
-    for k in prefill_variants(case):
-        step, _ = ST.make_prefill_step(cfg, mesh, shape("prefill"),
+    for k in prefills or prefill_variants(case):
+        step, _ = ST.make_prefill_step(cfg, mesh, shape("prefill", b, s),
                                        cache_len=LC, **PREFILL[k])
         logits, cache = step(MS.shard_tree(mesh, p, step.param_pspecs),
-                             prefill_batch(case))
+                             prefill_batch(case, b, s))
         out[("prefill", k)] = (
             mesh.full(logits, step.logits_pspec),
             None if cache is None else
             MS.gather_tree(mesh, cache, step.cache_pspecs))
     for k in decode_variants(case):
-        pre, _ = ST.make_prefill_step(cfg, mesh, shape("prefill"),
+        pre, _ = ST.make_prefill_step(cfg, mesh, shape("prefill", b, s),
                                       cache_len=LC)
         _, cache = pre(MS.shard_tree(mesh, p, pre.param_pspecs),
-                       prefill_batch(case))
-        step, _ = ST.make_decode_step(cfg, mesh, shape("decode"),
+                       prefill_batch(case, b, s))
+        step, _ = ST.make_decode_step(cfg, mesh, shape("decode", b),
                                       **DECODE[k])
         cache = ST.reshard_cache(mesh, cache, pre.cache_pspecs,
                                  step.cache_pspecs)
@@ -179,13 +196,18 @@ def mesh_runs(case: str, mesh) -> dict:
         mesh.bytes.clear()
         logits = []
         for st in range(DECODE_STEPS):
-            lg, cache = step(local, decode_batch(case, st), cache)
+            lg, cache = step(local, decode_batch(case, st, b, s), cache)
             logits.append(mesh.full(lg, step.logits_pspec))
         moved = dict(mesh.bytes)
         out[("decode", k)] = (torch.stack(logits),
                               MS.gather_tree(mesh, cache, step.cache_pspecs),
                               moved)
     return out
+
+
+def unsplit_cases():
+    """The families that decode (an unsplit batch matters to the cache)."""
+    return [c for c in CASES if cfg_of(c).supports_decode]
 
 
 # ------------------------------ rank functions --------------------------------
@@ -197,6 +219,21 @@ def serve_ranks(rank, world):
         for case in CASES:
             for key, val in mesh_runs(case, mesh).items():
                 out[(mk, case) + key] = val
+    return out if rank == 0 else None
+
+
+def unsplit_ranks(rank, world):
+    """Every family that decodes at the UNSPLIT batches on both 4-rank
+    meshes; rank 0 returns the results, keyed (mesh, case, batch, kind,
+    variant)."""
+    out = {}
+    for mk, shp in MESHES.items():
+        mesh = D.Mesh(shp, device_type="cpu")
+        for case in unsplit_cases():
+            for b in UNSPLIT:
+                for key, val in mesh_runs(case, mesh, b, S_UNSPLIT,
+                                          ["default"]).items():
+                    out[(mk, case, b) + key] = val
     return out if rank == 0 else None
 
 
@@ -233,8 +270,6 @@ def refusing_ranks(rank, world):
     mesh = D.Mesh({"data": 2, "model": 1}, device_type="cpu")
     out = []
     for what, build in (
-            ("odd batch", lambda: ST.make_decode_step(
-                cfg_of("dense_heads"), mesh, ShapeSpec("d", LC, 3, "decode"))),
             ("vlm seq", lambda: ST.make_prefill_step(
                 cfg_of("vlm"), mesh, shape("prefill"), seq_parallel=True)),
             ("calibrate", lambda: ST.make_prefill_step(
@@ -303,4 +338,89 @@ def jax_reference(out_path: str) -> None:
                                 decode_batch(case, st).items()}, cache)
             logits.append(np.asarray(lg))
         put(f"{case}|decode|{k}", dict(cache, logits=np.stack(logits)))
+    out.update(_jax_unsplit(mesh, jcfg_of, jparams))
     np.savez(out_path, **out)
+
+
+def _jax_unsplit(mesh, jcfg_of, jparams) -> dict:
+    """JAX's sharded steps at batch 1 (S_UNSPLIT prompt tokens): the
+    default prefill of UNSPLIT_JAX_PREFILL and, from it, the decode steps
+    of UNSPLIT_JAX_DECODE; keys "b1|case|kind|variant|name".  Two of JAX's
+    own rules refuse this batch, and the reference steps round them as the
+    port does:
+      * its prefill step names the data axes for the logits' rows
+        (``P(da, "model")``), which one row does not divide: its step
+        function is jitted again with the decode step's rule for the
+        logits, ``P(None, "model")``, and its own parameter, batch and cache
+        shardings;
+      * its lc rule nests the data tuple, (("data",), "model"), which a
+        PartitionSpec refuses: its rules make their specs flattened, as the
+        port's ``cache_pspecs`` does (``repro.launch.mesh.P`` swapped for
+        this process's run of them)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+
+    from repro.launch import mesh as JMS
+    from repro.launch import steps as JST
+    from repro.models.config import ShapeSpec as JShape
+    b, s = 1, S_UNSPLIT
+    out = {}
+
+    def flat(e):
+        if not isinstance(e, tuple):
+            return e
+        names = tuple(a for x in e for a in (x if isinstance(x, tuple)
+                                             else (x,)))
+        return names[0] if len(names) == 1 else names
+
+    def flat_spec(*entries):
+        return JP(*(flat(e) for e in entries))
+
+    def prefill(case):
+        jcfg = jcfg_of(case)
+        fn, (pspecs, bspecs) = JST.make_prefill_step(
+            jcfg, mesh, JShape("p", s, b, "prefill"), cache_len=LC)
+        batch = {n: jnp.asarray(v) for n, v in
+                 prefill_batch(case, b, s).items()}
+        try:
+            fn(jparams(case), batch)
+            raise AssertionError("JAX's prefill step took a batch of 1")
+        except ValueError:
+            pass
+        step = jax.jit(fn.__wrapped__, in_shardings=(
+            JST._named(mesh, JMS.param_pspecs(jcfg, mesh, fsdp=True)),
+            JST._named(mesh, JMS.batch_pspecs(jcfg, mesh, bspecs))),
+            out_shardings=(NamedSharding(mesh, JP(None, "model")),
+                           JST._named(mesh, JMS.cache_pspecs(
+                               jcfg, mesh, JM.cache_specs(jcfg, b, LC)))))
+        return step(jparams(case), batch)
+
+    from repro.models import model as JM
+    JMS.P = flat_spec               # the spec maker of JAX's rules
+    try:
+        for case, k in UNSPLIT_JAX_PREFILL:
+            logits, cache = prefill(case)
+            for n, v in dict(cache, logits=logits).items():
+                out[f"b1|{case}|prefill|{k}|{n}"] = np.asarray(v)
+        for case, k in UNSPLIT_JAX_DECODE:
+            jcfg = jcfg_of(case)
+            _, cache = prefill(case)
+            cache = jax.tree.map(np.asarray, cache)
+            if DECODE[k].get("per_row_write"):
+                cache["row_idx"] = np.full((b,), s, np.int32)
+            fn, _ = JST.make_decode_step(jcfg, mesh,
+                                         JShape("d", LC, b, "decode"),
+                                         donate_cache=False, **DECODE[k])
+            jp = jparams(case)
+            logits = []
+            for st in range(DECODE_STEPS):
+                lg, cache = fn(jp, {n: jnp.asarray(v) for n, v in
+                                    decode_batch(case, st, b, s).items()},
+                               cache)
+                logits.append(np.asarray(lg))
+            for n, v in dict(cache, logits=np.stack(logits)).items():
+                out[f"b1|{case}|decode|{k}|{n}"] = np.asarray(v)
+    finally:
+        JMS.P = JP
+    return out
