@@ -530,7 +530,9 @@ class ServeShards(TrainShards):
         a product and its partial sums reduced over all its axes;
       * ZeRO-3 (`zero3`, the sequence-parallel prefill): every leaf is
         gathered whole; the rank holds its rows and its slice of the
-        sequence (`seq`), K/V and positions are gathered along it, and the
+        sequence (`seq`: ``seq_chunk``, cut in the forward after the
+        embedding and, for the VLM, the image prefix's join), K/V and
+        positions are gathered along it, and the
         mixer and the MoE block (whose capacity groups and scan run along
         the sequence) gather the sequence too.
     ``axes_of`` gives a leaf dim's kept axes (those wider than 1) and
@@ -672,6 +674,13 @@ class ServeShards(TrainShards):
         if self.row_shards > 1 and set(axes) & set(self.data):
             return x[self.rows_lo:self.rows_lo + self.rows_n]
         return x
+
+    def seq_chunk(self, t: torch.Tensor) -> torch.Tensor:
+        """This `model` rank's contiguous chunk of a (B, S, ...) sequence:
+        [r S / m, (r + 1) S / m) of rank r of m."""
+        n = t.shape[1] // self.mesh.size("model")
+        lo = self.mesh.index("model") * n
+        return t[:, lo:lo + n].contiguous()
 
     def kv_subset(self, t: torch.Tensor, h: int, dim: int) -> torch.Tensor:
         """``_kv_pick`` of a K/V tensor or cache, contiguous (the attention

@@ -45,8 +45,10 @@ parallel over ZeRO-3 weights, its cache in the hd layout; the decode step
 in the layout that ``cache_shard_mode`` (hd, lc, kv) and
 ``resident_weights`` pick, as JAX picks it.  A mesh step takes the rank's
 parameter shards (the step's ``param_pspecs``; ``mesh.shard_tree``), the
-global batch (it keeps its rows, and in the sequence-parallel prefill its
-slice of the sequence) and, in decode, the rank's cache shard; it returns
+global batch (it keeps its rows; in the sequence-parallel prefill the
+forward cuts its chunk of the sequence after the embedding, for the VLM
+after the image prefix joins the text) and, in decode, the rank's cache
+shard; it returns
 the rank's logits and cache shards (``logits_pspec``, ``cache_pspecs``).
 ``reshard_cache`` moves a prefill's cache into a decode layout.
 """
@@ -63,7 +65,7 @@ from repro_torch.launch import mesh as MS
 from repro_torch.models import model as MDL
 from repro_torch.models import moe as MOE
 from repro_torch.models import params as PRM
-from repro_torch.models.config import VLM, ModelConfig, ShapeSpec
+from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.training import optim as OPT
 
 
@@ -348,6 +350,10 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     seq_parallel -- (mesh) the sequence over `model`, ZeRO-3 weights
               gathered whole a layer at a time, K/V all-gathered for
               full-context attention; logits of the whole vocabulary.
+              The sequence is `shape.seq_len` (the VLM's image prefix and
+              text together, each rank a chunk of the joined sequence, as
+              JAX lays it out); a length that does not split over `model`
+              raises ValueError.
     fsdp   -- (mesh) the train layout's data-axis sharding of the weights.
     device -- (no mesh) where the cache is made and the batch moved: CUDA
               by default, "cpu" on request; the params must be there.
@@ -393,14 +399,9 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     bps = MS.batch_pspecs(cfg, mesh, batch_specs)
     seq = seq_parallel and mesh.size("model") > 1
     if seq_parallel:
-        if cfg.family == VLM:
-            raise NotImplementedError(
-                "seq_parallel: the VLM's image prefix joins the sequence "
-                "inside the forward; not supported")
         if S % mesh.size("model"):
             raise ValueError(f"seq_parallel: sequence {S} does not split "
                              f"over model ({mesh.size('model')})")
-        bps = {k: MS.P(v[0], "model", *v[2:]) for k, v in bps.items()}
     cps = MS.cache_pspecs(cfg, mesh, MDL.cache_specs(cfg, B, cache_len)) \
         if with_cache else None
     rows = bps["positions"][0]

@@ -486,7 +486,7 @@ def _serve_moe(cfg, x, lp, shard, num_groups, gmm_fn):
     every row; a sequence split over `model` is gathered first, so no
     rank's slice is ever routed as a group of its own.  The expert outputs
     are summed over the experts' and d_ff's axes."""
-    B, S, m = x.shape
+    m = x.shape[2]
     xa = shard.mesh.all_gather(x, 1, "model") if shard.seq else x
     if shard.moe_gather:
         xa = shard.mesh.all_gather(xa, 0, shard.data)
@@ -501,10 +501,7 @@ def _serve_moe(cfg, x, lp, shard, num_groups, gmm_fn):
                       first_expert=shard.expert_lo).reshape(xa.shape)
     if shard.moe_gather:
         y = y[shard.rows_lo:shard.rows_lo + shard.rows_n]
-    if shard.seq:
-        lo = shard.mesh.index("model") * S
-        y = y[:, lo:lo + S]
-    return y
+    return shard.seq_chunk(y) if shard.seq else y
 
 
 def _seq_mixer(cfg, x, lp, state, scan_fn, shard):
@@ -512,7 +509,6 @@ def _seq_mixer(cfg, x, lp, state, scan_fn, shard):
     whole sequence, so each rank gathers it (and the state, split over
     d_inner), runs the whole mixer (ZeRO-3 weights are whole) and keeps its
     slice of the output and its channels of the new state."""
-    S = x.shape[1]
     xa = shard.mesh.all_gather(x, 1, "model")
     full = None
     if state is not None:
@@ -525,8 +521,7 @@ def _seq_mixer(cfg, x, lp, state, scan_fn, shard):
         lo = shard.lo(("model",), cfg.d_inner) if di < cfg.d_inner else 0
         state.conv.copy_(full.conv[..., lo:lo + di])
         state.h.copy_(full.h[:, lo:lo + di])
-    lo = shard.mesh.index("model") * S
-    return out[:, lo:lo + S]
+    return shard.seq_chunk(out)
 
 
 def _serve_embed(shard, emb: torch.Tensor, tokens: torch.Tensor
@@ -756,6 +751,12 @@ def forward(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                 torch.arange(P, dtype=positions.dtype,
                              device=positions.device).expand(pe.shape[0], P),
                 positions + P], dim=1)
+    if serving and shard.seq:
+        # the sequence-parallel prefill takes the batch whole over `model`:
+        # this rank's chunk of the (for the VLM, joined image + text)
+        # sequence, as JAX's residual_cs lays it out; kv_cs gathers the
+        # positions whole
+        x, positions = shard.seq_chunk(x), shard.seq_chunk(positions)
     B, S = positions.shape
     x = residual_cs(x)
     kv_positions = None if mode == "decode" else kv_cs(positions)

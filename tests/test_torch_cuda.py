@@ -23,7 +23,11 @@ carries the state across time chunks as exp(A * sum dt) times the chunk's
 start state).  The flash backward: 2e-2 (bfloat16) and 2e-5 (float32)
 times each gradient's largest |value| (at least 1), the same fp32 products
 summed in another order; two calls equal to the bit; the training
-forward's lse 1e-4.
+forward's lse 1e-4.  At paligemma-3b's serving shapes, where the softmax
+spreads over thousands of keys and a typical bf16 output is about 2e-2,
+each output vector is also held within 2e-2 (bfloat16) or 1e-5 (float32)
+of its own 2-norm, and the plain output with one 64-key tile hidden must
+fail that rule.
 """
 import numpy as np
 import pytest
@@ -328,6 +332,87 @@ def test_decode_attention_lse_split_edges(cuda, case, dtype, empty):
     assert torch.isneginf(lse[-1]).all()
     again = ops.decode_attention_lse(*args)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+def vector_rel_err(got, want):
+    """The largest ||got - want|| / ||want|| over the output vectors
+    (2-norms along the last dim)."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1)
+            / want.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+#: paligemma-3b's serving decode (8 query heads on 1 kv head of 256: kernel
+#: 2's D 256 body, on the CUDA cores): its whole 8224-slot ring and a
+#: `model`-2 rank's half of it (kernel (a), the lc mode), and a short ring;
+#: the last row has no valid slot: (B, L)
+VLM_DECODE_CASES = {"ring_8224": (3, 8224), "rank_4112": (3, 4112),
+                    "L77": (2, 77)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_lse"])
+@pytest.mark.parametrize("case", list(VLM_DECODE_CASES))
+def test_decode_kernels_at_head_dim_256_with_an_empty_row(cuda, case, kernel):
+    """Kernel 2 and (a) in bf16 at paligemma-3b's heads against their plain
+    versions, the empty row's output the mean of V (its lse -inf); each
+    output vector within 2e-2 of its 2-norm, which the plain output with
+    the first 64 slots hidden is not."""
+    B, L = VLM_DECODE_CASES[case]
+    q, kc, vc, spos, qpos = (t(a).to(cuda) for a in
+                             decode_case(31, B, 8, 1, 256, L))
+    spos[-1] = -1
+    args = tuple(x.to(torch.bfloat16) for x in (q, kc, vc)) + (spos, qpos)
+    fn = getattr(ops, kernel)
+    n = fn.launches
+    got = fn(*args)
+    assert fn.launches == n + 1
+    want = getattr(ref, kernel + "_ref")(*args)
+    if kernel == "decode_attention":
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    assert vector_rel_err(got[0], want[0]) <= 2e-2
+    hidden = spos.clone()
+    hidden[:, :64] = -1
+    dropped = getattr(ref, kernel + "_ref")(*args[:3], hidden, qpos)
+    if kernel == "decode_attention_lse":
+        dropped = dropped[0]
+    assert vector_rel_err(dropped, want[0]) > 2e-2
+    if kernel == "decode_attention_lse":
+        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-5)
+        assert torch.isneginf(got[1][-1]).all()
+
+
+#: kernel 1 at a sequence-parallel rank's queries (a chunk of the
+#: positions) against the whole sequence: paligemma-3b's prefix-LM heads at
+#: D 256 (the last half of the sequence; a chunk inside the image prefix
+#: and past it) and hubert-xlarge's bidirectional heads at D 80: (B, Skv,
+#: first query, queries, H, KV, D, mask)
+FLASH_OFFSET_CASES = {
+    "vlm_last_half": (2, 300, 150, 150, 8, 1, 256,
+                      dict(causal=True, prefix_len=40)),
+    "vlm_chunk_in_prefix": (1, 256, 32, 64, 8, 1, 256,
+                            dict(causal=True, prefix_len=80)),
+    "encoder_second_half": (2, 200, 100, 100, 16, 16, 80,
+                            dict(causal=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_OFFSET_CASES))
+def test_flash_attention_kernel_query_offset(cuda, case, dtype):
+    B, Skv, lo, Sq, H, KV, D, kw = FLASH_OFFSET_CASES[case]
+    q, k, v, _, kpos = prefill_case(41, B, Skv, H, KV, D)
+    q, qpos = (np.ascontiguousarray(a[:, lo:lo + Sq]) for a in (q, kpos))
+    q, k, v, qpos, kpos = (t(a).to(cuda) for a in (q, k, v, qpos, kpos))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    out = ops.flash_attention(q, k, v, qpos, kpos, **kw)
+    r = ref.flash_attention_ref(q, k, v, qpos, kpos, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), r.float(), atol=tol, rtol=tol)
+    assert vector_rel_err(out, r) <= tol
 
 
 #: kernel (b)'s scores launch: chip_smoke.py's rank shapes (a (2, 2) rank

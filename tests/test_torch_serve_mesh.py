@@ -20,8 +20,12 @@ steps (tests/torch_serve_cases.py holds the configs and rank functions):
   resident: kernel (a)), the conv and SSM states are whole over them;
 * on a 1 x 1 mesh, every variant equal to the bit to the one-device step,
   and no collective byte;
+* the sequence-parallel prefill of the VLM (each `model` rank a chunk of
+  the joined image + text sequence) and of the encoder on (data 1, model
+  4) at 8 positions, where the VLM's 4-position image prefix spans two
+  ranks;
 * dense hd decode, lc + per_row_write decode, TP MoE decode and the
-  sequence-parallel prefill (dense and TP MoE) against
+  sequence-parallel prefill (dense, TP MoE, VLM, encoder) against
   ``repro.launch.steps``' sharded steps on a (2, 2) mesh of 4 host devices,
   in a subprocess whose XLA_FLAGS alone give it 4 devices; at batch 1 the
   dense prefill, dense hd decode (slots over `data`, head_dim over
@@ -33,7 +37,10 @@ steps (tests/torch_serve_cases.py holds the configs and rank functions):
 * the MoE capacity groups of a sequence-parallel prefill and of a decode
   batch whose single group spans the data ranks are JAX's (the one-device
   step in those groups is the reference above);
-* the refusals: the VLM's sequence-parallel prefill, ``calibrate=True``.
+* the VLM's cache after a sequence-parallel prefill equal to JAX's slot
+  for slot (its slot positions equal, not merely close);
+* the refusals: ``calibrate=True``; a joined length that does not split
+  over `model` in the sequence-parallel prefill (ValueError).
 
 The ranks run in the background while this process computes the
 one-device references and a subprocess JAX's steps.  Tolerances (float32,
@@ -92,6 +99,12 @@ def runs(tmp_path_factory):
                                 case, ds, b, T.S_UNSPLIT,
                                 ["default"]).items():
                             refs[(mk, case, b) + key] = val
+            for mk in T.SEQ_MESH:
+                for case in T.SEQ_CASES:
+                    for key, val in T.one_device(case, 1, T.B, T.S_SEQ,
+                                                 ["seq_parallel"],
+                                                 []).items():
+                        refs[(mk, case) + key] = val
             out["refs"] = refs
             out["mesh"] = ranks.result()[0]
             out["unsplit"] = unsplit.result()[0]
@@ -193,6 +206,7 @@ def test_mesh_step_matches_jax_sharded_step(runs, b, case, kind, variant):
         if b == T.B else runs["unsplit"][("2x2", case, b, kind, variant)][:2]
     np.testing.assert_allclose(logits.numpy(), want.pop("logits"),
                                atol=TOL, rtol=0, err_msg=pre)
+    cache = cache or {}                 # the encoder returns no cache
     assert set(cache) == set(want), (set(cache), set(want))
     for k, w in want.items():
         np.testing.assert_allclose(np.asarray(cache[k], dtype=np.float64),
@@ -200,9 +214,56 @@ def test_mesh_step_matches_jax_sharded_step(runs, b, case, kind, variant):
                                    err_msg=pre + k)
 
 
+SEQ = [(mk, case) for mk in T.SEQ_MESH for case in T.SEQ_CASES]
+
+
+@pytest.mark.parametrize("mk,case", SEQ, ids=["-".join(v) for v in SEQ])
+def test_seq_parallel_prefill_across_ranks(runs, mk, case):
+    """Two positions a rank on (data 1, model 4): the VLM's image prefix
+    lies on ranks 0 and 1, its text on ranks 2 and 3."""
+    key = (mk, case, "prefill", "seq_parallel")
+    got, want = runs["mesh"][key], runs["refs"][key]
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=TOL,
+                               rtol=0, err_msg=str(key))
+    if want[1] is not None:
+        assert_cache_close(got[1], want[1], key)
+
+
+def test_vlm_seq_parallel_cache_equals_jax_slot_for_slot(runs):
+    """Every slot of the VLM's cache after JAX's and the port's
+    sequence-parallel prefill on (2, 2): the same position (equal, not
+    close) and the same K and V rows, the image prefix's slots first."""
+    pre = "vlm|prefill|seq_parallel|"
+    want = {k[len(pre):]: v for k, v in runs["jax"].items()
+            if k.startswith(pre)}
+    cache = runs["mesh"][("2x2", "vlm", "prefill", "seq_parallel")][1]
+    np.testing.assert_array_equal(cache["slot_pos"].numpy(),
+                                  want["slot_pos"])
+    P = T.cfg_of("vlm").num_prefix_tokens
+    np.testing.assert_array_equal(cache["slot_pos"][:, :T.S].numpy(),
+                                  np.tile(np.arange(T.S), (T.B, 1)))
+    assert (cache["slot_pos"][:, T.S:] == -1).all()
+    assert int(cache["idx"]) == int(want["idx"]) == T.S
+    for name in ("k", "v"):
+        got, w = cache[name].double().numpy(), want[name].astype(np.float64)
+        for slot in range(T.S):
+            np.testing.assert_allclose(
+                got[:, :, slot], w[:, :, slot], atol=TOL, rtol=0,
+                err_msg=f"{name} slot {slot} ({'image' if slot < P else 'text'})")
+        assert not got[:, :, T.S:].any() and not w[:, :, T.S:].any()
+
+
+@pytest.mark.parametrize("case,s", T.UNEVEN,
+                         ids=[f"{c}-{s}" for c, s in T.UNEVEN])
+def test_seq_parallel_refuses_a_length_that_does_not_split(runs, case, s):
+    got = runs["refusing"][f"uneven {case} {s}"]
+    assert got is not None, "the step was built"
+    kind, msg = got
+    assert kind == "ValueError" and f"sequence {s} does not split" in msg, got
+
+
 @pytest.mark.parametrize("what,match", [
-    ("vlm seq", "image prefix"),
     ("calibrate", "cost-analysis compile")])
 def test_mesh_steps_refuse(runs, what, match):
-    msg = runs["refusing"][what]
-    assert msg is not None and match in msg, msg
+    got = runs["refusing"][what]
+    assert got is not None and match in got[1], got

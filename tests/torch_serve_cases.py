@@ -33,6 +33,15 @@ UNSPLIT = (1, 3)
 S_UNSPLIT = 24
 MESHES = {"2x2": {"data": 2, "model": 2},
           "pod2x2x1": {"pod": 2, "data": 2, "model": 1}}
+#: the sequence-parallel prefill on (data 1, model 4) at a prompt of
+#: S_SEQ: the VLM's 4 image embeddings and 4 text tokens, so that each rank
+#: holds 2 positions and the image prefix spans ranks 0 and 1
+SEQ_MESH = {"1x4": {"data": 1, "model": 4}}
+S_SEQ = 8
+SEQ_CASES = ("vlm", "encoder")
+#: joined lengths that do not split over `model` 2: the sequence-parallel
+#: prefill refuses them (ValueError)
+UNEVEN = (("vlm", 15), ("vlm", 17), ("encoder", 15))
 #: the smoke configs in float32, widened where a rule branch needs it
 CASES = {
     # 16 heads over `model`, 4 kv heads replicated, q/k/v biases, hd 16
@@ -50,8 +59,7 @@ CASES = {
     "vlm": ("paligemma-3b", {}),           # 4 image tokens, tied head
     "encoder": ("hubert-xlarge", {}),      # prefill only
 }
-#: the prefill variants (banded: the sliding-window config only;
-#: seq_parallel: not the VLM, whose image prefix joins inside the forward)
+#: the prefill variants (banded: the sliding-window config only)
 PREFILL = {"default": {}, "no_fsdp": dict(fsdp=False),
            "seq_parallel": dict(seq_parallel=True), "banded": dict(banded=True)}
 DECODE = {"hd": {}, "lc_per_row": dict(cache_shard_mode="lc",
@@ -60,7 +68,8 @@ DECODE = {"hd": {}, "lc_per_row": dict(cache_shard_mode="lc",
           "resident": dict(resident_weights=True)}
 #: the variants held against JAX's own sharded steps on (data 2, model 2),
 #: at batch B and at batch 1 (``UNSPLIT_JAX_*``)
-JAX_PREFILL = (("dense_heads", "seq_parallel"), ("moe_tp", "seq_parallel"))
+JAX_PREFILL = (("dense_heads", "seq_parallel"), ("moe_tp", "seq_parallel"),
+               ("vlm", "seq_parallel"), ("encoder", "seq_parallel"))
 JAX_DECODE = (("dense_heads", "hd"), ("dense_kv16", "lc_per_row"),
               ("moe_tp", "hd"))
 UNSPLIT_JAX_PREFILL = (("dense_heads", "default"),)
@@ -76,8 +85,7 @@ def cfg_of(case: str):
 def prefill_variants(case: str):
     cfg = cfg_of(case)
     return [k for k in PREFILL
-            if not (k == "banded" and not cfg.sliding_window)
-            and not (k == "seq_parallel" and cfg.family == "vlm")]
+            if not (k == "banded" and not cfg.sliding_window)]
 
 
 def decode_variants(case: str):
@@ -124,12 +132,13 @@ def groups(case: str, data_shards: int, tokens: int) -> int:
 
 
 def one_device(case: str, data_shards: int, b: int = B, s: int = S,
-               prefills=None) -> dict:
+               prefills=None, decodes=None) -> dict:
     """The one-device prefill (logits, cache) of the mesh's capacity
     groups (the `prefills` variants' keys, every prefill variant's by
     default: they are the same step on one device), and from its cache
-    each decode variant's DECODE_STEPS steps (stacked logits, final cache),
-    at batch `b` of `s` prompt tokens."""
+    each decode variant's (of `decodes`, every one by default)
+    DECODE_STEPS steps (stacked logits, final cache), at batch `b` of `s`
+    prompt tokens."""
     cfg = cfg_of(case)
     p = params(case)
     with_cache = cfg.supports_decode
@@ -147,7 +156,7 @@ def one_device(case: str, data_shards: int, b: int = B, s: int = S,
 
     out = {("prefill", k): prefill()
            for k in prefills or prefill_variants(case)}
-    for k in decode_variants(case):
+    for k in decode_variants(case) if decodes is None else decodes:
         _, cache = prefill()
         if DECODE[k].get("per_row_write"):
             cache["row_idx"] = torch.full((b,), s, dtype=torch.int32)
@@ -165,9 +174,10 @@ def one_device(case: str, data_shards: int, b: int = B, s: int = S,
 
 
 def mesh_runs(case: str, mesh, b: int = B, s: int = S,
-              prefills=None) -> dict:
+              prefills=None, decodes=None) -> dict:
     """Every variant of `case` on `mesh` at batch `b` of `s` prompt tokens
-    (of the prefill variants, `prefills`, every one by default), gathered
+    (of the prefill and decode variants, `prefills` and `decodes`, every
+    one by default), gathered
     whole: the prefill variants' (logits, cache), and each decode variant's
     (stacked logits, final cache, the collective bytes of its steps) from
     the default mesh prefill's cache resharded into the decode layout."""
@@ -183,7 +193,7 @@ def mesh_runs(case: str, mesh, b: int = B, s: int = S,
             mesh.full(logits, step.logits_pspec),
             None if cache is None else
             MS.gather_tree(mesh, cache, step.cache_pspecs))
-    for k in decode_variants(case):
+    for k in decode_variants(case) if decodes is None else decodes:
         pre, _ = ST.make_prefill_step(cfg, mesh, shape("prefill", b, s),
                                       cache_len=LC)
         _, cache = pre(MS.shard_tree(mesh, p, pre.param_pspecs),
@@ -212,12 +222,20 @@ def unsplit_cases():
 
 # ------------------------------ rank functions --------------------------------
 def serve_ranks(rank, world):
-    """Every case on both 4-rank meshes; rank 0 returns the results."""
+    """Every case on both 4-rank meshes, then the sequence-parallel
+    prefill of SEQ_CASES on SEQ_MESH at S_SEQ; rank 0 returns the
+    results."""
     out = {}
     for mk, shp in MESHES.items():
         mesh = D.Mesh(shp, device_type="cpu")
         for case in CASES:
             for key, val in mesh_runs(case, mesh).items():
+                out[(mk, case) + key] = val
+    for mk, shp in SEQ_MESH.items():
+        mesh = D.Mesh(shp, device_type="cpu")
+        for case in SEQ_CASES:
+            for key, val in mesh_runs(case, mesh, B, S_SEQ, ["seq_parallel"],
+                                      []).items():
                 out[(mk, case) + key] = val
     return out if rank == 0 else None
 
@@ -266,20 +284,29 @@ def one_by_one_ranks(rank, world):
 
 
 def refusing_ranks(rank, world):
-    """The refusals a mesh step makes, as (variant, message) pairs."""
-    mesh = D.Mesh({"data": 2, "model": 1}, device_type="cpu")
-    out = []
-    for what, build in (
-            ("vlm seq", lambda: ST.make_prefill_step(
-                cfg_of("vlm"), mesh, shape("prefill"), seq_parallel=True)),
-            ("calibrate", lambda: ST.make_prefill_step(
-                cfg_of("dense_heads"), mesh, shape("prefill"),
-                calibrate=True))):
+    """The refusals a mesh step makes, as (variant, (exception type name,
+    message)) pairs (None where the step was built): ``calibrate=True`` on
+    (data 2, model 1), and on (data 1, model 2) the sequence-parallel
+    prefill of each UNEVEN joined length."""
+    builds = [("calibrate", {"data": 2, "model": 1},
+               lambda mesh: ST.make_prefill_step(
+                   cfg_of("dense_heads"), mesh, shape("prefill"),
+                   calibrate=True))]
+    for case, s in UNEVEN:
+        builds.append((f"uneven {case} {s}", {"data": 1, "model": 2},
+                       lambda mesh, case=case, s=s: ST.make_prefill_step(
+                           cfg_of(case), mesh, shape("prefill", B, s),
+                           seq_parallel=True)))
+    meshes, out = {}, []
+    for what, shp, build in builds:
+        key = tuple(shp.items())
+        if key not in meshes:
+            meshes[key] = D.Mesh(shp, device_type="cpu")
         try:
-            build()
+            build(meshes[key])
             out.append((what, None))
         except (ValueError, NotImplementedError) as e:
-            out.append((what, str(e)))
+            out.append((what, (type(e).__name__, str(e))))
     return out
 
 
@@ -288,7 +315,8 @@ def jax_reference(out_path: str) -> None:
     """JAX's sharded steps (``repro.launch.steps.make_prefill_step`` /
     ``make_decode_step`` on a (data 2, model 2) mesh of 4 host devices) for
     JAX_PREFILL and JAX_DECODE, on the same weights and batches; logits and
-    caches to `out_path` (npz).  The decode runs from JAX's default sharded
+    caches to `out_path` (npz; the encoder's logits alone: its step returns
+    no cache).  The decode runs from JAX's default sharded
     prefill.  Run in a process whose XLA_FLAGS give the host 4 devices."""
     import jax
     import jax.numpy as jnp
@@ -318,7 +346,7 @@ def jax_reference(out_path: str) -> None:
                                       cache_len=LC, **PREFILL[k])
         logits, cache = fn(jparams(case), {n: jnp.asarray(v) for n, v in
                                            prefill_batch(case).items()})
-        put(f"{case}|prefill|{k}", dict(cache, logits=logits))
+        put(f"{case}|prefill|{k}", dict(cache or {}, logits=logits))
     for case, k in JAX_DECODE:
         jcfg = jcfg_of(case)
         pre, _ = JST.make_prefill_step(jcfg, mesh, JShape("p", S, B,
