@@ -610,18 +610,19 @@ def parent_turns(ops, entry, label, fn, sets, kernel, plain):
 
 
 def decode_split_shape(ops, dtype, hd_out, shape) -> dict:
-    """The (splits, warps, stages) with which kernel 2 and (a) (or (b)'s
-    launch 2, `hd_out`) launch at `shape`, as the library picks them (a
-    query: nothing is launched)."""
+    """The (splits, warps, stages, chunks) with which kernel 2 and (a) (or
+    (b)'s launch 2, `hd_out`) launch at `shape`, as the library picks them
+    (a query: nothing is launched): a (row, group)'s `chunks` clusters of
+    `splits` blocks each."""
     fn = ops.build()["decode_attention.cu"].repro_decode_attention_shape
     fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     err = fn(ops._DTYPES[dtype], int(hd_out), *(shape[k] for k in (
         "B", "H", "KV", "L", "D")), out)
     if err:
         fail(f"decode_attention shape query: CUDA error {err}")
-    return dict(splits=out[0], warps=out[1], stages=out[2])
+    return dict(splits=out[0], warps=out[1], stages=out[2], chunks=out[3])
 
 
 def check_decode(ops, ref, dtype, gen, shape):
@@ -660,16 +661,27 @@ def check_decode(ops, ref, dtype, gen, shape):
                                                sets[0], 3, 0, want),
              ms=time_ms(ops.decode_attention, sets),
              device_ms=device_ms(ops.decode_attention, sets[0],
-                                 "decode_attention_kernel"),
+                                 SYMBOL["decode_attention"]),
              plain_ms=time_ms(ref.decode_attention_ref, sets),
              library_ms=time_ms(library, lib_sets),
              bound_ms=b_ms, bound_by=b_by,
              **decode_split_shape(ops, dtype, False, shape))
+    if r["chunks"] > 1:     # the merge launch of the rows' chunk records
+        r["merge_device_ms"] = device_ms(ops.decode_attention, sets[0],
+                                         "decode_merge_kernel")
+    print(f"  decode_attention {str(dtype)[6:]} B {B} L {L} {H}x{D} on {KV} "
+          f"kv heads: splits {r['splits']}, warps {r['warps']}, stages "
+          f"{r['stages']}, chunks {r['chunks']}; device_ms "
+          f"{fmt_ms(r['device_ms'])} (the merge launch "
+          f"{fmt_ms(r.get('merge_device_ms'))}), ms {r['ms']:.4f}, SDPA (bool "
+          f"mask) ms {r['library_ms']:.4f}, bound_ms {b_ms:.5f}", flush=True)
+    if not torch.equal(out, ops.decode_attention(*sets[0])):
+        fail(f"decode_attention {dtype}: two calls differ")
     if dtype == torch.bfloat16:
         turns = parent_turns(ops, "decode_attention",
                              f"decode_attention {str(dtype)[6:]}",
                              ops.decode_attention, sets,
-                             "decode_attention_kernel",
+                             SYMBOL["decode_attention"],
                              ref.decode_attention_ref)
         if turns:
             r["in_turns"] = turns
@@ -718,12 +730,15 @@ def check_decode_lse(ops, ref, dtype, gen, shape):
     out, lse = ops.decode_attention_lse(*sets[0])
     want = ref.decode_attention_lse_ref(*sets[0])
     err = max_err((out, lse), want)
+    again = ops.decode_attention_lse(*sets[0])
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        fail(f"decode_attention_lse {dtype}: two calls differ")
     if torch.isneginf(lse[-1]).all() != (empty > 0):
         fail(f"decode_attention_lse: the last row's lse is "
              f"{lse[-1, :4].tolist()}..., with {empty} slots of rows with "
              "no valid slot")
     # no PyTorch call returns a masked GQA decode's output with its lse
-    fn, name = ops.decode_attention_lse, "decode_attention_kernel"
+    fn, name = ops.decode_attention_lse, SYMBOL["decode_attention"]
     plain = ref.decode_attention_lse_ref
     r = dict(max_abs_err=err, max_rel_err=max_rel_err(out, want[0]),
              dropped_tile_err=dropped_tile_err(lambda *a: plain(*a)[0],
@@ -732,6 +747,11 @@ def check_decode_lse(ops, ref, dtype, gen, shape):
              plain_ms=time_ms(plain, sets),
              library_ms=None, bound_ms=b_ms, bound_by=b_by,
              **decode_split_shape(ops, dtype, False, shape))
+    print(f"  decode_attention_lse {str(dtype)[6:]} B {B} L {L} {H}x{D} on "
+          f"{KV} kv heads: splits {r['splits']}, warps {r['warps']}, stages "
+          f"{r['stages']}, chunks {r['chunks']}; device_ms "
+          f"{fmt_ms(r['device_ms'])}, ms {r['ms']:.4f}, bound_ms {b_ms:.5f}",
+          flush=True)
     if dtype == torch.bfloat16:
         turns = parent_turns(ops, "decode_attention_lse",
                              f"decode_attention_lse {str(dtype)[6:]}", fn,
@@ -843,7 +863,7 @@ def check_decode_hd_out(ops, ref, dtype, gen, shape):
              f"{lse[-1, :4].tolist()}..., with {empty} slots of rows with "
              "no valid slot")
     # softmax then a product: no single PyTorch call
-    name = "decode_hd_out_kernel"
+    name = ("decode_hd_out_kernel", "decode_merge_kernel")
     r = dict(max_abs_err=err, max_rel_err=max_rel_err(out, want[0]),
              dropped_tile_err=dropped_tile_err(lambda *a: plain(*a)[0],
                                                args[0], 2, 0, want[0]),
@@ -920,15 +940,36 @@ def check_flash(ops, ref, dtype, gen, shape):
     # a launch of milliseconds (SERVE_VLM's prefill shapes: ~10 ms in bf16
     # and ~0.2 s in float32 on an H100) is timed over fewer calls
     n = 10 if 4 * pairs * H * D > 1e13 else 40
-    return dict(max_abs_err=err.item(),
-                max_rel_err=max_rel_err(out, want, valid),
-                **({} if drop is None else dict(dropped_tile_err=drop)),
-                ms=time_ms(kernel, sets, iters=n),
-                device_ms=device_ms(kernel, sets[0], "flash_attention_kernel",
-                                    iters=n // 2),
-                plain_ms=time_ms(plain, sets, iters=n),
-                library_ms=time_ms(library, sets, iters=n),
-                bound_ms=b_ms, bound_by=b_by)
+    r = dict(max_abs_err=err.item(),
+             max_rel_err=max_rel_err(out, want, valid),
+             **({} if drop is None else dict(dropped_tile_err=drop)),
+             ms=time_ms(kernel, sets, iters=n),
+             device_ms=device_ms(kernel, sets[0], "flash_attention_kernel",
+                                 iters=n // 2),
+             plain_ms=time_ms(plain, sets, iters=n),
+             library_ms=time_ms(library, sets, iters=n),
+             bound_ms=b_ms, bound_by=b_by,
+             body=FLASH_BODY[dtype])
+    dt = str(dtype)[6:]
+    print(f"  flash_attention {dt} B {B} S {S} (queries from {lo}) {H}x{D} "
+          f"on {KV} kv heads {mask_kw}: {r['body']}; device_ms "
+          f"{fmt_ms(r['device_ms'])} ({4 * pairs * H * D / 1e9 / (r['device_ms'] or 1e30):.1f}"
+          f" TFLOP/s of visible pairs), SDPA (bool mask) ms "
+          f"{r['library_ms']:.4f}, bound_ms {b_ms:.5f} ({b_by}); "
+          f"max_rel_err {r['max_rel_err']:.5f}", flush=True)
+    if dtype == torch.bfloat16:
+        turns = parent_turns(ops, "flash_attention",
+                             f"flash_attention {dt} B {B} S {S} (queries from "
+                             f"{lo}) D {D}", kernel, sets,
+                             "flash_attention_kernel", plain)
+        if turns:
+            r["in_turns"] = turns
+    return r
+
+
+#: kernel 1's bodies by dtype (flash_attention.cu)
+FLASH_BODY = {torch.bfloat16: "wgmma, warp-specialised (3 warpgroups, TMA ring)",
+              torch.float32: "CUDA cores"}
 
 
 def check_sample(ops, ref, dtype, gen, shape):
@@ -1610,9 +1651,10 @@ PARENT_SOURCES = ("flash_attention_bwd.cu", "gmm.cu", "selective_scan.cu",
                   "selective_scan_bwd.cu", "decode_attention.cu",
                   "decode_attention_paged.cu", "flash_attention.cu")
 #: entry points whose C function in an older parent takes one argument
-#: fewer, and the index of the argument it lacks: (b)'s output launch
-#: before it wrote each head's lse
-PARENT_WITHOUT = {"decode_attention_hd_out": 6}
+#: fewer, and the index of the argument it lacks: kernel 2's, (a)'s and
+#: (b)'s output launch before they took a workspace for chunk records
+PARENT_WITHOUT = {"decode_attention": 14, "decode_attention_lse": 14,
+                  "decode_attention_hd_out": 12}
 
 
 def c_params(path: str, sym: str):
@@ -1826,6 +1868,10 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
     if not (fwd_err <= TOL[dtype] and lse_err <= 1e-4):
         fail(f"flash_attention {dtype} training forward disagrees with the "
              "plain version")
+    fwd_turns = parent_turns(
+        ops, "flash_attention", f"flash_attention {dt} training forward (with "
+        f"lse) B {B} S {S} D {D}", fwd, sets, "flash_attention_kernel",
+        lambda *st: st[5]) if dtype == torch.bfloat16 else None
 
     # the library yardsticks: SDPA's backward through a kept graph, with
     # the bool mask and least-masked
@@ -1859,7 +1905,9 @@ def check_flash_bwd(ops, ref, dtype, gen, shape):
              library_ms=lib_ms,
              bound_ms=b_ms, bound_by=b_by,
              forward=dict(max_abs_err=fwd_err, lse_max_abs_err=lse_err,
-                          device_ms=fwd_dev))
+                          device_ms=fwd_dev,
+                          **({} if fwd_turns is None else
+                             dict(in_turns=fwd_turns))))
     if "flash_attention_bwd" in PARENT and dtype == torch.bfloat16:
         with build_fns(ops, "parent"):
             errors("parent: ", kernel(*sets[0]))
@@ -1897,6 +1945,8 @@ VLM_DECODE_KEYS = (f"{VLM_ARCH} serve",)
 VLM_RANK_KEYS = (f"{VLM_ARCH} rank",)
 #: a kernel's symbols in a profile, where not "<name>_kernel"
 SYMBOL = {"flash_attention_bwd": ("flash_bwd_",),
+          # kernel 2 and (a), with the merge of a row's chunks (D 256)
+          "decode_attention": ("decode_attention_kernel", "decode_merge_kernel"),
           # kernel 6: bf16, f32
           "gmm": ("gmm_kernel(", "gmm_kernel<false>"),
           # bf16 dx and dw, f32 dx and dw

@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -382,6 +383,96 @@ __device__ __forceinline__ void rs<256>(float* d, const uint32_t (&a)[4], uint64
 }  // namespace wg
 
 
+// ---- Hopper's bulk copies: mbarriers, TMA loads, tensor maps (gmm.cu,
+// flash_attention.cu) ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// the box of a 2-D tensor map at (column c, row r) into shared memory,
+// completing on the barrier
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c, int r,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
+      : "memory");
+}
+// the same for a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// libcuda's tensor-map encoder (cuTensorMapEncodeTiled), looked up once
+// through the runtime: the build does not link libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor of `rank` dimensions (dims innermost first; strides in
+// bytes of dimensions 1 .. rank - 1) read in boxes of `box`, 128-byte
+// swizzled, zeros past its edges
+inline cudaError_t tensor_map(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims,
+                              const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a row-major (rows, cols) bf16 matrix read in boxes of box_cols x
+// box_rows, 128-byte swizzled, zeros past its edges
+inline cudaError_t tensor_map(CUtensorMap* map, const void* p, long rows, int cols, int box_cols,
+                              int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return tensor_map(map, p, 2, dims, strides, box);
+}
+
+
 // ---- split decode attention (decode_attention.cu, decode_attention_paged.cu) ----
 //
 // One query token per (row, kv head) against its keys, split across the S
@@ -487,7 +578,8 @@ __device__ __forceinline__ void for_tile_chunks(int chunks, int lane, F fn) {
   }
 }
 
-// ---- the tensor-core warp (bf16, D % 16 == 0, D <= DK) ----
+// ---- the tensor-core warp (bf16, D % 16 == 0, D <= DK; DK 256 only in
+// decode_attention.cu) ----
 
 // the group's query rows as A fragments: row g = lane / 4 of every fragment
 // is head g (rows g + 8 are never used)
@@ -592,6 +684,35 @@ __device__ __forceinline__ void mma_tile(const uint32_t (&qa)[DK / 16][4],
                             (2 * kk + ((lane >> 3) & 1)) * 8);
         mma_bf16(sc[2 * jj], qa[kk], kb[0], kb[1]);
         mma_bf16(sc[2 * jj + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+  }
+  mma_softmax_pv<DK>(sc, vs, D, valid, scale, o, mr, lr, lane);
+}
+
+// mma_tile with the query rows read from shared memory (q16: 16 rows of
+// row_stride(D)) at each k16 step instead of held in registers: the D 256
+// body, whose output fragments take 128 registers a lane
+template <int DK>
+__device__ __forceinline__ void mma_tile_q16(const __nv_bfloat16* q16, const __nv_bfloat16* ks,
+                                             const __nv_bfloat16* vs, int D, unsigned valid,
+                                             float scale, bool uniform, float (&o)[DK / 8][4],
+                                             float& mr, float& lr, int lane) {
+  const int RS = row_stride<__nv_bfloat16>(D);
+  float sc[4][4] = {};
+  if (!uniform) {
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      if (16 * kk >= D) break;
+      uint32_t qa[4];
+      ldmatrix_x4(qa, q16 + (lane & 15) * RS + (2 * kk + (lane >> 4)) * 8);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                            (2 * kk + ((lane >> 3) & 1)) * 8);
+        mma_bf16(sc[2 * jj], qa, kb[0], kb[1]);
+        mma_bf16(sc[2 * jj + 1], qa, kb[2], kb[3]);
       }
     }
   }
@@ -771,13 +892,17 @@ __device__ __forceinline__ void merge_warps(const float* wpart, int PW, int W, i
 // D).  Some split has a tile (a row with no valid slot runs every slot with
 // uniform weights), so M is finite; were it not, the output would be 0.
 // `lse` (Gh floats, or null) receives each head's log-sum-exp of its scaled
-// scores over the tiles' slots.  Synchronises the cluster before (the
-// partials are written) and after (no block leaves while another still
-// reads its shared memory).
+// scores over the tiles' slots.  With `rec` (a row's chunk record: m and l,
+// kHeads each, then acc, Gh x D) the merged partial goes there instead of
+// out and lse, unnormalised (m = -inf, l = 0, acc = 0 where no split had a
+// tile), for a later merge of the row's chunks.  Synchronises the cluster
+// before (the partials are written) and after (no block leaves while
+// another still reads its shared memory).
 template <typename T>
 __device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& cluster,
                                              float* bm, float* bl, float* bacc, int Gh,
-                                             int D, T* out, float* lse = nullptr) {
+                                             int D, T* out, float* lse = nullptr,
+                                             float* rec = nullptr) {
   const int S = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   cluster.sync();
@@ -790,9 +915,8 @@ __device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& 
       ms[s] = s < S ? *cluster.map_shared_rank(bm + g, s) : -INFINITY;
       M = fmaxf(M, ms[s]);
     }
-    float o = 0.f;
+    float o = 0.f, lt = 0.f, x = 0.f;
     if (M != -INFINITY) {
-      float lt = 0.f, x = 0.f;
 #pragma unroll
       for (int s = 0; s < kMaxSplits; ++s) {
         if (ms[s] == -INFINITY) continue;  // past S, or a split with no valid slot
@@ -801,9 +925,14 @@ __device__ __forceinline__ void merge_splits(cooperative_groups::cluster_group& 
         x = fmaf(*cluster.map_shared_rank(bacc + i, s), w, x);
       }
       o = x / lt;
-      if (lse != nullptr && i == g * D) lse[g] = M + logf(lt);
+      if (rec == nullptr && lse != nullptr && i == g * D) lse[g] = M + logf(lt);
     }
-    out[i] = from_f<T>(o);
+    if (rec != nullptr) {
+      rec[2 * kHeads + i] = x;
+      if (i == g * D) rec[g] = M, rec[kHeads + g] = lt;
+    } else {
+      out[i] = from_f<T>(o);
+    }
   }
   cluster.sync();
 }
@@ -848,12 +977,13 @@ int pick_splits(K kernel, int rows, int ntiles, int threads, size_t smem) {
   return S;
 }
 
-// Launch `kernel(args)` on grid (S, gy, gz) with clusters of (S, 1, 1).
+// Launch `kernel(args)` on grid (S * chunks, gy, gz) with clusters of (S,
+// 1, 1).
 template <typename K, typename A>
 cudaError_t launch_cluster(K kernel, const A& args, int S, int gy, int gz, int threads,
-                           size_t smem, cudaStream_t stream) {
+                           size_t smem, cudaStream_t stream, int chunks = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S, gy, gz);
+  cfg.gridDim = dim3(S * chunks, gy, gz);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

@@ -43,14 +43,16 @@
 //      lane-per-row read touches fall in 8 different bank groups; rows past
 //      the cache are zero-filled), in a ring of one or two stages (two: the
 //      next tile's loads go out before the current one is computed), then
-//      - bf16 with D % 16 == 0 and D <= 128 (the SQL paths' 64 and 128): on
-//        the tensor cores, as flash_attention.cu: S = Q K^T with
+//      - bf16 with D % 16 == 0 (the SQL paths' 64 and 128, the VLM's 256):
+//        on the tensor cores, as flash_attention.cu: S = Q K^T with
 //        mma.sync.m16n8k16, the group's query heads as the rows of the A
 //        operand (loaded once; row g of a fragment is head g), K and V fed by
 //        ldmatrix; the fp32 online softmax per row (a quad of lanes holds a
 //        row's 8 slots of each n8 fragment); O += P V with P split into a
 //        bf16 high part and the bf16 rounding of its remainder (P to ~16
-//        bits, two products);
+//        bits, two products); at D 256 the output fragments take 128
+//        registers a lane, so q's A fragments are read from shared memory
+//        at each k16 step instead of held;
 //      - otherwise (float32, other head dims): on the CUDA cores, a lane
 //        scoring one slot for every head of the group (q broadcast from
 //        shared memory, so every lane works at G = 1 too), a warp max and
@@ -80,6 +82,16 @@
 // range of 128 columns one stage, W 4, S 8 (two stages of 4 warps fill a
 // block an SM, and 16 clusters of 8 such do not fit); at (b)'s 2 x 8 rows
 // of 4096 slots of 64 columns two stages, W 8, S 8.
+// At D 256 (bf16) a block of even one warp takes ~34 KB a stage and the
+// card holds one block an SM, so B x KV x NG rows of S <= 8 splits leave it
+// mostly empty (paligemma-3b's decode: 2 rows, 16 blocks on 132 SMs).
+// There each row runs over C chunks, each a cluster of one block (grid (C,
+// KV * NG, B)): (W, stages, C) put the most warps with a tile in the first
+// wave (pick_chunked; at B 2 x 8224 slots W 4, one stage, C 65: 130
+// blocks, a tile a warp), each chunk writes its merged (m, l, acc) to a
+// record of the wrapper's workspace, and a second launch
+// (decode_merge_kernel) merges a row's records in a fixed order and writes
+// out and (a)'s lse: no float atomics, the same sums in every run.
 // The warp tiles, the merges, the choice of S and the cluster launch are
 // repro::split in common.cuh, which the paged decode
 // (decode_attention_paged.cu) shares.
@@ -129,7 +141,14 @@ struct SplitArgs {
   int tiles_per_split;
   int stages;             // a warp's ring: 1 or 2 tiles
   float scale;
+  float* ws;              // chunks > 1: (B, KV * NG, chunks) chunk records
+  int chunks;             // clusters a (row, group): 1, or a chunk each
 };
+
+// floats of a chunk record: m and l (kHeads each), acc (the group's heads x
+// D), a flag (the row has no valid slot) at rec_flag, padded to 16 bytes
+__host__ __device__ inline int rec_flag(int G, int D) { return 2 * kHeads + group_heads(G) * D; }
+__host__ __device__ inline int rec_floats(int G, int D) { return (rec_flag(G, D) + 4) / 4 * 4; }
 
 // bytes of one stage of a warp's ring: K and V rows, or V rows and the
 // group's scores of the tile
@@ -180,7 +199,9 @@ __device__ __forceinline__ void split_decode(const SplitArgs& a) {
   int* live = reinterpret_cast<int*>(bits + a.tiles_per_split);
   int* n_live_s = live + a.tiles_per_split;
 
-  const int s0 = rank * a.tiles_per_split * kTile;
+  // the block's split of the (row, group): rank blockIdx.x % S of chunk
+  // blockIdx.x / S (DK 256; one chunk elsewhere)
+  const int s0 = (DK > 128 ? (int)blockIdx.x : rank) * a.tiles_per_split * kTile;
   const int s1 = min(L, s0 + a.tiles_per_split * kTile);
   const int ntiles = s1 > s0 ? (s1 - s0 + kTile - 1) / kTile : 0;
   const int qp = a.qpos[b];
@@ -307,13 +328,20 @@ __device__ __forceinline__ void split_decode(const SplitArgs& a) {
   float* wpart = reinterpret_cast<float*>(wtiles);
   float* mine = wpart + warp * PW;
   if constexpr (kMma) {
-    uint32_t qa[kQK ? DK / 16 : 1][4];   // the group's query rows (kFromQK)
-    if constexpr (kQK) mma_load_q<DK>(qa, reinterpret_cast<const __nv_bfloat16*>(qraw), D, lane);
+    // the group's query rows (kFromQK): held as A fragments, or at DK 256
+    // read from shared memory at each k16 step
+    constexpr bool kQReg = kQK && DK <= 128;
+    const __nv_bfloat16* q16 = reinterpret_cast<const __nv_bfloat16*>(qraw);
+    uint32_t qa[kQReg ? DK / 16 : 1][4];
+    if constexpr (kQReg) mma_load_q<DK>(qa, q16, D, lane);
     float o[DK / 8][4] = {};
     float mr = -INFINITY, lr = 0.f;
     for_my_tiles([&](int t, int, const T* stg) {
-      if constexpr (kQK) {
+      if constexpr (kQReg) {
         mma_tile<DK>(qa, stg, stg + kTile * RS, D, bits[t], a.scale, uniform, o, mr, lr, lane);
+      } else if constexpr (kQK) {
+        mma_tile_q16<DK>(q16, stg, stg + kTile * RS, D, bits[t], a.scale, uniform, o, mr, lr,
+                         lane);
       } else {
         // row g = lane / 4 of the C fragments: head g's scores at slots
         // 8 jn + 2 (lane % 4) + {0, 1}
@@ -367,15 +395,98 @@ __device__ __forceinline__ void split_decode(const SplitArgs& a) {
 
   // 3. the warps' partials into the block's, then the S blocks' in rank
   //    order through distributed shared memory; (a)'s lse is -inf where no
-  //    slot of the row is valid
+  //    slot of the row is valid.  With several chunks the cluster's merged
+  //    partial goes to its chunk record (merged by decode_merge_kernel)
   __syncthreads();
   merge_warps(wpart, PW, W, Gh, D, bacc, bm, bl);
+  if constexpr (DK > 128) {  // pick_chunked's launches
+    if (a.chunks > 1) {
+      float* rec = a.ws + ((size_t)(b * gridDim.y + blockIdx.y) * a.chunks + blockIdx.x / S) *
+                              rec_floats(G, D);
+      if (rank == 0 && tid == 0) rec[rec_flag(G, D)] = uniform ? 1.f : 0.f;
+      merge_splits<T>(cluster, bm, bl, bacc, Gh, D, nullptr, nullptr, rec);
+      return;
+    }
+  }
   float* lse = a.lse == nullptr ? nullptr : a.lse + head0;
   if (uniform && lse != nullptr) {
     if (rank == 0 && tid < Gh) lse[tid] = -INFINITY;
     lse = nullptr;
   }
   merge_splits(cluster, bm, bl, bacc, Gh, D, static_cast<T*>(a.out) + head0 * D, lse);
+}
+
+// The chunk records of a (row, group) merged: out (its heads x D) and, with
+// lse, each head's log-sum-exp (-inf where the row has no valid slot).
+// Some chunk has a tile, so M is finite; a chunk with none weighs 0.  Grid
+// (ceil(Gh D / kMergeCols), KV * NG, B), 8 warps a block: the block's heads'
+// M (a warp's max over the chunks) and chunk weights exp(m_c - M) go to
+// shared memory; then warp w sums the chunks c = w, w + 8, ... in order
+// (l and 4 consecutive outputs a lane, 16-byte loads, all in flight at
+// once), and warp 0 adds the 8 warps' sums in warp order: a fixed order,
+// the same sums in every run.
+constexpr int kMergeWarps = 8;
+constexpr int kMergeCols = 128;   // outputs a block: 4 a lane
+constexpr int kMaxChunks = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kMergeWarps * 32) decode_merge_kernel(SplitArgs a) {
+  __shared__ float wts[kHeads][kMaxChunks];
+  __shared__ float Ms[kHeads];
+  __shared__ float4 xs[kMergeWarps][32];
+  __shared__ float ls[kMergeWarps][32];
+  const int G = a.H / a.KV, D = a.D, R = rec_floats(G, D), C = a.chunks;
+  const int kv = blockIdx.y / a.NG, g0 = (blockIdx.y % a.NG) * kHeads;
+  const int Gh = min(kHeads, G - g0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t head0 = (size_t)blockIdx.z * a.H + (size_t)kv * G + g0;
+  const float* recs = a.ws + (size_t)(blockIdx.z * gridDim.y + blockIdx.y) * C * R;
+  const int c0 = blockIdx.x * kMergeCols;
+  const int gl = c0 / D, gh = min(Gh - 1, (c0 + kMergeCols - 1) / D);  // the block's heads
+  for (int g = gl + warp; g <= gh; g += kMergeWarps) {
+    float M = -INFINITY;
+    for (int c = lane; c < C; c += 32) M = fmaxf(M, recs[(size_t)c * R + g]);
+    M = warp_max(M);
+    for (int c = lane; c < C; c += 32) {
+      const float m = recs[(size_t)c * R + g];
+      wts[g][c] = m == -INFINITY ? 0.f : expf(m - M);
+    }
+    if (lane == 0) Ms[g] = M;
+  }
+  __syncthreads();
+  const int i = c0 + 4 * lane;   // D % 4 == 0: a lane's 4 outputs share a head
+  const bool in = i < Gh * D;
+  const int g = in ? i / D : gl;
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  float l = 0.f;
+  if (in) {
+#pragma unroll 4
+    for (int c = warp; c < C; c += kMergeWarps) {
+      const float* r = recs + (size_t)c * R;
+      const float4 v = *reinterpret_cast<const float4*>(r + 2 * kHeads + i);
+      const float w = wts[g][c];
+      x.x = fmaf(v.x, w, x.x), x.y = fmaf(v.y, w, x.y);
+      x.z = fmaf(v.z, w, x.z), x.w = fmaf(v.w, w, x.w);
+      l = fmaf(r[kHeads + g], w, l);
+    }
+  }
+  xs[warp][lane] = x;
+  ls[warp][lane] = l;
+  __syncthreads();
+  if (warp != 0 || !in) return;
+  x = xs[0][lane];
+  l = ls[0][lane];
+#pragma unroll
+  for (int w = 1; w < kMergeWarps; ++w) {
+    const float4 y = xs[w][lane];
+    x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+    l += ls[w][lane];
+  }
+  T* out = static_cast<T*>(a.out) + head0 * D + i;
+  out[0] = from_f<T>(x.x / l), out[1] = from_f<T>(x.y / l);
+  out[2] = from_f<T>(x.z / l), out[3] = from_f<T>(x.w / l);
+  if (a.lse != nullptr && i == g * D)
+    a.lse[head0 + g] = recs[rec_flag(G, D)] != 0.f ? -INFINITY : Ms[g] + logf(l);
 }
 
 template <typename T, int DPL, int DK>
@@ -453,8 +564,73 @@ cudaError_t pick_shape(K kernel, int rows, int ntiles, int G, int D, int maxW, F
   return cudaSuccess;
 }
 
-// Launch, or with `shape` given, only write the (S, W, stages) the launch
-// would take there
+// (W, stages, chunks) of a launch whose (row, group)s each take `chunks`
+// clusters of one block (the D 256 tensor-core body: a block an SM), as
+// the design note says: the most warps with a tile in the first wave, then
+// the most blocks, then two tiles in flight, the larger W, one stage.
+// Cached per (kernel, rows, tiles).
+template <typename K, typename F>
+cudaError_t pick_chunked(K kernel, int rows, int ntiles, int maxW, F smem, int& W, int& stages,
+                         int& C) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int>, std::tuple<int, int, int>> picked;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), rows, ntiles);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = picked.find(key);
+    if (it != picked.end()) {
+      std::tie(W, stages, C) = it->second;
+      return cudaSuccess;
+    }
+  }
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  size_t most = 0;
+  for (int st = 1; st <= 2; ++st)
+    for (int w = 1; w <= maxW; ++w)
+      if (smem(w, st) <= (size_t)optin) most = std::max(most, smem(w, st));
+  if (most == 0) return cudaErrorInvalidValue;
+  e = allow_smem_once(kernel, most);
+  if (e != cudaSuccess) return e;
+  // live warps, blocks, tiles in flight, W, -stages
+  std::tuple<long, long, int, int, int> best(-1, 0, 0, 0, 0);
+  for (int st = 1; st <= 2; ++st) {
+    for (int w = 1; w <= maxW; ++w) {
+      const size_t bytes = smem(w, st);
+      if (bytes > (size_t)optin) continue;
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * w, bytes);
+      if (e != cudaSuccess) return e;
+      if (per_sm <= 0) continue;
+      const long cap = (long)per_sm * sms;
+      const int c = (int)std::max(
+          1L, std::min({(long)(ntiles + w - 1) / w, cap / rows, (long)kMaxChunks}));
+      const int tps = (ntiles + c - 1) / c;
+      const long blocks = std::min((long)rows * ((ntiles + tps - 1) / tps), cap);
+      const int per_warp = (tps + w - 1) / w;
+      const auto cand = std::make_tuple(blocks * std::min(w, tps), blocks,
+                                        std::min(st, per_warp), w, -st);
+      if (cand > best) {
+        best = cand;
+        W = w;
+        stages = st;
+        C = c;
+      }
+    }
+  }
+  if (std::get<0>(best) < 0) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(mu);
+  picked[key] = std::make_tuple(W, stages, C);
+  return cudaSuccess;
+}
+
+// Launch, or with `shape` given, only write the (S, W, stages, chunks) the
+// launch would take there.  Several chunks (DK 256) write their records to
+// a.ws, which a second launch merges.
 template <int SRC, typename T, int DPL, int DK>
 int launch_split(SplitArgs a, int B, cudaStream_t stream, int* shape) {
   auto kernel = kernel_of<SRC, T, DPL, DK>();
@@ -465,19 +641,35 @@ int launch_split(SplitArgs a, int B, cudaStream_t stream, int* shape) {
   auto smem = [&](int W, int stages) {
     return smem_bytes<SRC, T>(W, stages, G, a.D, ntiles, DK > 0);
   };
-  int S = 1, W = 1, stages = 1;
-  const cudaError_t e =
-      pick_shape(kernel, rows, ntiles, G, a.D, max_warps(SRC), smem, S, W, stages);
+  int S = 1, W = 1, stages = 1, C = 1;
+  cudaError_t e;
+  if constexpr (DK > 128)
+    e = pick_chunked(kernel, rows, ntiles, max_warps(SRC), smem, W, stages, C);
+  else
+    e = pick_shape(kernel, rows, ntiles, G, a.D, max_warps(SRC), smem, S, W, stages);
   if (e != cudaSuccess) return (int)e;
   if (shape) {
     shape[0] = S;
     shape[1] = W;
     shape[2] = stages;
+    shape[3] = C;
     return 0;
   }
-  a.tiles_per_split = (ntiles + S - 1) / S;
+  if (C > 1 && a.ws == nullptr) return (int)cudaErrorInvalidValue;
+  a.tiles_per_split = (ntiles + S * C - 1) / (S * C);
   a.stages = stages;
-  return (int)launch_cluster(kernel, a, S, a.KV * a.NG, B, 32 * W, smem(W, stages), stream);
+  a.chunks = C;
+  cudaError_t err =
+      launch_cluster(kernel, a, S, a.KV * a.NG, B, 32 * W, smem(W, stages), stream, C);
+  if constexpr (DK > 128) {
+    if (err == cudaSuccess && C > 1) {
+      decode_merge_kernel<T><<<dim3((group_heads(G) * a.D + kMergeCols - 1) / kMergeCols,
+                                    a.KV * a.NG, B),
+                               kMergeWarps * 32, 0, stream>>>(a);
+      err = cudaGetLastError();
+    }
+  }
+  return (int)err;
 }
 
 template <int SRC, typename T>
@@ -490,6 +682,7 @@ int dispatch(SplitArgs a, int B, cudaStream_t stream, int* shape) {
   if constexpr (sizeof(T) == 2) {   // bf16: the tensor cores where D allows
     if (D % 16 == 0 && D <= 64) return launch_split<SRC, T, 2, 64>(a, B, stream, shape);
     if (D % 16 == 0 && D <= 128) return launch_split<SRC, T, 4, 128>(a, B, stream, shape);
+    if (D % 16 == 0) return launch_split<SRC, T, 8, 256>(a, B, stream, shape);
   }
   if (D <= 64) return launch_split<SRC, T, 2, 0>(a, B, stream, shape);
   if (D <= 128) return launch_split<SRC, T, 4, 0>(a, B, stream, shape);
@@ -521,10 +714,10 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
                                       const void* v, const void* spos,
                                       const void* qpos, void* out, int B, int H,
                                       int KV, int L, int D, float scale, void* lse,
-                                      void* stream) {
+                                      void* ws, void* stream) {
   const SplitArgs a{q, k, nullptr, v, static_cast<const int*>(spos),
                     static_cast<const int*>(qpos), out, static_cast<float*>(lse),
-                    H, KV, L, D, 0, 0, 1, scale};
+                    H, KV, L, D, 0, 0, 1, scale, static_cast<float*>(ws), 1};
   return run<kFromQK>(dtype, a, B, stream, nullptr);
 }
 
@@ -537,23 +730,35 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
 extern "C" int repro_decode_attention_hd_out(int dtype, const void* scores, const void* v,
                                              const void* spos, const void* qpos, void* out,
                                              void* lse, int B, int H, int KV, int L, int D,
-                                             void* stream) {
+                                             void* ws, void* stream) {
   const SplitArgs a{nullptr, nullptr, static_cast<const float*>(scores), v,
                     static_cast<const int*>(spos), static_cast<const int*>(qpos), out,
-                    static_cast<float*>(lse), H, KV, L, D, 0, 0, 1, 1.f};
+                    static_cast<float*>(lse), H, KV, L, D, 0, 0, 1, 1.f,
+                    static_cast<float*>(ws), 1};
   return run<kFromScores>(dtype, a, B, stream, nullptr);
 }
 
-// The (splits, warps, stages) that the launch of kernel 2 and (a) (hd_out
-// 0) or of (b)'s launch 2 (hd_out 1) takes at these shapes, written to
-// shape[0..2] without launching.  Returns the CUDA error code (0 on
+// The (splits, warps, stages, chunks) that the launch of kernel 2 and (a)
+// (hd_out 0) or of (b)'s launch 2 (hd_out 1) takes at these shapes, written
+// to shape[0..3] without launching.  Returns the CUDA error code (0 on
 // success).
 extern "C" int repro_decode_attention_shape(int dtype, int hd_out, int B, int H, int KV,
                                             int L, int D, int* shape) {
   const SplitArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                    H, KV, L, D, 0, 0, 1, 1.f};
+                    H, KV, L, D, 0, 0, 1, 1.f, nullptr, 1};
   return hd_out ? run<kFromScores>(dtype, a, B, nullptr, shape)
                 : run<kFromQK>(dtype, a, B, nullptr, shape);
+}
+
+// The floats of the workspace (ws) the same launch needs at these shapes:
+// its chunk records, 0 where it takes one chunk; -1 on a CUDA error.
+extern "C" long long repro_decode_attention_workspace(int dtype, int hd_out, int B, int H,
+                                                      int KV, int L, int D) {
+  int shape[4] = {1, 1, 1, 1};
+  if (repro_decode_attention_shape(dtype, hd_out, B, H, KV, L, D, shape) != 0) return -1;
+  if (shape[3] <= 1) return 0;
+  const int G = H / KV;
+  return (long long)B * KV * ((G + kHeads - 1) / kHeads) * shape[3] * rec_floats(G, D);
 }
 
 // ---- kernel (b): decode attention with head_dim split over ranks ----------

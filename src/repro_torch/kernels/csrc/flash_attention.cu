@@ -23,8 +23,27 @@
 // other.  So the kernel has to make each tile's step short: the products on
 // the tensor cores, the softmax in registers, the next tile already loaded.
 //
-// Design (bf16).  A block owns kBQ = 64 query rows of one (row b, head h),
-// 16 rows a warp, and walks the kv tiles of kBKV = 64 keys:
+// Design (bf16: the warp-specialised body).  At the VLM's
+// prefill (paligemma-3b, B 2 x 8192, 8 heads on 1 of 256, prefix-LM) the
+// work is ~0.55 TFLOP of visible pairs: the tensor cores bound it, and the
+// mma.sync body below ran at ~58 TFLOP/s there (one block of 4 warps an
+// SM, each tile's ldmatrix / QK^T / softmax / P.V chain exposed).
+// namespace ws instead runs S = Q K^T and O += P V on wgmma: a block of
+// three warpgroups owns 128 query rows, one thread of the first issues
+// every TMA load (the query tile, then an mbarrier ring of 64-key K and V
+// tiles: two stages at D 256, 192 KB of shared memory with the query tile;
+// four below), the other two each own 64 rows, their O (64 x D fp32) in
+// registers (setmaxnreg: 240 a thread), P entering P.V from the registers
+// as below.  Tiles are skipped per 64-row half (dead, full: no mask, or
+// partial), and the loader loads the tiles live for either half.  The
+// role and the loop's control are warp-uniform shuffles, so that ptxas
+// does not serialise the wgmma of a branch it would take for divergent.
+// It was faster than the mma.sync body below at every serving and training
+// shape of the paths (D 64, 80, 128, 256; PERF.md), which now runs kernel C
+// alone.
+//
+// Design (bf16, kernel C: mma.sync).  A block owns kBQ = 64 query rows of one
+// (row b, head h), 16 rows a warp, and walks the kv tiles of kBKV = 64 keys:
 // - S = Q K^T with mma.sync.m16n8k16 (Q and K fed by ldmatrix from
 //   shared memory, XOR-swizzled 16-byte chunks, swz in common.cuh): a
 //   warp's 16 x 64 scores stay in registers as accumulator fragments, as do
@@ -699,15 +718,394 @@ __device__ __forceinline__ void flash_body_mma(const FlashArgs& a) {
   }
 }
 
-// ---------------------------------- kernels ----------------------------------
-// T float: the CUDA-core path (DK unused, 0); T bf16: the tensor cores, D
-// rounded up to DK
-template <typename T, int DK>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(FlashArgs a) {
-  if constexpr (DK == 0) flash_body_fma<T, false, false>(a);
-  else flash_body_mma<DK, false, false>(a);
+// ------------- bfloat16 on wgmma: kernel 1's warp-specialised body -------------
+// A block of three warpgroups owns kRows = 128 query rows of one (b, h):
+// warpgroup 0 loads (one thread issues every TMA box), warpgroups 1 and 2
+// each own a 64-row half and run its products.  Shared memory holds the
+// query tile (128 x DK) and a ring of kStages K and V tiles of kKeys = 64
+// keys, each in common.cuh's 128-byte-swizzled layout (wg::sw128, TMA's
+// SWIZZLE_128B), each stage with a full barrier (the loader's bytes) and
+// an empty one (one arrival a product warpgroup).  A half's tile step:
+//   S = Q K^T on wgmma m64n64k16 (both operands K-major in shared memory),
+//   the fp32 online softmax in registers (a quad of lanes a row, as the
+//   mma.sync body), then O += P V with P from the registers (the
+//   accumulator of one product is the A operand of the next) as a bf16
+//   high part and the bf16 rounding of its remainder, V MN-major in shared
+//   memory, O (64 x DP fp32) in the half's registers (setmaxnreg gives the
+//   products 240 a thread and the loader 24).
+// The tile skip is per half: every kv tile is dead (no visible pair and no
+// row without a visible key: not computed), full (every pair visible: no
+// mask, no position read) or partial, from the half's and the tile's
+// position ranges; the loader loads the tiles live for either half, in
+// order, and a half arrives on a dead tile's empty barrier at once.  The
+// heaviest query tiles (the last, under a causal mask) start first.
+namespace ws {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 384;  // the loader's warpgroup and two of products
+constexpr int kRows = 128;     // query rows a block: 64 a product warpgroup
+constexpr int kKeys = 64;      // keys a kv tile
+enum : int { kDead = 0, kPartial = 1, kFull = 2 };
+
+// DP: the head dim the products cover (80 or 256, or 64 / 128: D padded
+// with zero columns); DK the tile width (DP rounded up to whole 64-column
+// atoms).  Shared memory: the barriers, positions, flags and the live list
+// (the head), then from the next 1024-byte boundary the query tile and the
+// ring.
+template <int DP>
+struct Cfg {
+  static constexpr int DK = (DP + 63) / 64 * 64;
+  static constexpr int kStages = DK > 128 ? 2 : 4;
+  static constexpr int kHalfBytes = 64 * DK * 2;
+  static constexpr int kTileBytes = kKeys * DK * 2;
+  // barriers (full and empty a stage, the query tile's), query positions
+  // and empty flags, the halves' ranges, each kv tile's class and the live
+  // list (nsuf kv tiles)
+  static __host__ __device__ int head(int nsuf) {
+    return 8 * (2 * kStages + 1) + 4 * kRows + kRows + 32 + 5 * nsuf;
+  }
+  static size_t smem(int nsuf) {
+    return head(nsuf) + 1024 + 2 * (size_t)kHalfBytes + 2 * kStages * (size_t)kTileBytes;
+  }
+};
+
+// The class of (query half, kv tile) from position ranges, as the
+// backward's classify(): qlo / qhi over the half's rows in range, qall: 64
+// of them, empty: a row has no visible key; kmin / kmax over the tile's
+// present keys (kmax < 0: none), kall: 64 keys in range, all present.
+__device__ __forceinline__ int classify(int qlo, int qhi, bool qall, bool empty, int kmin,
+                                        int kmax, bool kall, const FlashArgs& a) {
+  bool live = kmax >= 0;
+  if (a.causal) {
+    live = live && kmin <= qhi;
+    if (a.window > 0) live = live && kmax > qlo - a.window;
+    if (a.prefix_len > 0) live = live || (kmax >= 0 && kmin < a.prefix_len);
+  }
+  if (!live && !empty) return kDead;
+  if (!(qall && kall)) return kPartial;
+  bool full = true;
+  if (a.causal) {
+    full = kmax <= qlo && (a.window <= 0 || kmin > qhi - a.window);
+    if (a.prefix_len > 0) full = full || kmax < a.prefix_len;
+  }
+  return full ? kFull : kPartial;
 }
 
+// d (64 x 64) = A . B^T over the DP columns of the K-major tiles at, bt
+template <int DP>
+__device__ __forceinline__ void scores(float (&d)[32], const bf16* at, const bf16* bt) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wg::ss_n64(d, wg::desc_k(at, kk, 64), wg::desc_k(bt, kk, 64), kk > 0);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap mq,
+                             const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv, FlashArgs a) {
+  using C = Cfg<DP>;
+  constexpr int DK = C::DK, kStages = C::kStages;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int Sq = a.Sq, Skv = a.Skv, H = a.H, KV = a.KV, D = a.D;
+  const int kv = h / (H / KV), q0 = qt * kRows, nsuf = (Skv + kKeys - 1) / kKeys;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int halves = q0 + 64 < Sq ? 2 : 1;  // halves with a row in range
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
+  const uint32_t qbar = full0 + 16 * kStages;
+  int* qp = reinterpret_cast<int*>(bars + 2 * kStages + 1);  // kRows
+  unsigned char* emp = reinterpret_cast<unsigned char*>(qp + kRows);  // kRows: 1 = no key
+  int* hr = reinterpret_cast<int*>(emp + kRows);  // qlo, qhi, qall, empty of each half
+  int* list = hr + 8;                             // the live kv tiles, in order
+  unsigned char* cls = reinterpret_cast<unsigned char*>(list + nsuf);  // each tile's classes
+  unsigned char* tiles = smem_raw + C::head(nsuf);
+  tiles += (1024 - (smem_u32(tiles) & 1023u)) & 1023u;
+  bf16* qs = reinterpret_cast<bf16*>(tiles);               // two halves of 64 x DK
+  bf16* ring = qs + 2 * 64 * DK;                           // stage s: K, then V
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, halves);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int* kpos = a.kpos + (size_t)b * Skv;
+  if (tid < kRows) {
+    const int p = q0 + tid < Sq ? a.qpos[(size_t)b * Sq + q0 + tid] : -1;
+    qp[tid] = p;
+    // the rows that see no key: a row past Sq is not one, a pad row of a
+    // causal mask without a prefix-LM part sees nothing, the others look
+    // for one visible key below (2: not known yet)
+    emp[tid] = q0 + tid >= Sq ? 0 : a.causal && a.prefix_len == 0 && p < 0 ? 1 : 2;
+  }
+  __syncthreads();
+  // each unknown row looks for a visible key, kThreads keys at a time
+  // staged in the ring's space (free until the loader starts)
+  int* kst = reinterpret_cast<int*>(ring);
+  for (int j0 = 0; j0 < Skv; j0 += kThreads) {
+    kst[tid] = j0 + tid < Skv ? kpos[j0 + tid] : -1;
+    __syncthreads();
+    bool left = false;
+    if (tid < kRows && emp[tid] == 2) {
+      const int p = qp[tid];
+      int j = 0;
+      while (j < kThreads && !visible(p, kst[j], a.causal, a.window, a.prefix_len)) ++j;
+      if (j < kThreads) emp[tid] = 0;
+      else left = true;
+    }
+    if (!__syncthreads_or(left)) break;
+  }
+  if (warp < 2) {  // warp w: the range of half w's rows in range
+    const int r0 = 64 * warp + lane, r1 = r0 + 32;
+    if (emp[r0] == 2) emp[r0] = 1;  // no key of any chunk was visible
+    if (emp[r1] == 2) emp[r1] = 1;
+    const bool in0 = q0 + r0 < Sq, in1 = q0 + r1 < Sq;
+    const int lo = __reduce_min_sync(0xffffffffu, min(in0 ? qp[r0] : INT_MAX,
+                                                      in1 ? qp[r1] : INT_MAX));
+    const int hi = __reduce_max_sync(0xffffffffu, max(in0 ? qp[r0] : INT_MIN,
+                                                      in1 ? qp[r1] : INT_MIN));
+    const bool e = __any_sync(0xffffffffu, emp[r0] == 1 || emp[r1] == 1);
+    if (lane == 0)
+      hr[4 * warp] = lo, hr[4 * warp + 1] = hi, hr[4 * warp + 2] = q0 + 64 * warp + 64 <= Sq,
+      hr[4 * warp + 3] = e;
+  }
+  __syncthreads();
+  // each kv tile's class for either half, a warp a tile
+  for (int t = warp; t < nsuf; t += kThreads / 32) {
+    const int k0 = t * kKeys, n = min(kKeys, Skv - k0);
+    const int p0 = lane < n ? kpos[k0 + lane] : -1;
+    const int p1 = lane + 32 < n ? kpos[k0 + lane + 32] : -1;
+    const int kmin = __reduce_min_sync(0xffffffffu, min(p0 >= 0 ? p0 : INT_MAX,
+                                                        p1 >= 0 ? p1 : INT_MAX));
+    const int kmax = __reduce_max_sync(0xffffffffu, max(p0, p1));
+    const bool kall = n == kKeys && __all_sync(0xffffffffu, p0 >= 0 && p1 >= 0);
+    if (lane == 0) {
+      int c = 0;
+      for (int hf = 0; hf < halves; ++hf)
+        c |= classify(hr[4 * hf], hr[4 * hf + 1], hr[4 * hf + 2], hr[4 * hf + 3], kmin, kmax,
+                      kall, a) << (2 * hf);
+      cls[t] = c;
+    }
+  }
+  __syncthreads();
+  __shared__ int nlive;
+  if (warp == 0) {  // the tiles live for either half, in order
+    int count = 0;
+    for (int t0 = 0; t0 < nsuf; t0 += 32) {
+      const int t = t0 + lane;
+      const bool live = t < nsuf && cls[t] != 0;
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (live) list[count + __popc(m & ((1u << lane) - 1u))] = t;
+      count += __popc(m);
+    }
+    if (lane == 0) nlive = count;
+  }
+  // the ring's staged positions are read (ordered before the loader's
+  // asynchronous writes there): the loads may start
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  // the role and the loop's bounds and classes as warp-uniform values (a
+  // lane-0 shuffle), which the compiler can see: wgmma inside a branch it
+  // takes for divergent is serialised
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int nl = __shfl_sync(0xffffffffu, nlive, 0);
+
+  if (role == 0) {  // the loader: one thread issues every box
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid != 0) return;
+    mbar_expect(qbar, halves * C::kHalfBytes);
+    for (int hf = 0; hf < halves; ++hf)
+      for (int c = 0; c < DK / 64; ++c)
+        tma_load_4d(qs + hf * 64 * DK + c * 64 * 64, &mq, 64 * c, h, q0 + 64 * hf, b, qbar);
+    for (int i = 0; i < nl; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(empty0 + 8 * s, (i / kStages - 1) & 1);
+      const uint32_t full = full0 + 8 * s;
+      mbar_expect(full, 2 * C::kTileBytes);
+      bf16* kt = ring + 2 * s * kKeys * DK;
+      const int k0 = list[i] * kKeys;
+      for (int c = 0; c < DK / 64; ++c) {
+        tma_load_4d(kt + c * kKeys * 64, &mk, 64 * c, kv, k0, b, full);
+        tma_load_4d(kt + kKeys * DK + c * kKeys * 64, &mv, 64 * c, kv, k0, b, full);
+      }
+    }
+    return;
+  }
+
+  // the products: warpgroup hf + 1 owns rows [64 hf, 64 hf + 64) of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int hf = role - 1, w = warp % 4, t128 = tid % 128, g = lane >> 2;
+  if (hf >= halves) return;
+  const bf16* qh = qs + hf * 64 * DK;
+  int myq[2];
+  bool mye[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 64 * hf + 16 * w + g + 8 * hh;
+    myq[hh] = qp[r];
+    mye[hh] = emp[r] == 1;
+  }
+  const float scale2 = a.scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float mrow[2] = {kMasked, kMasked}, lrow[2] = {0.f, 0.f};
+
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < nl; ++i) {
+    const int s = i % kStages;
+    const int t = __shfl_sync(0xffffffffu, list[i], 0);
+    const int c = __shfl_sync(0xffffffffu, (cls[t] >> (2 * hf)) & 3, 0);
+    // the stage's loads have landed: the other half has freed this stage's
+    // previous tile, so an arrival now counts for this tile
+    mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+    if (c == kDead) {  // nothing of this tile is read by this half
+      if (t128 == 0) mbar_arrive(empty0 + 8 * s);
+      continue;
+    }
+    const bf16* kt = ring + 2 * s * kKeys * DK;
+    const bf16* vt = kt + kKeys * DK;
+    const int k0 = t * kKeys, n = min(kKeys, Skv - k0);
+
+    // S = Q K^T: element 4 j + e at row 16 w + g + 8 (e / 2), key 8 j + 2
+    // (lane % 4) + e % 2 of the tile
+    float sc[32];
+    wg::fence();
+    scores<DP>(sc, qh, kt);
+    wg::commit();
+    wg::wait<0>();
+    wg::touch(sc);
+    if (c == kFull) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] *= scale2;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = 8 * (e / 4) + 2 * (lane & 3) + (e & 1);
+        const bool vis = col < n && visible(myq[(e >> 1) & 1], kpos[k0 + col], a.causal,
+                                            a.window, a.prefix_len);
+        sc[e] = col >= n ? -INFINITY : vis ? sc[e] * scale2 : kMasked;
+      }
+    }
+
+    // the online softmax of the two rows (a quad of lanes holds a row)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(mrow[hh], mx);  // >= kMasked: finite
+      const float corr = exp2f(mrow[hh] - m_new);
+      mrow[hh] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sc[4 * j + 2 * hh] = exp2f(sc[4 * j + 2 * hh] - m_new);
+        sc[4 * j + 2 * hh + 1] = exp2f(sc[4 * j + 2 * hh + 1] - m_new);
+        sum += sc[4 * j + 2 * hh] + sc[4 * j + 2 * hh + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      lrow[hh] = lrow[hh] * corr + sum;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        o[4 * j + 2 * hh] *= corr;
+        o[4 * j + 2 * hh + 1] *= corr;
+      }
+    }
+
+    // O += P V: P's accumulator as the A operand of the four k16 steps, a
+    // bf16 high part and the bf16 rounding of what it leaves
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float p0 = sc[8 * kk + 2 * f], p1 = sc[8 * kk + 2 * f + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+        hi[kk][f] = *reinterpret_cast<const uint32_t*>(&h2);
+        lo[kk][f] = pack_bf16(p0 - __low2float(h2), p1 - __high2float(h2));
+      }
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = wg::desc_mn(vt, kk, kKeys);
+      wg::rs<DP>(o, hi[kk], dv);
+      wg::rs<DP>(o, lo[kk], dv);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::touch(o);
+    if (t128 == 0) mbar_arrive(empty0 + 8 * s);  // the stage is read
+  }
+
+  bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + 64 * hf + 16 * w + g + 8 * hh;
+    if (row >= Sq) continue;
+    const float div = mye[hh] ? (float)a.empty_div : lrow[hh];
+    if (a.lse != nullptr && (lane & 3) == 0)  // m is in log2 units
+      a.lse[((size_t)b * Sq + row) * H + h] =
+          mye[hh] ? kMasked : mrow[hh] * 0.6931471805599453f + logf(lrow[hh]);
+    bf16* dst = out + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int d = 8 * j + 2 * (lane & 3);
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(dst + d) =
+            pack_bf16(o[4 * j + 2 * hh] / div, o[4 * j + 2 * hh + 1] / div);
+    }
+  }
+}
+
+// the tensor maps of q (B, Sq, H, D) and k, v (B, Skv, KV, D): 4-D, dims
+// (D, heads, S, B), boxes of 64 columns of one head's 64 rows
+cudaError_t maps(const FlashArgs& a, int B, CUtensorMap& mq, CUtensorMap& mk, CUtensorMap& mv) {
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  auto map = [&](CUtensorMap& m, const void* p, int heads, int S) {
+    const cuuint64_t dims[4] = {(cuuint64_t)a.D, (cuuint64_t)heads, (cuuint64_t)S,
+                                (cuuint64_t)B};
+    const cuuint64_t row = (cuuint64_t)a.D * sizeof(bf16);
+    const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+    return tensor_map(&m, p, 4, dims, strides, box);
+  };
+  cudaError_t e = map(mq, a.q, a.H, a.Sq);
+  if (e == cudaSuccess) e = map(mk, a.k, a.KV, a.Skv);
+  if (e == cudaSuccess) e = map(mv, a.v, a.KV, a.Skv);
+  return e;
+}
+
+template <int DP>
+int launch(const FlashArgs& a, int B, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel_wgmma<DP>;
+  const size_t smem = Cfg<DP>::smem((a.Skv + kKeys - 1) / kKeys);
+  cudaError_t e = allow_smem_once(kernel, smem);
+  CUtensorMap mq, mk, mv;
+  if (e == cudaSuccess) e = maps(a, B, mq, mk, mv);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.Sq + kRows - 1) / kRows, a.H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ws
+
+// ---------------------------------- kernels ----------------------------------
+// kernel 1 in float32 (bf16: ws::flash_attention_kernel_wgmma)
+__global__ void __launch_bounds__(kThreads) flash_attention_kernel(FlashArgs a) {
+  flash_body_fma<float, false, false>(a);
+}
+
+// kernel C.  T float: the CUDA-core path (DK unused, 0); T bf16: the tensor
+// cores, D rounded up to DK
 template <typename T, int DK, bool QUANT>
 __global__ void __launch_bounds__(kThreads) flash_attention_prefix_kernel(FlashArgs a) {
   if constexpr (DK == 0) flash_body_fma<T, true, QUANT>(a);
@@ -731,8 +1129,10 @@ int launch(K kernel, const FlashArgs& a, int B, int rows, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// the kernel for (dtype, D): float32 on the CUDA cores, bf16 on the tensor
-// cores at the smallest DK >= D
+// the kernel for (dtype, D): float32 on the CUDA cores; bf16 kernel 1 on
+// the warp-specialised wgmma body at the smallest width DP >= D that it
+// covers (64, 80, 128 or 256; zero columns past D), kernel C on mma.sync at
+// the smallest DK >= D
 template <bool PREFIX, bool QUANT>
 int dispatch(int dtype, const FlashArgs& a, int B, cudaStream_t s) {
   if (dtype == kFloat32) {
@@ -740,23 +1140,25 @@ int dispatch(int dtype, const FlashArgs& a, int B, cudaStream_t s) {
       return launch(flash_attention_prefix_kernel<float, 0, QUANT>, a, B, kFmaBQ,
                     smem_bytes_fma(a.D), s);
     else
-      return launch(flash_attention_kernel<float, 0>, a, B, kFmaBQ, smem_bytes_fma(a.D),
-                    s);
+      return launch(flash_attention_kernel, a, B, kFmaBQ, smem_bytes_fma(a.D), s);
   }
   if (dtype != kBFloat16) return (int)cudaErrorInvalidValue;
-  const int nsuf = (a.Skv + kBKV - 1) / kBKV;
-  auto at = [&](auto dk) {
-    constexpr int DK = decltype(dk)::value;
-    if constexpr (PREFIX)
+  if constexpr (!PREFIX) {
+    if (a.D <= 64) return ws::launch<64>(a, B, s);
+    if (a.D <= 80) return ws::launch<80>(a, B, s);
+    if (a.D <= 128) return ws::launch<128>(a, B, s);
+    return ws::launch<256>(a, B, s);
+  } else {
+    const int nsuf = (a.Skv + kBKV - 1) / kBKV;
+    auto at = [&](auto dk) {
+      constexpr int DK = decltype(dk)::value;
       return launch(flash_attention_prefix_kernel<__nv_bfloat16, DK, QUANT>, a, B, kBQ,
                     MmaTiles<DK>::smem(nsuf), s);
-    else
-      return launch(flash_attention_kernel<__nv_bfloat16, DK>, a, B, kBQ,
-                    MmaTiles<DK>::smem(nsuf), s);
-  };
-  if (a.D <= 64) return at(std::integral_constant<int, 64>{});
-  if (a.D <= 128) return at(std::integral_constant<int, 128>{});
-  return at(std::integral_constant<int, 256>{});
+    };
+    if (a.D <= 64) return at(std::integral_constant<int, 64>{});
+    if (a.D <= 128) return at(std::integral_constant<int, 128>{});
+    return at(std::integral_constant<int, 256>{});
+  }
 }
 
 }  // namespace

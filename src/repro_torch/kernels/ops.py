@@ -19,6 +19,7 @@ the sources.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -50,18 +51,18 @@ KERNELS = {
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "decode_attention": ("decode_attention.cu", "repro_decode_attention",
                          [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _P, _P]),
+                          _P, _P, _P]),
     # kernel 2 writing each head's lse (kernel (a)): the same entry point
     "decode_attention_lse": ("decode_attention.cu", "repro_decode_attention",
                              [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _F, _P, _P]),
+                              _F, _P, _P, _P]),
     # kernel (b): decode attention over a head_dim slice, two launches
     "decode_attention_hd_scores": (
         "decode_attention.cu", "repro_decode_attention_hd_scores",
         [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "decode_attention_hd_out": (
         "decode_attention.cu", "repro_decode_attention_hd_out",
-        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
     "decode_attention_paged": (
         "decode_attention_paged.cu", "repro_decode_attention_paged",
         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
@@ -82,6 +83,9 @@ KERNELS = {
 #: the C queries beside the kernels: name → (source, symbol, argument
 #: types, result type)
 QUERIES = {
+    "decode_attention_workspace": ("decode_attention.cu",
+                                   "repro_decode_attention_workspace",
+                                   [_I] * 7, ctypes.c_longlong),
     "selective_scan_chunks": ("selective_scan.cu",
                               "repro_selective_scan_chunks", [_I] * 4, _I),
     "selective_scan_train_chunks": ("selective_scan.cu",
@@ -377,13 +381,33 @@ def _decode(q, k_cache, v_cache, slot_positions, q_position, lse):
              and slot_positions.shape == (B, L)
              and q_position.shape == (B,), f"{name}: shape mismatch")
     out = torch.empty_like(q)
+    ws = _decode_workspace(q, 0, B, H, KV, L, D)
     err = _fn(name)(
         _DTYPES[q.dtype], _ptr(q), _ptr(k_cache), _ptr(v_cache),
         _ptr(slot_positions), _ptr(q_position), _ptr(out), B, H, KV, L, D,
-        1.0 / math.sqrt(D), None if lse is None else _ptr(lse), _stream())
+        1.0 / math.sqrt(D), None if lse is None else _ptr(lse),
+        None if ws is None else _ptr(ws), _stream())
     _check(name, err)
     WRAPPERS[name].launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(dtype: int, hd_out: int, B, H, KV, L, D, device: int):
+    n = _fn("decode_attention_workspace")(dtype, hd_out, B, H, KV, L, D)
+    if n < 0:
+        raise RuntimeError("decode_attention: the launch shape query failed")
+    return n
+
+
+def _decode_workspace(t, hd_out, B, H, KV, L, D):
+    """The float32 workspace of kernel 2's launch at these shapes: the
+    chunk records of a launch that splits each row over several clusters
+    (bf16 with D > 128, where B x KV leaves the card empty), else None."""
+    if t.dtype != torch.bfloat16 or D <= 128:
+        return None
+    n = _workspace_floats(1, hd_out, B, H, KV, L, D, t.device.index or 0)
+    return torch.empty(n, dtype=torch.float32, device=t.device) if n else None
 
 
 def decode_attention_lse(q, k_cache, v_cache, slot_positions, q_position):
@@ -455,10 +479,11 @@ def decode_attention_hd_out(scores, v_cache, slot_positions, q_position):
              "decode_attention_hd_out: shape mismatch")
     out = torch.empty(B, H, D, dtype=v_cache.dtype, device=v_cache.device)
     lse = torch.empty(B, H, dtype=torch.float32, device=v_cache.device)
+    ws = _decode_workspace(v_cache, 1, B, H, KV, L, D)
     err = _fn("decode_attention_hd_out")(
         _DTYPES[v_cache.dtype], _ptr(scores), _ptr(v_cache),
         _ptr(slot_positions), _ptr(q_position), _ptr(out), _ptr(lse), B, H,
-        KV, L, D, _stream())
+        KV, L, D, None if ws is None else _ptr(ws), _stream())
     _check("decode_attention_hd_out", err)
     decode_attention_hd_out.launches += 1
     return out, lse

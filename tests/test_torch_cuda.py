@@ -29,6 +29,8 @@ each output vector is also held within 2e-2 (bfloat16) or 1e-5 (float32)
 of its own 2-norm, and the plain output with one 64-key tile hidden must
 fail that rule.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -382,6 +384,114 @@ def test_decode_kernels_at_head_dim_256_with_an_empty_row(cuda, case, kernel):
     if kernel == "decode_attention_lse":
         torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-5)
         assert torch.isneginf(got[1][-1]).all()
+
+
+#: kernel 2 and (a) at paligemma-3b's heads where the D 256 launch splits
+#: each row over several one-block clusters (chunks) merged by a second
+#: launch: the serving ring and a `model`-2 rank's half, every row filled
+#: (B, L, fills)
+VLM_CHUNK_CASES = {"ring_8224": (2, 8224, (8193, 8225)),
+                   "rank_4112": (2, 4112, (4081, 4113)),
+                   "short_fill": (2, 8224, (40, 300))}
+
+
+def decode_shape(dtype, hd_out, B, H, KV, L, D):
+    """kernel 2's (splits, warps, stages, chunks) at a shape (a query)."""
+    fn = ops.build()["decode_attention.cu"].repro_decode_attention_shape
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    assert fn(ops._DTYPES[dtype], hd_out, B, H, KV, L, D, out) == 0
+    return tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_lse"])
+@pytest.mark.parametrize("case", list(VLM_CHUNK_CASES))
+def test_decode_kernels_at_head_dim_256_chunked(cuda, case, kernel):
+    """The chunked launch (more than one cluster a row) on the tensor
+    cores: against the plain version, each output vector within 2e-2 of
+    its 2-norm (the plain output with a 64-slot tile hidden is not), (a)'s
+    lse within 1e-4, two calls equal to the bit."""
+    B, L, (lo, hi) = VLM_CHUNK_CASES[case]
+    assert decode_shape(torch.bfloat16, 0, B, 8, 1, L, 256)[3] > 1
+    q, kc, vc, spos, qpos = (t(a).to(cuda) for a in
+                             decode_case(37, B, 8, 1, 256, L))
+    fills = torch.tensor([lo, hi - 1][:B], device=cuda)
+    spos = torch.arange(L, device=cuda, dtype=torch.int32).repeat(B, 1)
+    spos[spos >= fills[:, None]] = -1
+    qpos = (fills - 1).to(torch.int32)
+    args = tuple(x.to(torch.bfloat16) for x in (q, kc, vc)) + (spos, qpos)
+    fn = getattr(ops, kernel)
+    n = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    assert fn.launches == n + 2
+    plain = getattr(ref, kernel + "_ref")
+    want = plain(*args)
+    if kernel == "decode_attention":
+        got, again, want = (got,), (again,), (want,)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    assert vector_rel_err(got[0], want[0]) <= 2e-2
+    hidden = spos.clone()
+    hidden[:, 64 * (lo // 128):64 * (lo // 128) + 64] = -1
+    dropped = plain(*args[:3], hidden, qpos)
+    dropped = dropped[0] if kernel == "decode_attention_lse" else dropped
+    assert vector_rel_err(dropped, want[0]) > 2e-2
+    if kernel == "decode_attention_lse":
+        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-5)
+
+
+#: kernel 1 on the warp-specialised wgmma body (bf16, D 256): paligemma-3b's
+#: heads (8 on 1), prefix-LM over an image prefix, with left-pad rows (a
+#: row with no visible key under a causal mask without a prefix), a window,
+#: bidirectional, a sequence-parallel rank's queries (from q_lo), Sq no
+#: multiple of the 128-row tile: (B, S, q_lo, npad, mask)
+WS_FLASH_CASES = {
+    "prefix_lm": (2, 1024, 0, 0, dict(causal=True, prefix_len=256)),
+    "prefix_lm_pads": (2, 700, 0, 37, dict(causal=True, prefix_len=96)),
+    "causal_pads": (1, 520, 0, 70, dict(causal=True)),
+    "window": (1, 640, 0, 5, dict(causal=True, window=200)),
+    "bidirectional": (2, 300, 0, 0, dict(causal=False)),
+    "rank": (2, 1024, 512, 0, dict(causal=True, prefix_len=256)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WS_FLASH_CASES))
+def test_flash_attention_wgmma_body_at_head_dim_256(cuda, case):
+    """Against the plain forward: every row (pad rows: the sum of V over
+    the keys / empty_div) within 2e-2, each output vector within 2e-2 of
+    its 2-norm (the plain output with a 64-key tile hidden is not), the
+    training launch's lse within 1e-4 (-1e30 on a row with no visible
+    key), two calls equal to the bit."""
+    B, S, lo, npad, kw = WS_FLASH_CASES[case]
+    q, k, v, qpos, kpos = prefill_case(43, B, S, 8, 1, 256, npad=npad)
+    q, qpos = (np.ascontiguousarray(a[:, lo:]) for a in (q, qpos))
+    q, k, v, qpos, kpos = (t(a).to(cuda) for a in (q, k, v, qpos, kpos))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    n = ops.flash_attention.launches
+    out = ops._flash_forward(q, k, v, qpos, kpos, kw["causal"],
+                             kw.get("window", 0), kw.get("prefix_len", 0),
+                             ref.FLASH_KV_BLOCK, lse)
+    again = ops.flash_attention(q, k, v, qpos, kpos, **kw)
+    assert ops.flash_attention.launches == n + 2
+    assert torch.equal(out, again)
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, qpos, kpos, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert vector_rel_err(out, want) <= 2e-2
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    if npad and kw.get("prefix_len", 0) == 0:
+        assert (lse[:, :npad] == -1e30).all()
+    hidden = kpos.clone()
+    t0 = (npad + (S - npad) // 2) // 64 * 64
+    hidden[:, t0:t0 + 64] = -1
+    dropped = ref.flash_attention_ref(q, k, v, qpos, hidden, **kw)
+    seen = ref.attention_mask(qpos, hidden, **kw).any(-1)
+    assert vector_rel_err(dropped[seen], want[seen]) > 2e-2
 
 
 #: kernel 1 at a sequence-parallel rank's queries (a chunk of the

@@ -38,7 +38,24 @@ and held against the JAX package on the same numpy inputs (float32, CPU).
   ``_combine_slot_splits``' formula), and each rank against the port's
   plain version: S 1 to 8, G 1 to 12, L under a tile and no multiple of
   32, wrapped rings, an empty row and a batch with no valid slot.
-  Tolerance 2e-5, as the paged models.
+  Tolerance 2e-5, as the paged models.  At D 256 the launch runs each row
+  over C chunks (one-block clusters) whose records a second launch merges
+  (``_merge_chunks``: warp w sums chunks w, w + 8, ... in order, the warps
+  added in order): held against the Pallas kernel in interpret mode and
+  the plain version at C 2 to 16 (chunks with no tile, a wrapped ring, a
+  row with no valid slot).
+* ``ws_flash``: kernel 1's warp-specialised body in
+  ``kernels/csrc/flash_attention.cu`` (namespace ws) -- 128-row query tiles
+  in two 64-row halves, 64-key kv tiles (128 in one case), each (half,
+  tile) dead, full or partial from position ranges (``ws_tile_walk``), the
+  loader's list of tiles live for either half, each half's online softmax
+  in exp2 over its live tiles; a row with no visible key the sum of V over
+  empty_div.  Held against the Pallas kernel in interpret mode (blocks of
+  128, on rows with a visible key) and the plain forward with its lse, at
+  D 256 (8 heads on 1, paligemma-3b's) and D 80 (hubert-xlarge's), causal,
+  window, prefix-LM and bidirectional, left pads and a sequence-parallel
+  rank's queries.  Tolerance 2e-5; ``test_ws_tile_walk_is_sound`` holds
+  the classes to ``layers._block_mask`` as ``tile_class`` below.
 * ``split_heads_dkdv``: the dK/dV launch of
   ``kernels/csrc/flash_attention_bwd.cu`` -- a kv head's G query heads
   split over S blocks of a cluster, block r summing the partial dk and dv
@@ -289,6 +306,23 @@ def _merge(states):
     return M, lt, x
 
 
+def _merge_chunks(chunks, warps=8):
+    """decode_merge_kernel's merge of a row's chunk records (m, l, acc):
+    M over them all, warp w's sums of chunks w, w + warps, ... in order,
+    then the warps' sums added in warp order."""
+    M = torch.stack([m for m, _, _ in chunks]).amax(0)
+    lt, x = torch.zeros_like(M), torch.zeros_like(chunks[0][2])
+    for w in range(warps):
+        lw, xw = torch.zeros_like(M), torch.zeros_like(chunks[0][2])
+        for m, l, acc in chunks[w::warps]:
+            wt = torch.where(m == -math.inf, torch.zeros_like(m),
+                             torch.exp(m - M))
+            lw = lw + l * wt
+            xw = xw + acc * wt[:, None]
+        lt, x = lt + lw, x + xw
+    return M, lt, x
+
+
 def split_paged_decode(q, kp, vp, table, qpos, quant, S, W=4):
     """decode_attention_paged.cu's kernel with S splits of W warps: A when
     `quant` is None, else B over its int8 frozen pages."""
@@ -474,48 +508,56 @@ def test_split_paged_decode_fp_ragged_matches_pallas(S):
 
 
 # ----------------------- the serving mesh's decode: (a), (b) -----------------------
-def _split_softmax(score_of, G, V, valid, S, W):
+def _split_softmax(score_of, G, V, valid, S, W, C=1):
     """decode_attention.cu's split body over one (row, group of <= 8 query
-    heads): L slots of V (L, D) cut into 32-slot tiles, S splits owning
-    ceil(tiles / S) contiguous tiles each, each split's tiles with a valid
-    slot dealt to W warps in list order, each warp's online softmax over its
-    tiles, the warps merged per split and the splits in rank order.
-    score_of(slots) gives the group's scaled scores there.  When no slot of
-    the row is valid, every slot is, scoring 0 (the uniform softmax: the
-    mean of V), and the lse is -inf.  Returns (out (G, D), lse (G,))."""
+    heads): L slots of V (L, D) cut into 32-slot tiles, C chunks (the D 256
+    launch's clusters of a row; 1 elsewhere) of S splits each, split r of
+    chunk c owning the ceil(tiles / (S C)) contiguous tiles from (c S + r)
+    times that, each split's tiles with a valid slot dealt to W warps in
+    list order, each warp's online softmax over its tiles, the warps merged
+    per split, the splits in rank order into their chunk's record (through
+    distributed shared memory), the records by _merge_chunks (the merge
+    launch; with C = 1 the cluster writes out itself).  score_of(slots)
+    gives the group's scaled scores there.  When no slot of the row is
+    valid, every slot is, scoring 0 (the uniform softmax: the mean of V),
+    and the lse is -inf.  Returns (out (G, D), lse (G,))."""
     L, D = V.shape
     uniform = not bool(valid.any())
     if uniform:
         valid = torch.ones(L, dtype=torch.bool)
     ntiles = -(-L // TILE)
-    tps = -(-ntiles // S)
-    splits = []
-    for rank in range(S):
-        tiles = range(min(ntiles, rank * tps), min(ntiles, (rank + 1) * tps))
-        live = [t for t in tiles if valid[t * TILE:(t + 1) * TILE].any()]
-        warps = []
-        for w in range(W):
-            m = torch.full((G,), -math.inf)
-            l, acc = torch.zeros(G), torch.zeros(G, D)
-            for t in live[w::W]:
-                sl = slice(t * TILE, min(L, (t + 1) * TILE))
-                s = (torch.zeros(G, sl.stop - sl.start) if uniform
-                     else score_of(sl))
-                s = torch.where(valid[sl][None], s, -math.inf)
-                m_new = torch.maximum(m, s.amax(-1))
-                p = torch.exp(s - m_new[:, None])
-                corr = torch.exp(m - m_new)
-                l = l * corr + p.sum(-1)
-                acc = acc * corr[:, None] + p @ V[sl]
-                m = m_new
-            warps.append((m, l, acc))
-        splits.append(_merge(warps))
-    M, lt, x = _merge(splits)
+    tps = -(-ntiles // (S * C))
+    chunks = []
+    for chunk in range(C):
+        splits = []
+        for rank in range(S):
+            first = (chunk * S + rank) * tps
+            tiles = range(min(ntiles, first), min(ntiles, first + tps))
+            live = [t for t in tiles if valid[t * TILE:(t + 1) * TILE].any()]
+            warps = []
+            for w in range(W):
+                m = torch.full((G,), -math.inf)
+                l, acc = torch.zeros(G), torch.zeros(G, D)
+                for t in live[w::W]:
+                    sl = slice(t * TILE, min(L, (t + 1) * TILE))
+                    s = (torch.zeros(G, sl.stop - sl.start) if uniform
+                         else score_of(sl))
+                    s = torch.where(valid[sl][None], s, -math.inf)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    p = torch.exp(s - m_new[:, None])
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[:, None] + p @ V[sl]
+                    m = m_new
+                warps.append((m, l, acc))
+            splits.append(_merge(warps))
+        chunks.append(_merge(splits))
+    M, lt, x = _merge_chunks(chunks) if C > 1 else chunks[0]
     lse = torch.full((G,), -math.inf) if uniform else M + torch.log(lt)
     return x / lt[:, None], lse
 
 
-def _split_rows(score_of, B, H, KV, V, spos, qpos, S, W):
+def _split_rows(score_of, B, H, KV, V, spos, qpos, S, W, C=1):
     """_split_softmax for every (row, kv head, group of kHeads = 8 query
     heads); score_of(b, heads, kv, slots).  Returns (out (B, H, D), lse)."""
     G, D = H // KV, V.shape[-1]
@@ -527,16 +569,18 @@ def _split_rows(score_of, B, H, KV, V, spos, qpos, S, W):
                 h = slice(kv * G + g0, kv * G + min(G, g0 + 8))
                 out[b, h], lse[b, h] = _split_softmax(
                     functools.partial(score_of, b, h, kv), h.stop - h.start,
-                    V[b, :, kv], valid, S, W)
+                    V[b, :, kv], valid, S, W, C)
     return out, lse
 
 
-def split_decode_lse(q, k, v, spos, qpos, S, W=4):
+def split_decode_lse(q, k, v, spos, qpos, S, W=4, C=1):
     """Kernel (a): kernel 2's split body over a rank's slot range, scores
-    q . k / sqrt(D), with each head's lse.  Returns (out, lse)."""
+    q . k / sqrt(D), with each head's lse (kernel 2: the same without it),
+    each row over C chunks of S splits.  Returns (out, lse)."""
     B, H, D = q.shape
     return _split_rows(lambda b, h, kv, sl: q[b, h] @ k[b, sl, kv].T
-                       / math.sqrt(D), B, H, k.shape[2], v, spos, qpos, S, W)
+                       / math.sqrt(D), B, H, k.shape[2], v, spos, qpos, S, W,
+                       C)
 
 
 def split_hd_out(scores, v, spos, qpos, S, W=8):
@@ -639,6 +683,196 @@ def test_split_decode_lse_matches_jax(case, S):
         lses.append(lse)
     np.testing.assert_allclose(combine_slot_splits(outs, lses).numpy(), want,
                                atol=PAGED_TOL, rtol=PAGED_TOL)
+
+
+#: kernel 2 and (a) at D 256 (the chunked launch): ragged fills, a wrapped
+#: ring, the last row with no valid slot; L 300 is 10 tiles, so 16 chunks
+#: leave chunks with no tile and a short fill leaves chunks with no live one
+CHUNK_CASES = {
+    "filled": (3, 8, 1, 256, 300, None),
+    "wrapped": (3, 8, 1, 256, 300, "wrapped"),
+    "gqa_two_groups": (2, 24, 2, 256, 140, None),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_case(case):
+    """The case's numpy inputs, the last row of B > 2 without a valid slot,
+    and the Pallas kernel's output in interpret mode."""
+    B, H, KV, D, L, layout = CHUNK_CASES[case]
+    q, k, v, spos, qpos = decode_case(90 + len(case), B, H, KV, D, L)
+    if layout == "wrapped":
+        q, k, v, spos, qpos = _wrapped_ring(q, k, v, spos, qpos)
+    if B > 2:
+        spos[-1] = -1
+    arrays = tuple(np.ascontiguousarray(a) for a in (q, k, v, spos, qpos))
+    pallas = np.asarray(JOPS.decode_attention(*map(jnp.asarray, arrays),
+                                              interpret=True))
+    return arrays, pallas
+
+
+@pytest.mark.parametrize("S,W,C", [(1, 4, 3), (1, 4, 16), (1, 2, 7),
+                                   (2, 4, 5), (8, 1, 2)])
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_split_decode_chunks_match_pallas(case, S, W, C):
+    """Kernel 2 and (a) with each row over C chunks of S splits (the D 256
+    launch takes C ~ 65 clusters of one block at paligemma-3b's shapes):
+    every row with a valid slot as the Pallas kernel computes it; every
+    row, the one with no valid slot too (the mean of V, lse -inf), as the
+    port's plain version; the chunk count changes only the order of the
+    sums."""
+    (q, k, v, spos, qpos), pallas = _chunk_case(case)
+    tq, tk, tv, tspos, tqpos = map(_t, (q, k, v, spos, qpos))
+    out, lse = split_decode_lse(tq, tk, tv, tspos, tqpos, S, W, C)
+    rows = (spos >= 0).any(1)
+    np.testing.assert_allclose(out.numpy()[rows], pallas[rows],
+                               atol=PAGED_TOL, rtol=PAGED_TOL)
+    r_out, r_lse = ref.decode_attention_lse_ref(tq, tk, tv, tspos, tqpos)
+    np.testing.assert_allclose(out.numpy(), r_out.numpy(), atol=PAGED_TOL,
+                               rtol=PAGED_TOL)
+    np.testing.assert_allclose(lse.numpy(), r_lse.numpy(), atol=PAGED_TOL,
+                               rtol=PAGED_TOL)
+    one, one_lse = split_decode_lse(tq, tk, tv, tspos, tqpos, 8, 4, 1)
+    np.testing.assert_allclose(out.numpy(), one.numpy(), atol=PAGED_TOL,
+                               rtol=PAGED_TOL)
+    np.testing.assert_allclose(lse.numpy(), one_lse.numpy(), atol=PAGED_TOL,
+                               rtol=PAGED_TOL)
+    if case != "gqa_two_groups":
+        assert not rows[-1] and np.isneginf(lse.numpy()[-1]).all()
+
+
+# --------------------- flash forward: the warp-specialised body ---------------------
+FLASH_TOL = 2e-5
+
+
+def ws_tile_walk(qpos, kpos, causal, window, prefix_len, rows=128, keys=64):
+    """flash_attention.cu's ws body over one row's positions: for each
+    query tile of `rows` rows (q0), its halves of rows / 2 rows in range
+    (r0, r1), each kv tile's class for each half (ws::classify, the
+    backward's rules: the half's range over its rows in range, whole if
+    rows / 2 of them; the tile's over its present keys, whole if `keys`
+    keys, all present; a row with no visible key at all makes every tile
+    live for its half) and the tiles live for either half, in order (what
+    the loader loads).  Yields (q0, halves, classes, live)."""
+    Sq, Skv = len(qpos), len(kpos)
+    ok = visible(torch.as_tensor(qpos)[:, None], torch.as_tensor(kpos)[None],
+                 causal, window, prefix_len).numpy()
+    empty = ~ok.any(1)
+    half = rows // 2
+    for q0 in range(0, Sq, rows):
+        halves = [(r0, min(Sq, r0 + half)) for r0 in (q0, q0 + half)
+                  if r0 < Sq]
+        classes = []
+        for r0, r1 in halves:
+            classes.append([tile_class(
+                qpos[r0:r1], kpos[k0:k0 + keys], r1 - r0 == half,
+                k0 + keys <= Skv and (kpos[k0:k0 + keys] >= 0).all(),
+                bool(empty[r0:r1].any()), causal, window, prefix_len)
+                for k0 in range(0, Skv, keys)])
+        live = [t for t in range(len(classes[0]))
+                if any(c[t] != "dead" for c in classes)]
+        yield q0, halves, classes, live
+
+
+def ws_flash(q, k, v, qpos, kpos, causal=True, window=0, prefix_len=0,
+             empty_div=None, rows=128, keys=64):
+    """The ws body in float32 (bf16's P split aside: exact here): for each
+    (b, h) and ws_tile_walk's query tile, each half walks the live list in
+    order, skipping its dead tiles; S = Q K^T scaled by scale log2 e,
+    masked pairs -1e30 on a partial tile (a full one reads no position),
+    the online softmax in exp2, O += P V; out = O / l, or the sum of V over
+    the Skv keys / empty_div for a row with no visible key (lse -1e30),
+    lse = m ln 2 + log l.  Returns (out, lse)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    empty_div = Skv if empty_div is None else empty_div
+    scale2 = LOG2E / math.sqrt(D)
+    out, lse = torch.zeros(B, Sq, H, D), torch.zeros(B, Sq, H)
+    for b in range(B):
+        ok = visible(qpos[b][:, None], kpos[b][None], causal, window,
+                     prefix_len)
+        empty = ~ok.any(1)
+        walk = list(ws_tile_walk(qpos[b].numpy(), kpos[b].numpy(), causal,
+                                 window, prefix_len, rows, keys))
+        for h in range(H):
+            kh, vh = k[b, :, h // G], v[b, :, h // G]
+            for _, halves, classes, live in walk:
+                for (r0, r1), cls in zip(halves, classes):
+                    m = torch.full((r1 - r0,), NEG)
+                    l, acc = torch.zeros(r1 - r0), torch.zeros(r1 - r0, D)
+                    for t in live:
+                        if cls[t] == "dead":
+                            continue
+                        ks = slice(t * keys, min(Skv, (t + 1) * keys))
+                        sc = q[b, r0:r1, h] @ kh[ks].T * scale2
+                        if cls[t] == "partial":
+                            sc = torch.where(ok[r0:r1, ks], sc,
+                                             torch.full_like(sc, NEG))
+                        m_new = torch.maximum(m, sc.amax(-1))
+                        p = torch.exp2(sc - m_new[:, None])
+                        corr = torch.exp2(m - m_new)
+                        l = l * corr + p.sum(-1)
+                        acc = acc * corr[:, None] + p @ vh[ks]
+                        m = m_new
+                    e = empty[r0:r1]
+                    div = torch.where(e, torch.full_like(l, empty_div), l)
+                    out[b, r0:r1, h] = acc / div[:, None]
+                    lse[b, r0:r1, h] = torch.where(
+                        e, torch.full_like(l, NEG), m * LN2 + torch.log(l))
+    return out, lse
+
+
+#: B 2 rows, 8 heads on 1 kv head of 256 (paligemma-3b's) or 4 on 2 of 80
+#: (hubert-xlarge's); left pads; q_lo: a sequence-parallel rank's queries
+#: (the last Sq of the S keys); a 64-key kv tile, or 128
+WS_CASES = {
+    "d256": dict(B=2, S=256, H=8, KV=1, D=256, npad=0),
+    "d256_pads": dict(B=2, S=384, H=8, KV=1, D=256, npad=40),
+    "d256_rank": dict(B=2, S=512, H=8, KV=1, D=256, npad=0, q_lo=256),
+    "d80_pads": dict(B=2, S=256, H=4, KV=2, D=80, npad=21),
+    "d80_keys128": dict(B=1, S=256, H=4, KV=2, D=80, npad=3, keys=128),
+}
+WS_MASKS = {"causal": dict(causal=True), "window": dict(causal=True, window=100),
+            "prefix_lm": dict(causal=True, prefix_len=32),
+            "bidirectional": dict(causal=False)}
+
+
+@functools.lru_cache(maxsize=None)
+def _ws_case(case, mask):
+    """The case's inputs (queries from q_lo on) and the Pallas kernel's
+    output in interpret mode (blocks of 128)."""
+    c = dict(WS_CASES[case])
+    lo, _ = c.pop("q_lo", 0), c.pop("keys", 64)
+    q, k, v, qpos, kpos = prefill_case(110 + len(case), **c)
+    q, qpos = np.ascontiguousarray(q[:, lo:]), np.ascontiguousarray(qpos[:, lo:])
+    pallas = np.asarray(JOPS.flash_attention(
+        *map(jnp.asarray, (q, k, v, qpos, kpos)), block_q=128, block_kv=128,
+        interpret=True, **WS_MASKS[mask]))
+    return (q, k, v, qpos, kpos), pallas
+
+
+@pytest.mark.parametrize("mask", list(WS_MASKS))
+@pytest.mark.parametrize("case", list(WS_CASES))
+def test_ws_flash_matches_pallas(case, mask):
+    """Kernel 1's ws tile walk: each row with a visible key as the Pallas
+    kernel computes it; every row (left pads: the sum of V over the keys /
+    empty_div) and its lse as the port's plain version."""
+    (q, k, v, qpos, kpos), pallas = _ws_case(case, mask)
+    kw = WS_MASKS[mask]
+    tq, tk, tv, tqpos, tkpos = map(_t, (q, k, v, qpos, kpos))
+    div = ref.empty_row_divisor(k.shape[1], ref.FLASH_KV_BLOCK)
+    out, lse = ws_flash(tq, tk, tv, tqpos, tkpos, empty_div=div,
+                        keys=WS_CASES[case].get("keys", 64), **kw)
+    ok = visible(tqpos[:, :, None], tkpos[:, None, :], kw["causal"],
+                 kw.get("window", 0), kw.get("prefix_len", 0)).any(-1).numpy()
+    np.testing.assert_allclose(out.numpy()[ok], pallas[ok], atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+    r_out, r_lse = ref.flash_attention_fwd_ref(tq, tk, tv, tqpos, tkpos, **kw)
+    np.testing.assert_allclose(out.numpy(), r_out.numpy(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+    np.testing.assert_allclose(lse.numpy(), r_lse.numpy(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
 
 
 # ------------------------------- flash backward -------------------------------
@@ -787,6 +1021,47 @@ def test_tile_classes_are_sound(seed, mask):
                 if cls == "dead":
                     assert not ok[qs, ks].any() and not empty_row[qs].any()
     assert "partial" in seen and len(seen) >= 2  # a skipped or unmasked tile too
+
+
+@pytest.mark.parametrize("mask", list(TILE_MASKS))
+@pytest.mark.parametrize("seed", range(4))
+def test_ws_tile_walk_is_sound(seed, mask):
+    """Kernel 1's ws walk on random positions (left pads, absent keys, an
+    offset, shuffled or sorted; 8-row query tiles in halves of 4, 4-key
+    tiles, ragged lengths): a full (half, tile) has every pair visible, a
+    dead one no visible pair and no row without a visible key, and a tile
+    missing from the live list is dead for both halves."""
+    rng = np.random.default_rng(90 + seed)
+    kw = TILE_MASKS[mask]
+    args = (kw["causal"], kw.get("window", 0), kw.get("prefix_len", 0))
+    seen = set()
+    for _ in range(6):
+        Sq, Skv = int(rng.integers(9, 40)), int(rng.integers(9, 48))
+        off = int(rng.integers(0, 12))
+        qpos = np.arange(Sq) + off + Skv - Sq
+        kpos = np.arange(Skv) + off
+        qpos[:rng.integers(0, 6)] = -1
+        kpos[rng.random(Skv) < rng.choice([0.0, 0.15])] = -1
+        if rng.random() < 0.5:
+            rng.shuffle(qpos)
+            rng.shuffle(kpos)
+        ok = np.asarray(JL._block_mask(jnp.asarray(qpos), jnp.asarray(kpos),
+                                       *args))
+        empty_row = ~ok.any(1)
+        for _, halves, classes, live in ws_tile_walk(qpos, kpos, *args,
+                                                     rows=8, keys=4):
+            for (r0, r1), cls in zip(halves, classes):
+                for t, c in enumerate(cls):
+                    ks = slice(4 * t, 4 * t + 4)
+                    seen.add(c)
+                    if c == "full":
+                        assert ok[r0:r1, ks].all()
+                    if c == "dead":
+                        assert not ok[r0:r1, ks].any()
+                        assert not empty_row[r0:r1].any()
+            for t in set(range(len(classes[0]))) - set(live):
+                assert all(cls[t] == "dead" for cls in classes)
+    assert "partial" in seen and len(seen) >= 2
 
 
 # ---------------------------- grouped matmul backward ----------------------------
